@@ -1,0 +1,77 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips without a GPU (decided inside the test).
+Run them on a machine with a card with
+
+    python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
+
+This file imports torch and numpy only, so it runs where JAX is absent.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from video_edge_ai_proxy_tpu_torch.ops import nms as tnms
+
+pytestmark = pytest.mark.cuda
+
+IOU_T = 0.45
+
+
+@pytest.fixture()
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _boxes(rng, b, k):
+    xy = rng.uniform(0, 60, (b, k, 2))
+    wh = rng.uniform(2, 40, (b, k, 2))
+    out = np.concatenate([xy, xy + wh], axis=-1).astype(np.float32)
+    out[:, 1::7] = out[:, 0:1]                                  # duplicates
+    out[:, 3::11, 2] = out[:, 3::11, 0]                         # zero width
+    out[:, -3:] = 0.0                                           # all-zero slots
+    cls = rng.integers(0, 80, (b, k, 1)).astype(np.float32)
+    return out + np.where(rng.uniform(size=(b, k, 1)) < 0.5, cls * tnms._CLASS_OFFSET, 0.0
+                          ).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,k", [(1, 8), (16, 256), (3, 64), (2, 100), (4, 1000), (2, 1024)])
+def test_keep_mask_kernel_equals_plain_version(card, b, k):
+    from video_edge_ai_proxy_tpu_torch.kernels.nms import nms_keep_mask_cuda
+
+    boxes = torch.from_numpy(_boxes(np.random.default_rng(k), b, k)).to(card)
+    before = nms_keep_mask_cuda.launches
+    got = nms_keep_mask_cuda(boxes, IOU_T)
+    torch.cuda.synchronize()
+    assert nms_keep_mask_cuda.launches == before + 1
+    want = tnms.nms_keep_mask_reference(boxes, IOU_T)
+    assert got.dtype == torch.bool and got.shape == (b, k)
+    assert torch.equal(got, want)
+    assert torch.equal(want.cpu(), tnms.nms_keep_mask_reference(boxes.cpu(), IOU_T))
+
+
+def test_keep_mask_kernel_refuses_what_it_does_not_take(card):
+    from video_edge_ai_proxy_tpu_torch.kernels.nms import nms_keep_mask_cuda
+
+    with pytest.raises(ValueError):
+        nms_keep_mask_cuda(torch.zeros((1, 1025, 4), device=card), IOU_T)
+    with pytest.raises(TypeError):
+        nms_keep_mask_cuda(torch.zeros((1, 8, 4), device=card, dtype=torch.float16), IOU_T)
+    with pytest.raises(ValueError):
+        nms_keep_mask_cuda(torch.zeros((1, 4, 8), device=card).transpose(1, 2), IOU_T)
+
+
+def test_batched_nms_on_card_equals_cpu(card):
+    rng = np.random.default_rng(0)
+    boxes = np.mod(_boxes(rng, 4, 8400), tnms._CLASS_OFFSET).astype(np.float32)
+    scores = (np.round(rng.uniform(0, 1, (4, 8400)) * 16) / 16).astype(np.float32)
+    classes = rng.integers(0, 80, (4, 8400)).astype(np.int32)
+    cpu = tnms.batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                           torch.from_numpy(classes))
+    gpu = tnms.batched_nms(torch.from_numpy(boxes).to(card), torch.from_numpy(scores).to(card),
+                           torch.from_numpy(classes).to(card))
+    for c, g in zip(cpu, gpu):
+        assert torch.equal(c, g.cpu())

@@ -1,0 +1,115 @@
+"""Build the port's CUDA kernels from ``csrc/`` at first use.
+
+Each source is a plain-C-interface ``.cu`` file compiled by ``nvcc`` into
+its own shared library and bound with ``ctypes`` (no PyTorch headers: a
+file that includes them takes minutes to build, one with a plain C
+interface seconds). Libraries land in ``build/torch_kernels/`` at the root
+of the checkout, named by the hash of their source and flags so an edited
+source never loads a stale library. ``build_all`` starts one ``nvcc`` per
+source, all at once, and waits for them.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so no ``a*b+c``
+is contracted into an FMA -- the NMS IoU must round exactly like its XLA
+twin. Never ``--use_fast_math``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+
+# Kernel name -> source under the package's csrc/.
+SOURCES: Dict[str, str] = {
+    "nms_keep_mask": "csrc/nms_keep_mask.cu",
+}
+
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "--fmad=false",
+    "-Xptxas=-v",
+    "-shared",
+    "-Xcompiler=-fPIC",
+)
+
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    candidates = []
+    if CUDA_HOME:
+        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for path in candidates:
+        if os.path.exists(path):
+            return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA toolkit is required to "
+                           "build the port's kernels")
+    return found
+
+
+def source_path(name: str) -> Path:
+    return _PKG / SOURCES[name]
+
+
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256(source_path(name).read_bytes())
+    digest.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all(names: Optional[list] = None) -> Dict[str, str]:
+    """Build (or load cached) every kernel in ``names`` (default: all),
+    one ``nvcc`` per missing library, all started together. Returns the
+    nvcc/ptxas output of each kernel built now. Raises if any build
+    fails."""
+    names = list(SOURCES) if names is None else list(names)
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in names:
+            out = _library_path(name)
+            if name in _libs or out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
+            procs[name] = (out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs, errors = {}, []
+        for name, (out, tmp, proc) in procs.items():
+            logs[name] = proc.communicate()[0]
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                errors.append(f"nvcc failed building {name} "
+                              f"(exit {proc.returncode}):\n{logs[name]}")
+            else:
+                os.replace(tmp, out)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        for name in names:
+            if name not in _libs:
+                _libs[name] = ctypes.CDLL(str(_library_path(name)))
+        return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library for kernel ``name`` (building it on first use)."""
+    if name not in _libs:
+        build_all([name])
+    return _libs[name]

@@ -1,0 +1,149 @@
+"""Detector preprocessing on the device: uint8 frames in, model input out.
+
+Counterpart of the main-path subset of
+``video_edge_ai_proxy_tpu/ops/preprocess.py``. Frames cross to the card as
+uint8 NHWC BGR24 exactly as they sit on the frame bus; the cast, /255,
+resize, BGR->RGB flip and letterbox pad all happen on the card. The
+public functions keep the JAX package's NHWC layout, so the two compare
+like with like; the serving step hands the result to the NCHW model as a
+permuted view (which is channels_last memory, free on the card).
+
+The resize is the antialiased triangle filter with half-pixel centres of
+``jax.image.resize(method="bilinear")``, as two dense matrix products
+against ``_resize_matrix`` -- not ``F.interpolate``, whose bilinear mode
+has no antialias.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_matrix(src: int, dst: int) -> np.ndarray:
+    """[dst, src] bilinear resize matrix (antialiased triangle filter for
+    downscaling, half-pixel centres, per-row weight normalisation)."""
+    scale = src / dst
+    s = max(1.0, scale)                 # antialias: widen kernel when shrinking
+    out = np.zeros((dst, src), np.float32)
+    for o in range(dst):
+        center = (o + 0.5) * scale - 0.5
+        lo = int(np.floor(center - s)) + 1
+        hi = int(np.ceil(center + s))
+        idx = np.arange(lo, hi + 1)
+        w = np.maximum(0.0, 1.0 - np.abs(idx - center) / s)
+        valid = (idx >= 0) & (idx < src)
+        idx, w = idx[valid], w[valid]
+        out[o, idx] = w / w.sum()
+    return out
+
+
+def _matrix(src: int, dst: int, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.from_numpy(_resize_matrix(src, dst)).to(device=device, dtype=dtype)
+
+
+def resize_bilinear(x: torch.Tensor, dst_hw: tuple) -> torch.Tensor:
+    """Separable bilinear resize as two matrix products.
+
+    [N, H, W, C] float -> [N, h, w, C] in ``x.dtype``."""
+    if not x.is_floating_point():
+        raise TypeError(f"resize_bilinear needs a float input, got {x.dtype}; "
+                        "scale uint8 frames first")
+    h, w = x.shape[1], x.shape[2]
+    th, tw = dst_hw
+    if (h, w) == (th, tw):
+        return x
+    rh = _matrix(h, th, x.dtype, x.device)
+    rw = _matrix(w, tw, x.dtype, x.device)
+    y = torch.einsum("hH,nHWc->nhWc", rh, x)
+    return torch.einsum("wW,nhWc->nhwc", rw, y)
+
+
+def pad_channels(x: torch.Tensor, pad_c: int, dim: int = -1) -> torch.Tensor:
+    """Zero-pad channel axis ``dim`` up to ``pad_c``; no-op when it already
+    has that many channels."""
+    c = x.shape[dim]
+    if pad_c <= c:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad_c - c
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+class LetterboxParams(NamedTuple):
+    """Static geometry of a letterbox resize."""
+
+    scale: float      # source px * scale = letterboxed px
+    pad_x: float      # left padding in letterboxed px
+    pad_y: float      # top padding in letterboxed px
+    new_w: int
+    new_h: int
+
+
+def letterbox_params(src_hw: tuple, dst: int) -> LetterboxParams:
+    """Letterbox geometry for a source shape. Python ``round`` (half to
+    even), exactly as the JAX package computes it."""
+    h, w = src_hw
+    scale = min(dst / h, dst / w)
+    new_h, new_w = int(round(h * scale)), int(round(w * scale))
+    pad_y = (dst - new_h) / 2.0
+    pad_x = (dst - new_w) / 2.0
+    return LetterboxParams(scale, pad_x, pad_y, new_w, new_h)
+
+
+def preprocess_letterbox(
+    frames_u8: torch.Tensor,
+    dst: int = 640,
+    pad_value: float = 114.0 / 255.0,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> tuple:
+    """[N, H, W, 3] uint8 BGR -> ([N, dst, dst, 3] letterboxed RGB in
+    [0, 1] of ``out_dtype``, LetterboxParams)."""
+    params = letterbox_params(tuple(frames_u8.shape[1:3]), dst)
+    # Scale by the constant rounded to out_dtype, as JAX does with its
+    # weakly typed 1/255 (a Python float here would multiply in float32).
+    inv = torch.tensor(1.0 / 255.0, dtype=out_dtype, device=frames_u8.device)
+    x = frames_u8.to(out_dtype) * inv
+    x = resize_bilinear(x, (params.new_h, params.new_w)).flip(-1)
+    top = int(round(params.pad_y))
+    left = int(round(params.pad_x))
+    x = torch.nn.functional.pad(
+        x,
+        (0, 0, left, dst - params.new_w - left, top, dst - params.new_h - top),
+        value=pad_value,
+    )
+    return x, params
+
+
+def unletterbox_boxes(boxes_xyxy: torch.Tensor, params: LetterboxParams) -> torch.Tensor:
+    """Map detector-output xyxy boxes (letterboxed px) back to source px."""
+    shift = torch.tensor(
+        [params.pad_x, params.pad_y, params.pad_x, params.pad_y],
+        dtype=boxes_xyxy.dtype, device=boxes_xyxy.device,
+    )
+    return (boxes_xyxy - shift) / params.scale
+
+
+# BT.601 luma weights in the bus frame's BGR plane order.
+_LUMA_BGR = (0.114, 0.587, 0.299)
+
+
+def frame_quality_stats(
+    frames_u8: torch.Tensor,
+    prev_thumbs: torch.Tensor,
+    thumb_hw: tuple,
+) -> tuple:
+    """[N, H, W, 3] uint8 BGR + previous [N, th, tw] f32 luma thumbnails ->
+    (stats [N, 3] f32 of (luma_mean, luma_var, diff_energy), thumbs
+    [N, th, tw] f32). The variance is the population variance."""
+    w = torch.tensor(_LUMA_BGR, dtype=torch.float32, device=frames_u8.device)
+    y = torch.matmul(frames_u8.to(torch.float32), w) * (1.0 / 255.0)
+    thumbs = resize_bilinear(y[..., None], thumb_hw)[..., 0]
+    mean = thumbs.mean(dim=(1, 2))
+    var = thumbs.var(dim=(1, 2), correction=0)
+    diff = (thumbs - prev_thumbs.to(torch.float32)).square().mean(dim=(1, 2))
+    return torch.stack([mean, var, diff], dim=-1), thumbs
