@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's detection serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -10,24 +10,42 @@ exits non-zero:
    and power limit;
 2. build every CUDA kernel from ``video_edge_ai_proxy_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together);
-3. each kernel against its plain PyTorch version on the card (bit-identical
-   keep masks on random boxes with duplicates, zero-area boxes, all-zero
-   slots and class-offset boxes, B = 16, K = 256 and K = 1024);
-4. the slice at full width: ``yolov8n`` at 640 in bf16 with seeded random
-   weights and the zeroed class prior, on 16x1080x1920 uint8 frames with
-   ``quality_thumb=32`` -- shapes, finiteness, ``valid.sum() > 0``, the same
-   detections with the plain keep mask swapped in, float32 agreement of
-   the model and preprocessing with the CPU on two frames, step time
-   (median of 20), the kernel's own time on the step's candidates, peak
-   memory, and a profile of where a step's device time goes;
-5. the engine answers requests: ``InferenceEngine(device="cuda")`` over a
-   ``MemoryFrameBus`` of 16 streams at 1080p; every stream must get
-   results. The kernels' launch counts are set to 0 just before this run
-   and read just after it; each kernel must have launched.
+3. each kernel against its plain PyTorch version on the card: the NMS
+   keep mask bit-identical (random boxes with duplicates, zero-area boxes,
+   all-zero slots and class-offset boxes, B = 16, K = 256 and K = 1024);
+   the flash-attention forward's O and LSE in float32 and bf16 at
+   BH = 24, T = 6272, D = 64, at a padded T = 200, and at D = 16 and 32;
+4. the detection slice at full width: ``yolov8n`` at 640 in bf16 with
+   seeded random weights and the zeroed class prior, on 16x1080x1920
+   uint8 frames with ``quality_thumb=32`` -- shapes, finiteness,
+   ``valid.sum() > 0``, the same detections with the plain keep mask
+   swapped in, float32 agreement of the model and preprocessing with the
+   CPU on two frames, step time (median of 20), the kernel's own time on
+   the step's candidates, peak memory, and a profile of where a step's
+   device time goes;
+5. the engine answers detection requests: ``InferenceEngine(device="cuda")``
+   over a ``MemoryFrameBus`` of 16 streams at 1080p; every stream must
+   get results;
+6. the video slice at full width: ``videomae_b_long`` (64-frame clips,
+   6272 tokens) in bf16 with seeded random weights on 2 streams' clips of
+   64x1080x1920 uint8 -- shapes, finiteness, exactly 12 flash-kernel
+   launches per step, the same logits with the plain attention swapped
+   in, float32 agreement with the CPU on one clip (2 of 12 layers, to
+   save CPU time), step time (median of 10), peak memory, the kernel's
+   own time on the step's q, k, v beside the plain version, the library's
+   ``scaled_dot_product_attention`` and the bound, and a profile of the
+   step;
+7. ``vit_b16`` beside it: the bf16 step on 32 1080p frames (shapes,
+   finiteness) and float32 agreement with the CPU on two frames;
+8. the engine answers video requests: ``InferenceEngine(device="cuda")``
+   serving ``videomae_b_long`` over 2 streams at 1080p, fed one frame per
+   stream per tick until every stream has 2 results.
 
-The line before the last is one JSON object describing every kernel; the
-last line is ``{"ok": true, "device": {...}}``. Longer output (the
-profile table) goes to ``chiprun_out/chip_smoke_profile.txt``.
+Phases 5 and 8 are the main paths: the kernels' launch counts are set to 0
+just before each and read just after it, and every kernel of that path
+must have launched. The line before the last is one JSON object describing
+every kernel; the last line is ``{"ok": true, "device": {...}}``. Longer
+output (the profile tables) goes to ``chiprun_out/``.
 """
 
 from __future__ import annotations
@@ -42,10 +60,12 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# float32 operations/s outside the tensor cores.
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s,
+# float32 operations/s outside the tensor cores, and dense bf16
+# operations/s of the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 # f32 operations per IoU pair of the keep mask: 4 min/max + 2 sub for the
 # intersection sides, 2 clamps, 1 mul, 1 add + 1 sub for the union, 1 clamp,
 # 1 div, 1 compare. Greedy NMS needs only the pairs j > i: K(K-1)/2 per image.
@@ -55,6 +75,10 @@ NMS_OPS_PER_PAIR = 14
 # (the first kind that matches wins).
 KERNEL_KINDS = (
     ("nms_keep_mask", ("nms_keep_mask",)),
+    ("flash_attention_fwd", ("flash_fwd_kernel",)),
+    ("layernorm", ("layer_norm",)),
+    ("softmax", ("softmax",)),
+    ("gelu", ("gelu",)),
     ("convolution", ("fprop", "convolve", "cutlass")),
     ("batchnorm", ("bn_fw",)),
     ("dtype copy", ("copy_kernel",)),
@@ -67,6 +91,24 @@ KERNEL_KINDS = (
 N_STREAMS = 16
 FRAME_HW = (1080, 1920)
 THUMB = 32
+VIDEO_STREAMS = 2
+VIT_FRAMES = 32
+
+# Flash-attention tolerances. The kernel and its plain version both compute
+# in float32 from the same inputs, in another order of summation: 1e-5 on
+# O and LSE. A bf16 O is rounded once from the float32 result, so the two
+# may also land one bf16 ulp apart, and one ulp of x is at most 2**-7 * |x|:
+# 1e-5 + 2**-7 * |O| in bf16.
+FLASH_TOL = 1e-5
+FLASH_BF16_O_REL = 2.0 ** -7
+# The videomae_b_long step with the plain attention swapped in: the two
+# attention outputs differ by one bf16 ulp at some elements, and 12 bf16
+# layers carry that on; 0.05 on float32 logits is far above it and far
+# below a wrong attention.
+VIDEO_SWAP_TOL = 0.05
+# float32 on the card against float32 on the CPU (TF32 off): the same
+# function through other matmul and convolution algorithms.
+F32_LOGIT_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -145,6 +187,126 @@ def nms_boxes(gen, b: int, k: int, device):
     return boxes.to(device)
 
 
+def profile_step(step, n_prof: int, card: str, title: str, out_name: str, tag: str):
+    """Profile ``n_prof`` calls of ``step`` with torch.profiler: write every
+    kernel (and device copy) grouped by name to ``chiprun_out/<out_name>``,
+    log the busiest kernels and the device time by kind. Returns the
+    device ms per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            step()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in device_events(prof):
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.device_time_total, n + 1)
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    dev_ms = sum(us for us, _ in by_name.values()) / n_prof / 1000.0
+    launches_per_step = sum(n for _, n in by_name.values()) / n_prof
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", out_name), "w") as fh:
+        fh.write(f"{card}\n{title}, {n_prof} steps profiled; {dev_ms:.3f} ms device, "
+                 f"{launches_per_step:.0f} device launches per step\n"
+                 f"ms/step  launches/step  kernel\n")
+        for name, (us, n) in rows:
+            fh.write(f"{us / n_prof / 1000.0:8.4f}  {n / n_prof:6.1f}  {name[:200]}\n")
+        fh.write("\n" + prof.key_averages().table(sort_by="device_time_total", row_limit=40))
+    log(f"{tag} profile: device busy {dev_ms:.3f} ms per step over "
+        f"{launches_per_step:.0f} device launches; per-kernel table in chiprun_out/{out_name}")
+    for name, (us, n) in rows[:5]:
+        log(f"{tag} profile kernel: {us / n_prof / 1000.0:.4f} ms/step x{n / n_prof:.0f} "
+            f"{name[:90]}")
+    kinds: dict = {}
+    for name, (us, n) in rows:
+        kind = next((k for k, parts in KERNEL_KINDS if any(p in name for p in parts)), "other")
+        k_us, k_n = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (k_us + us, k_n + n)
+    log(f"{tag} profile by kind (ms/step, launches/step): " + ", ".join(
+        f"{k} {us / n_prof / 1000.0:.4f} ({n / n_prof:.0f})"
+        for k, (us, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])))
+    return dev_ms
+
+
+def set_attention(model, attn_fn) -> None:
+    """Point every self-attention layer of ``model`` at ``attn_fn`` (None:
+    the default, ``auto_attention``)."""
+    from video_edge_ai_proxy_tpu_torch.models.transformer import SelfAttention
+
+    for m in model.modules():
+        if isinstance(m, SelfAttention):
+            m.attn_fn = attn_fn
+
+
+def plain_attention(q, k, v):
+    """[B, T, H, D] attention through the packed plain forward: the flash
+    route with the kernel's plain version in its place."""
+    from video_edge_ai_proxy_tpu_torch.ops.flash_attention import (
+        _pack, _unpack, flash_attention_reference, packed_len,
+    )
+
+    t = q.shape[1]
+    tp = packed_len(t)
+    o, _ = flash_attention_reference(_pack(q, tp), _pack(k, tp), _pack(v, tp), t)
+    return _unpack(o, q.shape)
+
+
+def flash_bound_ms(bh: int, tp: int, d: int, true_t: int, elem_bytes: int):
+    """(bytes bound, operations bound) in ms of one flash forward: q, k, v
+    read once and o, lse written once; 4*BH*T*T*D operations (two products
+    over the true_t real keys and queries) at the bf16 tensor-core rate."""
+    nbytes = 4 * bh * tp * d * elem_bytes + bh * tp * 4
+    ops = 4 * bh * true_t * true_t * d
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+
+
+def check_flash(q, k, v, true_t: int) -> float:
+    """The flash kernel against its plain version on q, k, v: raises above
+    the tolerances; returns (worst, O difference, LSE difference)."""
+    import torch
+
+    from video_edge_ai_proxy_tpu_torch.kernels.flash import flash_attention_fwd_cuda
+    from video_edge_ai_proxy_tpu_torch.ops.flash_attention import flash_attention_reference
+
+    o, lse = flash_attention_fwd_cuda(q, k, v, true_t)
+    torch.cuda.synchronize()
+    want_o, want_lse = flash_attention_reference(q, k, v, true_t)
+    o, want_o = o.float(), want_o.float()
+    diff = (o - want_o).abs()
+    o_tol = FLASH_TOL
+    if q.dtype == torch.bfloat16:
+        o_tol = o_tol + FLASH_BF16_O_REL * torch.maximum(o.abs(), want_o.abs())
+    o_ok = bool((diff <= o_tol).all())
+    o_err, lse_err = float(diff.max()), float((lse - want_lse).abs().max())
+    if not (bool(torch.isfinite(o).all()) and o_ok and lse_err <= FLASH_TOL):
+        raise AssertionError(f"flash kernel differs from its plain version at "
+                             f"{tuple(q.shape)} {q.dtype} true_t={true_t}: O {o_err:.3g} "
+                             f"(tolerance 1e-5, plus one ulp in bf16), LSE {lse_err:.3g} "
+                             f"(tolerance {FLASH_TOL})")
+    return max(o_err, lse_err), o_err, lse_err
+
+
+class ReadTrackingBus:
+    """Wraps a frame bus and records the newest seq read per stream, so a
+    feeder can publish one frame per stream per collector tick."""
+
+    def __init__(self, bus):
+        self._bus = bus
+        self.read: dict = {}
+
+    def read_latest(self, device_id, min_seq=0):
+        frame = self._bus.read_latest(device_id, min_seq)
+        if frame is not None:
+            self.read[device_id] = frame.seq
+        return frame
+
+    def __getattr__(self, name):
+        return getattr(self._bus, name)
+
+
 def main() -> int:
     import torch
 
@@ -158,24 +320,45 @@ def main() -> int:
     from video_edge_ai_proxy_tpu_torch.device import resolve_device
     from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine, build_serving_step
     from video_edge_ai_proxy_tpu_torch.kernels import build
+    from video_edge_ai_proxy_tpu_torch.kernels.flash import flash_attention_fwd_cuda
     from video_edge_ai_proxy_tpu_torch.kernels.nms import nms_keep_mask_cuda
     from video_edge_ai_proxy_tpu_torch.models import registry
     from video_edge_ai_proxy_tpu_torch.models.carry import zero_class_prior
+    from video_edge_ai_proxy_tpu_torch.ops.flash_attention import (
+        _pack, flash_attention_reference, packed_len,
+    )
     from video_edge_ai_proxy_tpu_torch.ops.nms import nms_keep_mask, nms_keep_mask_reference
-    from video_edge_ai_proxy_tpu_torch.ops.preprocess import frame_quality_stats, preprocess_letterbox
+    from video_edge_ai_proxy_tpu_torch.ops.preprocess import (
+        frame_quality_stats, preprocess_classify, preprocess_clip, preprocess_letterbox,
+    )
     from video_edge_ai_proxy_tpu_torch.utils.config import EngineConfig
 
-    # Every kernel of the path: its wrapper (which counts launches) and
-    # where it comes from.
+    # Every kernel: its wrapper (which counts launches), the main path it
+    # serves, and where it comes from.
     kernels = {
         "nms_keep_mask": {
             "route": "cuda",
             "source": "video_edge_ai_proxy_tpu_torch/" + build.SOURCES["nms_keep_mask"],
             "replaces": "video_edge_ai_proxy_tpu/ops/nms.py:68",
             "wrapper": nms_keep_mask_cuda,
+            "path": "detect",
+        },
+        "flash_attention_fwd": {
+            "route": "cuda",
+            "source": "video_edge_ai_proxy_tpu_torch/" + build.SOURCES["flash_attention_fwd"],
+            "replaces": "video_edge_ai_proxy_tpu/ops/flash_attention.py:48",
+            "wrapper": flash_attention_fwd_cuda,
+            "path": "video",
         },
     }
     report = {name: {} for name in kernels}
+
+    def zero_launches():
+        for spec_k in kernels.values():
+            spec_k["wrapper"].launches = 0
+
+    def read_launches():
+        return {n: kernels[n]["wrapper"].launches for n in kernels}
 
     # -- phase 1: the card ------------------------------------------------
     dev = resolve_device("cuda")
@@ -211,6 +394,25 @@ def main() -> int:
                                  f"B={b} K={k}: {int((got != want).sum())} of {got.numel()}")
         log(f"phase 3 nms_keep_mask B={b} K={k}: bit-identical to the plain version "
             f"(kept {int(got.sum())} of {got.numel()})")
+
+    # The flash forward: videomae_b_long's shape (BH = 2 clips x 12 heads,
+    # T = 6272, D = 64), a padded T = 200 (true_t < Tp), and the tiny
+    # twins' head dims 16 and 32, in float32 and bf16.
+    flash_worst = 0.0
+    qgen = torch.Generator(device=dev).manual_seed(2)
+    for bh, t, d, dtype in ((24, 6272, 64, torch.float32), (24, 6272, 64, torch.bfloat16),
+                            (24, 200, 64, torch.float32), (24, 200, 64, torch.bfloat16),
+                            (8, 200, 16, torch.float32), (8, 6272, 32, torch.bfloat16)):
+        tp = packed_len(t)
+        q, k, v = (torch.randn((bh, t, d), generator=qgen, device=dev).to(dtype)
+                   for _ in range(3))
+        q, k, v = (torch.nn.functional.pad(x, (0, 0, 0, tp - t)) for x in (q, k, v))
+        f_err, o_err, lse_err = check_flash(q, k, v, t)
+        flash_worst = max(flash_worst, f_err)
+        log(f"phase 3 flash_attention_fwd BH={bh} T={t} (Tp={tp}) D={d} {dtype}: "
+            f"max|dO| {o_err:.3g}, max|dLSE| {lse_err:.3g} against the plain version")
+        del q, k, v
+    torch.cuda.empty_cache()
 
     # -- phase 4: the slice at full width -------------------------------------
     spec = registry.get("yolov8n")
@@ -342,43 +544,9 @@ def main() -> int:
 
     # Where a step's device time goes: every kernel (and device copy) the
     # profiler saw in 3 steps, grouped by name.
-    from torch.profiler import ProfilerActivity, profile
-
-    n_prof = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            step(frames)
-        torch.cuda.synchronize()
-    by_name: dict = {}
-    for e in device_events(prof):
-        us, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.device_time_total, n + 1)
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    dev_ms = sum(us for us, _ in by_name.values()) / n_prof / 1000.0
-    launches_per_step = sum(n for _, n in by_name.values()) / n_prof
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_profile.txt"), "w") as fh:
-        fh.write(f"{card}\nyolov8n bf16 serving step, {N_STREAMS}x1080x1920 uint8, "
-                 f"{n_prof} steps profiled; step {step_ms:.3f} ms wall, {dev_ms:.3f} ms "
-                 f"device, {launches_per_step:.0f} device launches per step\n"
-                 f"ms/step  launches/step  kernel\n")
-        for name, (us, n) in rows:
-            fh.write(f"{us / n_prof / 1000.0:8.4f}  {n / n_prof:6.1f}  {name[:200]}\n")
-        fh.write("\n" + prof.key_averages().table(sort_by="device_time_total", row_limit=40))
-    log(f"phase 4 profile: device busy {dev_ms:.3f} ms per step over "
-        f"{launches_per_step:.0f} device launches (the step took {step_ms:.3f} ms wall); "
-        f"per-kernel table in chiprun_out/chip_smoke_profile.txt")
-    for name, (us, n) in rows[:5]:
-        log(f"phase 4 profile kernel: {us / n_prof / 1000.0:.4f} ms/step x{n / n_prof:.0f} "
-            f"{name[:90]}")
-    kinds: dict = {}
-    for name, (us, n) in rows:
-        kind = next((k for k, parts in KERNEL_KINDS if any(p in name for p in parts)), "other")
-        k_us, k_n = kinds.get(kind, (0.0, 0))
-        kinds[kind] = (k_us + us, k_n + n)
-    log("phase 4 profile by kind (ms/step, launches/step): " + ", ".join(
-        f"{k} {us / n_prof / 1000.0:.4f} ({n / n_prof:.0f})"
-        for k, (us, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])))
+    profile_step(lambda: step(frames), 3, card,
+                 f"yolov8n bf16 serving step, {N_STREAMS}x1080x1920 uint8 "
+                 f"(step {step_ms:.3f} ms wall)", "chip_smoke_profile.txt", "phase 4")
 
     # -- phase 5: the engine answers requests ---------------------------------
     bus = MemoryFrameBus()
@@ -397,8 +565,7 @@ def main() -> int:
     reader = threading.Thread(target=consume, daemon=True)
     reader.start()
     engine.warmup()
-    for spec_k in kernels.values():
-        spec_k["wrapper"].launches = 0
+    zero_launches()
     engine.start()
     try:
         for packet in range(1, 5):
@@ -414,7 +581,7 @@ def main() -> int:
                 time.sleep(0.005)
     finally:
         engine.stop()
-    launches = {n: kernels[n]["wrapper"].launches for n in kernels}
+    launches = read_launches()
     reader.join(10)
     if reader.is_alive():
         raise AssertionError("result subscriber did not end")
@@ -425,14 +592,246 @@ def main() -> int:
         for r in got_results[s]:
             if not (0 <= len(r.detections) <= 100 and r.batch_size >= 1):
                 raise AssertionError(f"bad result for {s}: {r}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-        report[name]["launches"] = n
+    for name, meta in kernels.items():
+        if meta["path"] == "detect":
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the detection path")
+            report[name]["launches"] = launches[name]
     n_res = sum(len(v) for v in got_results.values())
     n_det = sum(len(r.detections) for v in got_results.values() for r in v)
     log(f"phase 5 engine: {N_STREAMS} streams at 1080p, {n_res} results, {n_det} detections, "
         f"every stream served; kernel launches {launches}")
+
+    del engine, model
+    torch.cuda.empty_cache()
+
+    # -- phase 6: the video slice at full width -------------------------------
+    from video_edge_ai_proxy_tpu_torch.models.transformer import EncoderConfig
+    from video_edge_ai_proxy_tpu_torch.models.videomae import VideoMAE, VideoMAEConfig
+
+    vspec = registry.get("videomae_b_long")
+    vmodel = vspec.init_params(torch.Generator().manual_seed(0), device=dev)
+    clip_len, size = vspec.clip_len, vspec.input_size
+    clips = torch.randint(0, 256, (VIDEO_STREAMS, clip_len) + FRAME_HW + (3,), generator=fgen,
+                          dtype=torch.uint8, device=dev)
+    vstep = build_serving_step(vmodel, vspec)
+    for _ in range(2):
+        vstep(clips)
+    torch.cuda.synchronize()
+    zero_launches()
+    vout = vstep(clips)
+    torch.cuda.synchronize()
+    step_launches = read_launches()
+    n_layers = vmodel.cfg.encoder.num_layers
+    if step_launches != {"nms_keep_mask": 0, "flash_attention_fwd": n_layers}:
+        raise AssertionError(f"one videomae_b_long step launched {step_launches}, expected "
+                             f"{n_layers} flash-attention launches and no other kernel")
+    shapes = {k: tuple(v.shape) for k, v in vout.items()}
+    if shapes != {"top_probs": (VIDEO_STREAMS, 5), "top_ids": (VIDEO_STREAMS, 5)}:
+        raise AssertionError(f"videomae_b_long output shapes {shapes}")
+    probs, ids = vout["top_probs"], vout["top_ids"]
+    if not (bool(torch.isfinite(probs).all()) and float(probs.min()) >= 0.0
+            and float(probs.sum(-1).max()) <= 1.0 + 1e-5
+            and 0 <= int(ids.min()) and int(ids.max()) < vmodel.cfg.num_classes):
+        raise AssertionError(f"bad videomae_b_long output: {vout}")
+    log(f"phase 6 videomae_b_long step: {VIDEO_STREAMS} clips of {clip_len}x1080x1920 uint8, "
+        f"{vmodel.cfg.num_tokens} tokens, shapes ok, finite, flash-attention launches per "
+        f"step = {step_launches['flash_attention_fwd']}; top-5 {probs[0].tolist()}")
+
+    # The same logits with the plain attention swapped in.
+    with torch.inference_mode():
+        vx = preprocess_clip(clips, (size, size))
+        logits = vmodel(vx)
+        set_attention(vmodel, plain_attention)
+        plain_logits = vmodel(vx)
+        set_attention(vmodel, None)
+    swap_err = float((logits - plain_logits).abs().max())
+    log(f"phase 6 videomae_b_long with the plain attention swapped in: max|dlogit| "
+        f"{swap_err:.3g} (logits up to {float(logits.abs().max()):.3g}; tolerance "
+        f"{VIDEO_SWAP_TOL})")
+    if not swap_err <= VIDEO_SWAP_TOL:
+        raise AssertionError("videomae_b_long logits move when the plain attention is "
+                             "swapped in")
+    del vx, plain_logits
+
+    # float32 on the card against float32 on the CPU at full width and
+    # T = 6272, on one clip; the encoder is cut to 2 of its 12 layers to
+    # save CPU time.
+    cfg2 = VideoMAEConfig(num_frames=clip_len, encoder=EncoderConfig(num_layers=2))
+    m_cpu = VideoMAE(cfg2, torch.float32)
+    m_cpu.init_weights(torch.Generator().manual_seed(0))
+    m_cpu.eval()
+    m_gpu = VideoMAE(cfg2, torch.float32).to(dev).eval()
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    one = clips[:1]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        x_gpu = preprocess_clip(one, (size, size), out_dtype=torch.float32)
+        x_cpu = preprocess_clip(one.cpu(), (size, size), out_dtype=torch.float32)
+        pre_err = float((x_gpu.cpu() - x_cpu).abs().max())
+        zero_launches()
+        l_gpu = m_gpu(x_gpu)
+        torch.cuda.synchronize()
+        f32_launches = read_launches()["flash_attention_fwd"]
+        l_cpu = m_cpu(x_cpu)
+    f32_err = float((l_gpu.cpu() - l_cpu).abs().max())
+    log(f"phase 6 f32 card vs CPU (videomae_b_long, 2 layers, 1 clip, {cfg2.num_tokens} "
+        f"tokens, {f32_launches} flash launches on the card): preprocess {pre_err:.3g}, "
+        f"logits {f32_err:.3g} (up to {float(l_cpu.abs().max()):.3g}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (f32_launches == 2 and pre_err <= 1e-4 and f32_err <= F32_LOGIT_TOL):
+        raise AssertionError("float32 videomae_b_long on the card disagrees with the CPU")
+    del m_cpu, m_gpu, x_gpu, x_cpu
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        vstep(clips)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000.0)
+    vstep_ms = statistics.median(times)
+    vpeak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+    log(f"phase 6 timing on {card}: videomae_b_long bf16, {VIDEO_STREAMS} clips of "
+        f"{clip_len}x1080x1920 uint8: median {vstep_ms:.3f} ms/step over 10 (min "
+        f"{min(times):.3f}, max {max(times):.3f}), {VIDEO_STREAMS * 1000.0 / vstep_ms:.2f} "
+        f"clips/s, peak memory {vpeak_mib:.1f} MiB")
+
+    # The kernel's own time on the q, k, v of the step's first layer.
+    captured = []
+
+    def recording_attention(q, k, v):
+        tp = packed_len(q.shape[1])
+        captured.append(tuple(_pack(x, tp) for x in (q, k, v)) + (q.shape[1],))
+        set_attention(vmodel, None)
+        return plain_attention(q, k, v)
+
+    set_attention(vmodel, recording_attention)
+    vstep(clips)
+    qp, kp, vp, true_t = captured[0]
+    bh, tp, d = qp.shape
+    f_err, o_err, lse_err = check_flash(qp, kp, vp, true_t)
+    flash_worst = max(flash_worst, f_err)
+    ev_ms = time_events(lambda: flash_attention_fwd_cuda(qp, kp, vp, true_t), 20)
+    prof_ms = profiled_device_ms(lambda: flash_attention_fwd_cuda(qp, kp, vp, true_t), 10,
+                                 "flash_fwd_kernel")
+    plain_ms = time_events(lambda: flash_attention_reference(qp, kp, vp, true_t), 5)
+    b4 = [x.view(VIDEO_STREAMS, bh // VIDEO_STREAMS, tp, d) for x in (qp, kp, vp)]
+    lib_ms = time_events(lambda: torch.nn.functional.scaled_dot_product_attention(*b4), 20)
+    bytes_ms, ops_ms = flash_bound_ms(bh, tp, d, true_t, qp.element_size())
+    kernel_ms = prof_ms if prof_ms is not None else ev_ms
+    log(f"phase 6 flash_attention_fwd on {card}: BH={bh} Tp={tp} D={d} {qp.dtype} (the step's "
+        f"first layer; O {o_err:.3g}, LSE {lse_err:.3g} from the plain version): device "
+        f"{prof_ms} ms/launch (profiler), {ev_ms:.4f} ms/launch (CUDA events, 20 back to "
+        f"back); plain version {plain_ms:.4f} ms; scaled_dot_product_attention {lib_ms:.4f} "
+        f"ms; bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, bf16 operations "
+        f"{ops_ms:.4f})")
+    report["flash_attention_fwd"].update(
+        max_abs_err=flash_worst, ms=kernel_ms, plain_ms=plain_ms,
+        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms > ops_ms else "operations",
+        library_ms=lib_ms,
+    )
+    del captured, qp, kp, vp, b4
+    profile_step(lambda: vstep(clips), 2, card,
+                 f"videomae_b_long bf16 serving step, {VIDEO_STREAMS}x{clip_len}x1080x1920 "
+                 f"uint8 (step {vstep_ms:.3f} ms wall)", "chip_smoke_profile_videomae.txt",
+                 "phase 6")
+    del vmodel, vstep, clips, logits
+    torch.cuda.empty_cache()
+
+    # -- phase 7: vit_b16 beside it -----------------------------------------------
+    tspec = registry.get("vit_b16")
+    tmodel = tspec.init_params(torch.Generator().manual_seed(0), device=dev)
+    tframes = torch.randint(0, 256, (VIT_FRAMES,) + FRAME_HW + (3,), generator=fgen,
+                            dtype=torch.uint8, device=dev)
+    tstep = build_serving_step(tmodel, tspec)
+    zero_launches()
+    tout = tstep(tframes)
+    torch.cuda.synchronize()
+    if read_launches()["flash_attention_fwd"] != 0:
+        raise AssertionError("vit_b16 (197 tokens) launched the flash kernel")
+    if {k: tuple(v.shape) for k, v in tout.items()} != {"top_probs": (VIT_FRAMES, 5),
+                                                        "top_ids": (VIT_FRAMES, 5)}:
+        raise AssertionError(f"vit_b16 output shapes {[v.shape for v in tout.values()]}")
+    if not bool(torch.isfinite(tout["top_probs"]).all()):
+        raise AssertionError("non-finite vit_b16 probabilities")
+    t32 = tspec.init_params(torch.Generator().manual_seed(0), device=dev, dtype=torch.float32)
+    t32_cpu = tspec.init_params(torch.Generator().manual_seed(0), device="cpu",
+                                dtype=torch.float32)
+    with torch.inference_mode():
+        x_gpu = preprocess_classify(tframes[:2], (224, 224), out_dtype=torch.float32)
+        x_cpu = preprocess_classify(tframes[:2].cpu(), (224, 224), out_dtype=torch.float32)
+        vit_err = float((t32(x_gpu).cpu() - t32_cpu(x_cpu)).abs().max())
+    log(f"phase 7 vit_b16: bf16 step on {VIT_FRAMES} 1080p frames, shapes ok, finite; f32 card "
+        f"vs CPU on 2 frames: logits {vit_err:.3g}")
+    if not vit_err <= F32_LOGIT_TOL:
+        raise AssertionError("float32 vit_b16 on the card disagrees with the CPU")
+    del tmodel, t32, t32_cpu, tframes, tstep
+    torch.cuda.empty_cache()
+
+    # -- phase 8: the engine answers video requests -------------------------------
+    vbus = ReadTrackingBus(MemoryFrameBus())
+    vstreams = [f"clip{i}" for i in range(VIDEO_STREAMS)]
+    for s in vstreams:
+        vbus.create_stream(s, FRAME_HW[0] * FRAME_HW[1] * 3)
+    rng = torch.Generator().manual_seed(3)
+    vpool = torch.randint(0, 256, (8,) + FRAME_HW + (3,), generator=rng,
+                          dtype=torch.uint8).numpy()
+    vengine = InferenceEngine(vbus, EngineConfig(model="videomae_b_long"), device="cuda")
+    vresults = vengine.subscribe()
+    vgot: dict = {}
+
+    def vconsume():
+        for r in vresults:
+            vgot.setdefault(r.device_id, []).append(r)
+
+    vreader = threading.Thread(target=vconsume, daemon=True)
+    vreader.start()
+    vengine.warmup()
+    zero_launches()
+    t0 = time.perf_counter()
+    vengine.start()
+    packet = 0
+    try:
+        deadline = time.monotonic() + 300
+        while any(len(vgot.get(s, [])) < 2 for s in vstreams):
+            if time.monotonic() > deadline:
+                raise AssertionError("the engine did not serve both video streams twice "
+                                     "within 300 s")
+            packet += 1
+            seqs = {s: vbus.publish(s, vpool[(i + packet) % len(vpool)],
+                                    FrameMeta(width=FRAME_HW[1], height=FRAME_HW[0],
+                                              packet=packet,
+                                              timestamp_ms=int(time.time() * 1000)))
+                    for i, s in enumerate(vstreams)}
+            while any(vbus.read.get(s, 0) < seq for s, seq in seqs.items()):
+                if time.monotonic() > deadline:
+                    raise AssertionError("the engine stopped reading the video streams")
+                time.sleep(0.002)
+    finally:
+        vengine.stop()
+    launches = read_launches()
+    vreader.join(10)
+    if vreader.is_alive():
+        raise AssertionError("video result subscriber did not end")
+    for s in vstreams:
+        for r in vgot[s]:
+            if len(r.detections) != 5 or r.detections[0].confidence <= 0.0:
+                raise AssertionError(f"bad video result for {s}: {r}")
+        if vgot[s][0].frame_packet != clip_len:
+            raise AssertionError(f"{s}: first result from packet {vgot[s][0].frame_packet}, "
+                                 f"expected {clip_len} (the first full clip)")
+    for name, meta in kernels.items():
+        if meta["path"] == "video":
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the video path")
+            report[name]["launches"] = launches[name]
+    if launches["nms_keep_mask"] != 0:
+        raise AssertionError("the video engine launched the keep-mask kernel")
+    n_res = sum(len(v) for v in vgot.values())
+    log(f"phase 8 engine: videomae_b_long over {VIDEO_STREAMS} streams at 1080p, {packet} "
+        f"frames per stream published, {n_res} results of 5 classes each in "
+        f"{time.perf_counter() - t0:.1f} s, every stream served; kernel launches {launches}")
 
     line = {"kernels": []}
     for name, meta in kernels.items():

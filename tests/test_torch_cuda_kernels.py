@@ -75,3 +75,74 @@ def test_batched_nms_on_card_equals_cpu(card):
                            torch.from_numpy(classes).to(card))
     for c, g in zip(cpu, gpu):
         assert torch.equal(c, g.cpu())
+
+
+# Flash-attention forward. Tolerances: the kernel and its plain version both
+# compute in float32 from the same inputs, in another order of summation:
+# 1e-5 on O and LSE. A bf16 O is rounded once from the float32 result, so
+# the two may also land one bf16 ulp apart, and one ulp of x is at most
+# 2**-7 * |x|: 1e-5 + 2**-7 * |O| in bf16.
+FLASH_CASES = [
+    (2, 64, 16, 64, torch.float32),
+    (1, 24, 16, 24, torch.float32),
+    (4, 256, 64, 200, torch.float32),
+    (3, 200, 32, 150, torch.bfloat16),
+    (24, 512, 64, 512, torch.bfloat16),
+]
+
+
+def _packed(rng, bh, tp, d, dtype, card):
+    return [torch.from_numpy(rng.normal(0, 1, (bh, tp, d)).astype(np.float32)).to(card, dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("bh,tp,d,true_t,dtype", FLASH_CASES)
+def test_flash_kernel_equals_plain_version(card, bh, tp, d, true_t, dtype):
+    from video_edge_ai_proxy_tpu_torch.kernels.flash import flash_attention_fwd_cuda
+    from video_edge_ai_proxy_tpu_torch.ops.flash_attention import flash_attention_reference
+
+    q, k, v = _packed(np.random.default_rng(tp + d), bh, tp, d, dtype, card)
+    before = flash_attention_fwd_cuda.launches
+    o, lse = flash_attention_fwd_cuda(q, k, v, true_t)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd_cuda.launches == before + 1
+    assert o.dtype == dtype and o.shape == (bh, tp, d)
+    assert lse.dtype == torch.float32 and lse.shape == (bh, tp, 1)
+    want_o, want_lse = flash_attention_reference(q, k, v, true_t)
+    o, want_o = o.float(), want_o.float()
+    o_tol = 1e-5
+    if dtype == torch.bfloat16:
+        o_tol = o_tol + 2.0 ** -7 * torch.maximum(o.abs(), want_o.abs())
+    assert bool(((o - want_o).abs() <= o_tol).all())
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+
+
+def test_flash_attention_on_card_matches_cpu(card):
+    from video_edge_ai_proxy_tpu_torch.kernels.flash import flash_attention_fwd_cuda
+    from video_edge_ai_proxy_tpu_torch.ops.flash_attention import flash_attention
+
+    q, k, v = (torch.from_numpy(x) for x in
+               np.random.default_rng(0).normal(0, 1, (3, 2, 200, 3, 32)).astype(np.float32))
+    before = flash_attention_fwd_cuda.launches
+    got = flash_attention(q.to(card), k.to(card), v.to(card))
+    assert flash_attention_fwd_cuda.launches == before + 1
+    assert float((got.cpu() - flash_attention(q, k, v)).abs().max()) <= 1e-5
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(card):
+    from video_edge_ai_proxy_tpu_torch.kernels.flash import flash_attention_fwd_cuda
+
+    x = torch.zeros((2, 64, 64), device=card)
+    with pytest.raises(TypeError):
+        flash_attention_fwd_cuda(*(x.half(),) * 3, 64)
+    with pytest.raises(TypeError):
+        flash_attention_fwd_cuda(x, x, x.bfloat16(), 64)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_fwd_cuda(*(torch.zeros((2, 64, 48), device=card),) * 3, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros((2, 64, 64), device=card).transpose(0, 1).contiguous().transpose(0, 1)
+        flash_attention_fwd_cuda(t, x, x, 64)
+    with pytest.raises(ValueError, match="shapes"):
+        flash_attention_fwd_cuda(x, x, torch.zeros((2, 32, 64), device=card), 32)
+    with pytest.raises(ValueError, match="true_t"):
+        flash_attention_fwd_cuda(x, x, x, 65)

@@ -1,11 +1,14 @@
 """Serving step and a slim inference engine (counterpart of ``video_edge_ai_proxy_tpu/engine/runner.py``).
 
 ``build_serving_step`` is the single source of truth for the per-tick
-device program of a detector: uint8 frames in, postprocessed results out
-(letterbox -> YOLOv8 ``decode="serving"`` -> sigmoid of the per-anchor max
-logit -> batched NMS through the CUDA keep-mask kernel -> unletterbox, plus
-the frame-quality statistics). The engine runs it per (geometry, bucket);
-``chip_smoke.py`` times it.
+device program of a model: uint8 frames (or clips) in, postprocessed
+results out. Detectors: letterbox -> YOLOv8 ``decode="serving"`` ->
+sigmoid of the per-anchor max logit -> batched NMS through the CUDA
+keep-mask kernel -> unletterbox. Classifiers and video models: stretch
+resize + ImageNet normalisation -> ViT / VideoMAE (long clips through the
+CUDA flash-attention kernel) -> float32 softmax -> top-5. Frame models
+add the frame-quality statistics. The engine runs it per (geometry,
+bucket); ``chip_smoke.py`` times it.
 
 ``InferenceEngine`` is the tick loop around it: collect -> H2D of uint8
 from pinned host memory -> cached step -> D2H -> emit per stream, with the
@@ -31,13 +34,18 @@ import torch
 from ..bus.interface import FrameBus
 from ..device import resolve_device
 from ..models import registry
-from ..ops.nms import batched_nms, nms_keep_mask
-from ..ops.preprocess import frame_quality_stats, preprocess_letterbox, unletterbox_boxes
+from ..ops.nms import _top, batched_nms, nms_keep_mask
+from ..ops.preprocess import (
+    frame_quality_stats, preprocess_classify, preprocess_clip, preprocess_letterbox,
+    unletterbox_boxes,
+)
 from ..utils.config import EngineConfig
 from .classes import class_name
 from .collector import BatchGroup, Collector
 
 log = logging.getLogger("vep.torch.engine.runner")
+
+TOP_K_CLASSES = 5
 
 
 def build_serving_step(
@@ -48,35 +56,51 @@ def build_serving_step(
     preprocess_dtype: torch.dtype = torch.bfloat16,
     keep_mask: Callable[[torch.Tensor, float], torch.Tensor] = nms_keep_mask,
 ):
-    """The per-tick program of a ``kind="detect"`` model: ``step(frames_u8
-    [N, H, W, 3] uint8 on the model's device)`` -> dict of ``boxes [N, 100,
-    4]`` (source px, xyxy), ``scores``, ``classes``, ``valid``.
+    """The per-tick program of ``spec.kind``: ``step(frames_u8)`` on the
+    model's device ->
+
+    - ``"detect"``: frames [N, H, W, 3] uint8 -> dict of ``boxes [N, 100,
+      4]`` (source px, xyxy), ``scores``, ``classes``, ``valid``;
+    - ``"classify"`` / ``"video"``: frames [N, H, W, 3], or clips [N,
+      clip_len, H, W, 3], uint8 -> dict of ``top_probs [N, 5]`` f32 and
+      ``top_ids [N, 5]`` int32 (``lax.top_k``'s order: ties toward the
+      lower class id).
 
     Preprocessing runs in ``preprocess_dtype`` (bf16, as in the JAX
     package, whatever the model's dtype), the model in its own dtype.
     ``keep_mask`` is the NMS keep-mask function (default: the device's own,
     the CUDA kernel on the card).
 
-    With ``quality_thumb`` > 0 the step takes an optional second argument,
-    the previous tick's [N, th, tw] f32 luma thumbnails (omitted -> zeros),
-    and its output gains ``quality_stats`` [N, 3] and ``quality_thumbs``.
+    With ``quality_thumb`` > 0 a frame model's step takes an optional
+    second argument, the previous tick's [N, th, tw] f32 luma thumbnails
+    (omitted -> zeros), and its output gains ``quality_stats`` [N, 3] and
+    ``quality_thumbs``. Clip models never take quality statistics.
     """
-    if spec.kind != "detect":
-        raise NotImplementedError(f"serving step for kind={spec.kind!r} is not ported yet")
     size = spec.input_size
+    if spec.kind == "detect":
+        def raw(frames_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+            with torch.inference_mode():
+                x, lb = preprocess_letterbox(frames_u8, size, out_dtype=preprocess_dtype)
+                # decode="serving": class reduction in logit space; sigmoid is
+                # monotone, so it is applied to the per-anchor winners only.
+                boxes, max_logit, cls_ids = model(x.permute(0, 3, 1, 2), decode="serving")
+                b, s, c, valid = batched_nms(boxes, torch.sigmoid(max_logit), cls_ids,
+                                             keep_mask=keep_mask)
+                b = unletterbox_boxes(b, lb)
+            return {"boxes": b, "scores": s, "classes": c, "valid": valid}
+    elif spec.kind in ("classify", "video"):
+        pre = preprocess_clip if spec.clip_len else preprocess_classify
 
-    def raw(frames_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
-        with torch.inference_mode():
-            x, lb = preprocess_letterbox(frames_u8, size, out_dtype=preprocess_dtype)
-            # decode="serving": class reduction in logit space; sigmoid is
-            # monotone, so it is applied to the per-anchor winners only.
-            boxes, max_logit, cls_ids = model(x.permute(0, 3, 1, 2), decode="serving")
-            b, s, c, valid = batched_nms(boxes, torch.sigmoid(max_logit), cls_ids,
-                                         keep_mask=keep_mask)
-            b = unletterbox_boxes(b, lb)
-        return {"boxes": b, "scores": s, "classes": c, "valid": valid}
+        def raw(frames_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+            with torch.inference_mode():
+                x = pre(frames_u8, (size, size), out_dtype=preprocess_dtype)
+                probs = torch.softmax(model(x).float(), dim=-1)
+                top_p, top_i = _top(probs, min(TOP_K_CLASSES, probs.shape[-1]))
+            return {"top_probs": top_p, "top_ids": top_i.to(torch.int32)}
+    else:
+        raise NotImplementedError(f"serving step for kind={spec.kind!r} is not ported yet")
 
-    if not quality_thumb:
+    if not quality_thumb or spec.clip_len:
         return raw
 
     thumb_hw = (quality_thumb, quality_thumb)
@@ -133,10 +157,18 @@ class StreamStats:
     last_batch: int = 0
 
 
-def to_detections(host: Dict[str, np.ndarray], i: int, num_classes: int) -> List[Detection]:
-    """Row ``i`` of a host-side step output -> wire detections: int pixel
-    boxes (left/top/width/height), confidence, class id and name."""
+def to_detections(host: Dict[str, np.ndarray], i: int, kind: str,
+                  num_classes: int) -> List[Detection]:
+    """Row ``i`` of a host-side step output -> wire detections. Detectors:
+    int pixel boxes (left/top/width/height), confidence, class id and
+    name. Classifiers and video models: one box-less detection per top-5
+    entry."""
     out: List[Detection] = []
+    if kind != "detect":
+        for p, cid in zip(host["top_probs"][i], host["top_ids"][i]):
+            out.append(Detection(confidence=float(p), class_id=int(cid),
+                                 class_name=class_name(int(cid), num_classes)))
+        return out
     for j in np.nonzero(host["valid"][i])[0]:
         x1, y1, x2, y2 = (int(round(float(v))) for v in host["boxes"][i, j])
         cid = int(host["classes"][i, j])
@@ -150,7 +182,9 @@ def to_detections(host: Dict[str, np.ndarray], i: int, num_classes: int) -> List
 
 
 class InferenceEngine:
-    """Tick loop serving one detector over every stream of a frame bus.
+    """Tick loop serving one model over every stream of a frame bus: a
+    detector or classifier on each stream's newest frame, a video model on
+    each stream's clip window once it is full.
 
     ``model``: an ``nn.Module`` already on ``device`` (e.g. with loaded
     weights); None builds the registry model with random weights at
@@ -165,7 +199,10 @@ class InferenceEngine:
         self._spec = registry.get(self._cfg.model)
         self._dtype = getattr(torch, self._cfg.dtype)
         self._model = model
-        self._collector = Collector(bus, buckets=self._cfg.batch_buckets)
+        self._collector = Collector(bus, buckets=self._cfg.batch_buckets,
+                                    clip_len=self._spec.clip_len)
+        # Thumbnails (quality statistics) only for frame models.
+        self._thumb = 0 if self._spec.clip_len else self._cfg.quality_thumb
         self._steps: Dict[tuple, Callable] = {}
         self._pinned: Dict[tuple, torch.Tensor] = {}
         self._thumbs: Dict[str, torch.Tensor] = {}
@@ -269,8 +306,7 @@ class InferenceEngine:
         key = (src_hw, bucket)
         fn = self._steps.get(key)
         if fn is None:
-            fn = build_serving_step(self._model, self._spec,
-                                    quality_thumb=self._cfg.quality_thumb)
+            fn = build_serving_step(self._model, self._spec, quality_thumb=self._thumb)
             self._steps[key] = fn
         return fn
 
@@ -291,8 +327,8 @@ class InferenceEngine:
     def _serve(self, group: BatchGroup) -> None:
         step = self._step(group.src_hw, group.bucket)
         frames = self._to_device(group.frames)
-        if self._cfg.quality_thumb:
-            side = self._cfg.quality_thumb
+        if self._thumb:
+            side = self._thumb
             zero = torch.zeros((side, side), dtype=torch.float32, device=self._device)
             prev = [self._thumbs.get(d, zero) for d in group.device_ids]
             prev += [zero] * group.padded_slots
@@ -309,7 +345,7 @@ class InferenceEngine:
             result = InferenceResult(
                 device_id=device_id, timestamp=meta.timestamp_ms,
                 model=self._spec.name,
-                detections=to_detections(host, i, num_classes),
+                detections=to_detections(host, i, self._spec.kind, num_classes),
                 latency_ms=latency, batch_size=group.bucket,
                 frame_packet=meta.packet,
             )

@@ -8,9 +8,11 @@ of the checkout, named by the hash of their source and flags so an edited
 source never loads a stale library. ``build_all`` starts one ``nvcc`` per
 source, all at once, and waits for them.
 
-Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so no ``a*b+c``
-is contracted into an FMA -- the NMS IoU must round exactly like its XLA
-twin. Never ``--use_fast_math``.
+Flags: ``sm_90a`` (Hopper) and ``-O3`` for every source, plus each
+source's own: ``nms_keep_mask`` adds ``--fmad=false`` so no ``a*b+c`` is
+contracted into an FMA -- the NMS IoU must round exactly like its XLA
+twin. Flash attention keeps FMA contraction (the flag would halve its f32
+rate). Never ``--use_fast_math``.
 """
 
 from __future__ import annotations
@@ -30,17 +32,22 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 # Kernel name -> source under the package's csrc/.
 SOURCES: Dict[str, str] = {
     "nms_keep_mask": "csrc/nms_keep_mask.cu",
+    "flash_attention_fwd": "csrc/flash_attention_fwd.cu",
 }
 
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "--fmad=false",
     "-Xptxas=-v",
     "-shared",
     "-Xcompiler=-fPIC",
 )
+
+# Flags of one source only, after NVCC_FLAGS.
+SOURCE_FLAGS: Dict[str, tuple] = {
+    "nms_keep_mask": ("--fmad=false",),
+}
 
 
 _lock = threading.Lock()
@@ -68,9 +75,14 @@ def source_path(name: str) -> Path:
     return _PKG / SOURCES[name]
 
 
+def nvcc_flags(name: str) -> tuple:
+    """Every flag ``nvcc`` gets for kernel ``name``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def _library_path(name: str) -> Path:
     digest = hashlib.sha256(source_path(name).read_bytes())
-    digest.update("\0".join(NVCC_FLAGS).encode())
+    digest.update("\0".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -88,7 +100,7 @@ def build_all(names: Optional[list] = None) -> Dict[str, str]:
             if name in _libs or out.exists():
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
+            cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp), str(source_path(name))]
             procs[name] = (out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         logs, errors = {}, []

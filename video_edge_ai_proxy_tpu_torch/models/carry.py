@@ -1,14 +1,20 @@
 """Weights carried across from the JAX package.
 
 ``from_flax(variables)`` turns a flax ``{"params", "batch_stats"}`` tree of
-the JAX package's YOLOv8 (leaves as numpy arrays) into this port's
-``state_dict``. The port's submodules carry the flax scope names, so the
-mapping is mechanical:
+the JAX package's YOLOv8, ViT or VideoMAE (leaves as numpy arrays; the
+transformers' ``nn.Partitioned`` boxes unboxed by the caller) into this
+port's ``state_dict``. The port's submodules carry the flax scope names,
+so the mapping is mechanical, by the leaf and the module that holds it:
 
-- ``<scope>/conv/kernel`` (HWIO) -> ``<scope>.conv.weight`` (OIHW)
-- ``<scope>/bn/scale|bias`` -> ``<scope>.bn.weight|bias``
+- conv ``kernel`` -> ``weight``: HWIO -> OIHW (``conv``, ``*_out``,
+  ``patch_embed``), or [ts, p, p, C, D] -> [D, C, ts, p, p] for the
+  tubelet Conv3d (``proj``)
+- Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in] (``qkv``,
+  ``out``, ``fc1``, ``fc2``, ``head``, ``classifier``)
+- BatchNorm/LayerNorm ``scale|bias`` -> ``weight|bias`` (``bn``, ``ln1``,
+  ``ln2``, ``ln_final``); other ``bias`` leaves carry over
 - ``batch_stats <scope>/bn/mean|var`` -> ``<scope>.bn.running_mean|running_var``
-- ``<scope>_out/kernel|bias`` (head 1x1 convs) -> ``<scope>_out.weight|bias``
+- top-level ``pos_embed`` and ``cls_token`` carry over unchanged
 
 A leaf or collection it does not know raises; ``load_flax`` loads the
 result strictly, so a key missing from either side raises too. The stem
@@ -23,15 +29,16 @@ import numpy as np
 import torch
 from torch import nn
 
-_PARAM_LEAVES = {
-    ("conv", "kernel"): "conv.weight",
-    ("bn", "scale"): "bn.weight",
-    ("bn", "bias"): "bn.bias",
-}
+_CONVS = {"conv", "patch_embed", "proj"}
+_DENSES = {"qkv", "out", "fc1", "fc2", "head", "classifier"}
+_NORMS = {"bn", "ln1", "ln2", "ln_final"}
+_TOKENS = {"pos_embed", "cls_token"}
 _STAT_LEAVES = {
     ("bn", "mean"): "bn.running_mean",
     ("bn", "var"): "bn.running_var",
 }
+# Axis orders from a flax kernel to a torch weight, by the kernel's rank.
+_CONV_AXES = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -43,11 +50,32 @@ def _flatten(tree: Mapping, prefix=()):
             yield path, value
 
 
-def _tensor(value, transpose_conv: bool) -> torch.Tensor:
+def _tensor(value, axes=None) -> torch.Tensor:
     arr = np.asarray(value, dtype=np.float32)
-    if transpose_conv:
-        arr = arr.transpose(3, 2, 0, 1)          # HWIO -> OIHW
+    if axes is not None:
+        arr = arr.transpose(axes)
     return torch.tensor(arr)          # a copy: the source may be read-only
+
+
+def _param(path: tuple, value) -> tuple:
+    """One flax param leaf -> (port name, tensor); raises ``KeyError`` on a
+    leaf it does not map."""
+    if len(path) == 1 and path[0] in _TOKENS:
+        return path[0], _tensor(value)
+    if len(path) >= 2:
+        module, leaf = path[-2], path[-1]
+        conv = module in _CONVS or module.endswith("_out")
+        name = ".".join(path[:-1])
+        if leaf == "kernel" and conv and np.ndim(value) in _CONV_AXES:
+            return name + ".weight", _tensor(value, _CONV_AXES[np.ndim(value)])
+        if leaf == "kernel" and module in _DENSES and np.ndim(value) == 2:
+            return name + ".weight", _tensor(value, (1, 0))
+        if leaf == "scale" and module in _NORMS:
+            return name + ".weight", _tensor(value)
+        if leaf == "bias" and (module in _NORMS | _DENSES | _CONVS - {"conv"}
+                               or module.endswith("_out")):
+            return name + ".bias", _tensor(value)
+    raise KeyError(f"unmapped flax param {'/'.join(path)}")
 
 
 def from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -60,22 +88,15 @@ def from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     bn_scopes = set()
     for path, value in _flatten(variables.get("params", {})):
-        scope, tail = path[:-2], path[-2:]
-        if tail in _PARAM_LEAVES:
-            name = ".".join(scope + (_PARAM_LEAVES[tail],))
-            out[name] = _tensor(value, tail == ("conv", "kernel"))
-            if tail[0] == "bn":
-                bn_scopes.add(scope)
-        elif path[-2].endswith("_out") and path[-1] in ("kernel", "bias"):
-            name = ".".join(path[:-1] + ("weight" if path[-1] == "kernel" else "bias",))
-            out[name] = _tensor(value, path[-1] == "kernel")
-        else:
-            raise KeyError(f"unmapped flax param {'/'.join(path)}")
+        name, tensor = _param(path, value)
+        out[name] = tensor
+        if path[-2:-1] == ("bn",):
+            bn_scopes.add(path[:-2])
     for path, value in _flatten(variables.get("batch_stats", {})):
         scope, tail = path[:-2], path[-2:]
         if tail not in _STAT_LEAVES:
             raise KeyError(f"unmapped flax batch stat {'/'.join(path)}")
-        out[".".join(scope + (_STAT_LEAVES[tail],))] = _tensor(value, False)
+        out[".".join(scope + (_STAT_LEAVES[tail],))] = _tensor(value)
     for scope in bn_scopes:
         out[".".join(scope + ("bn.num_batches_tracked",))] = torch.tensor(0)
     return out

@@ -1,7 +1,11 @@
 """Model registry (counterpart of ``video_edge_ai_proxy_tpu/models/registry.py``).
 
-This slice registers the detection family the serving path runs:
-``yolov8n`` (the default model) and its CPU/CI twin ``tiny_yolov8``.
+One name -> everything the engine needs: the module, its input geometry,
+which device-side preprocess it takes and what kind of result it gives.
+Registered so far: the detection family the default serving path runs
+(``yolov8n`` and its CPU/CI twin ``tiny_yolov8``) and the transformer
+family (``vit_b16``, ``videomae_b``, ``videomae_b_long`` and the twins
+``tiny_vit``, ``tiny_videomae``), with the JAX package's geometry.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from .videomae import VideoMAE, VideoMAEConfig, tiny_videomae_config
+from .vit import ViT, ViTConfig, tiny_vit_config
 from .yolov8 import YOLOv8, tiny_yolov8_config, yolov8n_config
 
 
@@ -21,7 +27,9 @@ class ModelSpec:
     name: str
     build: Callable[[torch.dtype], nn.Module]   # dtype -> module on the CPU
     input_size: int                             # square side the model consumes
-    kind: str                                   # "detect"
+    preprocess: str                             # "classify" | "letterbox" | "clip"
+    kind: str                                   # "classify" | "detect" | "video"
+    clip_len: int = 0                           # >0 for video models
     description: str = ""
 
     def init_params(self, generator: Optional[torch.Generator] = None,
@@ -34,14 +42,15 @@ class ModelSpec:
             generator = torch.Generator().manual_seed(0)
         model = self.build(dtype)
         model.init_weights(generator)
-        return place(model, dev)
+        return place(model, dev, channels_last=self.kind == "detect")
 
 
-def place(model: nn.Module, device: torch.device) -> nn.Module:
-    """Move ``model`` to ``device`` in eval mode; on the card its conv
-    weights take channels_last memory, the layout cuDNN runs fastest."""
+def place(model: nn.Module, device: torch.device, channels_last: bool = False) -> nn.Module:
+    """Move ``model`` to ``device`` in eval mode. With ``channels_last`` (the
+    conv nets) its conv weights on the card take channels_last memory, the
+    layout cuDNN runs fastest."""
     model = model.to(device).eval()
-    if device.type == "cuda":
+    if channels_last and device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     return model
 
@@ -62,11 +71,37 @@ def get(name: str) -> ModelSpec:
 
 register(ModelSpec(
     "yolov8n", lambda dtype: YOLOv8(yolov8n_config(), dtype),
-    input_size=640, kind="detect",
+    input_size=640, preprocess="letterbox", kind="detect",
     description="batched detection, the default serving model",
 ))
 register(ModelSpec(
+    "vit_b16", lambda dtype: ViT(ViTConfig(), dtype),
+    input_size=224, preprocess="classify", kind="classify",
+    description="32-stream frame tagging",
+))
+register(ModelSpec(
+    "videomae_b", lambda dtype: VideoMAE(VideoMAEConfig(), dtype),
+    input_size=224, preprocess="clip", kind="video", clip_len=8,
+    description="8-frame clip action recognition",
+))
+register(ModelSpec(
+    "videomae_b_long", lambda dtype: VideoMAE(VideoMAEConfig(num_frames=64), dtype),
+    input_size=224, preprocess="clip", kind="video", clip_len=64,
+    description="long-context clips: 64 frames -> 6272 tokens, attention "
+                "goes to the flash-attention kernel",
+))
+register(ModelSpec(
     "tiny_yolov8", lambda dtype: YOLOv8(tiny_yolov8_config(), dtype),
-    input_size=64, kind="detect",
+    input_size=64, preprocess="letterbox", kind="detect",
     description="CPU/CI twin of yolov8n",
+))
+register(ModelSpec(
+    "tiny_vit", lambda dtype: ViT(tiny_vit_config(), dtype),
+    input_size=32, preprocess="classify", kind="classify",
+    description="CPU/CI twin of vit_b16",
+))
+register(ModelSpec(
+    "tiny_videomae", lambda dtype: VideoMAE(tiny_videomae_config(), dtype),
+    input_size=32, preprocess="clip", kind="video", clip_len=4,
+    description="CPU/CI twin of videomae_b",
 ))

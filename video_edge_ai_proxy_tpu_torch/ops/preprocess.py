@@ -1,7 +1,9 @@
-"""Detector preprocessing on the device: uint8 frames in, model input out.
+"""Preprocessing on the device: uint8 frames in, model input out.
 
-Counterpart of the main-path subset of
-``video_edge_ai_proxy_tpu/ops/preprocess.py``. Frames cross to the card as
+Counterpart of the serving subset of
+``video_edge_ai_proxy_tpu/ops/preprocess.py``: the detector's letterbox,
+the classifier's stretch-resize + ImageNet normalisation, and the video
+clip path. Frames cross to the card as
 uint8 NHWC BGR24 exactly as they sit on the frame bus; the cast, /255,
 resize, BGR->RGB flip and letterbox pad all happen on the card. The
 public functions keep the JAX package's NHWC layout, so the two compare
@@ -21,6 +23,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+# Standard ImageNet statistics (RGB order), used by every classifier.
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 @functools.lru_cache(maxsize=64)
@@ -74,6 +80,45 @@ def pad_channels(x: torch.Tensor, pad_c: int, dim: int = -1) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(shape)], dim=dim)
 
 
+def _scaled(frames_u8: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """uint8 -> [0, 1] in ``out_dtype``. The 1/255 constant is rounded to
+    ``out_dtype`` first, as JAX does with its weakly typed Python float (a
+    Python float here would multiply in float32)."""
+    inv = torch.tensor(1.0 / 255.0, dtype=out_dtype, device=frames_u8.device)
+    return frames_u8.to(out_dtype) * inv
+
+
+def preprocess_classify(
+    frames_u8: torch.Tensor,
+    size: tuple = (224, 224),
+    mean: tuple = IMAGENET_MEAN,
+    std: tuple = IMAGENET_STD,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Classifier path: [N, H, W, 3] uint8 BGR -> [N, h, w, 3] RGB,
+    normalised in float32, returned in ``out_dtype``. The resize stretches
+    (no aspect preservation)."""
+    x = resize_bilinear(_scaled(frames_u8, out_dtype), size).flip(-1)
+    mean_a = torch.tensor(mean, dtype=torch.float32, device=x.device)
+    inv_std = torch.tensor([1.0 / s for s in std], dtype=torch.float32, device=x.device)
+    return ((x.float() - mean_a) * inv_std).to(out_dtype)
+
+
+def preprocess_clip(
+    clips_u8: torch.Tensor,
+    size: tuple = (224, 224),
+    mean: tuple = IMAGENET_MEAN,
+    std: tuple = IMAGENET_STD,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Video path: [N, T, H, W, 3] uint8 -> [N, T, h, w, 3], the classifier
+    path with the time axis folded into the batch."""
+    n, t = clips_u8.shape[:2]
+    out = preprocess_classify(clips_u8.reshape((n * t,) + tuple(clips_u8.shape[2:])),
+                              size=size, mean=mean, std=std, out_dtype=out_dtype)
+    return out.reshape((n, t) + tuple(out.shape[1:]))
+
+
 class LetterboxParams(NamedTuple):
     """Static geometry of a letterbox resize."""
 
@@ -104,11 +149,7 @@ def preprocess_letterbox(
     """[N, H, W, 3] uint8 BGR -> ([N, dst, dst, 3] letterboxed RGB in
     [0, 1] of ``out_dtype``, LetterboxParams)."""
     params = letterbox_params(tuple(frames_u8.shape[1:3]), dst)
-    # Scale by the constant rounded to out_dtype, as JAX does with its
-    # weakly typed 1/255 (a Python float here would multiply in float32).
-    inv = torch.tensor(1.0 / 255.0, dtype=out_dtype, device=frames_u8.device)
-    x = frames_u8.to(out_dtype) * inv
-    x = resize_bilinear(x, (params.new_h, params.new_w)).flip(-1)
+    x = resize_bilinear(_scaled(frames_u8, out_dtype), (params.new_h, params.new_w)).flip(-1)
     top = int(round(params.pad_y))
     left = int(round(params.pad_x))
     x = torch.nn.functional.pad(
