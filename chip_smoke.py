@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -13,8 +13,9 @@ exits non-zero:
 3. each kernel against its plain PyTorch version on the card: the NMS
    keep mask bit-identical (random boxes with duplicates, zero-area boxes,
    all-zero slots and class-offset boxes, B = 16, K = 256 and K = 1024);
-   the flash-attention forward's O and LSE in float32 and bf16 at
-   BH = 24, T = 6272, D = 64, at a padded T = 200, and at D = 16 and 32;
+   the flash-attention forward's O and LSE, and the two backward kernels'
+   dq and dk/dv, in float32 and bf16 at BH = 24, T = 6272, D = 64, at a
+   padded T = 200, and at D = 16 and 32;
 4. the detection slice at full width: ``yolov8n`` at 640 in bf16 with
    seeded random weights and the zeroed class prior, on 16x1080x1920
    uint8 frames with ``quality_thumb=32`` -- shapes, finiteness,
@@ -39,11 +40,25 @@ exits non-zero:
    finiteness) and float32 agreement with the CPU on two frames;
 8. the engine answers video requests: ``InferenceEngine(device="cuda")``
    serving ``videomae_b_long`` over 2 streams at 1080p, fed one frame per
-   stream per tick until every stream has 2 results.
+   stream per tick until every stream has 2 results;
+9. the training slice at full width: ``make_trainer`` fine-tuning
+   ``videomae_b_long`` (float32 parameters, bf16 compute) on 2 clips
+   preprocessed from 64x1080x1920 uint8 for 5 steps -- finite losses,
+   exactly 12 forward, 12 dq and 12 dk/dv launches per step, the same
+   gradients with the plain forward and backward swapped in, float32
+   gradients on the card against the CPU on a cut configuration (one
+   16-frame clip, 1568 tokens, 2 layers), step time (median), peak memory,
+   a profile of the step, each backward kernel's own time on the step's
+   inputs beside its plain version, the library's backward of
+   ``scaled_dot_product_attention`` and the bound, and one serving step of
+   the registry's bf16 model with the trained weights;
+10. two VideoMAE pretraining steps of ``videomae_b_long``
+   (``masked_pretrain_loss``, a 90% tube mask): finite losses and 16
+   launches of each flash kernel per step (12 encoder + 4 decoder layers).
 
-Phases 5 and 8 are the main paths: the kernels' launch counts are set to 0
-just before each and read just after it, and every kernel of that path
-must have launched. The line before the last is one JSON object describing
+Phases 5, 8 and 9 are the main paths: the kernels' launch counts are set
+to 0 just before each and read just after it, and every kernel of that
+path must have launched. The line before the last is one JSON object describing
 every kernel; the last line is ``{"ok": true, "device": {...}}``. Longer
 output (the profile tables) goes to ``chiprun_out/``.
 """
@@ -51,6 +66,7 @@ output (the profile tables) goes to ``chiprun_out/``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -76,6 +92,9 @@ NMS_OPS_PER_PAIR = 14
 KERNEL_KINDS = (
     ("nms_keep_mask", ("nms_keep_mask",)),
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
+    ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("optimizer", ("multi_tensor_apply",)),
     ("layernorm", ("layer_norm",)),
     ("softmax", ("softmax",)),
     ("gelu", ("gelu",)),
@@ -109,6 +128,25 @@ VIDEO_SWAP_TOL = 0.05
 # float32 on the card against float32 on the CPU (TF32 off): the same
 # function through other matmul and convolution algorithms.
 F32_LOGIT_TOL = 1e-3
+# The backward kernels against their plain versions: both compute in
+# float32 from the same inputs, dq summing over up to 6272 keys and dk/dv
+# over 6272 queries. On the H100 they agree bit for bit at the path's
+# shapes (the kernels' sequential FMAs follow cuBLAS's order), so the bar
+# is the forward's: 1e-5, which leaves room for another order of summation
+# of terms far below 1 (|dq|, |dk|, |dv| < 3 here), plus one bf16 ulp
+# (2**-7 * |x|) of a bf16 gradient.
+FLASH_BWD_TOL = 1e-5
+# One bf16 videomae_b_long train step's gradients with the plain attention
+# passes swapped in, as the relative L2 distance of all gradients: the two
+# forward outputs differ by one bf16 ulp at some elements and 12 bf16
+# layers carry that on; 0.05 is above that and far below a wrong
+# gradient (a swapped or missing dq, dk or dv moves it by order 1).
+TRAIN_SWAP_TOL = 0.05
+# float32 gradients on the card against the CPU, each tensor's largest
+# difference relative to its largest entry: other matmul and convolution
+# orders through 2 layers give about 1e-6; 1e-4 is far above that noise.
+F32_GRAD_REL_TOL = 1e-4
+TRAIN_STEPS = 5
 
 
 def log(msg: str) -> None:
@@ -123,6 +161,33 @@ def card_line() -> str:
     if not out:
         raise RuntimeError("nvidia-smi reported no GPU")
     return out[0].strip()
+
+
+def ptxas_summary(text: str) -> list:
+    """One entry per kernel instantiation in nvcc's ``-Xptxas=-v`` output:
+    its name, element type and head dim (from the mangled name), its
+    registers and its spill stores/loads in bytes."""
+    import re
+
+    out, label, spill = [], None, ""
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"([a-z_]+_kernel)", mangled)
+            dim = re.search(r"Li(\d+)E", mangled)
+            label = (base.group(1) if base else mangled) + (
+                f"<{'bf16' if 'bfloat16' in mangled else 'f32'},{dim.group(1)}>" if dim else "")
+            spill = ""
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)} B spilled"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and label:
+            out.append(f"{label} {m.group(1)} registers, {spill}")
+            label = None
+    return out or [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
 
 
 def time_events(fn, iters: int) -> float:
@@ -144,9 +209,10 @@ def time_events(fn, iters: int) -> float:
 
 
 def profiled_device_ms(fn, iters: int, name_part: str):
-    """Mean device ms per call of the kernels whose name contains
-    ``name_part``, from torch.profiler; None when the profiler saw no
-    device time for them."""
+    """Mean device ms per launch of the kernels whose name contains
+    ``name_part`` over ``iters`` calls of ``fn`` (one launch each), from
+    torch.profiler, averaged over the launches it recorded: it can miss
+    some launches of a run of long kernels. None when it recorded none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -156,15 +222,18 @@ def profiled_device_ms(fn, iters: int, name_part: str):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in device_events(prof) if name_part in e.name)
-    return total_us / 1000.0 / iters if total_us > 0 else None
+    times = [e.device_time_total for e in device_events(prof) if name_part in e.name]
+    return sum(times) / len(times) / 1000.0 if times else None
 
 
 def device_events(prof):
-    """The kernels (and device copies) a torch.profiler run recorded."""
+    """The kernels (and device copies) a torch.profiler run recorded, not
+    the device-side ranges of annotations (such as the optimizer's step),
+    which would count their kernels twice."""
     from torch.autograd import DeviceType
 
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def nms_boxes(gen, b: int, k: int, device):
@@ -242,16 +311,11 @@ def set_attention(model, attn_fn) -> None:
 
 
 def plain_attention(q, k, v):
-    """[B, T, H, D] attention through the packed plain forward: the flash
-    route with the kernel's plain version in its place."""
-    from video_edge_ai_proxy_tpu_torch.ops.flash_attention import (
-        _pack, _unpack, flash_attention_reference, packed_len,
-    )
+    """[B, T, H, D] attention through ``FlashAttention`` with the plain
+    packed forward and backward in place of the kernels."""
+    from video_edge_ai_proxy_tpu_torch.ops.flash_attention import PLAIN, FlashAttention
 
-    t = q.shape[1]
-    tp = packed_len(t)
-    o, _ = flash_attention_reference(_pack(q, tp), _pack(k, tp), _pack(v, tp), t)
-    return _unpack(o, q.shape)
+    return FlashAttention.apply(q, k, v, 128, 128, PLAIN)
 
 
 def flash_bound_ms(bh: int, tp: int, d: int, true_t: int, elem_bytes: int):
@@ -289,6 +353,95 @@ def check_flash(q, k, v, true_t: int) -> float:
     return max(o_err, lse_err), o_err, lse_err
 
 
+def flash_bwd_bound_ms(bh: int, tp: int, d: int, true_t: int, elem_bytes: int, dkv: bool):
+    """(bytes bound, operations bound) in ms of one backward kernel: q, k,
+    v, dO, lse and delta read once and dq (or dk and dv) written once;
+    6*BH*T*T*D operations for dq (three products over the true_t real keys
+    and queries), 8*BH*T*T*D for dk/dv (four), at the bf16 tensor-core rate."""
+    nbytes = (4 + (2 if dkv else 1)) * bh * tp * d * elem_bytes + 2 * bh * tp * 4
+    ops = (8 if dkv else 6) * bh * true_t * true_t * d
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+
+
+def bwd_inputs(q, k, v, true_t: int, gen):
+    """dO (random, zero on the padded query rows as autograd gives it),
+    the plain forward's lse and delta = rowsum(dO * O) for packed q, k, v."""
+    import torch
+
+    from video_edge_ai_proxy_tpu_torch.ops.flash_attention import flash_attention_reference
+
+    do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    do[:, true_t:] = 0
+    o, lse = flash_attention_reference(q, k, v, true_t)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    return do, lse, delta
+
+
+def check_flash_bwd(q, k, v, do, lse, delta, true_t: int):
+    """The two backward kernels against their plain versions: raises above
+    the tolerances; returns {"dq": err, "dkv": err}."""
+    import torch
+
+    from video_edge_ai_proxy_tpu_torch.kernels.flash import (
+        flash_attention_bwd_dkv_cuda, flash_attention_bwd_dq_cuda,
+    )
+    from video_edge_ai_proxy_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv_reference, flash_attention_bwd_dq_reference,
+    )
+
+    args = (q, k, v, do, lse, delta, true_t)
+    got = {"dq": (flash_attention_bwd_dq_cuda(*args),),
+           "dkv": flash_attention_bwd_dkv_cuda(*args)}
+    torch.cuda.synchronize()
+    want = {"dq": (flash_attention_bwd_dq_reference(*args),),
+            "dkv": flash_attention_bwd_dkv_reference(*args)}
+    errs = {}
+    for name in got:
+        errs[name] = 0.0
+        for g, w in zip(got[name], want[name]):
+            g, w = g.float(), w.float()
+            diff = (g - w).abs()
+            tol = FLASH_BWD_TOL
+            if q.dtype == torch.bfloat16:
+                tol = tol + FLASH_BF16_O_REL * torch.maximum(g.abs(), w.abs())
+            if not (bool(torch.isfinite(g).all()) and bool((diff <= tol).all())):
+                raise AssertionError(f"flash backward kernel {name} differs from its plain "
+                                     f"version at {tuple(q.shape)} {q.dtype} true_t={true_t}: "
+                                     f"{float(diff.max()):.3g} (tolerance {FLASH_BWD_TOL}, "
+                                     f"plus one ulp in bf16)")
+            errs[name] = max(errs[name], float(diff.max()))
+        if name == "dkv" and any(bool(g[:, true_t:].any()) for g in got[name]):
+            raise AssertionError("dk/dv kernel left nonzero gradients on padded keys")
+    return errs
+
+
+def step_grads(model, x, labels):
+    """(loss, {name: gradient}) of one cross-entropy forward and backward of
+    ``model`` in train mode; the parameters do not move."""
+    from video_edge_ai_proxy_tpu_torch.parallel import cross_entropy_loss
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss = cross_entropy_loss(model, x, labels)
+    loss.backward()
+    grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def grad_distance(got: dict, want: dict):
+    """(relative L2 distance of all gradients, the worst tensor's largest
+    difference relative to its largest entry, that tensor's name)."""
+    num = sum(float(((got[n] - want[n]) ** 2).sum()) for n in want)
+    den = sum(float((want[n] ** 2).sum()) for n in want)
+    worst, worst_name = 0.0, ""
+    for n in want:
+        rel = float((got[n] - want[n]).abs().max()) / max(float(want[n].abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, n
+    return (num / max(den, 1e-30)) ** 0.5, worst, worst_name
+
+
 class ReadTrackingBus:
     """Wraps a frame bus and records the newest seq read per stream, so a
     feeder can publish one frame per stream per collector tick."""
@@ -320,7 +473,9 @@ def main() -> int:
     from video_edge_ai_proxy_tpu_torch.device import resolve_device
     from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine, build_serving_step
     from video_edge_ai_proxy_tpu_torch.kernels import build
-    from video_edge_ai_proxy_tpu_torch.kernels.flash import flash_attention_fwd_cuda
+    from video_edge_ai_proxy_tpu_torch.kernels.flash import (
+        flash_attention_bwd_dkv_cuda, flash_attention_bwd_dq_cuda, flash_attention_fwd_cuda,
+    )
     from video_edge_ai_proxy_tpu_torch.kernels.nms import nms_keep_mask_cuda
     from video_edge_ai_proxy_tpu_torch.models import registry
     from video_edge_ai_proxy_tpu_torch.models.carry import zero_class_prior
@@ -350,6 +505,20 @@ def main() -> int:
             "wrapper": flash_attention_fwd_cuda,
             "path": "video",
         },
+        "flash_attention_bwd_dq": {
+            "route": "cuda",
+            "source": "video_edge_ai_proxy_tpu_torch/" + build.SOURCES["flash_attention_bwd"],
+            "replaces": "video_edge_ai_proxy_tpu/ops/flash_attention.py:114",
+            "wrapper": flash_attention_bwd_dq_cuda,
+            "path": "train",
+        },
+        "flash_attention_bwd_dkv": {
+            "route": "cuda",
+            "source": "video_edge_ai_proxy_tpu_torch/" + build.SOURCES["flash_attention_bwd"],
+            "replaces": "video_edge_ai_proxy_tpu/ops/flash_attention.py:148",
+            "wrapper": flash_attention_bwd_dkv_cuda,
+            "path": "train",
+        },
     }
     report = {name: {} for name in kernels}
 
@@ -371,13 +540,11 @@ def main() -> int:
 
     # -- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()
-    logs = build.build_all(list(kernels))
-    log(f"phase 2 build: {len(kernels)} kernel(s), {len(logs)} built now, in "
-        f"{time.perf_counter() - t0:.2f} s")
+    logs = build.build_all()
+    log(f"phase 2 build: {len(build.SOURCES)} source(s) for {len(kernels)} kernel(s), "
+        f"{len(logs)} built now, in {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
-        ptxas = [ln.strip() for ln in text.splitlines() if "ptxas" in ln and
-                 ("registers" in ln or "spill" in ln or "smem" in ln)]
-        log(f"phase 2 {name}: " + " | ".join(ptxas))
+        log(f"phase 2 {name}: " + "; ".join(ptxas_summary(text)))
 
     # -- phase 3: each kernel against its plain version ---------------------
     gen = torch.Generator().manual_seed(0)
@@ -395,10 +562,11 @@ def main() -> int:
         log(f"phase 3 nms_keep_mask B={b} K={k}: bit-identical to the plain version "
             f"(kept {int(got.sum())} of {got.numel()})")
 
-    # The flash forward: videomae_b_long's shape (BH = 2 clips x 12 heads,
-    # T = 6272, D = 64), a padded T = 200 (true_t < Tp), and the tiny
-    # twins' head dims 16 and 32, in float32 and bf16.
+    # The flash forward and backward: videomae_b_long's shape (BH = 2 clips
+    # x 12 heads, T = 6272, D = 64), a padded T = 200 (true_t < Tp), and the
+    # tiny twins' head dims 16 and 32, in float32 and bf16.
     flash_worst = 0.0
+    bwd_worst = {"dq": 0.0, "dkv": 0.0}
     qgen = torch.Generator(device=dev).manual_seed(2)
     for bh, t, d, dtype in ((24, 6272, 64, torch.float32), (24, 6272, 64, torch.bfloat16),
                             (24, 200, 64, torch.float32), (24, 200, 64, torch.bfloat16),
@@ -411,6 +579,12 @@ def main() -> int:
         flash_worst = max(flash_worst, f_err)
         log(f"phase 3 flash_attention_fwd BH={bh} T={t} (Tp={tp}) D={d} {dtype}: "
             f"max|dO| {o_err:.3g}, max|dLSE| {lse_err:.3g} against the plain version")
+        errs = check_flash_bwd(q, k, v, *bwd_inputs(q, k, v, t, qgen), t)
+        for name, err in errs.items():
+            bwd_worst[name] = max(bwd_worst[name], err)
+        log(f"phase 3 flash_attention_bwd BH={bh} T={t} (Tp={tp}) D={d} {dtype}: "
+            f"max|d dq| {errs['dq']:.3g}, max|d dk, dv| {errs['dkv']:.3g} against the "
+            f"plain versions")
         del q, k, v
     torch.cuda.empty_cache()
 
@@ -623,7 +797,7 @@ def main() -> int:
     torch.cuda.synchronize()
     step_launches = read_launches()
     n_layers = vmodel.cfg.encoder.num_layers
-    if step_launches != {"nms_keep_mask": 0, "flash_attention_fwd": n_layers}:
+    if step_launches != {**{n: 0 for n in kernels}, "flash_attention_fwd": n_layers}:
         raise AssertionError(f"one videomae_b_long step launched {step_launches}, expected "
                              f"{n_layers} flash-attention launches and no other kernel")
     shapes = {k: tuple(v.shape) for k, v in vout.items()}
@@ -826,12 +1000,206 @@ def main() -> int:
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the video path")
             report[name]["launches"] = launches[name]
-    if launches["nms_keep_mask"] != 0:
-        raise AssertionError("the video engine launched the keep-mask kernel")
+    if launches["nms_keep_mask"] or launches["flash_attention_bwd_dq"] \
+            or launches["flash_attention_bwd_dkv"]:
+        raise AssertionError(f"the video engine launched kernels of other paths: {launches}")
     n_res = sum(len(v) for v in vgot.values())
     log(f"phase 8 engine: videomae_b_long over {VIDEO_STREAMS} streams at 1080p, {packet} "
         f"frames per stream published, {n_res} results of 5 classes each in "
         f"{time.perf_counter() - t0:.1f} s, every stream served; kernel launches {launches}")
+    del vengine
+    torch.cuda.empty_cache()
+
+    # -- phase 9: the training slice at full width ---------------------------------
+    from video_edge_ai_proxy_tpu_torch.models.videomae import (
+        VideoMAEPretrain, tube_keep_mask,
+    )
+    from video_edge_ai_proxy_tpu_torch.ops.flash_attention import (
+        KERNELS, FlashAttention, flash_attention_bwd, flash_attention_bwd_dkv_reference,
+        flash_attention_bwd_dq_reference,
+    )
+    from video_edge_ai_proxy_tpu_torch.parallel import make_trainer
+
+    tr_model = vspec.init_params(torch.Generator().manual_seed(0), device=dev,
+                                 param_dtype=torch.float32)
+    trainer = make_trainer(tr_model, device="cuda")
+    state = trainer.init_state_from(tr_model.state_dict())
+    clips = torch.randint(0, 256, (VIDEO_STREAMS, clip_len) + FRAME_HW + (3,), generator=fgen,
+                          dtype=torch.uint8, device=dev)
+    with torch.no_grad():
+        tx = preprocess_clip(clips, (size, size))
+    labels = torch.randint(0, tr_model.cfg.num_classes, (VIDEO_STREAMS,), generator=fgen,
+                           device=dev)
+    n_params = sum(p.numel() for p in tr_model.parameters())
+
+    # One step's gradients through the kernels, and with the plain forward
+    # and backward swapped in (the parameters do not move).
+    t0 = time.perf_counter()
+    k_loss, k_grads = step_grads(tr_model, tx, labels)
+    set_attention(tr_model, plain_attention)
+    p_loss, p_grads = step_grads(tr_model, tx, labels)
+    set_attention(tr_model, None)
+    swap_l2, swap_worst, swap_name = grad_distance(k_grads, p_grads)
+    log(f"phase 9 videomae_b_long train step with the plain attention passes swapped in: "
+        f"loss {k_loss:.6f} vs {p_loss:.6f}, gradients' relative L2 distance {swap_l2:.3g} "
+        f"(tolerance {TRAIN_SWAP_TOL}); worst tensor {swap_name} {swap_worst:.3g} of its "
+        f"largest entry; {time.perf_counter() - t0:.1f} s")
+    if not (swap_l2 <= TRAIN_SWAP_TOL and all(float(g.abs().max()) > 0.0 for n, g in
+                                               k_grads.items() if ".attn.qkv." in n)):
+        raise AssertionError("videomae_b_long gradients move when the plain attention "
+                             "passes are swapped in, or the qkv layers get no gradient")
+    del k_grads, p_grads
+    torch.cuda.empty_cache()
+
+    # float32 gradients on the card against the CPU: one 16-frame clip (1568
+    # tokens, still the flash route) through 2 of the 12 layers.
+    t0 = time.perf_counter()
+    cfg16 = VideoMAEConfig(num_frames=16, encoder=EncoderConfig(num_layers=2))
+    m_cpu = VideoMAE(cfg16, torch.float32)
+    m_cpu.init_weights(torch.Generator().manual_seed(0))
+    m_gpu = VideoMAE(cfg16, torch.float32).to(dev)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    with torch.no_grad():
+        x_gpu = preprocess_clip(clips[:1, :16], (size, size), out_dtype=torch.float32)
+        x_cpu = preprocess_clip(clips[:1, :16].cpu(), (size, size), out_dtype=torch.float32)
+    zero_launches()
+    g_loss, g_grads = step_grads(m_gpu, x_gpu, labels[:1])
+    f32_launches = read_launches()
+    c_loss, c_grads = step_grads(m_cpu, x_cpu, labels[:1].cpu())
+    f32_l2, f32_worst, f32_name = grad_distance(g_grads, c_grads)
+    log(f"phase 9 f32 gradients card vs CPU (videomae, 16 frames, {cfg16.num_tokens} tokens, "
+        f"2 layers, 1 clip; launches on the card {f32_launches}): loss {g_loss:.6f} vs "
+        f"{c_loss:.6f}; worst tensor {f32_name} {f32_worst:.3g} of its largest entry "
+        f"(tolerance {F32_GRAD_REL_TOL}), relative L2 {f32_l2:.3g}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (f32_worst <= F32_GRAD_REL_TOL and abs(g_loss - c_loss) <= 1e-4
+            and f32_launches["flash_attention_bwd_dq"] == 2
+            and f32_launches["flash_attention_bwd_dkv"] == 2):
+        raise AssertionError("float32 videomae gradients on the card disagree with the CPU")
+    del m_cpu, m_gpu, x_gpu, x_cpu, g_grads, c_grads
+
+    # The main training path: TRAIN_STEPS steps of make_trainer.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, tx, labels)
+        losses.append(float(loss))
+        times.append((time.perf_counter() - t0) * 1000.0)
+    launches = read_launches()
+    train_peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+    want = {**{n: 0 for n in kernels},
+            **{n: n_layers * TRAIN_STEPS for n in ("flash_attention_fwd",
+                                                    "flash_attention_bwd_dq",
+                                                    "flash_attention_bwd_dkv")}}
+    if launches != want:
+        raise AssertionError(f"{TRAIN_STEPS} videomae_b_long train steps launched {launches}, "
+                             f"expected {want}")
+    if not all(map(math.isfinite, losses)) or state.step != TRAIN_STEPS:
+        raise AssertionError(f"bad training losses {losses}")
+    for name, meta in kernels.items():
+        if meta["path"] == "train":
+            report[name]["launches"] = launches[name]
+    train_ms = statistics.median(times)
+    log(f"phase 9 timing on {card}: make_trainer videomae_b_long, float32 parameters "
+        f"({n_params} of them), bf16 compute, {VIDEO_STREAMS} clips of {clip_len}x224x224: "
+        f"median {train_ms:.3f} ms/step over {TRAIN_STEPS} (min {min(times):.3f}, max "
+        f"{max(times):.3f}), {VIDEO_STREAMS * 1000.0 / train_ms:.2f} clips/s, peak memory "
+        f"{train_peak_mib:.1f} MiB; losses {losses}; kernel launches {launches} "
+        f"({n_layers} of each flash kernel per step)")
+    profile_step(lambda: trainer.train_step(state, tx, labels), 2, card,
+                 f"videomae_b_long make_trainer step, float32 parameters, bf16 compute, "
+                 f"{VIDEO_STREAMS}x{clip_len}x224x224 (step {train_ms:.3f} ms wall)",
+                 "chip_smoke_profile_train.txt", "phase 9")
+
+    # Each backward kernel's own time on the inputs of a step's backward.
+    captured = []
+
+    def recording_bwd(*args):
+        if not captured:
+            captured.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return flash_attention_bwd(*args)
+
+    set_attention(tr_model, lambda q, k, v: FlashAttention.apply(
+        q, k, v, 128, 128, (KERNELS[0], recording_bwd)))
+    step_grads(tr_model, tx, labels)
+    set_attention(tr_model, None)
+    qp, kp, vp, do, lse, delta, true_t = captured[0]
+    errs = check_flash_bwd(qp, kp, vp, do, lse, delta, true_t)
+    bh, tp, d = qp.shape
+    args = (qp, kp, vp, do, lse, delta, true_t)
+    q4, k4, v4 = (x.view(VIDEO_STREAMS, bh // VIDEO_STREAMS, tp, d).detach().requires_grad_()
+                  for x in (qp, kp, vp))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4)
+    do4 = do.view(VIDEO_STREAMS, bh // VIDEO_STREAMS, tp, d)
+    lib_ms = time_events(lambda: torch.autograd.grad(sdpa_out, (q4, k4, v4), do4,
+                                                     retain_graph=True), 10)
+    for name, fn, plain, part, dkv in (
+            ("flash_attention_bwd_dq", flash_attention_bwd_dq_cuda,
+             flash_attention_bwd_dq_reference, "flash_bwd_dq_kernel", False),
+            ("flash_attention_bwd_dkv", flash_attention_bwd_dkv_cuda,
+             flash_attention_bwd_dkv_reference, "flash_bwd_dkv_kernel", True)):
+        err = errs["dkv" if dkv else "dq"]
+        ev_ms = time_events(lambda: fn(*args), 10)
+        prof_ms = profiled_device_ms(lambda: fn(*args), 5, part)
+        plain_ms = time_events(lambda: plain(*args), 3)
+        bytes_ms, ops_ms = flash_bwd_bound_ms(bh, tp, d, true_t, qp.element_size(), dkv)
+        kernel_ms = prof_ms if prof_ms is not None else ev_ms
+        log(f"phase 9 {name} on {card}: BH={bh} Tp={tp} D={d} {qp.dtype} (a step's backward; "
+            f"{err:.3g} from the plain version): device {prof_ms} ms/launch (profiler), "
+            f"{ev_ms:.4f} ms/launch (CUDA events, 10 back to back); plain version "
+            f"{plain_ms:.4f} ms; backward of scaled_dot_product_attention (dq, dk and dv "
+            f"together) {lib_ms:.4f} ms; bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
+            f"{bytes_ms:.4f}, bf16 operations {ops_ms:.4f})")
+        key = "dkv" if dkv else "dq"
+        report[name].update(
+            max_abs_err=max(bwd_worst[key], err), ms=kernel_ms, plain_ms=plain_ms,
+            bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms > ops_ms else "operations",
+            library_ms=lib_ms,   # one call computes dq, dk and dv: the same on both rows
+        )
+    del captured, args, qp, kp, vp, do, lse, delta, q4, k4, v4, sdpa_out, do4
+
+    # The trained weights serve: the registry's bf16 model loads them.
+    serve_model = vspec.init_params(torch.Generator().manual_seed(1), device=dev)
+    serve_model.load_state_dict(tr_model.state_dict(), strict=True)
+    sout = build_serving_step(serve_model, vspec)(clips)
+    torch.cuda.synchronize()
+    if not ({k: tuple(v.shape) for k, v in sout.items()}
+            == {"top_probs": (VIDEO_STREAMS, 5), "top_ids": (VIDEO_STREAMS, 5)}
+            and bool(torch.isfinite(sout["top_probs"]).all())):
+        raise AssertionError(f"the trained weights do not serve: {sout}")
+    log(f"phase 9 serving step with the trained weights in the bf16 model: top-5 "
+        f"{sout['top_probs'][0].tolist()}")
+    del tr_model, trainer, state, serve_model
+    torch.cuda.empty_cache()
+
+    # -- phase 10: VideoMAE pretraining ------------------------------------------------
+    pcfg = VideoMAEConfig(num_frames=clip_len)
+    pmodel = VideoMAEPretrain(pcfg, torch.bfloat16, param_dtype=torch.float32)
+    ptrainer = make_trainer(pmodel, device="cuda",
+                            loss_fn=lambda m, batch, keep: m(batch, keep))
+    pstate = ptrainer.init_state(torch.Generator().manual_seed(2))
+    keep = tube_keep_mask(VIDEO_STREAMS, pcfg, 0.9, torch.Generator().manual_seed(3)).to(dev)
+    zero_launches()
+    plosses = []
+    for _ in range(2):
+        pstate, loss = ptrainer.train_step(pstate, tx, keep)
+        plosses.append(float(loss))
+    launches = read_launches()
+    per_step = pcfg.encoder.num_layers + pcfg.decoder_layers
+    want = {**{n: 0 for n in kernels},
+            **{n: 2 * per_step for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                                         "flash_attention_bwd_dkv")}}
+    if launches != want or not all(map(math.isfinite, plosses)):
+        raise AssertionError(f"2 pretraining steps: losses {plosses}, launches {launches}, "
+                             f"expected {want}")
+    log(f"phase 10 videomae_b_long pretraining, {float((~keep).float().mean()):.3f} of the "
+        f"tokens masked: losses {plosses}, kernel launches {launches} ({per_step} of each "
+        f"flash kernel per step)")
+    del pmodel, ptrainer, pstate, tx, clips
+    torch.cuda.empty_cache()
 
     line = {"kernels": []}
     for name, meta in kernels.items():

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+the NMS keep mask, the flash-attention forward and its two backward kernels.
 
 Marked ``cuda``: each test skips without a GPU (decided inside the test).
 Run them on a machine with a card with
@@ -146,3 +147,102 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
         flash_attention_fwd_cuda(x, x, torch.zeros((2, 32, 64), device=card), 32)
     with pytest.raises(ValueError, match="true_t"):
         flash_attention_fwd_cuda(x, x, x, 65)
+
+
+# Flash-attention backward. Tolerances as for the forward: the kernels and
+# their plain versions compute in float32 from the same inputs (on the H100
+# they agree bit for bit at these shapes: the kernels' sequential FMAs
+# happen to follow cuBLAS's order), so 1e-5 on dq, dk and dv covers another
+# order of summation; a bf16 gradient is rounded once from the float32
+# result, so one bf16 ulp (2**-7 * |x|) more in bf16.
+def _bwd_inputs(rng, bh, tp, d, true_t, dtype, card):
+    from video_edge_ai_proxy_tpu_torch.ops.flash_attention import flash_attention_reference
+
+    q, k, v, do = (torch.from_numpy(rng.normal(0, 1, (bh, tp, d)).astype(np.float32))
+                   .to(card, dtype) for _ in range(4))
+    do[:, true_t:] = 0                         # padded query rows, as autograd gives them
+    o, lse = flash_attention_reference(q, k, v, true_t)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    return q, k, v, do, lse, delta
+
+
+def _close(got, want, dtype):
+    got, want = got.float(), want.float()
+    tol = 1e-5
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * torch.maximum(got.abs(), want.abs())
+    return bool(torch.isfinite(got).all()) and bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("bh,tp,d,true_t,dtype", FLASH_CASES)
+def test_flash_backward_kernels_equal_plain_versions(card, bh, tp, d, true_t, dtype):
+    from video_edge_ai_proxy_tpu_torch.kernels.flash import (
+        flash_attention_bwd_dkv_cuda, flash_attention_bwd_dq_cuda,
+    )
+    from video_edge_ai_proxy_tpu_torch.ops import flash_attention as tfa
+
+    args = _bwd_inputs(np.random.default_rng(tp + d + 1), bh, tp, d, true_t, dtype, card)
+    before = (flash_attention_bwd_dq_cuda.launches, flash_attention_bwd_dkv_cuda.launches)
+    dq = flash_attention_bwd_dq_cuda(*args, true_t)
+    dk, dv = flash_attention_bwd_dkv_cuda(*args, true_t)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dq_cuda.launches, flash_attention_bwd_dkv_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_dq = tfa.flash_attention_bwd_dq_reference(*args, true_t)
+    want_dk, want_dv = tfa.flash_attention_bwd_dkv_reference(*args, true_t)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == dtype and got.shape == (bh, tp, d)
+        assert _close(got, want, dtype)
+    assert not dk[:, true_t:].any() and not dv[:, true_t:].any()
+
+
+def test_flash_attention_gradients_on_card(card):
+    """Through the autograd Function: the three kernels run, and q, k, v get
+    nonzero gradients equal to the plain passes' and to the CPU's."""
+    from video_edge_ai_proxy_tpu_torch.kernels.flash import (
+        flash_attention_bwd_dkv_cuda, flash_attention_bwd_dq_cuda, flash_attention_fwd_cuda,
+    )
+    from video_edge_ai_proxy_tpu_torch.ops import flash_attention as tfa
+
+    x = np.random.default_rng(1).normal(0, 1, (4, 2, 200, 3, 32)).astype(np.float32)
+    grads = {}
+    for name, dev, passes in (("kernels", card, tfa.KERNELS), ("plain", card, tfa.PLAIN),
+                              ("cpu", torch.device("cpu"), tfa.KERNELS)):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_() for a in x[:3])
+        before = [f.launches for f in (flash_attention_fwd_cuda, flash_attention_bwd_dq_cuda,
+                                       flash_attention_bwd_dkv_cuda)]
+        out = tfa.FlashAttention.apply(q, k, v, 128, 128, passes)
+        (out * torch.from_numpy(x[3]).to(dev)).sum().backward()
+        after = [f.launches for f in (flash_attention_fwd_cuda, flash_attention_bwd_dq_cuda,
+                                      flash_attention_bwd_dkv_cuda)]
+        want_launches = 1 if name == "kernels" else 0
+        assert [a - b for a, b in zip(after, before)] == [want_launches] * 3
+        grads[name] = [a.grad.cpu() for a in (q, k, v)]
+    for g, p, c in zip(grads["kernels"], grads["plain"], grads["cpu"]):
+        assert float(g.abs().max()) > 0.0
+        assert float((g - p).abs().max()) <= 1e-5
+        assert float((g - c).abs().max()) <= 1e-4
+
+
+def test_flash_backward_kernels_refuse_what_they_do_not_take(card):
+    from video_edge_ai_proxy_tpu_torch.kernels.flash import (
+        flash_attention_bwd_dkv_cuda, flash_attention_bwd_dq_cuda,
+    )
+
+    x = torch.zeros((2, 64, 64), device=card)
+    rows = torch.zeros((2, 64, 1), device=card)
+    for fn in (flash_attention_bwd_dq_cuda, flash_attention_bwd_dkv_cuda):
+        with pytest.raises(TypeError):
+            fn(*(x.half(),) * 4, rows, rows, 64)
+        with pytest.raises(TypeError):
+            fn(x, x, x, x.bfloat16(), rows, rows, 64)
+        with pytest.raises(ValueError, match="lse and delta"):
+            fn(x, x, x, x, rows.bfloat16(), rows, 64)
+        with pytest.raises(ValueError, match="lse and delta"):
+            fn(x, x, x, x, rows, torch.zeros((2, 64), device=card), 64)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(x, x, x, x.transpose(1, 2).contiguous().transpose(1, 2), rows, rows, 64)
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(x, x, x, x, rows.cpu(), rows, 64)
+        with pytest.raises(ValueError, match="true_t"):
+            fn(x, x, x, x, rows, rows, 0)

@@ -11,8 +11,9 @@ source, all at once, and waits for them.
 Flags: ``sm_90a`` (Hopper) and ``-O3`` for every source, plus each
 source's own: ``nms_keep_mask`` adds ``--fmad=false`` so no ``a*b+c`` is
 contracted into an FMA -- the NMS IoU must round exactly like its XLA
-twin. Flash attention keeps FMA contraction (the flag would halve its f32
-rate). Never ``--use_fast_math``.
+twin. The flash-attention sources (forward and backward) keep FMA
+contraction (the flag would halve their f32 rate). Never
+``--use_fast_math``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES: Dict[str, str] = {
     "nms_keep_mask": "csrc/nms_keep_mask.cu",
     "flash_attention_fwd": "csrc/flash_attention_fwd.cu",
+    "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
 }
 
 NVCC_FLAGS = (

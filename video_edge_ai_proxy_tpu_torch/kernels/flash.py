@@ -1,10 +1,20 @@
-"""Launch wrapper of the CUDA flash-attention forward kernel (``csrc/flash_attention_fwd.cu``).
+"""Launch wrappers of the CUDA flash-attention kernels
+(``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``).
 
-``flash_attention_fwd_cuda(qp, kp, vp, true_t) -> (o, lse)`` is the card's
-counterpart of the JAX package's ``_flash_call`` (the Pallas
-``_flash_kernel``) on packed ``[BH, Tp, D]`` tensors: ``o`` in the input
-dtype, ``lse`` ``[BH, Tp, 1]`` float32. Its plain PyTorch version is
-``ops.flash_attention.flash_attention_reference``.
+On packed ``[BH, Tp, D]`` tensors, each the card's counterpart of one
+Pallas kernel of the JAX package:
+
+- ``flash_attention_fwd_cuda(qp, kp, vp, true_t) -> (o, lse)``:
+  ``_flash_kernel`` (``_flash_call``); ``o`` in the input dtype, ``lse``
+  ``[BH, Tp, 1]`` float32;
+- ``flash_attention_bwd_dq_cuda(qp, kp, vp, do, lse, delta, true_t) -> dq``:
+  ``_flash_bwd_dq_kernel`` (the first ``pallas_call`` of ``_flash_bwd_call``);
+- ``flash_attention_bwd_dkv_cuda(...) -> (dk, dv)``: ``_flash_bwd_dkv_kernel``
+  (the second).
+
+Their plain PyTorch versions are ``ops.flash_attention``
+``flash_attention_reference``, ``flash_attention_bwd_dq_reference`` and
+``flash_attention_bwd_dkv_reference``. Each wrapper counts its launches.
 """
 
 from __future__ import annotations
@@ -15,21 +25,64 @@ import torch
 
 from . import build
 
-HEAD_DIMS = (16, 32, 64)       # the head dims the source instantiates
-MAX_BH = 65535                 # gridDim.y of the launch
+HEAD_DIMS = (16, 32, 64)       # the head dims the sources instantiate
+MAX_BH = 65535                 # gridDim.y of the launches
 
 _bound = {}
 
 
-def _launcher():
-    fn = _bound.get("fn")
+def _launcher(lib: str, fn_name: str, n_ptrs: int):
+    fn = _bound.get(fn_name)
     if fn is None:
-        fn = build.load("flash_attention_fwd").flash_attention_fwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        fn = getattr(build.load(lib), fn_name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _bound["fn"] = fn
+        _bound[fn_name] = fn
     return fn
+
+
+def _check(name: str, qkv, rows, true_t: int):
+    """Raise on packed q, k, v (and dO) the kernels do not take: not CUDA,
+    not one device, dtype, shape, head dim, BH, true_t, contiguity; and on
+    per-row ``rows`` (lse, delta) that are not f32 ``[BH, Tp, 1]``."""
+    qp = qkv[0]
+    for x in qkv + rows:
+        if x.device.type != "cuda":
+            raise ValueError(f"{name} needs CUDA tensors, got {x.device}")
+        if x.device != qp.device:
+            raise ValueError(f"{name} needs all its tensors on one device")
+    if qp.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name} takes bfloat16 or float32, got {qp.dtype}")
+    if any(x.dtype != qp.dtype for x in qkv):
+        raise TypeError(f"{name} needs q, k, v{', dO' if len(qkv) > 3 else ''} of one dtype")
+    if qp.ndim != 3 or any(x.shape != qp.shape for x in qkv):
+        raise ValueError(f"{name} needs equal [BH, Tp, D] shapes, got "
+                         f"{', '.join(str(tuple(x.shape)) for x in qkv)}")
+    bh, tp, d = qp.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name} takes head dims {HEAD_DIMS}, got {d}")
+    if not 1 <= bh <= MAX_BH:
+        raise ValueError(f"{name} takes 1 <= BH <= {MAX_BH}, got {bh}")
+    if not 1 <= true_t <= tp:
+        raise ValueError(f"{name} needs 1 <= true_t <= Tp = {tp}, got {true_t}")
+    for x in rows:
+        if x.dtype != torch.float32 or x.shape != (bh, tp, 1):
+            raise ValueError(f"{name} needs lse and delta as float32 [BH, Tp, 1] = "
+                             f"{(bh, tp, 1)}, got {x.dtype} {tuple(x.shape)}")
+    if not all(x.is_contiguous() for x in qkv + rows):
+        raise ValueError(f"{name} needs contiguous q, k, v"
+                         f"{', dO, lse, delta' if rows else ''}")
+
+
+def _launch(fn, name: str, tensors, qp: torch.Tensor, true_t: int) -> None:
+    bh, tp, d = qp.shape
+    with torch.cuda.device(qp.device):
+        stream = torch.cuda.current_stream(qp.device).cuda_stream
+        err = fn(*(x.data_ptr() for x in tensors), bh, tp, d, int(true_t),
+                 int(qp.dtype == torch.bfloat16), d ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def flash_attention_fwd_cuda(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
@@ -37,39 +90,39 @@ def flash_attention_fwd_cuda(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tenso
     """Packed q, k, v ``[BH, Tp, D]`` (bf16 or f32, contiguous, on one CUDA
     device) -> ``(o [BH, Tp, D] in their dtype, lse [BH, Tp, 1] f32)``;
     keys ``>= true_t`` are masked. Raises on what the kernel does not take."""
-    for x in (qp, kp, vp):
-        if x.device.type != "cuda":
-            raise ValueError(f"flash_attention_fwd_cuda needs CUDA tensors, got {x.device}")
-    if not (qp.device == kp.device == vp.device):
-        raise ValueError("flash_attention_fwd_cuda needs q, k, v on one device")
-    if qp.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"flash_attention_fwd_cuda takes bfloat16 or float32, got {qp.dtype}")
-    if not (qp.dtype == kp.dtype == vp.dtype):
-        raise TypeError("flash_attention_fwd_cuda needs q, k, v of one dtype")
-    if qp.ndim != 3 or not (qp.shape == kp.shape == vp.shape):
-        raise ValueError(f"flash_attention_fwd_cuda needs equal [BH, Tp, D] shapes, got "
-                         f"{tuple(qp.shape)}, {tuple(kp.shape)}, {tuple(vp.shape)}")
-    bh, tp, d = qp.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd_cuda takes head dims {HEAD_DIMS}, got {d}")
-    if not 1 <= bh <= MAX_BH:
-        raise ValueError(f"flash_attention_fwd_cuda takes 1 <= BH <= {MAX_BH}, got {bh}")
-    if not 1 <= true_t <= tp:
-        raise ValueError(f"flash_attention_fwd_cuda needs 1 <= true_t <= Tp = {tp}, "
-                         f"got {true_t}")
-    if not (qp.is_contiguous() and kp.is_contiguous() and vp.is_contiguous()):
-        raise ValueError("flash_attention_fwd_cuda needs contiguous q, k, v")
+    _check("flash_attention_fwd_cuda", (qp, kp, vp), (), true_t)
     o = torch.empty_like(qp)
-    lse = torch.empty((bh, tp, 1), dtype=torch.float32, device=qp.device)
-    fn = _launcher()
-    with torch.cuda.device(qp.device):
-        stream = torch.cuda.current_stream(qp.device).cuda_stream
-        err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                 bh, tp, d, int(true_t), int(qp.dtype == torch.bfloat16), d ** -0.5, stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA error {err}")
+    lse = torch.empty((qp.shape[0], qp.shape[1], 1), dtype=torch.float32, device=qp.device)
+    _launch(_launcher("flash_attention_fwd", "flash_attention_fwd_launch", 5),
+            "flash_attention_fwd", (qp, kp, vp, o, lse), qp, true_t)
     flash_attention_fwd_cuda.launches += 1
     return o, lse
 
 
+def flash_attention_bwd_dq_cuda(qp, kp, vp, do, lse, delta, true_t: int) -> torch.Tensor:
+    """Packed q, k, v, dO ``[BH, Tp, D]`` (bf16 or f32, one dtype) and the
+    forward's ``lse`` with ``delta = rowsum(dO * O)`` (f32 ``[BH, Tp, 1]``)
+    -> ``dq`` in their dtype. Keys ``>= true_t`` are masked."""
+    _check("flash_attention_bwd_dq_cuda", (qp, kp, vp, do), (lse, delta), true_t)
+    dq = torch.empty_like(qp)
+    _launch(_launcher("flash_attention_bwd", "flash_attention_bwd_dq_launch", 7),
+            "flash_attention_bwd_dq", (qp, kp, vp, do, lse, delta, dq), qp, true_t)
+    flash_attention_bwd_dq_cuda.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv_cuda(qp, kp, vp, do, lse, delta, true_t: int):
+    """The same inputs -> ``(dk, dv)`` in their dtype; key rows ``>= true_t``
+    are written as zeros, and query rows ``>= true_t`` are skipped, which is
+    exact because ``dO`` and ``delta`` are zero there."""
+    _check("flash_attention_bwd_dkv_cuda", (qp, kp, vp, do), (lse, delta), true_t)
+    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+    _launch(_launcher("flash_attention_bwd", "flash_attention_bwd_dkv_launch", 8),
+            "flash_attention_bwd_dkv", (qp, kp, vp, do, lse, delta, dk, dv), qp, true_t)
+    flash_attention_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
 flash_attention_fwd_cuda.launches = 0
+flash_attention_bwd_dq_cuda.launches = 0
+flash_attention_bwd_dkv_cuda.launches = 0

@@ -10,11 +10,17 @@ so the mapping is mechanical, by the leaf and the module that holds it:
   ``patch_embed``), or [ts, p, p, C, D] -> [D, C, ts, p, p] for the
   tubelet Conv3d (``proj``)
 - Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in] (``qkv``,
-  ``out``, ``fc1``, ``fc2``, ``head``, ``classifier``)
+  ``out``, ``fc1``, ``fc2``, ``head``, ``classifier``, and the VideoMAE
+  decoder's ``dec_embed``, ``dec_pred``)
 - BatchNorm/LayerNorm ``scale|bias`` -> ``weight|bias`` (``bn``, ``ln1``,
   ``ln2``, ``ln_final``); other ``bias`` leaves carry over
 - ``batch_stats <scope>/bn/mean|var`` -> ``<scope>.bn.running_mean|running_var``
-- top-level ``pos_embed`` and ``cls_token`` carry over unchanged
+- top-level ``pos_embed``, ``cls_token`` and ``dec_pos`` carry over unchanged
+
+``from_flax_pretrain`` maps the JAX VideoMAE pretraining tree
+(``{"encoder": variables, "decoder": variables}``, as
+``masked_pretrain_loss`` takes it) half by half onto
+``videomae.VideoMAEPretrain``'s ``encoder.*`` and ``decoder.*``.
 
 A leaf or collection it does not know raises; ``load_flax`` loads the
 result strictly, so a key missing from either side raises too. The stem
@@ -30,9 +36,9 @@ import torch
 from torch import nn
 
 _CONVS = {"conv", "patch_embed", "proj"}
-_DENSES = {"qkv", "out", "fc1", "fc2", "head", "classifier"}
+_DENSES = {"qkv", "out", "fc1", "fc2", "head", "classifier", "dec_embed", "dec_pred"}
 _NORMS = {"bn", "ln1", "ln2", "ln_final"}
-_TOKENS = {"pos_embed", "cls_token"}
+_TOKENS = {"pos_embed", "cls_token", "dec_pos"}
 _STAT_LEAVES = {
     ("bn", "mean"): "bn.running_mean",
     ("bn", "var"): "bn.running_var",
@@ -106,6 +112,22 @@ def load_flax(model: nn.Module, variables: Mapping) -> nn.Module:
     """Load flax variables into ``model`` strictly: a key missing from
     either side, or a shape mismatch, raises."""
     model.load_state_dict(from_flax(variables), strict=True)
+    return model
+
+
+def from_flax_pretrain(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX pretraining tree ``{"encoder": variables, "decoder": variables}``
+    -> ``VideoMAEPretrain`` ``state_dict``. Raises ``KeyError`` on any other
+    top-level key, collection or leaf."""
+    if set(tree) != {"encoder", "decoder"}:
+        raise KeyError(f"a pretraining tree has 'encoder' and 'decoder', got {sorted(tree)}")
+    return {f"{half}.{name}": t for half in ("encoder", "decoder")
+            for name, t in from_flax(tree[half]).items()}
+
+
+def load_flax_pretrain(model: nn.Module, tree: Mapping) -> nn.Module:
+    """Load a JAX pretraining tree into ``VideoMAEPretrain`` strictly."""
+    model.load_state_dict(from_flax_pretrain(tree), strict=True)
     return model
 
 

@@ -3,6 +3,8 @@
 NCHW modules. Precision follows the JAX package's "mixed" policy: the conv
 runs in the module's compute dtype (bf16 for serving), BatchNorm in
 float32 on frozen statistics, the activation back in the compute dtype.
+``Linear``, ``Conv2d`` and ``Conv3d`` keep their parameters in a
+``param_dtype`` of their own and cast them at use, as flax layers do.
 """
 
 from __future__ import annotations
@@ -22,6 +24,53 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Ten
     with torch.no_grad():
         return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
                                      generator=generator)
+
+
+def normal_(shape, std: float, generator: torch.Generator) -> torch.Tensor:
+    """A float32 CPU tensor of normal(0, ``std``) draws from ``generator``
+    (flax ``initializers.normal``), to be copied onto a parameter on any
+    device."""
+    return torch.empty(shape, dtype=torch.float32).normal_(0.0, std, generator=generator)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with flax ``Dense(dtype, param_dtype)`` precision: the
+    weight and bias are kept in ``param_dtype`` (default: ``dtype``) and
+    cast, with the input, to the compute ``dtype`` at use. With float32
+    parameters and bf16 compute, an optimizer updates float32 master
+    weights, as optax does in the JAX package."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype,
+                 param_dtype: "torch.dtype | None" = None):
+        super().__init__(in_features, out_features, dtype=param_dtype or dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class _CastConv:
+    """Convolution (with bias) whose parameters are kept in ``param_dtype``
+    and cast, with the input, to the compute ``dtype`` at use (see
+    ``Linear``); mixed into ``nn.Conv2d`` and ``nn.Conv3d``."""
+
+    def __init__(self, c_in: int, c_out: int, kernel, stride, dtype: torch.dtype,
+                 param_dtype: "torch.dtype | None" = None):
+        super().__init__(c_in, c_out, kernel, stride=stride, dtype=param_dtype or dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Conv2d(_CastConv, nn.Conv2d):
+    pass
+
+
+class Conv3d(_CastConv, nn.Conv3d):
+    pass
 
 
 class ConvBN(nn.Module):

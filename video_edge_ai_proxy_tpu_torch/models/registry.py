@@ -25,7 +25,9 @@ from .yolov8 import YOLOv8, tiny_yolov8_config, yolov8n_config
 @dataclass(frozen=True)
 class ModelSpec:
     name: str
-    build: Callable[[torch.dtype], nn.Module]   # dtype -> module on the CPU
+    # (dtype[, param_dtype]) -> module on the CPU; param_dtype is taken by
+    # the transformer family only.
+    build: Callable[..., nn.Module]
     input_size: int                             # square side the model consumes
     preprocess: str                             # "classify" | "letterbox" | "clip"
     kind: str                                   # "classify" | "detect" | "video"
@@ -34,13 +36,23 @@ class ModelSpec:
 
     def init_params(self, generator: Optional[torch.Generator] = None,
                     device: "str | torch.device" = "cuda",
-                    dtype: torch.dtype = torch.bfloat16) -> nn.Module:
+                    dtype: torch.dtype = torch.bfloat16,
+                    param_dtype: Optional[torch.dtype] = None) -> nn.Module:
         """The model with random weights from ``generator`` (a CPU
-        generator; default seed 0), in eval mode, on ``device``."""
+        generator; default seed 0), in eval mode, on ``device``, computing
+        in ``dtype``. ``param_dtype`` (default: ``dtype``) is the dtype the
+        transformer family keeps its Dense and patch/tubelet conv
+        parameters in: float32 for bf16 training, as flax does."""
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        model = self.build(dtype)
+        if param_dtype is None:
+            model = self.build(dtype)
+        elif self.kind == "detect":
+            raise NotImplementedError("param_dtype: the detection family keeps one dtype "
+                                      "(detection training is not ported yet)")
+        else:
+            model = self.build(dtype, param_dtype)
         model.init_weights(generator)
         return place(model, dev, channels_last=self.kind == "detect")
 
@@ -75,17 +87,20 @@ register(ModelSpec(
     description="batched detection, the default serving model",
 ))
 register(ModelSpec(
-    "vit_b16", lambda dtype: ViT(ViTConfig(), dtype),
+    "vit_b16", lambda dtype, param_dtype=None: ViT(ViTConfig(), dtype, param_dtype=param_dtype),
     input_size=224, preprocess="classify", kind="classify",
     description="32-stream frame tagging",
 ))
 register(ModelSpec(
-    "videomae_b", lambda dtype: VideoMAE(VideoMAEConfig(), dtype),
+    "videomae_b",
+    lambda dtype, param_dtype=None: VideoMAE(VideoMAEConfig(), dtype, param_dtype=param_dtype),
     input_size=224, preprocess="clip", kind="video", clip_len=8,
     description="8-frame clip action recognition",
 ))
 register(ModelSpec(
-    "videomae_b_long", lambda dtype: VideoMAE(VideoMAEConfig(num_frames=64), dtype),
+    "videomae_b_long",
+    lambda dtype, param_dtype=None: VideoMAE(VideoMAEConfig(num_frames=64), dtype,
+                                             param_dtype=param_dtype),
     input_size=224, preprocess="clip", kind="video", clip_len=64,
     description="long-context clips: 64 frames -> 6272 tokens, attention "
                 "goes to the flash-attention kernel",
@@ -96,12 +111,15 @@ register(ModelSpec(
     description="CPU/CI twin of yolov8n",
 ))
 register(ModelSpec(
-    "tiny_vit", lambda dtype: ViT(tiny_vit_config(), dtype),
+    "tiny_vit",
+    lambda dtype, param_dtype=None: ViT(tiny_vit_config(), dtype, param_dtype=param_dtype),
     input_size=32, preprocess="classify", kind="classify",
     description="CPU/CI twin of vit_b16",
 ))
 register(ModelSpec(
-    "tiny_videomae", lambda dtype: VideoMAE(tiny_videomae_config(), dtype),
+    "tiny_videomae",
+    lambda dtype, param_dtype=None: VideoMAE(tiny_videomae_config(), dtype,
+                                             param_dtype=param_dtype),
     input_size=32, preprocess="clip", kind="video", clip_len=4,
     description="CPU/CI twin of videomae_b",
 ))

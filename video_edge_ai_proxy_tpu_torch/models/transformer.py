@@ -1,10 +1,16 @@
 """Shared transformer encoder for the ViT family (counterpart of ``video_edge_ai_proxy_tpu/models/transformer.py``).
 
-Inference only. Submodules carry the flax scope names (``block{i}``,
-``attn.qkv``, ``mlp.fc1``, ``ln_final``), so ``models/carry.py`` maps a
-flax tree onto them mechanically. Precision follows the JAX package:
-LayerNorms in float32 with flax's epsilon 1e-6, everything else in the
-model's dtype; GELU is the tanh approximation (flax ``nn.gelu``).
+Submodules carry the flax scope names (``block{i}``, ``attn.qkv``,
+``mlp.fc1``, ``ln_final``), so ``models/carry.py`` maps a flax tree onto
+them mechanically. Precision follows the JAX package: LayerNorms in
+float32 with flax's epsilon 1e-6, everything else computed in the model's
+``dtype``; the Dense layers keep their parameters in ``param_dtype``
+(default: ``dtype``; float32 for bf16 training, as flax keeps them) and
+cast them at use. GELU is the tanh approximation (flax ``nn.gelu``).
+
+Training settings behave as in JAX: ``dropout`` drops after the MLP's
+GELU in ``train()`` mode only, and ``remat`` recomputes each block in the
+backward (``torch.utils.checkpoint``) instead of keeping its activations.
 
 Attention is a pluggable ``attn_fn(q, k, v)`` over ``[B, T, H, D]``. The
 default, ``auto_attention``, sends sequences of ``FLASH_THRESHOLD_T``
@@ -21,8 +27,10 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
+from .common import Linear
 
 # attn_fn(q, k, v) -> out, all [B, T, H, D]
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -69,12 +77,12 @@ def auto_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
 
 class SelfAttention(nn.Module):
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.bfloat16,
-                 attn_fn: Optional[AttnFn] = None):
+                 attn_fn: Optional[AttnFn] = None, param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
         self.attn_fn = attn_fn
-        self.qkv = nn.Linear(cfg.dim, 3 * cfg.dim, dtype=dtype)
-        self.out = nn.Linear(cfg.dim, cfg.dim, dtype=dtype)
+        self.qkv = Linear(cfg.dim, 3 * cfg.dim, dtype, param_dtype)
+        self.out = Linear(cfg.dim, cfg.dim, dtype, param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
@@ -86,26 +94,31 @@ class SelfAttention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.fc1 = nn.Linear(cfg.dim, cfg.mlp_dim, dtype=dtype)
-        self.fc2 = nn.Linear(cfg.mlp_dim, cfg.dim, dtype=dtype)
+        self.dropout = cfg.dropout
+        self.fc1 = Linear(cfg.dim, cfg.mlp_dim, dtype, param_dtype)
+        self.fc2 = Linear(cfg.mlp_dim, cfg.dim, dtype, param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        h = F.gelu(self.fc1(x), approximate="tanh")
+        if self.dropout:
+            h = F.dropout(h, self.dropout, training=self.training)
+        return self.fc2(h)
 
 
 class EncoderBlock(nn.Module):
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.bfloat16,
-                 attn_fn: Optional[AttnFn] = None):
+                 attn_fn: Optional[AttnFn] = None, param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if cfg.num_experts:
             raise NotImplementedError("the mixture-of-experts MLP is not ported yet")
         self.dtype = dtype
         self.ln1 = nn.LayerNorm(cfg.dim, eps=LN_EPS, dtype=torch.float32)
-        self.attn = SelfAttention(cfg, dtype, attn_fn)
+        self.attn = SelfAttention(cfg, dtype, attn_fn, param_dtype)
         self.ln2 = nn.LayerNorm(cfg.dim, eps=LN_EPS, dtype=torch.float32)
-        self.mlp = Mlp(cfg, dtype)
+        self.mlp = Mlp(cfg, dtype, param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x.float()).to(self.dtype))
@@ -114,21 +127,27 @@ class EncoderBlock(nn.Module):
 
 class Encoder(nn.Module):
     """``num_layers`` pre-norm blocks and a final float32 LayerNorm.
-    ``remat`` and ``dropout`` are training settings and change nothing
-    here."""
+
+    ``cfg.dropout`` is active in ``train()`` mode only (JAX: ``deterministic
+    = not train``). With ``cfg.remat`` each block runs under
+    ``torch.utils.checkpoint`` whenever autograd records, so its
+    activations are recomputed in the backward instead of kept (JAX wraps
+    each block in ``nn.remat``); the outputs and gradients do not change."""
 
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.bfloat16,
-                 attn_fn: Optional[AttnFn] = None):
+                 attn_fn: Optional[AttnFn] = None, param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         for i in range(cfg.num_layers):
-            self.add_module(f"block{i}", EncoderBlock(cfg, dtype, attn_fn))
+            self.add_module(f"block{i}", EncoderBlock(cfg, dtype, attn_fn, param_dtype))
         self.ln_final = nn.LayerNorm(cfg.dim, eps=LN_EPS, dtype=torch.float32)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for i in range(self.cfg.num_layers):
-            x = getattr(self, f"block{i}")(x)
+            block = getattr(self, f"block{i}")
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         return self.ln_final(x.float()).to(self.dtype)
 
 

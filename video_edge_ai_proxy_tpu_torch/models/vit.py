@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from ..ops.preprocess import pad_channels
-from .common import lecun_normal_
+from .common import Conv2d, lecun_normal_, normal_
 from .transformer import AttnFn, Encoder, EncoderConfig, init_encoder_weights
 
 
@@ -43,22 +43,27 @@ def tiny_vit_config(num_classes: int = 10) -> ViTConfig:
 
 
 class ViT(nn.Module):
+    """``dtype`` is the compute dtype; ``param_dtype`` (default: ``dtype``)
+    that of the patch conv and the encoder's Dense layers, cast at use.
+    ``cls_token``, ``pos_embed``, the LayerNorms and the classifier are
+    float32, as in the JAX package."""
+
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype = torch.bfloat16,
-                 attn_fn: Optional[AttnFn] = None):
+                 attn_fn: Optional[AttnFn] = None, param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         dim, p = cfg.encoder.dim, cfg.patch_size
-        self.patch_embed = nn.Conv2d(max(3, cfg.patch_pad_c), dim, p, stride=p, dtype=dtype)
+        self.patch_embed = Conv2d(max(3, cfg.patch_pad_c), dim, p, p, dtype, param_dtype)
         self.cls_token = nn.Parameter(torch.zeros((1, 1, dim), dtype=torch.float32))
         self.pos_embed = nn.Parameter(
             torch.zeros((1, cfg.num_patches + 1, dim), dtype=torch.float32))
-        self.encoder = Encoder(cfg.encoder, dtype, attn_fn)
+        self.encoder = Encoder(cfg.encoder, dtype, attn_fn, param_dtype)
         self.classifier = nn.Linear(dim, cfg.num_classes, dtype=torch.float32)
 
     def init_weights(self, generator: torch.Generator) -> None:
-        """Random init from ``generator`` (a CPU generator, on a model still
-        on the CPU) with the JAX package's schemes: lecun-normal conv and
+        """Random init from ``generator`` (a CPU generator; the model may be
+        on any device) with the JAX package's schemes: lecun-normal conv and
         classifier kernels, zero ``cls_token``, normal(0.02) ``pos_embed``,
         the encoder's xavier-uniform Dense kernels, zero biases."""
         with torch.no_grad():
@@ -67,7 +72,7 @@ class ViT(nn.Module):
                 layer.weight.copy_(lecun_normal_(w, generator))
                 layer.bias.zero_()
             self.cls_token.zero_()
-            nn.init.normal_(self.pos_embed, 0.0, 0.02, generator=generator)
+            self.pos_embed.copy_(normal_(self.pos_embed.shape, 0.02, generator))
         init_encoder_weights(self.encoder, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
