@@ -9,13 +9,17 @@ exits non-zero:
 1. the card: ``torch.cuda.is_available()`` or exit 1; ``nvidia-smi`` name
    and power limit;
 2. build every CUDA kernel from ``video_edge_ai_proxy_tpu_torch/csrc``
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source, all started together), with each kernel
+   instantiation's registers and spills; the tensor-core dk/dv library's
+   SASS must hold ``HGMMA`` instructions and its kernel must not spill;
 3. each kernel against its plain PyTorch version on the card: the NMS
    keep mask bit-identical (random boxes with duplicates, zero-area boxes,
    all-zero slots and class-offset boxes, B = 16, K = 256 and K = 1024);
    the flash-attention forward's O and LSE, and the two backward kernels'
    dq and dk/dv, in float32 and bf16 at BH = 24, T = 6272, D = 64, at a
-   padded T = 200, and at D = 16 and 32;
+   padded T = 200, and at D = 16 and 32; the profiler shows that a bf16
+   dk/dv call ran the tensor-core kernel and a float32 call the float32
+   one;
 4. the detection slice at full width: ``yolov8n`` at 640 in bf16 with
    seeded random weights and the zeroed class prior, on 16x1080x1920
    uint8 frames with ``quality_thumb=32`` -- shapes, finiteness,
@@ -50,7 +54,8 @@ exits non-zero:
    16-frame clip, 1568 tokens, 2 layers), step time (median), peak memory,
    a profile of the step, each backward kernel's own time on the step's
    inputs beside its plain version, the library's backward of
-   ``scaled_dot_product_attention`` and the bound, and one serving step of
+   ``scaled_dot_product_attention`` and the bound (with the share of the
+   bound and the TFLOP/s of the function's operations), and one serving step of
    the registry's bf16 model with the trained weights;
 10. two VideoMAE pretraining steps of ``videomae_b_long``
    (``masked_pretrain_loss``, a 90% tube mask): finite losses and 16
@@ -163,6 +168,17 @@ def card_line() -> str:
     return out[0].strip()
 
 
+def kernel_label(mangled: str) -> str:
+    """A kernel instantiation's short name from its mangled name: the
+    kernel, element type and head dim, as ``flash_bwd_dq_kernel<bf16,64>``."""
+    import re
+
+    base = re.search(r"([a-z_]+_kernel(?:_[a-z]+)?)", mangled)
+    dim = re.search(r"Li(\d+)E", mangled)
+    return (base.group(1) if base else mangled) + (
+        f"<{'bf16' if 'bfloat16' in mangled else 'f32'},{dim.group(1)}>" if dim else "")
+
+
 def ptxas_summary(text: str) -> list:
     """One entry per kernel instantiation in nvcc's ``-Xptxas=-v`` output:
     its name, element type and head dim (from the mangled name), its
@@ -173,11 +189,7 @@ def ptxas_summary(text: str) -> list:
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            mangled = m.group(1)
-            base = re.search(r"([a-z_]+_kernel)", mangled)
-            dim = re.search(r"Li(\d+)E", mangled)
-            label = (base.group(1) if base else mangled) + (
-                f"<{'bf16' if 'bfloat16' in mangled else 'f32'},{dim.group(1)}>" if dim else "")
+            label = kernel_label(m.group(1))
             spill = ""
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -188,6 +200,36 @@ def ptxas_summary(text: str) -> list:
             out.append(f"{label} {m.group(1)} registers, {spill}")
             label = None
     return out or [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
+
+
+def sass_hgmma_counts(library) -> dict:
+    """{kernel function: number of HGMMA (wgmma) instructions} in the SASS
+    of a built library, from the CUDA toolkit's ``cuobjdump``."""
+    from video_edge_ai_proxy_tpu_torch.kernels import build
+
+    sass = subprocess.run([build.toolkit_binary("cuobjdump"), "--dump-sass", str(library)],
+                          check=True, capture_output=True, text=True, timeout=120).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = kernel_label(ln.split("Function :", 1)[1].strip())
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in ln:
+            counts[fn] += 1
+    return counts
+
+
+def launched_kernels(fn) -> list:
+    """Names of the device kernels one call of ``fn`` launched, from
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in device_events(prof)})
 
 
 def time_events(fn, iters: int) -> float:
@@ -514,7 +556,10 @@ def main() -> int:
         },
         "flash_attention_bwd_dkv": {
             "route": "cuda",
-            "source": "video_edge_ai_proxy_tpu_torch/" + build.SOURCES["flash_attention_bwd"],
+            # bf16 (the main path) on the tensor cores; float32 on the CUDA cores.
+            "source": "video_edge_ai_proxy_tpu_torch/"
+                      + build.SOURCES["flash_attention_bwd_dkv_sm90"],
+            "source_f32": "video_edge_ai_proxy_tpu_torch/" + build.SOURCES["flash_attention_bwd"],
             "replaces": "video_edge_ai_proxy_tpu/ops/flash_attention.py:148",
             "wrapper": flash_attention_bwd_dkv_cuda,
             "path": "train",
@@ -545,6 +590,15 @@ def main() -> int:
         f"{len(logs)} built now, in {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         log(f"phase 2 {name}: " + "; ".join(ptxas_summary(text)))
+    sm90 = "flash_attention_bwd_dkv_sm90"
+    spills = [e for e in ptxas_summary(logs.get(sm90, "")) if "spilled" in e
+              and "0/0 B spilled" not in e]
+    hgmma = sass_hgmma_counts(build.library_path(sm90))
+    log(f"phase 2 {sm90} SASS: HGMMA instructions per kernel "
+        + ", ".join(f"{n} {c}" for n, c in hgmma.items()))
+    if not hgmma or min(hgmma.values()) == 0 or spills:
+        raise AssertionError(f"the tensor-core dk/dv library lacks HGMMA instructions in a "
+                             f"kernel ({hgmma}) or spills ({spills})")
 
     # -- phase 3: each kernel against its plain version ---------------------
     gen = torch.Generator().manual_seed(0)
@@ -564,13 +618,15 @@ def main() -> int:
 
     # The flash forward and backward: videomae_b_long's shape (BH = 2 clips
     # x 12 heads, T = 6272, D = 64), a padded T = 200 (true_t < Tp), and the
-    # tiny twins' head dims 16 and 32, in float32 and bf16.
+    # tiny twins' head dims 16 and 32, in float32 and bf16. At T = 200 the
+    # profiler also names the kernel each dtype's dk/dv call ran.
     flash_worst = 0.0
     bwd_worst = {"dq": 0.0, "dkv": 0.0}
     qgen = torch.Generator(device=dev).manual_seed(2)
     for bh, t, d, dtype in ((24, 6272, 64, torch.float32), (24, 6272, 64, torch.bfloat16),
                             (24, 200, 64, torch.float32), (24, 200, 64, torch.bfloat16),
-                            (8, 200, 16, torch.float32), (8, 6272, 32, torch.bfloat16)):
+                            (8, 200, 16, torch.float32), (8, 6272, 32, torch.bfloat16),
+                            (8, 1568, 16, torch.bfloat16)):
         tp = packed_len(t)
         q, k, v = (torch.randn((bh, t, d), generator=qgen, device=dev).to(dtype)
                    for _ in range(3))
@@ -579,13 +635,22 @@ def main() -> int:
         flash_worst = max(flash_worst, f_err)
         log(f"phase 3 flash_attention_fwd BH={bh} T={t} (Tp={tp}) D={d} {dtype}: "
             f"max|dO| {o_err:.3g}, max|dLSE| {lse_err:.3g} against the plain version")
-        errs = check_flash_bwd(q, k, v, *bwd_inputs(q, k, v, t, qgen), t)
+        bwd_args = (q, k, v, *bwd_inputs(q, k, v, t, qgen), t)
+        errs = check_flash_bwd(*bwd_args)
+        if t == 200 and d == 64:
+            names = [n for n in launched_kernels(lambda: flash_attention_bwd_dkv_cuda(*bwd_args))
+                     if "flash_bwd_dkv_kernel" in n]
+            tensor_core = dtype == torch.bfloat16
+            if len(names) != 1 or ("flash_bwd_dkv_kernel_wgmma" in names[0]) != tensor_core:
+                raise AssertionError(f"a {dtype} dk/dv call ran {names}, expected the "
+                                     f"{'tensor-core' if tensor_core else 'float32'} kernel")
+            log(f"phase 3 flash_attention_bwd_dkv {dtype} ran {names[0][:80]}")
         for name, err in errs.items():
             bwd_worst[name] = max(bwd_worst[name], err)
         log(f"phase 3 flash_attention_bwd BH={bh} T={t} (Tp={tp}) D={d} {dtype}: "
             f"max|d dq| {errs['dq']:.3g}, max|d dk, dv| {errs['dkv']:.3g} against the "
             f"plain versions")
-        del q, k, v
+        del q, k, v, bwd_args
     torch.cuda.empty_cache()
 
     # -- phase 4: the slice at full width -------------------------------------
@@ -1147,12 +1212,15 @@ def main() -> int:
         plain_ms = time_events(lambda: plain(*args), 3)
         bytes_ms, ops_ms = flash_bwd_bound_ms(bh, tp, d, true_t, qp.element_size(), dkv)
         kernel_ms = prof_ms if prof_ms is not None else ev_ms
+        ops = (8 if dkv else 6) * bh * true_t * true_t * d
         log(f"phase 9 {name} on {card}: BH={bh} Tp={tp} D={d} {qp.dtype} (a step's backward; "
             f"{err:.3g} from the plain version): device {prof_ms} ms/launch (profiler), "
             f"{ev_ms:.4f} ms/launch (CUDA events, 10 back to back); plain version "
             f"{plain_ms:.4f} ms; backward of scaled_dot_product_attention (dq, dk and dv "
             f"together) {lib_ms:.4f} ms; bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
-            f"{bytes_ms:.4f}, bf16 operations {ops_ms:.4f})")
+            f"{bytes_ms:.4f}, bf16 operations {ops_ms:.4f}); {max(bytes_ms, ops_ms) / kernel_ms:.2%} "
+            f"of the bound, {ops / kernel_ms / 1e9:.1f} TFLOP/s of the function's {ops:.4g} "
+            f"operations")
         key = "dkv" if dkv else "dq"
         report[name].update(
             max_abs_err=max(bwd_worst[key], err), ms=kernel_ms, plain_ms=plain_ms,
@@ -1206,6 +1274,7 @@ def main() -> int:
         r = report[name]
         line["kernels"].append({
             "name": name, "route": meta["route"], "source": meta["source"],
+            **({"source_f32": meta["source_f32"]} if "source_f32" in meta else {}),
             "replaces": meta["replaces"], "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -174,7 +174,12 @@ def _close(got, want, dtype):
     return bool(torch.isfinite(got).all()) and bool(((got - want).abs() <= tol).all())
 
 
-@pytest.mark.parametrize("bh,tp,d,true_t,dtype", FLASH_CASES)
+# The backward adds bf16 at D = 16, the tiny twins' head dim, which the
+# tensor-core dk/dv kernel instantiates beside 32 and 64.
+BWD_CASES = FLASH_CASES + [(2, 1664, 16, 1568, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("bh,tp,d,true_t,dtype", BWD_CASES)
 def test_flash_backward_kernels_equal_plain_versions(card, bh, tp, d, true_t, dtype):
     from video_edge_ai_proxy_tpu_torch.kernels.flash import (
         flash_attention_bwd_dkv_cuda, flash_attention_bwd_dq_cuda,
@@ -194,6 +199,39 @@ def test_flash_backward_kernels_equal_plain_versions(card, bh, tp, d, true_t, dt
         assert got.dtype == dtype and got.shape == (bh, tp, d)
         assert _close(got, want, dtype)
     assert not dk[:, true_t:].any() and not dv[:, true_t:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dkv_dtype_picks_the_kernel(card, dtype):
+    """bf16 runs the tensor-core kernel (csrc/flash_attention_bwd_dkv_sm90.cu),
+    float32 the float32 one (csrc/flash_attention_bwd.cu), and nothing else."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_edge_ai_proxy_tpu_torch.kernels.flash import flash_attention_bwd_dkv_cuda
+
+    args = _bwd_inputs(np.random.default_rng(3), 2, 256, 64, 200, dtype, card)
+    flash_attention_bwd_dkv_cuda(*args, 200)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        flash_attention_bwd_dkv_cuda(*args, 200)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "flash_bwd_dkv_kernel" in e.name}
+    assert len(names) == 1
+    assert ("flash_bwd_dkv_kernel_wgmma" in names.pop()) == (dtype == torch.bfloat16)
+
+
+def test_dkv_refuses_misaligned_bf16(card):
+    """The tensor-core kernel copies 16-byte chunks: a bf16 view that does
+    not start on a 16-byte boundary is refused, not read misaligned."""
+    from video_edge_ai_proxy_tpu_torch.kernels.flash import flash_attention_bwd_dkv_cuda
+
+    x = torch.zeros((2, 64, 64), device=card, dtype=torch.bfloat16)
+    odd = torch.zeros(2 * 64 * 64 + 1, device=card, dtype=torch.bfloat16)[1:].view(2, 64, 64)
+    rows = torch.zeros((2, 64, 1), device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_bwd_dkv_cuda(x, x, x, odd, rows, rows, 64)
 
 
 def test_flash_attention_gradients_on_card(card):

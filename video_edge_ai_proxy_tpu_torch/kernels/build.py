@@ -11,9 +11,10 @@ source, all at once, and waits for them.
 Flags: ``sm_90a`` (Hopper) and ``-O3`` for every source, plus each
 source's own: ``nms_keep_mask`` adds ``--fmad=false`` so no ``a*b+c`` is
 contracted into an FMA -- the NMS IoU must round exactly like its XLA
-twin. The flash-attention sources (forward and backward) keep FMA
-contraction (the flag would halve their f32 rate). Never
-``--use_fast_math``.
+twin. The flash-attention sources (forward, backward and the tensor-core
+dk/dv) keep FMA contraction (the flag would halve their f32 rate). Never
+``--use_fast_math``. Each source builds into its own library, so a compile
+error in one cannot break another's build.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ SOURCES: Dict[str, str] = {
     "nms_keep_mask": "csrc/nms_keep_mask.cu",
     "flash_attention_fwd": "csrc/flash_attention_fwd.cu",
     "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dkv_sm90": "csrc/flash_attention_bwd_dkv_sm90.cu",
 }
 
 NVCC_FLAGS = (
@@ -56,19 +58,21 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def toolkit_binary(tool: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``); raises if
+    the toolkit does not have it."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     candidates = []
     if CUDA_HOME:
-        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
-    candidates.append("/usr/local/cuda/bin/nvcc")
+        candidates.append(os.path.join(CUDA_HOME, "bin", tool))
+    candidates.append(f"/usr/local/cuda/bin/{tool}")
     for path in candidates:
         if os.path.exists(path):
             return path
-    found = shutil.which("nvcc")
+    found = shutil.which(tool)
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA toolkit is required to "
+        raise RuntimeError(f"{tool} not found: the CUDA toolkit is required to "
                            "build the port's kernels")
     return found
 
@@ -82,7 +86,8 @@ def nvcc_flags(name: str) -> tuple:
     return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 
-def _library_path(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where kernel ``name``'s library is (or will be) built."""
     digest = hashlib.sha256(source_path(name).read_bytes())
     digest.update("\0".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -98,11 +103,11 @@ def build_all(names: Optional[list] = None) -> Dict[str, str]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
         for name in names:
-            out = _library_path(name)
+            out = library_path(name)
             if name in _libs or out.exists():
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp), str(source_path(name))]
+            cmd = [toolkit_binary(), *nvcc_flags(name), "-o", str(tmp), str(source_path(name))]
             procs[name] = (out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         logs, errors = {}, []
@@ -118,7 +123,7 @@ def build_all(names: Optional[list] = None) -> Dict[str, str]:
             raise RuntimeError("\n".join(errors))
         for name in names:
             if name not in _libs:
-                _libs[name] = ctypes.CDLL(str(_library_path(name)))
+                _libs[name] = ctypes.CDLL(str(library_path(name)))
         return logs
 
 

@@ -1,5 +1,6 @@
 """Launch wrappers of the CUDA flash-attention kernels
-(``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``).
+(``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu`` and, for
+bf16 dk/dv, ``csrc/flash_attention_bwd_dkv_sm90.cu``).
 
 On packed ``[BH, Tp, D]`` tensors, each the card's counterpart of one
 Pallas kernel of the JAX package:
@@ -10,7 +11,7 @@ Pallas kernel of the JAX package:
 - ``flash_attention_bwd_dq_cuda(qp, kp, vp, do, lse, delta, true_t) -> dq``:
   ``_flash_bwd_dq_kernel`` (the first ``pallas_call`` of ``_flash_bwd_call``);
 - ``flash_attention_bwd_dkv_cuda(...) -> (dk, dv)``: ``_flash_bwd_dkv_kernel``
-  (the second).
+  (the second); bf16 on the tensor cores, float32 on the CUDA cores.
 
 Their plain PyTorch versions are ``ops.flash_attention``
 ``flash_attention_reference``, ``flash_attention_bwd_dq_reference`` and
@@ -114,11 +115,26 @@ def flash_attention_bwd_dq_cuda(qp, kp, vp, do, lse, delta, true_t: int) -> torc
 def flash_attention_bwd_dkv_cuda(qp, kp, vp, do, lse, delta, true_t: int):
     """The same inputs -> ``(dk, dv)`` in their dtype; key rows ``>= true_t``
     are written as zeros, and query rows ``>= true_t`` are skipped, which is
-    exact because ``dO`` and ``delta`` are zero there."""
+    exact because ``dO`` and ``delta`` are zero there.
+
+    The dtype picks the kernel, and nothing else does: bf16 launches
+    ``flash_bwd_dkv_kernel_wgmma`` (``csrc/flash_attention_bwd_dkv_sm90.cu``,
+    wgmma on the tensor cores, with p and ds split into two bf16 halves so
+    the result keeps float32 accuracy); float32 launches
+    ``flash_bwd_dkv_kernel`` (``csrc/flash_attention_bwd.cu``), which keeps
+    exact float32 arithmetic on the CUDA cores and is the route of the
+    float32 gradient checks against the CPU. A failed build or launch
+    raises; no route stands in for the other."""
     _check("flash_attention_bwd_dkv_cuda", (qp, kp, vp, do), (lse, delta), true_t)
+    if qp.dtype == torch.bfloat16:
+        if any(x.data_ptr() % 16 for x in (qp, kp, vp, do)):
+            raise ValueError("flash_attention_bwd_dkv_cuda needs 16-byte aligned bf16 "
+                             "q, k, v, dO (its tiles are copied in 16-byte chunks)")
+        fn = _launcher("flash_attention_bwd_dkv_sm90", "flash_attention_bwd_dkv_sm90_launch", 8)
+    else:
+        fn = _launcher("flash_attention_bwd", "flash_attention_bwd_dkv_launch", 8)
     dk, dv = torch.empty_like(kp), torch.empty_like(vp)
-    _launch(_launcher("flash_attention_bwd", "flash_attention_bwd_dkv_launch", 8),
-            "flash_attention_bwd_dkv", (qp, kp, vp, do, lse, delta, dk, dv), qp, true_t)
+    _launch(fn, "flash_attention_bwd_dkv", (qp, kp, vp, do, lse, delta, dk, dv), qp, true_t)
     flash_attention_bwd_dkv_cuda.launches += 1
     return dk, dv
 
