@@ -10,16 +10,17 @@ exits non-zero:
    and power limit;
 2. build every CUDA kernel from ``video_edge_ai_proxy_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together), with each kernel
-   instantiation's registers and spills; the tensor-core dk/dv library's
-   SASS must hold ``HGMMA`` instructions and its kernel must not spill;
+   instantiation's registers and spills; the SASS of both tensor-core
+   libraries (the bf16 forward and dk/dv) must hold ``HGMMA`` instructions
+   in every kernel, and none of their kernels may spill;
 3. each kernel against its plain PyTorch version on the card: the NMS
    keep mask bit-identical (random boxes with duplicates, zero-area boxes,
    all-zero slots and class-offset boxes, B = 16, K = 256 and K = 1024);
    the flash-attention forward's O and LSE, and the two backward kernels'
    dq and dk/dv, in float32 and bf16 at BH = 24, T = 6272, D = 64, at a
    padded T = 200, and at D = 16 and 32; the profiler shows that a bf16
-   dk/dv call ran the tensor-core kernel and a float32 call the float32
-   one;
+   forward and a bf16 dk/dv call ran the tensor-core kernels and float32
+   calls the float32 ones;
 4. the detection slice at full width: ``yolov8n`` at 640 in bf16 with
    seeded random weights and the zeroed class prior, on 16x1080x1920
    uint8 frames with ``quality_thumb=32`` -- shapes, finiteness,
@@ -38,8 +39,9 @@ exits non-zero:
    in, float32 agreement with the CPU on one clip (2 of 12 layers, to
    save CPU time), step time (median of 10), peak memory, the kernel's
    own time on the step's q, k, v beside the plain version, the library's
-   ``scaled_dot_product_attention`` and the bound, and a profile of the
-   step;
+   ``scaled_dot_product_attention`` and the bound (with the share of the
+   bound and the TFLOP/s of the function's operations), and a profile of
+   the step;
 7. ``vit_b16`` beside it: the bf16 step on 32 1080p frames (shapes,
    finiteness) and float32 agreement with the CPU on two frames;
 8. the engine answers video requests: ``InferenceEngine(device="cuda")``
@@ -542,7 +544,9 @@ def main() -> int:
         },
         "flash_attention_fwd": {
             "route": "cuda",
-            "source": "video_edge_ai_proxy_tpu_torch/" + build.SOURCES["flash_attention_fwd"],
+            # bf16 (the main path) on the tensor cores; float32 on the CUDA cores.
+            "source": "video_edge_ai_proxy_tpu_torch/" + build.SOURCES["flash_attention_fwd_sm90"],
+            "source_f32": "video_edge_ai_proxy_tpu_torch/" + build.SOURCES["flash_attention_fwd"],
             "replaces": "video_edge_ai_proxy_tpu/ops/flash_attention.py:48",
             "wrapper": flash_attention_fwd_cuda,
             "path": "video",
@@ -590,15 +594,15 @@ def main() -> int:
         f"{len(logs)} built now, in {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         log(f"phase 2 {name}: " + "; ".join(ptxas_summary(text)))
-    sm90 = "flash_attention_bwd_dkv_sm90"
-    spills = [e for e in ptxas_summary(logs.get(sm90, "")) if "spilled" in e
-              and "0/0 B spilled" not in e]
-    hgmma = sass_hgmma_counts(build.library_path(sm90))
-    log(f"phase 2 {sm90} SASS: HGMMA instructions per kernel "
-        + ", ".join(f"{n} {c}" for n, c in hgmma.items()))
-    if not hgmma or min(hgmma.values()) == 0 or spills:
-        raise AssertionError(f"the tensor-core dk/dv library lacks HGMMA instructions in a "
-                             f"kernel ({hgmma}) or spills ({spills})")
+    for sm90 in ("flash_attention_fwd_sm90", "flash_attention_bwd_dkv_sm90"):
+        spills = [e for e in ptxas_summary(logs.get(sm90, "")) if "spilled" in e
+                  and "0/0 B spilled" not in e]
+        hgmma = sass_hgmma_counts(build.library_path(sm90))
+        log(f"phase 2 {sm90} SASS: HGMMA instructions per kernel "
+            + ", ".join(f"{n} {c}" for n, c in hgmma.items()))
+        if not hgmma or min(hgmma.values()) == 0 or spills:
+            raise AssertionError(f"the tensor-core library {sm90} lacks HGMMA instructions in "
+                                 f"a kernel ({hgmma}) or spills ({spills})")
 
     # -- phase 3: each kernel against its plain version ---------------------
     gen = torch.Generator().manual_seed(0)
@@ -619,7 +623,7 @@ def main() -> int:
     # The flash forward and backward: videomae_b_long's shape (BH = 2 clips
     # x 12 heads, T = 6272, D = 64), a padded T = 200 (true_t < Tp), and the
     # tiny twins' head dims 16 and 32, in float32 and bf16. At T = 200 the
-    # profiler also names the kernel each dtype's dk/dv call ran.
+    # profiler also names the kernel each dtype's forward and dk/dv calls ran.
     flash_worst = 0.0
     bwd_worst = {"dq": 0.0, "dkv": 0.0}
     qgen = torch.Generator(device=dev).manual_seed(2)
@@ -638,13 +642,17 @@ def main() -> int:
         bwd_args = (q, k, v, *bwd_inputs(q, k, v, t, qgen), t)
         errs = check_flash_bwd(*bwd_args)
         if t == 200 and d == 64:
-            names = [n for n in launched_kernels(lambda: flash_attention_bwd_dkv_cuda(*bwd_args))
-                     if "flash_bwd_dkv_kernel" in n]
             tensor_core = dtype == torch.bfloat16
-            if len(names) != 1 or ("flash_bwd_dkv_kernel_wgmma" in names[0]) != tensor_core:
-                raise AssertionError(f"a {dtype} dk/dv call ran {names}, expected the "
-                                     f"{'tensor-core' if tensor_core else 'float32'} kernel")
-            log(f"phase 3 flash_attention_bwd_dkv {dtype} ran {names[0][:80]}")
+            for name, call, part in (
+                    ("flash_attention_fwd", lambda: flash_attention_fwd_cuda(q, k, v, t),
+                     "flash_fwd_kernel"),
+                    ("flash_attention_bwd_dkv", lambda: flash_attention_bwd_dkv_cuda(*bwd_args),
+                     "flash_bwd_dkv_kernel")):
+                names = [n for n in launched_kernels(call) if part in n]
+                if len(names) != 1 or (part + "_wgmma" in names[0]) != tensor_core:
+                    raise AssertionError(f"a {dtype} {name} call ran {names}, expected the "
+                                         f"{'tensor-core' if tensor_core else 'float32'} kernel")
+                log(f"phase 3 {name} {dtype} ran {names[0][:80]}")
         for name, err in errs.items():
             bwd_worst[name] = max(bwd_worst[name], err)
         log(f"phase 3 flash_attention_bwd BH={bh} T={t} (Tp={tp}) D={d} {dtype}: "
@@ -959,12 +967,14 @@ def main() -> int:
     lib_ms = time_events(lambda: torch.nn.functional.scaled_dot_product_attention(*b4), 20)
     bytes_ms, ops_ms = flash_bound_ms(bh, tp, d, true_t, qp.element_size())
     kernel_ms = prof_ms if prof_ms is not None else ev_ms
+    ops = 4 * bh * true_t * true_t * d
     log(f"phase 6 flash_attention_fwd on {card}: BH={bh} Tp={tp} D={d} {qp.dtype} (the step's "
         f"first layer; O {o_err:.3g}, LSE {lse_err:.3g} from the plain version): device "
         f"{prof_ms} ms/launch (profiler), {ev_ms:.4f} ms/launch (CUDA events, 20 back to "
         f"back); plain version {plain_ms:.4f} ms; scaled_dot_product_attention {lib_ms:.4f} "
         f"ms; bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, bf16 operations "
-        f"{ops_ms:.4f})")
+        f"{ops_ms:.4f}); {max(bytes_ms, ops_ms) / kernel_ms:.2%} of the bound, "
+        f"{ops / kernel_ms / 1e9:.1f} TFLOP/s of the function's {ops:.4g} operations")
     report["flash_attention_fwd"].update(
         max_abs_err=flash_worst, ms=kernel_ms, plain_ms=plain_ms,
         bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms > ops_ms else "operations",

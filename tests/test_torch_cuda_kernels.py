@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the NMS keep mask, the flash-attention forward and its two backward kernels.
+the NMS keep mask, the flash-attention forward (float32 and tensor-core
+bf16) and its two backward kernels.
 
 Marked ``cuda``: each test skips without a GPU (decided inside the test).
 Run them on a machine with a card with
@@ -82,13 +83,18 @@ def test_batched_nms_on_card_equals_cpu(card):
 # compute in float32 from the same inputs, in another order of summation:
 # 1e-5 on O and LSE. A bf16 O is rounded once from the float32 result, so
 # the two may also land one bf16 ulp apart, and one ulp of x is at most
-# 2**-7 * |x|: 1e-5 + 2**-7 * |O| in bf16.
+# 2**-7 * |x|: 1e-5 + 2**-7 * |O| in bf16. The bf16 cases run the
+# tensor-core forward at each head dim it instantiates; those with
+# true_t < Tp hold random, nonzero padded rows, which the forward must
+# compute from (queries) or never read (keys, values).
 FLASH_CASES = [
     (2, 64, 16, 64, torch.float32),
     (1, 24, 16, 24, torch.float32),
     (4, 256, 64, 200, torch.float32),
     (3, 200, 32, 150, torch.bfloat16),
     (24, 512, 64, 512, torch.bfloat16),
+    (2, 256, 16, 200, torch.bfloat16),
+    (4, 1024, 64, 1000, torch.bfloat16),
 ]
 
 
@@ -149,6 +155,43 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
         flash_attention_fwd_cuda(x, x, x, 65)
 
 
+def _device_kernels(fn, part):
+    """Names of the device kernels containing ``part`` that one call of
+    ``fn`` launched, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type == DeviceType.CUDA and part in e.name}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fwd_dtype_picks_the_kernel(card, dtype):
+    """bf16 runs the tensor-core forward (csrc/flash_attention_fwd_sm90.cu),
+    float32 the float32 one (csrc/flash_attention_fwd.cu), and nothing else."""
+    from video_edge_ai_proxy_tpu_torch.kernels.flash import flash_attention_fwd_cuda
+
+    q, k, v = _packed(np.random.default_rng(4), 2, 256, 64, dtype, card)
+    names = _device_kernels(lambda: flash_attention_fwd_cuda(q, k, v, 200), "flash_fwd_kernel")
+    assert len(names) == 1
+    assert ("flash_fwd_kernel_wgmma" in names.pop()) == (dtype == torch.bfloat16)
+
+
+def test_fwd_refuses_misaligned_bf16(card):
+    """The tensor-core forward copies 16-byte chunks: a bf16 view that does
+    not start on a 16-byte boundary is refused, not read misaligned."""
+    from video_edge_ai_proxy_tpu_torch.kernels.flash import flash_attention_fwd_cuda
+
+    x = torch.zeros((2, 64, 64), device=card, dtype=torch.bfloat16)
+    odd = torch.zeros(2 * 64 * 64 + 1, device=card, dtype=torch.bfloat16)[1:].view(2, 64, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_fwd_cuda(x, odd, x, 64)
+
+
 # Flash-attention backward. Tolerances as for the forward: the kernels and
 # their plain versions compute in float32 from the same inputs (on the H100
 # they agree bit for bit at these shapes: the kernels' sequential FMAs
@@ -205,19 +248,11 @@ def test_flash_backward_kernels_equal_plain_versions(card, bh, tp, d, true_t, dt
 def test_dkv_dtype_picks_the_kernel(card, dtype):
     """bf16 runs the tensor-core kernel (csrc/flash_attention_bwd_dkv_sm90.cu),
     float32 the float32 one (csrc/flash_attention_bwd.cu), and nothing else."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from video_edge_ai_proxy_tpu_torch.kernels.flash import flash_attention_bwd_dkv_cuda
 
     args = _bwd_inputs(np.random.default_rng(3), 2, 256, 64, 200, dtype, card)
-    flash_attention_bwd_dkv_cuda(*args, 200)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        flash_attention_bwd_dkv_cuda(*args, 200)
-        torch.cuda.synchronize()
-    names = {e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA and "flash_bwd_dkv_kernel" in e.name}
+    names = _device_kernels(lambda: flash_attention_bwd_dkv_cuda(*args, 200),
+                            "flash_bwd_dkv_kernel")
     assert len(names) == 1
     assert ("flash_bwd_dkv_kernel_wgmma" in names.pop()) == (dtype == torch.bfloat16)
 

@@ -1,13 +1,15 @@
 """Launch wrappers of the CUDA flash-attention kernels
 (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu`` and, for
-bf16 dk/dv, ``csrc/flash_attention_bwd_dkv_sm90.cu``).
+bf16, ``csrc/flash_attention_fwd_sm90.cu`` and
+``csrc/flash_attention_bwd_dkv_sm90.cu``).
 
 On packed ``[BH, Tp, D]`` tensors, each the card's counterpart of one
 Pallas kernel of the JAX package:
 
 - ``flash_attention_fwd_cuda(qp, kp, vp, true_t) -> (o, lse)``:
   ``_flash_kernel`` (``_flash_call``); ``o`` in the input dtype, ``lse``
-  ``[BH, Tp, 1]`` float32;
+  ``[BH, Tp, 1]`` float32; bf16 on the tensor cores, float32 on the CUDA
+  cores;
 - ``flash_attention_bwd_dq_cuda(qp, kp, vp, do, lse, delta, true_t) -> dq``:
   ``_flash_bwd_dq_kernel`` (the first ``pallas_call`` of ``_flash_bwd_call``);
 - ``flash_attention_bwd_dkv_cuda(...) -> (dk, dv)``: ``_flash_bwd_dkv_kernel``
@@ -76,6 +78,14 @@ def _check(name: str, qkv, rows, true_t: int):
                          f"{', dO, lse, delta' if rows else ''}")
 
 
+def _check_aligned(name: str, tensors) -> None:
+    """Raise on bf16 inputs the tensor-core kernels cannot copy in 16-byte
+    chunks: a view that does not start on a 16-byte boundary."""
+    if any(x.data_ptr() % 16 for x in tensors):
+        raise ValueError(f"{name} needs 16-byte aligned bf16 inputs (the tensor-core "
+                         "kernels copy their tiles in 16-byte chunks)")
+
+
 def _launch(fn, name: str, tensors, qp: torch.Tensor, true_t: int) -> None:
     bh, tp, d = qp.shape
     with torch.cuda.device(qp.device):
@@ -90,12 +100,25 @@ def flash_attention_fwd_cuda(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tenso
                              true_t: int):
     """Packed q, k, v ``[BH, Tp, D]`` (bf16 or f32, contiguous, on one CUDA
     device) -> ``(o [BH, Tp, D] in their dtype, lse [BH, Tp, 1] f32)``;
-    keys ``>= true_t`` are masked. Raises on what the kernel does not take."""
+    keys ``>= true_t`` are masked. Raises on what the kernel does not take.
+
+    The dtype picks the kernel, and nothing else does: bf16 launches
+    ``flash_fwd_kernel_wgmma`` (``csrc/flash_attention_fwd_sm90.cu``, wgmma
+    on the tensor cores, with p split into two bf16 halves for P . V so the
+    result keeps float32 accuracy); float32 launches ``flash_fwd_kernel``
+    (``csrc/flash_attention_fwd.cu``), which keeps exact float32 arithmetic
+    on the CUDA cores and is the route of the float32 checks against the
+    CPU. A failed build or launch raises; no route stands in for the
+    other."""
     _check("flash_attention_fwd_cuda", (qp, kp, vp), (), true_t)
+    if qp.dtype == torch.bfloat16:
+        _check_aligned("flash_attention_fwd_cuda", (qp, kp, vp))
+        fn = _launcher("flash_attention_fwd_sm90", "flash_attention_fwd_sm90_launch", 5)
+    else:
+        fn = _launcher("flash_attention_fwd", "flash_attention_fwd_launch", 5)
     o = torch.empty_like(qp)
     lse = torch.empty((qp.shape[0], qp.shape[1], 1), dtype=torch.float32, device=qp.device)
-    _launch(_launcher("flash_attention_fwd", "flash_attention_fwd_launch", 5),
-            "flash_attention_fwd", (qp, kp, vp, o, lse), qp, true_t)
+    _launch(fn, "flash_attention_fwd", (qp, kp, vp, o, lse), qp, true_t)
     flash_attention_fwd_cuda.launches += 1
     return o, lse
 
@@ -127,9 +150,7 @@ def flash_attention_bwd_dkv_cuda(qp, kp, vp, do, lse, delta, true_t: int):
     raises; no route stands in for the other."""
     _check("flash_attention_bwd_dkv_cuda", (qp, kp, vp, do), (lse, delta), true_t)
     if qp.dtype == torch.bfloat16:
-        if any(x.data_ptr() % 16 for x in (qp, kp, vp, do)):
-            raise ValueError("flash_attention_bwd_dkv_cuda needs 16-byte aligned bf16 "
-                             "q, k, v, dO (its tiles are copied in 16-byte chunks)")
+        _check_aligned("flash_attention_bwd_dkv_cuda", (qp, kp, vp, do))
         fn = _launcher("flash_attention_bwd_dkv_sm90", "flash_attention_bwd_dkv_sm90_launch", 8)
     else:
         fn = _launcher("flash_attention_bwd", "flash_attention_bwd_dkv_launch", 8)
