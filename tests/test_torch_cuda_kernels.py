@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the NMS keep mask, the flash-attention forward (float32 and tensor-core
-bf16) and its two backward kernels.
+the NMS keep mask, the flash-attention forward and its two backward
+kernels (each in float32 and, on the tensor cores, in bf16).
 
 Marked ``cuda``: each test skips without a GPU (decided inside the test).
 Run them on a machine with a card with
@@ -21,10 +21,17 @@ pytestmark = pytest.mark.cuda
 IOU_T = 0.45
 
 
-@pytest.fixture()
+@pytest.fixture(scope="module")
 def card():
+    """The card, with every kernel built first: the profiler checks below
+    (which kernel a dtype ran) found no device event at all in runs that
+    built kernels inside the process after the first profiler session, as
+    chip_smoke.py never does (it builds in phase 2, before any profile)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    from video_edge_ai_proxy_tpu_torch.kernels import build
+
+    build.build_all()
     return torch.device("cuda")
 
 
@@ -155,18 +162,27 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
         flash_attention_fwd_cuda(x, x, x, 65)
 
 
-def _device_kernels(fn, part):
+def _device_kernels(fn, part, attempts=3):
     """Names of the device kernels containing ``part`` that one call of
-    ``fn`` launched, from torch.profiler."""
+    ``fn`` launched, from torch.profiler. A session in which the profiler
+    recorded no device event at all is profiled again, up to ``attempts``
+    times: on the H100 it now and then records none for a session of one
+    short kernel, which says nothing about the route."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.name for e in prof.events() if e.device_type == DeviceType.CUDA and part in e.name}
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+        print(f"profiler session {attempt + 1} of {attempts} recorded no device event "
+              f"({len(prof.events())} events in all)")
+    return {e.name for e in events if part in e.name}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -194,10 +210,11 @@ def test_fwd_refuses_misaligned_bf16(card):
 
 # Flash-attention backward. Tolerances as for the forward: the kernels and
 # their plain versions compute in float32 from the same inputs (on the H100
-# they agree bit for bit at these shapes: the kernels' sequential FMAs
-# happen to follow cuBLAS's order), so 1e-5 on dq, dk and dv covers another
-# order of summation; a bf16 gradient is rounded once from the float32
-# result, so one bf16 ulp (2**-7 * |x|) more in bf16.
+# the float32 kernels agree bit for bit at these shapes: their sequential
+# FMAs happen to follow cuBLAS's order; the bf16 tensor-core kernels carry
+# p and ds as two bf16 halves, about 2**-17 of each term), so 1e-5 on dq,
+# dk and dv covers another order of summation; a bf16 gradient is rounded
+# once from the float32 result, so one bf16 ulp (2**-7 * |x|) more in bf16.
 def _bwd_inputs(rng, bh, tp, d, true_t, dtype, card):
     from video_edge_ai_proxy_tpu_torch.ops.flash_attention import flash_attention_reference
 
@@ -218,7 +235,8 @@ def _close(got, want, dtype):
 
 
 # The backward adds bf16 at D = 16, the tiny twins' head dim, which the
-# tensor-core dk/dv kernel instantiates beside 32 and 64.
+# tensor-core dq and dk/dv kernels instantiate beside 32 and 64 (bf16 at
+# D = 32 is FLASH_CASES' (3, 200, 32, 150), with random padded rows).
 BWD_CASES = FLASH_CASES + [(2, 1664, 16, 1568, torch.bfloat16)]
 
 
@@ -244,29 +262,40 @@ def test_flash_backward_kernels_equal_plain_versions(card, bh, tp, d, true_t, dt
     assert not dk[:, true_t:].any() and not dv[:, true_t:].any()
 
 
+# The backward kernels by wrapper name, and the part of the device kernel's
+# name they launch: flash_bwd_dq_kernel_wgmma
+# (csrc/flash_attention_bwd_dq_sm90.cu) and flash_bwd_dkv_kernel_wgmma
+# (csrc/flash_attention_bwd_dkv_sm90.cu) in bf16; flash_bwd_dq_kernel and
+# flash_bwd_dkv_kernel (csrc/flash_attention_bwd.cu) in float32.
+BWD_KERNELS = [("flash_attention_bwd_dq_cuda", "flash_bwd_dq_kernel"),
+               ("flash_attention_bwd_dkv_cuda", "flash_bwd_dkv_kernel")]
+
+
+@pytest.mark.parametrize("wrapper,kernel", BWD_KERNELS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_dkv_dtype_picks_the_kernel(card, dtype):
-    """bf16 runs the tensor-core kernel (csrc/flash_attention_bwd_dkv_sm90.cu),
-    float32 the float32 one (csrc/flash_attention_bwd.cu), and nothing else."""
-    from video_edge_ai_proxy_tpu_torch.kernels.flash import flash_attention_bwd_dkv_cuda
+def test_bwd_dtype_picks_the_kernel(card, dtype, wrapper, kernel):
+    """bf16 runs the backward's tensor-core kernel, float32 its float32 one,
+    and nothing else."""
+    from video_edge_ai_proxy_tpu_torch.kernels import flash
 
+    fn = getattr(flash, wrapper)
     args = _bwd_inputs(np.random.default_rng(3), 2, 256, 64, 200, dtype, card)
-    names = _device_kernels(lambda: flash_attention_bwd_dkv_cuda(*args, 200),
-                            "flash_bwd_dkv_kernel")
+    names = _device_kernels(lambda: fn(*args, 200), kernel)
     assert len(names) == 1
-    assert ("flash_bwd_dkv_kernel_wgmma" in names.pop()) == (dtype == torch.bfloat16)
+    assert (kernel + "_wgmma" in names.pop()) == (dtype == torch.bfloat16)
 
 
-def test_dkv_refuses_misaligned_bf16(card):
-    """The tensor-core kernel copies 16-byte chunks: a bf16 view that does
+@pytest.mark.parametrize("wrapper", [w for w, _ in BWD_KERNELS])
+def test_bwd_refuses_misaligned_bf16(card, wrapper):
+    """The tensor-core kernels copy 16-byte chunks: a bf16 view that does
     not start on a 16-byte boundary is refused, not read misaligned."""
-    from video_edge_ai_proxy_tpu_torch.kernels.flash import flash_attention_bwd_dkv_cuda
+    from video_edge_ai_proxy_tpu_torch.kernels import flash
 
     x = torch.zeros((2, 64, 64), device=card, dtype=torch.bfloat16)
     odd = torch.zeros(2 * 64 * 64 + 1, device=card, dtype=torch.bfloat16)[1:].view(2, 64, 64)
     rows = torch.zeros((2, 64, 1), device=card)
     with pytest.raises(ValueError, match="aligned"):
-        flash_attention_bwd_dkv_cuda(x, x, x, odd, rows, rows, 64)
+        getattr(flash, wrapper)(x, x, x, odd, rows, rows, 64)
 
 
 def test_flash_attention_gradients_on_card(card):

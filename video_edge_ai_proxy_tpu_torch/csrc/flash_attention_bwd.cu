@@ -1,13 +1,15 @@
-// Flash-attention backward for Hopper (sm_90a): the gradients of exact
-// non-causal softmax attention from the forward's saved log-sum-exp, in
-// two kernels, float32 arithmetic on the CUDA cores.
+// Flash-attention backward for Hopper (sm_90a), float32: the gradients of
+// exact non-causal softmax attention from the forward's saved log-sum-exp,
+// in two kernels, float32 arithmetic on the CUDA cores.
 //
 // Replaces the two Pallas kernels of
 // video_edge_ai_proxy_tpu/ops/flash_attention.py launched by
 // `_flash_bwd_call` (reached through the `_flash` custom VJP's backward
-// `_flash_bwd`): `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`. Same
-// function, on packed q, k, v, dO [BH, Tp, D] (bf16 or f32) with the
-// forward's lse and delta = rowsum(dO * O) ([BH, Tp, 1] f32):
+// `_flash_bwd`), `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`, for
+// float32 inputs; bf16 inputs go to the tensor-core kernels of
+// flash_attention_bwd_dq_sm90.cu and flash_attention_bwd_dkv_sm90.cu. Same
+// function, on packed f32 q, k, v, dO [BH, Tp, D] with the forward's lse
+// and delta = rowsum(dO * O) ([BH, Tp, 1] f32):
 //
 //     s   = (q . k^T) * D^-0.5, with s[:, j] = -1e30 for keys j >= true_t
 //     p   = exp(s - lse)
@@ -16,19 +18,17 @@
 //     dv  = p^T . dO               (flash_bwd_dkv_kernel)
 //     dk  = ds^T . q * D^-0.5      (flash_bwd_dkv_kernel)
 //
-// computed in float32 whatever the input type, as the Pallas bodies do,
-// and written in the input type.
+// computed and written in float32, as the Pallas bodies compute.
 //
 // What bounds them on this card: operations. At the videomae_b_long
 // shapes (BH = 24 for two clips, Tp = 6272, D = 64) dq does three
 // [T, T] x D products (s, dO.v^T, ds.k: 6*BH*T^2*D = 3.6e11 operations)
-// and dk/dv four (s, dO.v^T, p^T.dO, ds^T.q: 8*BH*T^2*D = 4.8e11), on
-// under 120 MB of inputs and outputs: far above the card's balance point.
-// The bound is the bf16 tensor-core rate (989 TFLOP/s, the published peak
-// of an H100 SXM at its 700 W limit: 0.37 and 0.49 ms at two clips);
-// these kernels run the products as f32 FMAs on the CUDA cores, whose
-// published peak is 67 TFLOP/s, so they cannot come near it. wgmma and
-// TMA are the way there, in later work.
+// and dk/dv four (s, dO.v^T, p^T.dO, ds^T.q: 8*BH*T^2*D = 4.8e11), far
+// above the card's balance point. These kernels run the products as f32
+// FMAs on the CUDA cores, whose published peak is 67 TFLOP/s; they are the
+// route of the float32 gradient checks against the CPU, where exact
+// float32 arithmetic is the point. The bf16 training path runs on the
+// tensor cores.
 //
 // Design (the TPU design does not carry over: each Pallas kernel keeps a
 // head's whole K/V, or Q/dO, resident in VMEM, ~1.6 MB at T = 6272, more
@@ -60,7 +60,6 @@
 //   cudaFuncSetAttribute.
 // - expf is the accurate library version (no --use_fast_math).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -70,27 +69,18 @@ constexpr int kThreads = 256;          // 16 x 16
 constexpr int kLd = kTile + 4;         // row stride of the transposed tiles
 constexpr float kNeg = -1e30f;         // _NEG of the Pallas kernels
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 // Rows [r0, r0 + kTile) of a [*, D] head slice, as float32, into the
 // transposed tile tr[D][kLd] and, when rm is given, the row-major tile
 // rm[kTile][D]; rows >= limit read as zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, int r0,
+template <int D>
+__device__ __forceinline__ void load_tile(const float* __restrict__ src, int r0,
                                           int limit, float* tr, float* rm) {
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int r = e / D;
     const int c = e - r * D;
     const int row = r0 + r;
     const float x =
-        row < limit ? to_f32(src[static_cast<size_t>(row) * D + c]) : 0.0f;
+        row < limit ? src[static_cast<size_t>(row) * D + c] : 0.0f;
     tr[c * kLd + r] = x;
     if (rm != nullptr) rm[r * D + c] = x;
   }
@@ -125,12 +115,12 @@ __device__ __forceinline__ void store_transposed(float* t, int ty, int tx,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int tp, int true_t, float scale) {
   constexpr int kCols = D / 16;        // output columns per thread
   extern __shared__ float4 smem4[];
@@ -147,8 +137,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kTile;
   const size_t head = static_cast<size_t>(blockIdx.y) * tp;
 
-  load_tile<T, D>(q + head * D, q0, tp, qt, nullptr);
-  load_tile<T, D>(dout + head * D, q0, tp, dot, nullptr);
+  load_tile<D>(q + head * D, q0, tp, qt, nullptr);
+  load_tile<D>(dout + head * D, q0, tp, dot, nullptr);
   float row_lse[4], row_delta[4], acc[4][kCols];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -163,8 +153,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * kTile;
     __syncthreads();   // Q and dO are stored; the last tile's readers are done
-    load_tile<T, D>(k + head * D, k0, true_t, kt, ks);
-    load_tile<T, D>(v + head * D, k0, true_t, vt, nullptr);
+    load_tile<D>(k + head * D, k0, true_t, kt, ks);
+    load_tile<D>(v + head * D, k0, true_t, vt, nullptr);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -203,27 +193,26 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dqh = dq + head * D;
+  float* dqh = dq + head * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row < tp) {
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        store(dqh + static_cast<size_t>(row) * D + tx * kCols + c,
-              acc[i][c] * scale);
+        dqh[static_cast<size_t>(row) * D + tx * kCols + c] = acc[i][c] * scale;
       }
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int tp, int true_t, float scale) {
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int tp, int true_t, float scale) {
   constexpr int kCols = D / 16;        // output columns per thread
   extern __shared__ float4 smem4[];
   float* kt = reinterpret_cast<float*>(smem4);   // [D][kLd]  K^T (this block's keys)
@@ -242,8 +231,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid >> 4;
   const int k0 = blockIdx.x * kTile;
   const size_t head = static_cast<size_t>(blockIdx.y) * tp;
-  T* dkh = dk + head * D;
-  T* dvh = dv + head * D;
+  float* dkh = dk + head * D;
+  float* dvh = dv + head * D;
 
   float gk[4][kCols], gv[4][kCols];
 #pragma unroll
@@ -256,14 +245,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // takes this branch together, so no barrier is skipped by part of it).
   const int n_tiles = k0 < true_t ? (true_t + kTile - 1) / kTile : 0;
   if (n_tiles > 0) {
-    load_tile<T, D>(k + head * D, k0, true_t, kt, nullptr);
-    load_tile<T, D>(v + head * D, k0, true_t, vt, nullptr);
+    load_tile<D>(k + head * D, k0, true_t, kt, nullptr);
+    load_tile<D>(v + head * D, k0, true_t, vt, nullptr);
   }
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int q0 = tile * kTile;
     __syncthreads();   // K and V are stored; the last tile's readers are done
-    load_tile<T, D>(q + head * D, q0, true_t, qt, qs);
-    load_tile<T, D>(dout + head * D, q0, true_t, dot, dos);
+    load_tile<D>(q + head * D, q0, true_t, qt, qs);
+    load_tile<D>(dout + head * D, q0, true_t, dot, dos);
     for (int r = tid; r < kTile; r += kThreads) {
       const int row = q0 + r;
       lse_s[r] = row < true_t ? lse[head + row] : 0.0f;
@@ -328,8 +317,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         const size_t off = static_cast<size_t>(row) * D + tx * kCols + c;
-        store(dkh + off, gk[i][c] * scale);
-        store(dvh + off, gv[i][c]);
+        dkh[off] = gk[i][c] * scale;
+        dvh[off] = gv[i][c];
       }
     }
   }
@@ -343,23 +332,23 @@ cudaError_t allow_smem(Kernel* kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int bh, int tp,
               int true_t, float scale, cudaStream_t stream) {
   const size_t smem = (4 * D * kLd + kTile * D + kTile * kLd) * sizeof(float);
   cudaError_t err =
-      allow_smem(flash_bwd_dq_kernel<T, D>, smem);
+      allow_smem(flash_bwd_dq_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((tp + kTile - 1) / kTile, bh);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), tp, true_t, scale);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dq), tp, true_t, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dk, void* dv,
                int bh, int tp, int true_t, float scale, cudaStream_t stream) {
@@ -367,50 +356,27 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       (4 * D * kLd + 2 * kTile * D + 2 * kTile * kLd + 2 * kTile) *
       sizeof(float);
   cudaError_t err =
-      allow_smem(flash_bwd_dkv_kernel<T, D>, smem);
+      allow_smem(flash_bwd_dkv_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((tp + kTile - 1) / kTile, bh);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), tp, true_t, scale);
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dk), static_cast<float*>(dv), tp, true_t, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-int dq_d(const void* q, const void* k, const void* v, const void* dout,
-         const float* lse, const float* delta, void* dq, int bh, int tp, int d,
-         int true_t, float scale, cudaStream_t s) {
-  switch (d) {
-    case 16: return launch_dq<T, 16>(q, k, v, dout, lse, delta, dq, bh, tp, true_t, scale, s);
-    case 32: return launch_dq<T, 32>(q, k, v, dout, lse, delta, dq, bh, tp, true_t, scale, s);
-    case 64: return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, bh, tp, true_t, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-int dkv_d(const void* q, const void* k, const void* v, const void* dout,
-          const float* lse, const float* delta, void* dk, void* dv, int bh,
-          int tp, int d, int true_t, float scale, cudaStream_t s) {
-  switch (d) {
-    case 16: return launch_dkv<T, 16>(q, k, v, dout, lse, delta, dk, dv, bh, tp, true_t, scale, s);
-    case 32: return launch_dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, bh, tp, true_t, scale, s);
-    case 64: return launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tp, true_t, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-bool bad_shape(int bh, int tp, int true_t) {
-  return bh < 1 || bh > 65535 || tp < 1 || true_t < 1 || true_t > tp;
+bool bad_shape(int bh, int tp, int true_t, int is_bf16) {
+  return is_bf16 || bh < 1 || bh > 65535 || tp < 1 || true_t < 1 || true_t > tp;
 }
 
 }  // namespace
 
 // C entry points, bound with ctypes. q, k, v, dout, dq, dk, dv: device
-// pointers to contiguous [bh, tp, d] arrays of bf16 (is_bf16 = 1) or f32
-// (is_bf16 = 0); lse, delta: device pointers to [bh, tp] f32. d in
-// {16, 32, 64}; 1 <= true_t <= tp. Each launches on `stream` without
+// pointers to contiguous [bh, tp, d] f32 arrays; lse, delta: device
+// pointers to [bh, tp] f32. d in {16, 32, 64}; 1 <= true_t <= tp; is_bf16
+// must be 0 (bf16 inputs take flash_attention_bwd_dq_sm90_launch and
+// flash_attention_bwd_dkv_sm90_launch). Each launches on `stream` without
 // synchronising and returns the launch's cudaError_t (0 on success).
 extern "C" int flash_attention_bwd_dq_launch(const void* q, const void* k,
                                              const void* v, const void* dout,
@@ -419,12 +385,14 @@ extern "C" int flash_attention_bwd_dq_launch(const void* q, const void* k,
                                              int bh, int tp, int d, int true_t,
                                              int is_bf16, float scale,
                                              void* stream) {
-  if (bad_shape(bh, tp, true_t)) return cudaErrorInvalidValue;
+  if (bad_shape(bh, tp, true_t, is_bf16)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return dq_d<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, bh, tp, d, true_t, scale, s);
+  switch (d) {
+    case 16: return launch_dq<16>(q, k, v, dout, lse, delta, dq, bh, tp, true_t, scale, s);
+    case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dq, bh, tp, true_t, scale, s);
+    case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, tp, true_t, scale, s);
+    default: return cudaErrorInvalidValue;
   }
-  return dq_d<float>(q, k, v, dout, lse, delta, dq, bh, tp, d, true_t, scale, s);
 }
 
 extern "C" int flash_attention_bwd_dkv_launch(const void* q, const void* k,
@@ -434,11 +402,12 @@ extern "C" int flash_attention_bwd_dkv_launch(const void* q, const void* k,
                                               void* dv, int bh, int tp, int d,
                                               int true_t, int is_bf16,
                                               float scale, void* stream) {
-  if (bad_shape(bh, tp, true_t)) return cudaErrorInvalidValue;
+  if (bad_shape(bh, tp, true_t, is_bf16)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return dkv_d<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, bh, tp, d, true_t,
-                                scale, s);
+  switch (d) {
+    case 16: return launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, bh, tp, true_t, scale, s);
+    case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, bh, tp, true_t, scale, s);
+    case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, tp, true_t, scale, s);
+    default: return cudaErrorInvalidValue;
   }
-  return dkv_d<float>(q, k, v, dout, lse, delta, dk, dv, bh, tp, d, true_t, scale, s);
 }

@@ -11,9 +11,9 @@ source, all at once, and waits for them.
 Flags: ``sm_90a`` (Hopper) and ``-O3`` for every source, plus each
 source's own: ``nms_keep_mask`` adds ``--fmad=false`` so no ``a*b+c`` is
 contracted into an FMA -- the NMS IoU must round exactly like its XLA
-twin. The flash-attention sources (forward, backward, and the
-tensor-core forward and dk/dv) keep FMA contraction (the flag would halve
-their f32 rate). Never ``--use_fast_math``. Each source builds into its
+twin. The flash-attention sources (the float32 forward and backward, and
+the tensor-core forward, dq and dk/dv) keep FMA contraction (the flag
+would halve their f32 rate). Never ``--use_fast_math``. Each source builds into its
 own library, so a compile error in one cannot break another's build.
 """
 
@@ -37,6 +37,7 @@ SOURCES: Dict[str, str] = {
     "flash_attention_fwd": "csrc/flash_attention_fwd.cu",
     "flash_attention_fwd_sm90": "csrc/flash_attention_fwd_sm90.cu",
     "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dq_sm90": "csrc/flash_attention_bwd_dq_sm90.cu",
     "flash_attention_bwd_dkv_sm90": "csrc/flash_attention_bwd_dkv_sm90.cu",
 }
 

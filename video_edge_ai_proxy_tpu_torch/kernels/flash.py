@@ -1,6 +1,7 @@
 """Launch wrappers of the CUDA flash-attention kernels
 (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu`` and, for
-bf16, ``csrc/flash_attention_fwd_sm90.cu`` and
+bf16, ``csrc/flash_attention_fwd_sm90.cu``,
+``csrc/flash_attention_bwd_dq_sm90.cu`` and
 ``csrc/flash_attention_bwd_dkv_sm90.cu``).
 
 On packed ``[BH, Tp, D]`` tensors, each the card's counterpart of one
@@ -13,7 +14,7 @@ Pallas kernel of the JAX package:
 - ``flash_attention_bwd_dq_cuda(qp, kp, vp, do, lse, delta, true_t) -> dq``:
   ``_flash_bwd_dq_kernel`` (the first ``pallas_call`` of ``_flash_bwd_call``);
 - ``flash_attention_bwd_dkv_cuda(...) -> (dk, dv)``: ``_flash_bwd_dkv_kernel``
-  (the second); bf16 on the tensor cores, float32 on the CUDA cores.
+  (the second); both bf16 on the tensor cores, float32 on the CUDA cores.
 
 Their plain PyTorch versions are ``ops.flash_attention``
 ``flash_attention_reference``, ``flash_attention_bwd_dq_reference`` and
@@ -126,11 +127,25 @@ def flash_attention_fwd_cuda(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tenso
 def flash_attention_bwd_dq_cuda(qp, kp, vp, do, lse, delta, true_t: int) -> torch.Tensor:
     """Packed q, k, v, dO ``[BH, Tp, D]`` (bf16 or f32, one dtype) and the
     forward's ``lse`` with ``delta = rowsum(dO * O)`` (f32 ``[BH, Tp, 1]``)
-    -> ``dq`` in their dtype. Keys ``>= true_t`` are masked."""
+    -> ``dq`` in their dtype. Keys ``>= true_t`` are masked; query rows
+    ``>= true_t`` are computed like the others.
+
+    The dtype picks the kernel, and nothing else does: bf16 launches
+    ``flash_bwd_dq_kernel_wgmma`` (``csrc/flash_attention_bwd_dq_sm90.cu``,
+    wgmma on the tensor cores, with ds split into two bf16 halves so the
+    result keeps float32 accuracy); float32 launches ``flash_bwd_dq_kernel``
+    (``csrc/flash_attention_bwd.cu``), which keeps exact float32 arithmetic
+    on the CUDA cores and is the route of the float32 gradient checks
+    against the CPU. A failed build or launch raises; no route stands in
+    for the other."""
     _check("flash_attention_bwd_dq_cuda", (qp, kp, vp, do), (lse, delta), true_t)
+    if qp.dtype == torch.bfloat16:
+        _check_aligned("flash_attention_bwd_dq_cuda", (qp, kp, vp, do))
+        fn = _launcher("flash_attention_bwd_dq_sm90", "flash_attention_bwd_dq_sm90_launch", 7)
+    else:
+        fn = _launcher("flash_attention_bwd", "flash_attention_bwd_dq_launch", 7)
     dq = torch.empty_like(qp)
-    _launch(_launcher("flash_attention_bwd", "flash_attention_bwd_dq_launch", 7),
-            "flash_attention_bwd_dq", (qp, kp, vp, do, lse, delta, dq), qp, true_t)
+    _launch(fn, "flash_attention_bwd_dq", (qp, kp, vp, do, lse, delta, dq), qp, true_t)
     flash_attention_bwd_dq_cuda.launches += 1
     return dq
 
