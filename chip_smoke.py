@@ -12,10 +12,16 @@ exits non-zero:
    (one ``nvcc`` per source, all started together), with each kernel
    instantiation's registers and spills; the SASS of the three tensor-core
    libraries (the bf16 forward, dq and dk/dv) must hold ``HGMMA``
-   instructions in every kernel, and none of their kernels may spill;
+   instructions in every kernel, and none of their kernels may spill; the
+   keep-mask kernel's registers, shared memory and cluster size, and it
+   may not spill either;
 3. each kernel against its plain PyTorch version on the card: the NMS
    keep mask bit-identical (random boxes with duplicates, zero-area boxes,
-   all-zero slots and class-offset boxes, B = 16, K = 256 and K = 1024);
+   all-zero slots and class-offset boxes, B = 16, K = 256 and K = 1024;
+   and its edges: K = 1, 64, 65 and 1024 at B = 1, 16 and 40, each at
+   t = 0, 0.45, 0.7 and -0.1, with and without NaN and infinite
+   coordinates; and a chain of boxes each overlapping only its
+   neighbours, where greedy keeps every other box);
    the flash-attention forward's O and LSE, and the two backward kernels'
    dq and dk/dv, in float32 and bf16 at BH = 24, T = 6272, D = 64, at a
    padded T = 200, and at D = 16 and 32; the profiler shows that bf16
@@ -26,9 +32,11 @@ exits non-zero:
    uint8 frames with ``quality_thumb=32`` -- shapes, finiteness,
    ``valid.sum() > 0``, the same detections with the plain keep mask
    swapped in, float32 agreement of the model and preprocessing with the
-   CPU on two frames, step time (median of 20), the kernel's own time on
-   the step's candidates, peak memory, and a profile of where a step's
-   device time goes;
+   CPU on two frames, step time (median of 20), the keep-mask kernel's own
+   time on the step's candidates (profiler and CUDA events) beside its
+   bound and, as a note, the floor of its dependent K-step chain and of a
+   launch, and the kernel's device time per added candidate at B = 1 from
+   K = 64 to 256 and 1024, peak memory, and a profile of where a step's device time goes;
 5. the engine answers detection requests: ``InferenceEngine(device="cuda")``
    over a ``MemoryFrameBus`` of 16 streams at 1080p; every stream must
    get results;
@@ -93,6 +101,16 @@ BF16_OPS_PER_S = 989e12
 # intersection sides, 2 clamps, 1 mul, 1 add + 1 sub for the union, 1 clamp,
 # 1 div, 1 compare. Greedy NMS needs only the pairs j > i: K(K-1)/2 per image.
 NMS_OPS_PER_PAIR = 14
+# The keep mask's dependent chain: one step per candidate, each at least a
+# bit test and an OR that waits for it, two dependent integer operations of
+# about 4 cycles each on Hopper. A floor beside the roofline bound, which
+# does not see the chain.
+NMS_CHAIN_CYCLES_PER_STEP = 8
+# The keep mask's edges in phase 3: one candidate, one and two 64-bit words
+# per row, the largest K, at batches of 1, 16 and 40 (40 images launch more
+# clusters than the card holds at once), and thresholds on both sides of 0.
+NMS_EDGE_SHAPES = tuple((b, k) for b in (1, 16, 40) for k in (1, 64, 65, 1024))
+NMS_EDGE_THRESHOLDS = (0.0, 0.45, 0.7, -0.1)
 
 # Kinds of device work in a step's profile, by substrings of kernel names
 # (the first kind that matches wins).
@@ -172,6 +190,15 @@ def card_line() -> str:
     return out[0].strip()
 
 
+def max_sm_clock_mhz() -> float:
+    """The card's maximum SM clock in MHz, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.split()
+    return float(out[0])
+
+
 def kernel_label(mangled: str) -> str:
     """A kernel instantiation's short name from its mangled name: the
     kernel, element type and head dim, as ``flash_bwd_dq_kernel<bf16,64>``."""
@@ -201,7 +228,9 @@ def ptxas_summary(text: str) -> list:
             spill = f"{m.group(1)}/{m.group(2)} B spilled"
         m = re.search(r"Used (\d+) registers", ln)
         if m and label:
-            out.append(f"{label} {m.group(1)} registers, {spill}")
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append(f"{label} {m.group(1)} registers, {spill}"
+                       + (f", {smem.group(1)} B static smem" if smem else ""))
             label = None
     return out or [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
 
@@ -291,10 +320,11 @@ def device_events(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def nms_boxes(gen, b: int, k: int, device):
+def nms_boxes(gen, b: int, k: int, device, nonfinite: bool = False):
     """Random score-sorted candidate boxes with the edge cases of the main
     path: duplicates, zero-area boxes, all-zero (filtered) slots and
-    class-offset boxes."""
+    class-offset boxes; with ``nonfinite``, also a few NaN, +inf and -inf
+    coordinates."""
     import torch
 
     from video_edge_ai_proxy_tpu_torch.ops.nms import _CLASS_OFFSET
@@ -308,7 +338,25 @@ def nms_boxes(gen, b: int, k: int, device):
     cls = torch.randint(0, 80, (b, k, 1), generator=gen).float()
     boxes = boxes + cls * _CLASS_OFFSET
     boxes[:, -k // 8:] = 0.0
+    if nonfinite:
+        boxes[:, 2::13, 0] = float("nan")
+        boxes[:, 5::17, 3] = float("inf")
+        boxes[:, 6::19, 1] = float("-inf")
+        boxes[:, 9::23, 2] = float("inf")
     return boxes.to(device)
+
+
+def nms_chain_boxes(b: int, k: int, device):
+    """Unit squares 0.2 apart along x, the same in every image: each
+    overlaps its neighbour with IoU 2/3 and the next but one with IoU 3/7,
+    so at t = 0.45 greedy keeps every other box, and every odd row (rows 31
+    and 63 of each 64-row block among them) is removed while its word still
+    reaches the next row."""
+    import torch
+
+    x = torch.arange(k, dtype=torch.float32) * 0.2
+    one = torch.stack([x, torch.zeros_like(x), x + 1.0, torch.ones_like(x)], dim=-1)
+    return one.expand(b, k, 4).contiguous().to(device)
 
 
 def profile_step(step, n_prof: int, card: str, title: str, out_name: str, tag: str):
@@ -531,6 +579,7 @@ def main() -> int:
     from video_edge_ai_proxy_tpu_torch.kernels.flash import (
         flash_attention_bwd_dkv_cuda, flash_attention_bwd_dq_cuda, flash_attention_fwd_cuda,
     )
+    from video_edge_ai_proxy_tpu_torch.kernels.nms import launch_config as nms_launch_config
     from video_edge_ai_proxy_tpu_torch.kernels.nms import nms_keep_mask_cuda
     from video_edge_ai_proxy_tpu_torch.models import registry
     from video_edge_ai_proxy_tpu_torch.models.carry import zero_class_prior
@@ -618,6 +667,14 @@ def main() -> int:
         if not hgmma or min(hgmma.values()) == 0 or spills:
             raise AssertionError(f"the tensor-core library {sm90} lacks HGMMA instructions in "
                                  f"a kernel ({hgmma}) or spills ({spills})")
+    nms_spills = [e for e in ptxas_summary(logs.get("nms_keep_mask", ""))
+                  if "spilled" in e and "0/0 B spilled" not in e]
+    nms_cfg = {k: nms_launch_config(k) for k in (256, 1024)}
+    log(f"phase 2 nms_keep_mask launch: a cluster of {nms_cfg[256]['cluster']} CTAs per "
+        f"image, {nms_cfg[256]['smem_bytes']} B of dynamic shared memory per CTA at K = 256, "
+        f"{nms_cfg[1024]['smem_bytes']} B at K = 1024 (registers and spills above)")
+    if nms_spills:
+        raise AssertionError(f"the keep-mask kernel spills: {nms_spills}")
 
     # -- phase 3: each kernel against its plain version ---------------------
     gen = torch.Generator().manual_seed(0)
@@ -634,6 +691,34 @@ def main() -> int:
                                  f"B={b} K={k}: {int((got != want).sum())} of {got.numel()}")
         log(f"phase 3 nms_keep_mask B={b} K={k}: bit-identical to the plain version "
             f"(kept {int(got.sum())} of {got.numel()})")
+    for b, k in NMS_EDGE_SHAPES:
+        kept = []
+        for nonfinite in (False, True):
+            boxes = nms_boxes(gen, b, k, dev, nonfinite=nonfinite)
+            for t in NMS_EDGE_THRESHOLDS:
+                got = nms_keep_mask_cuda(boxes, t)
+                torch.cuda.synchronize()
+                want = nms_keep_mask_reference(boxes, t)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"keep-mask kernel differs from its plain version at B={b} K={k} "
+                        f"t={t} nonfinite={nonfinite}: {int((got != want).sum())} of "
+                        f"{got.numel()}")
+                kept.append(int(got.sum()))
+        log(f"phase 3 nms_keep_mask B={b} K={k}: bit-identical to the plain version at "
+            f"t = {', '.join(map(str, NMS_EDGE_THRESHOLDS))}, finite boxes and boxes with "
+            f"NaN and infinite coordinates (kept {kept} of {b * k} each)")
+    for b, k in ((1, 33), (16, 256), (4, 1024)):
+        boxes = nms_chain_boxes(b, k, dev)
+        got = nms_keep_mask_cuda(boxes, 0.45)
+        torch.cuda.synchronize()
+        want = nms_keep_mask_reference(boxes, 0.45)
+        if not (torch.equal(got, want) and bool(want[:, 0::2].all())
+                and not bool(want[:, 1::2].any())):
+            raise AssertionError(f"keep-mask kernel or plain version wrong on a suppression "
+                                 f"chain at B={b} K={k}: {int((got != want).sum())} differ")
+        log(f"phase 3 nms_keep_mask B={b} K={k} suppression chain: every other box kept, "
+            f"bit-identical to the plain version")
 
     # The flash forward and backward: videomae_b_long's shape (BH = 2 clips
     # x 12 heads, T = 6272, D = 64), a padded T = 200 (true_t < Tp), and the
@@ -796,10 +881,46 @@ def main() -> int:
     bound_bytes_ms = (b_ * k_ * 16 + b_ * k_) / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = b_ * (k_ * (k_ - 1) // 2) * NMS_OPS_PER_PAIR / F32_OPS_PER_S * 1e3
     kernel_ms = prof_ms if prof_ms is not None else ev_ms
-    log(f"phase 4 nms_keep_mask on {card}: B={b_} K={k_}: device {prof_ms} ms/launch "
+    log(f"phase 4 nms_keep_mask on {card}: B={b_} K={k_}, a cluster of "
+        f"{nms_launch_config(k_)['cluster']} CTAs per image: device {prof_ms} ms/launch "
         f"(profiler), {ev_ms:.5f} ms/launch (CUDA events, 200 back to back), plain "
         f"version {plain_ms:.4f} ms; bound {max(bound_bytes_ms, bound_ops_ms):.3g} ms "
         f"(bytes {bound_bytes_ms:.3g}, operations {bound_ops_ms:.3g})")
+    # A note beside the bound: the dependent chain's floor at the card's
+    # clock, and the kernel's own launch on one candidate (its fixed cost:
+    # the cluster launch, two cluster barriers and the scan's first step).
+    clock_mhz = max_sm_clock_mhz()
+    chain_ms = k_ * NMS_CHAIN_CYCLES_PER_STEP / (clock_mhz * 1e6) * 1e3
+    one = cand[:1, :1].contiguous()
+    one_prof_ms = profiled_device_ms(lambda: nms_keep_mask_cuda(one, thresh), 50,
+                                     "nms_keep_mask")
+    one_ev_ms = time_events(lambda: nms_keep_mask_cuda(one, thresh), 200)
+    log(f"phase 4 nms_keep_mask floors: the K = {k_}-step chain at "
+        f"{NMS_CHAIN_CYCLES_PER_STEP} cycles a step and {clock_mhz:.0f} MHz "
+        f"{chain_ms:.5f} ms; one launch at B=1 K=1 {one_prof_ms} ms (profiler), "
+        f"{one_ev_ms:.5f} ms (CUDA events); chain + launch "
+        f"{chain_ms + (one_prof_ms or one_ev_ms):.5f} ms against the kernel's "
+        f"{kernel_ms:.5f} ms")
+    # What the built kernel pays per candidate, chain included: the device
+    # time of one image of the suppression chain at K = 64, 256 and 1024;
+    # the growth over K = 64, per added candidate, bounds the cost of one
+    # step of the chain from above (phase 1 and the off-diagonal updates
+    # grow with K too).
+    per_k = {}
+    for kk in (64, 256, 1024):
+        chain = nms_chain_boxes(1, kk, dev)
+        per_k[kk] = profiled_device_ms(lambda: nms_keep_mask_cuda(chain, 0.45), 50,
+                                       "nms_keep_mask")
+    if any(v is None for v in per_k.values()):
+        log(f"phase 4 nms_keep_mask per candidate: the profiler recorded no launch "
+            f"({per_k})")
+    else:
+        for kk in (256, 1024):
+            ns = (per_k[kk] - per_k[64]) / (kk - 64) * 1e6
+            log(f"phase 4 nms_keep_mask per candidate (suppression chain, B=1): "
+                f"K=64 {per_k[64]:.6f} ms, K={kk} {per_k[kk]:.6f} ms by the profiler; "
+                f"{ns:.3f} ns, {ns * clock_mhz / 1e3:.1f} cycles at {clock_mhz:.0f} MHz "
+                f"per added candidate, at most a chain step's cost")
     report["nms_keep_mask"].update(
         max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms,
         bound_ms=max(bound_bytes_ms, bound_ops_ms),

@@ -62,6 +62,48 @@ def test_keep_mask_kernel_equals_plain_version(card, b, k):
     assert torch.equal(want.cpu(), tnms.nms_keep_mask_reference(boxes.cpu(), IOU_T))
 
 
+def _nonfinite(boxes):
+    """A few NaN, +inf and -inf coordinates among the boxes."""
+    boxes = boxes.copy()
+    boxes[:, 2::13, 0] = np.nan
+    boxes[:, 5::17, 3] = np.inf
+    boxes[:, 6::19, 1] = -np.inf
+    boxes[:, 9::23, 2] = np.inf
+    return boxes
+
+
+# The kernel's edges: one candidate, one and two 64-bit words per row, the
+# largest K; B = 40 launches more clusters than fit on the card at once.
+@pytest.mark.parametrize("nonfinite", [False, True])
+@pytest.mark.parametrize("t", [0.0, 0.45, 0.7, -0.1])
+@pytest.mark.parametrize("b,k", [(b, k) for b in (1, 16, 40) for k in (1, 64, 65, 1024)])
+def test_keep_mask_kernel_edge_cases_equal_plain_version(card, b, k, t, nonfinite):
+    from video_edge_ai_proxy_tpu_torch.kernels.nms import nms_keep_mask_cuda
+
+    boxes = _boxes(np.random.default_rng(b * 10_000 + k), b, k)
+    if nonfinite:
+        boxes = _nonfinite(boxes)
+    boxes = torch.from_numpy(boxes).to(card)
+    got = nms_keep_mask_cuda(boxes, t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tnms.nms_keep_mask_reference(boxes, t))
+
+
+# Unit squares 0.2 apart along x: greedy keeps every other box at t = 0.45,
+# and every odd row (row 31 and row 63 of each 64-row block among them) is
+# removed while its word still reaches the next row.
+@pytest.mark.parametrize("b,k", [(1, 33), (16, 64), (16, 65), (16, 256), (4, 1024)])
+def test_keep_mask_kernel_on_a_suppression_chain(card, b, k):
+    from video_edge_ai_proxy_tpu_torch.kernels.nms import nms_keep_mask_cuda
+
+    x = torch.arange(k, dtype=torch.float32) * 0.2
+    one = torch.stack([x, torch.zeros_like(x), x + 1.0, torch.ones_like(x)], dim=-1)
+    boxes = one.expand(b, k, 4).contiguous().to(card)
+    got = nms_keep_mask_cuda(boxes, 0.45)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), (torch.arange(k) % 2 == 0).expand(b, k))
+
+
 def test_keep_mask_kernel_refuses_what_it_does_not_take(card):
     from video_edge_ai_proxy_tpu_torch.kernels.nms import nms_keep_mask_cuda
 
@@ -71,6 +113,26 @@ def test_keep_mask_kernel_refuses_what_it_does_not_take(card):
         nms_keep_mask_cuda(torch.zeros((1, 8, 4), device=card, dtype=torch.float16), IOU_T)
     with pytest.raises(ValueError):
         nms_keep_mask_cuda(torch.zeros((1, 4, 8), device=card).transpose(1, 2), IOU_T)
+
+
+# 2**28 images of one box ask for a grid of 2**28 clusters of 8 CTAs,
+# 2**31, one more than a launch may have. 2**29 + 1 images would make
+# 2**32 + 8 CTAs, which wraps to 8 in 32 bits and would run one cluster.
+# Both are refused.
+@pytest.mark.parametrize("b", [2 ** 28, 2 ** 29 + 1])
+def test_keep_mask_refused_launch_raises_and_leaves_no_error(card, b):
+    from video_edge_ai_proxy_tpu_torch.kernels.nms import nms_keep_mask_cuda
+
+    boxes = torch.zeros((b, 1, 4), device=card)
+    before = nms_keep_mask_cuda.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        nms_keep_mask_cuda(boxes, IOU_T)
+    assert nms_keep_mask_cuda.launches == before
+    del boxes
+    # The refusal leaves no error behind for the next launch to report.
+    small = torch.from_numpy(_boxes(np.random.default_rng(5), 2, 64)).to(card)
+    assert torch.equal(nms_keep_mask_cuda(small, IOU_T),
+                       tnms.nms_keep_mask_reference(small, IOU_T))
 
 
 def test_batched_nms_on_card_equals_cpu(card):

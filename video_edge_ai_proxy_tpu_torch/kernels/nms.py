@@ -2,9 +2,10 @@
 
 ``nms_keep_mask_cuda(boxes [B, K, 4] f32 cuda, t) -> keep [B, K] bool`` is
 the card's counterpart of ``nms_keep_mask_pallas`` in the JAX package, run
-for the whole batch in one launch (one thread block per image) where the
-Pallas kernel is vmapped one image at a time. Its plain PyTorch version is
-``ops.nms.nms_keep_mask_reference``.
+for the whole batch in one launch (a thread-block cluster per image) where
+the Pallas kernel is vmapped one image at a time. Its plain PyTorch version
+is ``ops.nms.nms_keep_mask_reference``. A failed launch, a refused cluster
+launch included, raises: there is no launch without clusters.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from . import build
 
-MAX_K = 1024       # kMaxK in the source: the suppression bits fit one block
+MAX_K = 1024       # kMaxK in the source: an image's bits fit one CTA's shared memory
 
 _bound = {}
 
@@ -29,6 +30,17 @@ def _launcher():
         fn.restype = ctypes.c_int
         _bound["fn"] = fn
     return fn
+
+
+def launch_config(k: int) -> dict:
+    """How the kernel launches at ``k`` candidates, from the built library:
+    ``cluster`` CTAs per image, each with ``smem_bytes`` of dynamic shared
+    memory."""
+    lib = build.load("nms_keep_mask")
+    lib.nms_keep_mask_smem_bytes.argtypes = [ctypes.c_int]
+    lib.nms_keep_mask_smem_bytes.restype = ctypes.c_size_t
+    return {"cluster": int(lib.nms_keep_mask_cluster_size()),
+            "smem_bytes": int(lib.nms_keep_mask_smem_bytes(k))}
 
 
 def nms_keep_mask_cuda(boxes: torch.Tensor, iou_thresh: float) -> torch.Tensor:
