@@ -69,9 +69,33 @@ exits non-zero:
    the registry's bf16 model with the trained weights;
 10. two VideoMAE pretraining steps of ``videomae_b_long``
    (``masked_pretrain_loss``, a 90% tube mask): finite losses and 16
-   launches of each flash kernel per step (12 encoder + 4 decoder layers).
+   launches of each flash kernel per step (12 encoder + 4 decoder layers);
+11. the default engine's serving pipeline on ``yolov8n`` bf16 with
+   ``quality_thumb=32`` at 16x1080p: (a) a synthetic trace of 16 streams,
+   8 frames each, replayed twice through ``lockstep_checksum`` (the two
+   folds bit-identical, a perturbed weight moves the fold); (b) the same
+   frames through the engine's collector and dispatch with the transfer
+   and drain threads, and synchronously: the same result checksum, bit
+   for bit; (c) 16 streams published at 30 fps for 20 s on distinct
+   frames through ``InferenceEngine(bus, EngineConfig())``: every stream
+   served, every detection with a track id, the ladder back at
+   ``normal``; capture->result latency p50/p95/p99 against the 40 ms
+   limit, frames/s, the shed share, the H2D time overlapped with compute,
+   the step spans against wall time and the drain's host time per frame
+   are reported, not gated; the traffic is the repo's detection traffic
+   (class prior zeroed); (d) the step's synchronising operations by
+   source line (``torch.cuda.set_sync_debug_mode``), then (c)'s traffic
+   with only ``slo_warmup_s`` cut to 3 s for 12 s: its blocking CUDA
+   runtime calls, kernel launches and device copies per batch over the
+   first 3 s (torch.profiler), and the SLO verdict: the fps objective
+   (1000 frames/s, above the 480 offered) must fire and the ladder end
+   at ``admission_pause``, and the admitted streams must still be served.
 
-Phases 5, 8 and 9 are the main paths: the kernels' launch counts are set
+After phase 8 the script reports what outlives its engines (the cuBLAS
+workspace of each stream that ran a matmul) and frees it, so that phase
+9's peak memory counts the training alone.
+
+Phases 5, 8, 9 and 11c are the main paths: the kernels' launch counts are set
 to 0 just before each and read just after it, and every kernel of that
 path must have launched. The line before the last is one JSON object describing
 every kernel; the last line is ``{"ok": true, "device": {...}}``. Longer
@@ -561,6 +585,352 @@ class ReadTrackingBus:
 
     def __getattr__(self, name):
         return getattr(self._bus, name)
+
+
+# -- phase 11: the serving pipeline ---------------------------------------------------
+
+# The paced runs: 16 streams published in phase at 30 fps, each cycling
+# through PACED_POOL distinct pattern frames, on the repo's detection
+# traffic (the class prior zeroed, as bench.py and phases 4 and 11a-b).
+# 11c: the default EngineConfig for PACED_S, then up to SETTLE_S for the
+# ladder to come back to normal with no new frames. Its SLOs reach no
+# verdict: slo_warmup_s is 60 s.
+PACED_FPS = 30.0
+PACED_S = 20.0
+SETTLE_S = 10.0
+PACED_POOL = 30
+# 11d: the same traffic with only slo_warmup_s cut, so that the SLO plane
+# reaches its verdict within SLO_RUN_S; the first PROFILE_S under
+# torch.profiler.
+SLO_WARMUP_S = 3.0
+SLO_RUN_S = 12.0
+PROFILE_S = 3.0
+# Replay: 8 frames of each of the 16 streams.
+REPLAY_FRAMES = 8
+# CUDA runtime calls that block the calling thread until the device work
+# queued before them has finished.
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy")
+
+
+def pct(values, p):
+    """The p-th percentile of ``values`` (linear interpolation)."""
+    s = sorted(values)
+    if not s:
+        return float("nan")
+    k = (len(s) - 1) * p / 100.0
+    lo = int(math.floor(k))
+    hi = min(lo + 1, len(s) - 1)
+    return s[lo] + (s[hi] - s[lo]) * (k - lo)
+
+
+def paced_publish(bus, streams, pool, seconds: float, on_round=None):
+    """Publish one frame per stream every 1/PACED_FPS s for ``seconds``,
+    stream i at frame (n + 2i) of ``pool`` in round n; a frame's capture
+    stamp is its publish, as a camera worker stamps the frame it
+    publishes. ``on_round(t)`` runs after each round, t the seconds since
+    the start. Returns (frames published, wall s, ms late per late round)."""
+    from video_edge_ai_proxy_tpu_torch.bus.interface import FrameMeta
+
+    h, w = pool[0].shape[:2]
+    late_ms = []
+    t_start = time.monotonic()
+    n = 0
+    while n / PACED_FPS < seconds:
+        wait = t_start + n / PACED_FPS - time.monotonic()
+        if wait > 0:
+            time.sleep(wait)
+        else:
+            late_ms.append(-wait * 1000.0)
+        for i, s in enumerate(streams):
+            bus.publish(s, pool[(n + 2 * i) % len(pool)],
+                        FrameMeta(width=w, height=h, packet=n,
+                                  timestamp_ms=int(time.time() * 1000)))
+        n += 1
+        if on_round is not None:
+            on_round(time.monotonic() - t_start)
+    return n * len(streams), time.monotonic() - t_start, late_ms
+
+
+def sync_sites(fn) -> dict:
+    """{source line: count} of the operations of one call of ``fn`` that
+    synchronise the host with the card (copies between pageable host
+    memory and the card, ``item()``, ``nonzero()``), from
+    ``torch.cuda.set_sync_debug_mode``'s warnings, each at the Python line
+    that made it."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out: dict = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            out[site] = out.get(site, 0) + 1
+    return out
+
+
+def pipeline_phase(dev, card: str, zero_launches, read_launches, kernels) -> None:
+    """Phase 11: the default engine's pipeline on yolov8n bf16 at 16x1080p:
+    (a) replay twice, (b) pipelined against synchronous, (c) a paced run,
+    (d) the paced run's host syncs and its SLO verdict."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from video_edge_ai_proxy_tpu_torch.bus.memory_bus import MemoryFrameBus
+    from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine
+    from video_edge_ai_proxy_tpu_torch.ingest.sources import SyntheticSource
+    from video_edge_ai_proxy_tpu_torch.models import registry
+    from video_edge_ai_proxy_tpu_torch.replay.checksum import check_golden, zero_class_prior
+    from video_edge_ai_proxy_tpu_torch.replay.harness import lockstep_checksum
+    from video_edge_ai_proxy_tpu_torch.replay.player import TracePlayer
+    from video_edge_ai_proxy_tpu_torch.replay.recorder import record_synthetic_trace
+    from video_edge_ai_proxy_tpu_torch.utils.config import EngineConfig
+
+    spec = registry.get("yolov8n")
+    streams = [f"cam{i:02d}" for i in range(N_STREAMS)]
+    model = spec.init_params(torch.Generator().manual_seed(0), device=dev)
+    model.load_state_dict(zero_class_prior(model.state_dict()))
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    # (a) replay twice, and once with one weight moved.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = record_synthetic_trace(os.path.join(tmp, "pipeline.vtrace"), streams,
+                                      width=FRAME_HW[1], height=FRAME_HW[0], fps=30.0,
+                                      frames=REPLAY_FRAMES)
+        runs = [lockstep_checksum(path, model="yolov8n", device=dev, state_dict=weights)
+                for _ in range(2)]
+
+        def perturb(sd):
+            # One element of the stem conv, the first layer, as the JAX
+            # package's replay test perturbs the first weight of its tree.
+            sd = dict(sd)
+            w = sd["stem.conv.weight"].clone()
+            w[(0,) * w.ndim] += 0.25
+            sd["stem.conv.weight"] = w
+            return sd
+
+        moved = lockstep_checksum(path, model="yolov8n", device=dev, state_dict=weights,
+                                  perturb=perturb)
+        by_packet: dict = {}
+        for dev_id, frame, meta in TracePlayer(path).iter_frames():
+            by_packet.setdefault(meta.packet, []).append((dev_id, frame, meta))
+    if runs[0] != runs[1]:
+        raise AssertionError(f"two replays of one trace differ: {runs}")
+    if moved["checksum"] == runs[0]["checksum"]:
+        raise AssertionError("a perturbed weight did not move the replay checksum")
+    if runs[0]["frames"] != N_STREAMS * REPLAY_FRAMES or runs[0]["checksum"] == 0:
+        raise AssertionError(f"replay served {runs[0]}")
+    golden = check_golden("lockstep:yolov8n:cuda", runs[0]["checksum"], tool="chip_smoke")
+    log(f"phase 11a replay: {runs[0]['frames']} frames of {N_STREAMS} streams at "
+        f"{FRAME_HW[1]}x{FRAME_HW[0]} in {runs[0]['batches']} batches, checksum "
+        f"{runs[0]['checksum']} twice (golden {golden if golden is not None else 'not committed'}); "
+        f"a perturbed weight gives {moved['checksum']}; {time.perf_counter() - t0:.2f} s")
+
+    # (b) the pipelined engine against the synchronous path, same frames.
+    ticks = [by_packet[n] for n in sorted(by_packet)]
+    folds = {}
+    for prefetch in (True, False):
+        engine = InferenceEngine(MemoryFrameBus(), EngineConfig(prefetch=prefetch), device=dev,
+                                 model=model)
+        folds[prefetch] = (engine.serve_lockstep(ticks), engine.pipeline_stats().frames)
+        del engine
+    piped, sync = folds[True], folds[False]
+    if piped != sync or piped[1] != N_STREAMS * REPLAY_FRAMES or piped[0] == 0:
+        raise AssertionError(f"pipelined (checksum, frames) {piped} != synchronous {sync}")
+    log(f"phase 11b engine: prefetch and drain thread fold {piped[0]} over {piped[1]} "
+        f"results, the synchronous path the same, bit for bit")
+    del ticks, by_packet
+
+    # (c) a paced run: 16 streams at 30 fps on distinct frames.
+    pool = [SyntheticSource.render(FRAME_HW[0], FRAME_HW[1], n) for n in range(PACED_POOL)]
+    bus = MemoryFrameBus()
+    for s in streams:
+        bus.create_stream(s, FRAME_HW[0] * FRAME_HW[1] * 3)
+    engine = InferenceEngine(bus, EngineConfig(), device=dev, model=model)
+    results = engine.subscribe()
+    got: dict = {}
+
+    def consume():
+        for r in results:
+            got.setdefault(r.device_id, []).append(r)
+
+    reader = threading.Thread(target=consume, daemon=True)
+    reader.start()
+    engine.warmup()
+    zero_launches()
+    engine.start()
+    try:
+        published, wall_s, late_ms = paced_publish(bus, streams, pool, PACED_S)
+        slo_verdict = engine.slo.snapshot()
+        settle = time.monotonic() + SETTLE_S
+        while engine.ladder.rung != "normal" and time.monotonic() < settle:
+            time.sleep(0.1)
+        rung = engine.ladder.rung
+        health = engine.health()
+    finally:
+        engine.stop()
+    launches = read_launches()
+    reader.join(10)
+    if reader.is_alive():
+        raise AssertionError("paced-run subscriber did not end")
+    p = engine.pipeline_stats()
+    missing = [s for s in streams if not got.get(s)]
+    lat = [r.latency_ms for v in got.values() for r in v]
+    dets = [d for v in got.values() for r in v for d in r.detections]
+    untracked = sum(1 for d in dets if not d.track_id)
+    quality = engine.quality.snapshot()
+    log(f"phase 11c paced run: {N_STREAMS} streams x {PACED_FPS:g} fps for {wall_s:.3f} s, "
+        f"{published} frames published, {p.frames} results ({p.frames / wall_s:.2f} frames/s), "
+        f"{p.batches} batches ({p.frames / max(p.batches, 1):.2f} frames per batch), "
+        f"{p.shed_frames} shed ({p.shed_frames / max(published, 1):.4f} of published), "
+        f"{published - p.frames - p.shed_frames} superseded or pending (latest-wins)")
+    log(f"phase 11c capture->result latency ms: p50 {pct(lat, 50):.3f}, p95 {pct(lat, 95):.3f}, "
+        f"p99 {pct(lat, 99):.3f}, max {max(lat) if lat else float('nan'):.3f} against the "
+        f"{engine._cfg.slo_latency_ms:g} ms limit; mean by stage: capture->collect "
+        f"{p.capture_to_collect_ms / max(p.frames, 1):.3f}, collect->submit "
+        f"{p.collect_to_submit_ms / max(p.frames, 1):.3f}, submit->drained "
+        f"{p.submit_to_drained_ms / max(p.frames, 1):.3f}, drained->emitted "
+        f"{p.drained_to_emitted_ms / max(p.frames, 1):.3f}")
+    log(f"phase 11c device: H2D {p.h2d_ms:.3f} ms in all ({p.h2d_ms / max(p.batches, 1):.3f} ms "
+        f"per batch), {p.h2d_overlapped_ms:.3f} ms of it ({p.h2d_overlapped_ms / max(p.h2d_ms, 1e-9):.4f}) "
+        f"overlapped with a batch in flight; step spans on the compute stream "
+        f"{p.device_ms:.3f} ms = {p.device_ms / (wall_s * 1000.0):.4f} of the wall time "
+        f"({p.device_ms / max(p.batches, 1):.3f} ms per batch); pinned batch pool "
+        f"{engine._collector.pool_nbytes() / 2 ** 20:.1f} MiB; publisher late "
+        f"{len(late_ms)} times (max {max(late_ms) if late_ms else 0.0:.3f} ms)")
+    log(f"phase 11c drain and planes: {len(dets)} detections "
+        f"({len(dets) / max(p.frames, 1):.2f} per result, class prior zeroed), {untracked} "
+        f"without a track id; the drain's emit {p.emit_ms / max(p.frames, 1):.4f} ms a frame "
+        f"(tracker {p.track_ms / max(p.frames, 1):.4f}); ladder {rung}, transitions "
+        f"{engine.ladder.transitions}; quality unhealthy {quality['unhealthy']}; SLOs at "
+        f"{wall_s:.1f} s (warmup {engine._cfg.slo_warmup_s:g} s): burning "
+        f"{slo_verdict['burning']}, fast burn "
+        f"{ {n: v['burn']['fast'] for n, v in slo_verdict['slos'].items()} }; health ok "
+        f"{health['ok']}; kernel launches {launches}")
+    if missing:
+        raise AssertionError(f"paced run: streams without results: {missing}")
+    if not dets or untracked:
+        raise AssertionError(f"paced run: {untracked} of {len(dets)} detections without a "
+                             f"track id")
+    if rung != "normal":
+        raise AssertionError(f"paced run: the ladder ended at {rung!r}")
+    if not health["ok"]:
+        raise AssertionError(f"paced run: engine unhealthy {health}")
+    for name, meta in kernels.items():
+        if meta["path"] == "detect" and launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched in the paced run")
+    del engine
+
+    pipeline_slo_phase(dev, card, model, spec, streams, pool)
+    del model, pool
+    torch.cuda.empty_cache()
+
+
+def pipeline_slo_phase(dev, card: str, model, spec, streams, pool) -> None:
+    """Phase 11d: the step's synchronising operations, then 11c's traffic
+    with the SLO warmup cut to SLO_WARMUP_S: its first PROFILE_S under
+    torch.profiler, then the SLO verdict and the rung it drives the
+    ladder to."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_edge_ai_proxy_tpu_torch.bus.memory_bus import MemoryFrameBus
+    from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine, build_serving_step
+    from video_edge_ai_proxy_tpu_torch.utils.config import EngineConfig
+
+    # The step alone: where its synchronising operations are.
+    step = build_serving_step(model, spec, quality_thumb=32)
+    x = torch.from_numpy(np.stack(pool[:N_STREAMS])).to(dev)
+    thumbs = torch.zeros((N_STREAMS, 32, 32), dtype=torch.float32, device=dev)
+    step(x, thumbs)
+    torch.cuda.synchronize()
+    sites = sync_sites(lambda: step(x, thumbs))
+    log(f"phase 11d the step alone: {sum(sites.values())} synchronising operations a call, at "
+        + ", ".join(f"{site} x{n}" for site, n in sorted(sites.items())))
+    del x, thumbs, step
+
+    bus = MemoryFrameBus()
+    for s in streams:
+        bus.create_stream(s, FRAME_HW[0] * FRAME_HW[1] * 3)
+    engine = InferenceEngine(bus, EngineConfig(slo_warmup_s=SLO_WARMUP_S), device=dev,
+                             model=model)
+    results = engine.subscribe()
+    arrivals = []
+
+    def consume():
+        for r in results:
+            arrivals.append((time.monotonic(), r.device_id))
+
+    reader = threading.Thread(target=consume, daemon=True)
+    reader.start()
+    engine.warmup()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks: dict = {}
+
+    def on_round(t):
+        if "profiled_batches" not in marks and t >= PROFILE_S:
+            prof.stop()
+            marks["profiled_batches"] = engine.pipeline_stats().batches
+        if "burning" not in marks and engine.slo.burning():
+            marks["burning"] = t
+        if "paused" not in marks and engine.ladder.rung == "admission_pause":
+            marks["paused"] = t
+
+    prof.start()
+    engine.start()
+    try:
+        published, wall_s, late_ms = paced_publish(bus, streams, pool, SLO_RUN_S, on_round)
+        t_end = time.monotonic()
+        verdict = engine.slo.snapshot()
+        rung = engine.ladder.rung
+    finally:
+        engine.stop()
+    reader.join(10)
+    if reader.is_alive():
+        raise AssertionError("phase 11d subscriber did not end")
+    p = engine.pipeline_stats()
+    batches = max(marks.get("profiled_batches", 0), 1)
+    calls: dict = {}
+    for e in prof.events():
+        if e.name.startswith(("cuda", "Memcpy")):
+            kind = "device" if e.device_type == DeviceType.CUDA else "host"
+            calls[kind, e.name] = calls.get((kind, e.name), 0) + 1
+    log(f"phase 11d profile of the first {PROFILE_S:g} s of the paced run on {card}: "
+        f"{batches} batches; per batch: kernel launches "
+        f"{calls.get(('host', 'cudaLaunchKernel'), 0) / batches:.2f}, blocking runtime calls "
+        + ", ".join(f"{c} {calls.get(('host', c), 0) / batches:.2f}" for c in SYNC_CALLS)
+        + "; device copies " + (", ".join(f"{c} {n / batches:.2f}" for (k, c), n in
+                                         sorted(calls.items()) if k == "device")
+                                or "none recorded"))
+    recent = {d for t, d in arrivals if t >= t_end - 2.0}
+    log(f"phase 11d SLO plane (slo_warmup_s {SLO_WARMUP_S:g} s, the default EngineConfig "
+        f"otherwise; {published} frames published in {wall_s:.3f} s, {p.frames} results, "
+        f"publisher late {len(late_ms)} times): burning from t = "
+        f"{marks.get('burning', float('nan')):.2f} s; per SLO (fast burn, firing): "
+        + ", ".join(f"{n} ({v['burn']['fast']}, {v['firing']})"
+                    for n, v in verdict["slos"].items())
+        + f"; ladder at admission_pause from t = {marks.get('paused', float('nan')):.2f} s, "
+        f"{rung} at the end, transitions {engine.ladder.transitions}; {len(recent)} of "
+        f"{N_STREAMS} streams served in the last 2 s")
+    if not verdict["slos"]["aggregate_fps"]["firing"] or rung != "admission_pause":
+        raise AssertionError("phase 11d: the fps objective (target above the offered "
+                             "480 frames/s) did not fire, or the ladder did not end at "
+                             "admission_pause")
+    if not recent:
+        raise AssertionError("phase 11d: no stream served under admission_pause")
 
 
 def main() -> int:
@@ -1223,6 +1593,21 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s, every stream served; kernel launches {launches}")
     del vengine
     torch.cuda.empty_cache()
+    # What outlives the engines of phases 5 and 8: PyTorch keeps a cuBLAS
+    # workspace for every stream that ran a matmul (the default stream and
+    # each engine's compute stream), and it counts as allocated memory.
+    # Freed here, so that phase 9's peak counts the training alone.
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    alive = sum(1 for o in gc.get_objects() if isinstance(o, InferenceEngine))
+    held = torch.cuda.memory_allocated(dev)
+    torch._C._cuda_clearCublasWorkspaces()
+    freed = held - torch.cuda.memory_allocated(dev)
+    log(f"phase 8 after the engines: {alive} InferenceEngine objects alive, "
+        f"{held / 2**20:.1f} MiB allocated, of which {freed / 2**20:.1f} MiB were cuBLAS "
+        f"workspaces, now freed")
 
     # -- phase 9: the training slice at full width ---------------------------------
     from video_edge_ai_proxy_tpu_torch.models.videomae import (
@@ -1417,6 +1802,9 @@ def main() -> int:
         f"flash kernel per step)")
     del pmodel, ptrainer, pstate, tx, clips
     torch.cuda.empty_cache()
+
+    # -- phase 11: the default engine's serving pipeline ---------------------------
+    pipeline_phase(dev, card, zero_launches, read_launches, kernels)
 
     line = {"kernels": []}
     for name, meta in kernels.items():

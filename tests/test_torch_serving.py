@@ -31,7 +31,7 @@ from video_edge_ai_proxy_tpu.ops import preprocess as jpre
 from video_edge_ai_proxy_tpu.replay.checksum import zero_class_prior as jzero_class_prior
 from video_edge_ai_proxy_tpu_torch.bus.interface import FrameMeta
 from video_edge_ai_proxy_tpu_torch.bus.memory_bus import MemoryFrameBus
-from video_edge_ai_proxy_tpu_torch.engine.collector import BatchGroup, Collector, pad_to_bucket
+from video_edge_ai_proxy_tpu_torch.engine.collector import Collector, bucket_for
 from video_edge_ai_proxy_tpu_torch.engine.runner import (
     BoundingBox, Detection, InferenceEngine, InferenceResult, build_serving_step,
 )
@@ -157,10 +157,17 @@ def test_collector_groups_by_geometry_and_pads():
         ((64, 64), ["c"], 1), ((96, 128), ["a", "b"], 2)]
     assert groups[1].frames[0, 0, 0, 0] == 2          # latest wins
     assert col.collect() == []                       # nothing unseen
-    g = pad_to_bucket(BatchGroup((2, 2), ["x"] * 3, np.ones((3, 2, 2, 3), np.uint8), []), (1, 4))
-    assert g.bucket == 4 and g.frames.shape[0] == 4 and g.frames[3].sum() == 0
+    bus.create_stream("d", 96 * 128 * 3)
+    bus.publish("d", np.full((96, 128, 3), 1, np.uint8), FrameMeta(packet=1))
+    assert [g.device_ids for g in col.collect()] == [["d"]]   # first sight
+    for name in ("a", "b", "d"):
+        bus.publish(name, np.full((96, 128, 3), 9, np.uint8), FrameMeta(packet=3))
+    (g,) = col.collect()                             # a group of 3 pads to 4
+    assert g.bucket == 4 and g.frames.shape[0] == 4
+    assert (g.frames[:3] == 9).all() and g.frames[3].sum() == 0
+    assert [bucket_for(n, (1, 4)) for n in (1, 2, 3, 4)] == [1, 4, 4, 4]
     with pytest.raises(ValueError):
-        pad_to_bucket(BatchGroup((2, 2), [], np.ones((5, 2, 2, 3), np.uint8), []), (1, 4))
+        bucket_for(5, (1, 4))
 
 
 def test_engine_serves_three_streams():

@@ -193,6 +193,13 @@ class _ReadTrackingBus(MemoryFrameBus):
             self.read[device_id] = frame.seq
         return frame
 
+    def read_latest_into(self, device_id, dst, min_seq=0):
+        # The collector's pooled fast path (streams of known geometry).
+        res = super().read_latest_into(device_id, dst, min_seq)
+        if isinstance(res, tuple):
+            self.read[device_id] = res[0]
+        return res
+
 
 @pytest.mark.parametrize("name", ["tiny_videomae", "tiny_vit"])
 def test_engine_serves_two_streams(name):

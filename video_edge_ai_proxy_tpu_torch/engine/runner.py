@@ -1,4 +1,4 @@
-"""Serving step and a slim inference engine (counterpart of ``video_edge_ai_proxy_tpu/engine/runner.py``).
+"""Serving step and inference engine (counterpart of ``video_edge_ai_proxy_tpu/engine/runner.py``).
 
 ``build_serving_step`` is the single source of truth for the per-tick
 device program of a model: uint8 frames (or clips) in, postprocessed
@@ -10,23 +10,36 @@ CUDA flash-attention kernel) -> float32 softmax -> top-5. Frame models
 add the frame-quality statistics. The engine runs it per (geometry,
 bucket); ``chip_smoke.py`` times it.
 
-``InferenceEngine`` is the tick loop around it: collect -> H2D of uint8
-from pinned host memory -> cached step -> D2H -> emit per stream, with the
-per-stream quality thumbnails carried across ticks on the device. Results
-are plain dataclasses with the proto's field names. The prefetch stage,
-the drain thread, CUDA graphs, the tracker, shedding, the degradation
-ladder, the SLO/observability planes, ROI, cascade and the gRPC surface
-are later slices.
+``InferenceEngine`` is the serving pipeline around it, on three threads:
+
+- the tick thread: the degradation ladder's rung, collect (the pooled
+  fast path of ``collector.py``, filled between ticks by the doorbell-woken
+  assembly window), stale-frame shedding, then per group the step queued
+  on the compute stream after its input's copy, with the quality
+  thumbnails gathered from and scattered to a device pool (``_ThumbPool``);
+- the transfer thread (``cfg.prefetch``): H2D of each group from its
+  pinned pooled buffer on a side stream, double-buffered
+  (``_PrefetchStage``), so the copy of batch t + 1 overlaps the step of
+  batch t;
+- the drain thread: a depth-2 queue of dispatched batches, read back on
+  their own stream once the step's event completes, then per stream the
+  tracker, the quality verdicts, the SLO samples and the result.
+
+Results are plain dataclasses with the proto's field names. CUDA graphs,
+stage traces, the journal, the watchdog, ROI, the cascade, the mesh
+paths and the gRPC surface are later slices.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import queue
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,14 +47,20 @@ import torch
 from ..bus.interface import FrameBus
 from ..device import resolve_device
 from ..models import registry
+from ..obs import registry as obs_registry
+from ..obs.quality import QualityTracker
+from ..obs.slo import SLOEngine, default_slos
 from ..ops.nms import _top, batched_nms, nms_keep_mask
 from ..ops.preprocess import (
     frame_quality_stats, preprocess_classify, preprocess_clip, preprocess_letterbox,
     unletterbox_boxes,
 )
+from ..replay.checksum import CHECKSUM_MASK, host_slot_checksum
+from ..resilience.ladder import RUNGS, DegradationLadder
 from ..utils.config import EngineConfig
 from .classes import class_name
-from .collector import BatchGroup, Collector
+from .collector import BatchGroup, Collector, bucket_for, host_empty
+from .tracker import IoUTracker
 
 log = logging.getLogger("vep.torch.engine.runner")
 
@@ -137,6 +156,7 @@ class Detection:
     confidence: float = 0.0
     class_id: int = 0
     class_name: str = ""
+    track_id: str = ""            # per-stream tracker id (cfg.track)
 
 
 @dataclass
@@ -148,13 +168,6 @@ class InferenceResult:
     latency_ms: float = 0.0       # capture -> result latency
     batch_size: int = 0           # device batch this frame rode in
     frame_packet: int = 0         # source packet counter
-
-
-@dataclass
-class StreamStats:
-    frames: int = 0
-    last_latency_ms: float = 0.0
-    last_batch: int = 0
 
 
 def to_detections(host: Dict[str, np.ndarray], i: int, kind: str,
@@ -181,6 +194,359 @@ def to_detections(host: Dict[str, np.ndarray], i: int, kind: str,
     return out
 
 
+# -- shedding and admission (degradation-ladder rungs) ------------------------
+
+
+def admitted_streams(inferred: Sequence[str], deprioritized: Sequence[str] = ()) -> List[str]:
+    """Ladder rung ``admission_pause``: admit a deterministic half of the
+    streams, the first half of the sorted ids, so the same streams stay
+    admitted across ticks. One stream never pauses. ``deprioritized``
+    streams (quality-unhealthy: black or frozen) sort behind every healthy
+    one, so they are the first to pause."""
+    dep = set(deprioritized)
+    ids = sorted(inferred, key=lambda d: (d in dep, d))
+    if len(ids) <= 1:
+        return ids
+    return sorted(ids[: (len(ids) + 1) // 2])
+
+
+def shed_stale(group: BatchGroup, now_ms: float, max_staleness_ms: float,
+               buckets: Sequence[int]):
+    """Ladder rung ``shed``: drop the frames older than the staleness bound
+    from a collected group before dispatch. Fresh rows compact in place
+    within the pooled buffer (the lease is untouched) and the view
+    re-slices to the smallest covering bucket. Returns ``(group, shed)``;
+    group is None when every row was stale (the caller releases the lease).
+    Frames without a capture timestamp count as fresh."""
+    keep = [i for i, m in enumerate(group.metas)
+            if not m.timestamp_ms or now_ms - m.timestamp_ms <= max_staleness_ms]
+    shed = len(group.metas) - len(keep)
+    if shed == 0:
+        return group, 0
+    if not keep:
+        return None, shed
+    for new_i, old_i in enumerate(keep):
+        if new_i != old_i:
+            group.frames[new_i] = group.frames[old_i]
+    group.device_ids = [group.device_ids[i] for i in keep]
+    group.metas = [group.metas[i] for i in keep]
+    n = len(keep)
+    bucket = bucket_for(n, sorted(buckets))
+    view = group.frames[:bucket]
+    if bucket != n:
+        view[n:] = 0
+    group.frames = view
+    group.bucket = bucket
+    return group, shed
+
+
+# -- per-stream and pipeline accounting ----------------------------------------
+
+
+@dataclass
+class StreamStats:
+    frames: int = 0
+    last_latency_ms: float = 0.0
+    ema_latency_ms: float = 0.0
+    last_batch: int = 0
+    padded_slots: int = 0          # zero-padded slots of the last batch
+    device_ms_ema: float = 0.0
+    device_ms_initialized: bool = False
+    # Monotonic time of the last emitted result: the availability SLO's
+    # signal.
+    last_emit_mono: float = 0.0
+    # A first frame can measure 0.0 ms; the flag, not the value, seeds
+    # the EMA.
+    ema_initialized: bool = False
+
+    def note_latency(self, latency_ms: float) -> None:
+        self.last_latency_ms = latency_ms
+        if self.ema_initialized:
+            self.ema_latency_ms = 0.9 * self.ema_latency_ms + 0.1 * latency_ms
+        else:
+            self.ema_latency_ms = latency_ms
+            self.ema_initialized = True
+
+    def note_device(self, device_ms: float, padded_slots: int) -> None:
+        self.padded_slots = padded_slots
+        if self.device_ms_initialized:
+            self.device_ms_ema = 0.9 * self.device_ms_ema + 0.1 * device_ms
+        else:
+            self.device_ms_ema = device_ms
+            self.device_ms_initialized = True
+
+
+@dataclass(frozen=True)
+class StreamStatsView:
+    """Immutable point-in-time copy handed out by ``stats()``: the drain
+    thread keeps mutating the live StreamStats."""
+
+    frames: int = 0
+    last_latency_ms: float = 0.0
+    ema_latency_ms: float = 0.0
+    last_batch: int = 0
+    padded_slots: int = 0
+    device_ms_ema: float = 0.0
+
+
+class _RateWindow:
+    """Frames emitted over the last ``window_s`` seconds: the aggregate
+    frames/s the fps objective samples each tick."""
+
+    def __init__(self, window_s: float = 2.0):
+        self._window_s = window_s
+        self._lock = threading.Lock()
+        self._events: deque = deque()     # (monotonic, frames)
+        self._start = time.monotonic()
+
+    def note(self, frames: int) -> None:
+        now = time.monotonic()
+        with self._lock:
+            self._events.append((now, frames))
+            while self._events and now - self._events[0][0] > self._window_s:
+                self._events.popleft()
+
+    def fps(self) -> float:
+        now = time.monotonic()
+        with self._lock:
+            span = min(self._window_s, now - self._start)
+            n = sum(f for t, f in self._events if now - t <= self._window_s)
+        return n / span if span > 0 else 0.0
+
+
+@dataclass
+class PipelineStats:
+    """Engine-wide totals, read through ``InferenceEngine.pipeline_stats``.
+    Device times come from CUDA events and are 0 on the CPU."""
+
+    batches: int = 0
+    frames: int = 0               # emitted results
+    shed_frames: int = 0
+    h2d_ms: float = 0.0           # copy time on the transfer stream
+    h2d_overlapped_ms: float = 0.0  # of it, while a dispatched batch was in flight
+    device_ms: float = 0.0        # step spans on the compute stream
+    # Capture -> result, by stage, summed over emitted frames (ms):
+    capture_to_collect_ms: float = 0.0   # wait for the tick's collect
+    collect_to_submit_ms: float = 0.0    # placement wait and step launch
+    submit_to_drained_ms: float = 0.0    # device finish and read-back
+    drained_to_emitted_ms: float = 0.0   # tracker, quality, publish
+    # The drain's host time, summed over batches (ms):
+    emit_ms: float = 0.0          # the emit loop over a batch's slots
+    track_ms: float = 0.0         # of it, the tracker
+
+
+# -- device state and the in-flight pipeline -------------------------------------
+
+
+@dataclass
+class _Inflight:
+    """A dispatched (not yet drained) batch."""
+
+    group: BatchGroup
+    outputs: Dict[str, torch.Tensor]
+    t_collect: float              # wall s the tick's collect returned
+    t_submit: float               # wall s the step was queued
+    start: Optional["torch.cuda.Event"] = None   # compute stream, before the step
+    done: Optional["torch.cuda.Event"] = None    # compute stream, after the step
+
+
+class _ThumbPool:
+    """Device-resident per-stream quality thumbnails: one [capacity, th, tw]
+    f32 tensor and a host map from stream to row. A batch's previous-tick
+    thumbnails are a device-side gather by row; the step's new thumbnails
+    scatter back. Both run on the tick thread's (compute) stream, so tick
+    t + 1 gathers what tick t scattered. Row 0 stays zero: first-seen
+    streams and padded slots gather it (the first diff is against zeros,
+    which the quality tracker discards)."""
+
+    _GROW = 64
+
+    def __init__(self, side: int, device: torch.device):
+        self.side = int(side)
+        self.device = device
+        self._slots: Dict[str, int] = {}
+        self._free: List[int] = []
+        self._pool: Optional[torch.Tensor] = None
+        self._high = 0
+
+    def __bool__(self) -> bool:
+        return bool(self._slots)
+
+    def __iter__(self):
+        return iter(list(self._slots))
+
+    def pop(self, device_id: str) -> None:
+        """Forget a stream; its row is free for reuse (scatter overwrites
+        it before anything gathers it)."""
+        row = self._slots.pop(device_id, None)
+        if row is not None:
+            self._free.append(row)
+
+    def _ensure(self, rows: int) -> None:
+        cap = 0 if self._pool is None else self._pool.shape[0]
+        if rows <= cap:
+            return
+        grown = torch.zeros((-(-max(rows, 1) // self._GROW) * self._GROW, self.side, self.side),
+                            dtype=torch.float32, device=self.device)
+        if self._pool is not None:
+            grown[:cap] = self._pool
+        self._pool = grown
+
+    def _to_device(self, rows: Sequence[int]) -> torch.Tensor:
+        idx = torch.tensor(rows, dtype=torch.int64)
+        if self.device.type == "cuda":
+            # Pinned and asynchronous: a pageable copy would synchronise
+            # the compute stream.
+            return idx.pin_memory().to(self.device, non_blocking=True)
+        return idx
+
+    def gather(self, device_ids: Sequence[str], bucket: int) -> torch.Tensor:
+        """Previous-tick [bucket, th, tw] thumbnails of a batch, slot order."""
+        self._ensure(1)
+        rows = [self._slots.get(d, 0) for d in device_ids]
+        rows += [0] * (bucket - len(rows))
+        return self._pool.index_select(0, self._to_device(rows))
+
+    def scatter(self, device_ids: Sequence[str], thumbs: torch.Tensor) -> None:
+        """Store this tick's thumbnails (rows 0..n-1 of ``thumbs``) for the
+        next tick's diff; assigns rows on first sight."""
+        rows = []
+        for d in device_ids:
+            row = self._slots.get(d)
+            if row is None:
+                row = self._free.pop() if self._free else self._high + 1
+                self._high = max(self._high, row)
+                self._slots[d] = row
+            rows.append(row)
+        if not rows:
+            return
+        self._ensure(max(rows) + 1)
+        self._pool.index_copy_(0, self._to_device(rows), thumbs[:len(rows)])
+
+
+class _Prefetched:
+    """Handle of one batch placement in flight on the transfer thread."""
+
+    __slots__ = ("group", "ready", "placed", "event", "error", "transfer_ms",
+                 "overlapped_ms")
+
+    def __init__(self, group: BatchGroup):
+        self.group = group
+        self.ready = threading.Event()
+        self.placed: Optional[torch.Tensor] = None
+        self.event = None              # the copy's CUDA event (None on the CPU)
+        self.error: Optional[BaseException] = None
+        self.transfer_ms = 0.0
+        self.overlapped_ms = 0.0       # transfer time while a batch was in flight
+
+
+class _PrefetchStage:
+    """The H2D transfer stage: ``place`` (the one placement, with the
+    transfer stream) and, when started (``cfg.prefetch``), a depth-2 queue
+    feeding one transfer thread that places each collected batch, so the
+    copy of batch t + 1 runs while the tick thread dispatches batch t and
+    the device computes it. Not started, the tick thread calls ``place``
+    itself. A placement resolves only once its copy has completed, so
+    nothing reads the leased host buffer after its handle is ready. An
+    error on the transfer thread is stored on the handle and raised on the
+    tick thread. Its pinned slots are the collector's leased pool buffers:
+    one is rewritten only after its lease returns."""
+
+    DEPTH = 2
+
+    def __init__(self, device: torch.device, drain_q: queue.Queue):
+        self._device = device
+        # A dispatched batch is in flight while the drain queue has
+        # unfinished tasks (put at dispatch, done after emit).
+        self._drain_q = drain_q
+        self.stream = None             # the transfer stream (on the card)
+        self._q: "queue.Queue[Optional[_Prefetched]]" = queue.Queue(maxsize=self.DEPTH)
+        self._thread: Optional[threading.Thread] = None
+
+    def place(self, frames: np.ndarray):
+        """Host frames -> (device tensor, the copy's CUDA event, copy ms).
+
+        On the card the copy runs on the transfer stream, asynchronously
+        from the pinned pooled buffer, and returns once it has completed
+        (the host lease may then be returned). Frames outside pinned memory
+        are refused: there is no synchronous copy. On the CPU (only when
+        the caller asked for it) the placement is a plain copy."""
+        host = torch.from_numpy(frames)
+        if self._device.type != "cuda":
+            return host.clone(), None, 0.0
+        if not host.is_pinned():
+            raise RuntimeError("frames to place must lie in pinned host memory")
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self._device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(self.stream):
+            start.record()
+            placed = torch.empty(host.shape, dtype=host.dtype, device=self._device)
+            placed.copy_(host, non_blocking=True)
+            end.record()
+        end.synchronize()
+        return placed, end, start.elapsed_time(end)
+
+    def _busy(self) -> bool:
+        return self._drain_q.unfinished_tasks > 0
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._loop, name="vep-torch-xfer", daemon=True)
+        self._thread.start()
+
+    def alive(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def stop(self) -> None:
+        if self._thread is None:
+            return
+        try:
+            self._q.put(None, timeout=5)
+        except queue.Full:
+            log.warning("transfer queue full at stop; abandoning the thread")
+        self._thread.join(timeout=10)
+        self._thread = None
+
+    def submit(self, group: BatchGroup, stop_event) -> Optional[_Prefetched]:
+        """Queue a placement; blocks while both slots are taken. None on
+        shutdown (the caller returns the lease)."""
+        pre = _Prefetched(group)
+        while not stop_event.is_set():
+            try:
+                self._q.put(pre, timeout=0.1)
+                return pre
+            except queue.Full:
+                continue
+        return None
+
+    def _loop(self) -> None:
+        if self._device.type == "cuda":
+            torch.cuda.set_device(self._device)
+        while True:
+            pre = self._q.get()
+            if pre is None:
+                return
+            busy = self._busy()
+            try:
+                pre.placed, pre.event, pre.transfer_ms = self.place(pre.group.frames)
+            except BaseException as exc:   # raised on the tick thread
+                pre.error = exc
+            if busy or self._busy():
+                pre.overlapped_ms = pre.transfer_ms
+            pre.ready.set()
+
+
+class _Stopping(RuntimeError):
+    """A dispatch abandoned because the engine is stopping: not a failure."""
+
+
+def _pinned_empty(shape: tuple) -> np.ndarray:
+    """An uninitialised uint8 host array in pinned memory (the collector's
+    batch buffers on the card, so the H2D copy reads them directly)."""
+    return torch.empty(shape, dtype=torch.uint8, pin_memory=True).numpy()
+
+
 class InferenceEngine:
     """Tick loop serving one model over every stream of a frame bus: a
     detector or classifier on each stream's newest frame, a video model on
@@ -189,29 +555,101 @@ class InferenceEngine:
     ``model``: an ``nn.Module`` already on ``device`` (e.g. with loaded
     weights); None builds the registry model with random weights at
     ``warmup``. ``device`` defaults to the card and raises without one.
+
+    Threads: the tick thread (collect, shed, dispatch on the compute
+    stream), the transfer thread (``cfg.prefetch``), and the drain thread
+    (read-back and emit). A failure on any of them ends the engine, and
+    ``stop()`` raises it.
     """
+
+    # Per-stream state of a stream absent from the bus this long is dropped;
+    # shorter gaps (a producer re-creating its ring) keep it.
+    _STATE_GC_GRACE_S = 10.0
 
     def __init__(self, bus: FrameBus, cfg: Optional[EngineConfig] = None, *,
                  device: "str | torch.device" = "cuda",
                  model: Optional[torch.nn.Module] = None):
         self._device = resolve_device(device)
+        self._cuda = self._device.type == "cuda"
         self._cfg = cfg or EngineConfig()
         self._spec = registry.get(self._cfg.model)
         self._dtype = getattr(torch, self._cfg.dtype)
         self._model = model
-        self._collector = Collector(bus, buckets=self._cfg.batch_buckets,
-                                    clip_len=self._spec.clip_len)
+        self._buckets = tuple(sorted(self._cfg.batch_buckets))
+        self._bus = bus
+        self._collector = Collector(
+            bus, buckets=self._buckets, clip_len=self._spec.clip_len,
+            default_model=self._spec.name, strict_lease=True,
+            alloc=_pinned_empty if self._cuda else host_empty,
+        )
         # Thumbnails (quality statistics) only for frame models.
         self._thumb = 0 if self._spec.clip_len else self._cfg.quality_thumb
+        self._thumbs = _ThumbPool(self._thumb, self._device)
         self._steps: Dict[tuple, Callable] = {}
-        self._pinned: Dict[tuple, torch.Tensor] = {}
-        self._thumbs: Dict[str, torch.Tensor] = {}
         self._stats: Dict[str, StreamStats] = {}
         self._subscribers: list = []
         self._sub_lock = threading.Lock()
+        self._fanout_closed = False
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        self._error: Optional[BaseException] = None
+        self._errors: List[BaseException] = []
+        # Dispatched batches wait here for the drain thread. Depth 2 is
+        # double buffering; a full queue back-pressures the tick loop.
+        self._drain_q: "queue.Queue[Optional[_Inflight]]" = queue.Queue(maxsize=2)
+        self._drain_thread: Optional[threading.Thread] = None
+        self._drain_blocked = False
+        # _emit mutates tracker state on the drain thread while the tick
+        # loop forgets absent streams: one lock covers both.
+        self._state_lock = threading.Lock()
+        self._trackers: Dict[str, tuple] = {}        # device_id -> (model, IoUTracker)
+        self._known: set = set()                     # streams seen on the bus
+        self._absent: Dict[str, float] = {}          # device_id -> absent since
+        self.ticks = 0
+        self.last_tick_monotonic = 0.0
+        self._last_tick_dur_s = 0.0
+        self._checksum = 0
+        self._pipe = PipelineStats()
+        self._pipe_lock = threading.Lock()
+        self._rate = _RateWindow()
+        # Streams: the compute stream carries the steps and the thumbnail
+        # pool, the read-back stream the drain's D2H copies (made by
+        # warmup(), on the engine's device); the transfer stage owns the
+        # transfer stream. Its thread runs only with cfg.prefetch.
+        self._compute = self._d2h = None
+        self._xfer = _PrefetchStage(self._device, self._drain_q)
+        self.ladder: Optional[DegradationLadder] = None
+        if self._cfg.ladder:
+            self.ladder = DegradationLadder(escalate_after_s=self._cfg.ladder_escalate_after_s,
+                                            recover_after_s=self._cfg.ladder_recover_after_s)
+        self.slo: Optional[SLOEngine] = None
+        self._slo_burning = False
+        self._slo_next_eval = 0.0
+        if self._cfg.slo:
+            self.slo = SLOEngine(default_slos(latency_ms=self._cfg.slo_latency_ms,
+                                              target_fps=self._cfg.slo_target_fps,
+                                              warmup_s=self._cfg.slo_warmup_s))
+        self.quality: Optional[QualityTracker] = None
+        if self._cfg.quality:
+            self.quality = QualityTracker(
+                black_luma=self._cfg.quality_black_luma,
+                black_var=self._cfg.quality_black_var,
+                freeze_diff=self._cfg.quality_freeze_diff,
+                enter_s=self._cfg.quality_enter_s, exit_s=self._cfg.quality_exit_s,
+                flatline_s=self._cfg.quality_flatline_s, window_s=self._cfg.quality_window_s,
+                drift_threshold=self._cfg.quality_drift_threshold,
+            )
+        self._m_batches = obs_registry.counter(
+            "vep_engine_batches_total", "Device batches dispatched").labels()
+        self._m_frames = obs_registry.counter(
+            "vep_stream_frames_total", "Inference results per stream", ("stream",))
+        self._m_latency = obs_registry.histogram(
+            "vep_stream_latency_ms", "Capture to result latency per stream (ms)", ("stream",))
+        self._m_shed = obs_registry.counter(
+            "vep_ladder_shed_frames_total",
+            "Frames shed by the degradation ladder (stale at dispatch)").labels()
+        self._m_drain_depth = obs_registry.gauge(
+            "vep_drain_queue_depth",
+            "Dispatched batches waiting on the drain thread").labels()
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -220,37 +658,88 @@ class InferenceEngine:
         the card, the CUDA kernels, so the first tick does not stall."""
         if self._model is None:
             self._model = self._spec.init_params(device=self._device, dtype=self._dtype)
-        if self._device.type == "cuda":
+        if self._cuda:
             from ..kernels.build import build_all
 
             build_all()
+            # The engine's streams do not wait on the default stream: the
+            # weights must be in place before the first step.
+            torch.cuda.synchronize(self._device)
+            if self._compute is None:
+                self._compute = torch.cuda.Stream(self._device)
+                self._d2h = torch.cuda.Stream(self._device)
 
-    def start(self) -> None:
-        if self._thread is not None:
+    def _start_pipeline(self) -> None:
+        """Start the transfer and drain threads (start() adds the tick
+        thread)."""
+        if self._drain_thread is not None:
             raise RuntimeError("engine already started")
         self.warmup()
         self._stop.clear()
-        self._thread = threading.Thread(target=self._loop, name="vep-torch-engine",
-                                        daemon=True)
+        if self._cfg.prefetch:
+            self._xfer.start()
+        self._drain_thread = threading.Thread(target=self._drain_loop, name="vep-torch-drain",
+                                              daemon=True)
+        self._drain_thread.start()
+
+    def start(self) -> None:
+        self._start_pipeline()
+        self._thread = threading.Thread(target=self._loop, name="vep-torch-engine", daemon=True)
         self._thread.start()
 
     def stop(self, timeout: float = 30.0) -> None:
-        """Stop the tick loop and end every subscription. Raises if the
-        loop died of an error."""
+        """Stop the threads and end every subscription; everything already
+        dispatched is drained first. Raises the first error of any thread."""
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout)
             if self._thread.is_alive():
                 raise RuntimeError("engine loop did not stop")
             self._thread = None
+        self._xfer.stop()
+        if self._drain_thread is not None:
+            try:
+                self._drain_q.put(None, timeout=timeout)
+            except queue.Full:
+                log.warning("drain queue full at stop; abandoning the drain thread")
+            self._drain_thread.join(timeout)
+            if self._drain_thread.is_alive():
+                raise RuntimeError("drain thread did not stop")
+            self._drain_thread = None
         with self._sub_lock:
+            self._fanout_closed = True
             for q, _ in self._subscribers:
                 try:
                     q.put_nowait(None)
                 except queue.Full:
                     pass    # the reader sees the stop flag on its next wait
-        if self._error is not None:
-            raise RuntimeError("engine loop failed") from self._error
+        if self._errors:
+            raise RuntimeError("engine failed") from self._errors[0]
+
+    def _fail(self, exc: BaseException) -> None:
+        """A thread's boundary: record the error and end the engine."""
+        log.error("engine thread failed", exc_info=exc)
+        self._errors.append(exc)
+        self._stop.set()
+
+    def health(self) -> dict:
+        """Liveness: every thread alive and a tick completed within
+        ``health_stale_after_s``."""
+        age = time.monotonic() - self.last_tick_monotonic if self.last_tick_monotonic else None
+        out = {
+            "engine_thread_alive": self._thread is not None and self._thread.is_alive(),
+            "drain_thread_alive": (self._drain_thread is not None
+                                   and self._drain_thread.is_alive()),
+            "xfer_thread_alive": self._xfer.alive(),
+            "last_tick_age_s": age,
+            "ladder": self.ladder.rung if self.ladder is not None else "normal",
+            "error": repr(self._errors[0]) if self._errors else None,
+        }
+        out["ok"] = (out["engine_thread_alive"] and out["drain_thread_alive"]
+                     and (not self._cfg.prefetch or out["xfer_thread_alive"])
+                     and age is not None and age <= self._cfg.health_stale_after_s
+                     and not self._errors)
+        return out
 
     # -- consumers ---------------------------------------------------------
 
@@ -262,9 +751,9 @@ class InferenceEngine:
         ids = set(device_ids) if device_ids else None
         with self._sub_lock:
             self._subscribers.append((q, ids))
-        return self._drain(q, timeout)
+        return self._drain_subscription(q, timeout)
 
-    def _drain(self, q: queue.Queue, timeout: float):
+    def _drain_subscription(self, q: queue.Queue, timeout: float):
         try:
             while True:
                 try:
@@ -280,27 +769,194 @@ class InferenceEngine:
             with self._sub_lock:
                 self._subscribers = [(sq, si) for sq, si in self._subscribers if sq is not q]
 
-    def stats(self) -> Dict[str, StreamStats]:
+    def stats(self) -> Dict[str, StreamStatsView]:
         """Per-stream snapshot copies."""
-        return {d: StreamStats(st.frames, st.last_latency_ms, st.last_batch)
+        return {d: StreamStatsView(st.frames, st.last_latency_ms, st.ema_latency_ms,
+                                   st.last_batch, st.padded_slots, st.device_ms_ema)
                 for d, st in list(self._stats.items())}
+
+    def pipeline_stats(self) -> PipelineStats:
+        """A copy of the engine-wide totals."""
+        with self._pipe_lock:
+            return PipelineStats(**vars(self._pipe))
+
+    @property
+    def checksum(self) -> int:
+        """Running fold of ``host_slot_checksum`` over every emitted
+        detection slot, mod 2^31: a sum, so it does not depend on the order
+        the slots were emitted in. Two runs that serve the same frames in
+        the same batches fold to the same value."""
+        return self._checksum
+
+    def serve_lockstep(self, ticks: Iterable[Sequence[tuple]]) -> int:
+        """Serve recorded ticks in lockstep on the calling thread (replay):
+        each tick's ``(device_id, frame, meta)`` are published (a stream is
+        created on first sight), then one collect and dispatch. With
+        ``cfg.prefetch`` the batches cross the transfer and drain threads
+        as in serving; without it they are placed and drained here. No
+        ladder, shedding or SLO tick runs, so with one frame a stream a
+        tick every published frame is served once. Returns ``checksum``
+        once everything is emitted; the threads it started are stopped
+        (``stop()`` raises their errors)."""
+        if self._thread is not None:
+            raise RuntimeError("serve_lockstep needs an engine not started")
+        prefetch = self._cfg.prefetch
+        if prefetch:
+            self._start_pipeline()
+        else:
+            self.warmup()
+        created = set(self._bus.streams())
+        try:
+            with self._compute_stream(), torch.inference_mode():
+                for tick in ticks:
+                    for device_id, frame, meta in tick:
+                        if device_id not in created:
+                            self._bus.create_stream(device_id, frame.nbytes)
+                            created.add(device_id)
+                        self._bus.publish(device_id, frame, meta)
+                    groups = self._collector.collect()
+                    if prefetch:
+                        self._dispatch(groups)
+                        continue
+                    for group in groups:
+                        self._dispatch([group])
+                        inflight = self._drain_q.get_nowait()
+                        try:
+                            self._emit(inflight)
+                        finally:
+                            self._collector.release(inflight.group)
+                            self._drain_q.task_done()
+            if prefetch:
+                self._drain_q.join()
+        finally:
+            if prefetch:
+                self.stop()
+        return self.checksum
 
     # -- tick loop ---------------------------------------------------------
 
     def _loop(self) -> None:
         tick_s = self._cfg.tick_ms / 1000.0
         try:
-            if self._device.type == "cuda":
+            if self._cuda:
                 torch.cuda.set_device(self._device)
-            with torch.inference_mode():
+            with self._compute_stream(), torch.inference_mode():
                 while not self._stop.is_set():
                     t0 = time.monotonic()
-                    for group in self._collector.collect():
-                        self._serve(group)
-                    self._stop.wait(max(0.0, tick_s - (time.monotonic() - t0)))
-        except Exception as exc:  # the loop's boundary: record, report, end
-            log.exception("engine tick failed")
-            self._error = exc
+                    inferred = self._tick(tick_s)
+                    self.ticks += 1
+                    self.last_tick_monotonic = time.monotonic()
+                    # The ladder's staleness signal: the work phase, not the
+                    # assembly window that absorbs the rest of the budget.
+                    self._last_tick_dur_s = self.last_tick_monotonic - t0
+                    self._m_drain_depth.set(self._drain_q.qsize())
+                    if self.slo is not None:
+                        self._slo_tick(inferred)
+                    self._collector.assemble_until(t0 + tick_s, device_ids=inferred,
+                                                   stop_event=self._stop)
+        except _Stopping:
+            log.info("engine tick aborted by shutdown")
+        except BaseException as exc:  # the loop's boundary: record, report, end
+            self._fail(exc)
+
+    def _compute_stream(self):
+        return torch.cuda.stream(self._compute) if self._cuda else contextlib.nullcontext()
+
+    def _tick(self, tick_s: float) -> List[str]:
+        """One tick: ladder, collect, shed, dispatch, forget absent streams.
+        Returns the streams inferred."""
+        # With prefetch the depth-2 drain queue is full in healthy saturated
+        # serving; only a handoff that had to block counts as backpressure.
+        depth = self._drain_q.qsize()
+        if self._cfg.prefetch and not self._drain_blocked:
+            depth = min(depth, 1)
+        self._drain_blocked = False
+        rung = "normal"
+        if self.ladder is not None:
+            rung = self.ladder.observe(
+                queue_depth=depth, tick_lag_s=self._last_tick_dur_s, tick_budget_s=tick_s,
+                slo_burning=self._slo_burning and self._cfg.slo_ladder)
+            self._apply_rung_cap(rung)
+        present = self._collector.active_streams()
+        inferred = present
+        if rung == "admission_pause":
+            dep = (self.quality.unhealthy() if self.quality is not None
+                   and self._cfg.quality_ladder else frozenset())
+            inferred = admitted_streams(present, dep)
+        groups = self._collector.collect(device_ids=inferred)
+        t_collect = time.time()
+        if rung != "normal" and groups:
+            groups = self._shed_stale_groups(groups)
+        self._dispatch(groups, t_collect)
+        self._forget_absent(present)
+        return inferred
+
+    def _apply_rung_cap(self, rung: str) -> None:
+        """``bucket_downshift`` and above hide the largest bucket, so new
+        batches run the next smaller program; below it the cap clears."""
+        cap = None
+        if RUNGS.index(rung) >= RUNGS.index("bucket_downshift") and len(self._buckets) > 1:
+            cap = self._buckets[-2]
+        self._collector.set_bucket_cap(cap)
+
+    def _shed_stale_groups(self, groups: List[BatchGroup]) -> List[BatchGroup]:
+        """Rung ``shed``: drop stale frames (see shed_stale); fully stale
+        groups return their lease here."""
+        now_ms = time.time() * 1000.0
+        out: List[BatchGroup] = []
+        for group in groups:
+            kept, shed = shed_stale(group, now_ms, self._cfg.shed_staleness_ms, self._buckets)
+            if shed:
+                with self._pipe_lock:
+                    self._pipe.shed_frames += shed
+                self._m_shed.inc(shed)
+            if kept is None:
+                self._collector.release(group)
+            else:
+                out.append(kept)
+        return out
+
+    def _forget_absent(self, present: Sequence[str]) -> None:
+        """Drop the collector's cursor, geometry and clip window and the
+        tracker, thumbnail and quality state of streams gone from the bus
+        longer than the grace period (a producer re-creating its ring must
+        not reset its stream's track ids)."""
+        now = time.monotonic()
+        present = set(present)
+        self._known |= present
+        for d in present.intersection(self._absent):
+            del self._absent[d]
+        for d in self._known - present:
+            since = self._absent.setdefault(d, now)
+            if now - since <= self._STATE_GC_GRACE_S:
+                continue
+            self._collector.drop_stream(d)
+            with self._state_lock:
+                self._trackers.pop(d, None)
+                self._thumbs.pop(d)
+                if self.quality is not None:
+                    self.quality.forget(d)
+            self._known.discard(d)
+            del self._absent[d]
+
+    def _slo_tick(self, inferred: Sequence[str]) -> None:
+        """Per-tick fps and availability samples (only while streams are
+        inferred) and the throttled SLO evaluation."""
+        now = time.monotonic()
+        if inferred:
+            if self._cfg.slo_target_fps > 0:
+                good = self._rate.fps() >= self._cfg.slo_target_fps
+                self.slo.get("aggregate_fps").record(good=float(good), bad=float(not good))
+            avail = self.slo.get("stream_availability")
+            for device_id in inferred:
+                st = self._stats.get(device_id)
+                if st is None or not st.last_emit_mono:
+                    continue   # never served yet: boot grace, not an SLI
+                ok = now - st.last_emit_mono <= self._cfg.slo_availability_window_s
+                avail.record(good=float(ok), bad=float(not ok))
+        if now >= self._slo_next_eval:
+            self._slo_next_eval = now + self._cfg.slo_eval_interval_s
+            self._slo_burning = self.slo.evaluate()["burning"]
 
     def _step(self, src_hw: tuple, bucket: int) -> Callable:
         key = (src_hw, bucket)
@@ -310,53 +966,229 @@ class InferenceEngine:
             self._steps[key] = fn
         return fn
 
-    def _to_device(self, frames: np.ndarray) -> torch.Tensor:
-        host = torch.from_numpy(frames)
-        if self._device.type != "cuda":
-            return host
-        # Pinned staging slot per batch shape. Reusing it is safe: the
-        # previous group's D2H read-back waited for everything queued
-        # before it on the stream, this copy included.
-        buf = self._pinned.get(frames.shape)
-        if buf is None:
-            buf = torch.empty(frames.shape, dtype=torch.uint8, pin_memory=True)
-            self._pinned[frames.shape] = buf
-        buf.copy_(host)
-        return buf.to(self._device, non_blocking=True)
+    # -- placement, dispatch ---------------------------------------------------
 
-    def _serve(self, group: BatchGroup) -> None:
-        step = self._step(group.src_hw, group.bucket)
-        frames = self._to_device(group.frames)
+    def _dispatch(self, groups: List[BatchGroup], t_collect: Optional[float] = None) -> None:
+        """Place and run each group, then hand it to the drain thread. With
+        the transfer stage the placements of groups g + 1 and g + 2 run
+        while group g is dispatched. On a failure every group not yet handed
+        to the drain thread returns its lease, after its placement (which
+        may still read the host buffer) has resolved."""
+        if t_collect is None:
+            t_collect = time.time()
+        handles: List[Optional[_Prefetched]] = []
+
+        def top_up(upto: int) -> None:
+            while len(handles) < min(len(groups), upto):
+                handles.append(self._xfer.submit(groups[len(handles)], self._stop))
+
+        prefetch = self._cfg.prefetch
+        if prefetch and groups:
+            top_up(_PrefetchStage.DEPTH)
+        for gi, group in enumerate(groups):
+            try:
+                step = self._step(group.src_hw, group.bucket)
+                if prefetch:
+                    top_up(gi + 1 + _PrefetchStage.DEPTH)
+                    pre = handles[gi]
+                    if pre is None:
+                        raise _Stopping("engine stopping; prefetch submission aborted")
+                    while not pre.ready.wait(timeout=0.1):
+                        if self._stop.is_set():
+                            raise _Stopping("engine stopping; placement abandoned")
+                    if pre.error is not None:
+                        raise pre.error
+                    placed, event = pre.placed, pre.event
+                    h2d_ms, overlapped_ms = pre.transfer_ms, pre.overlapped_ms
+                else:
+                    placed, event, h2d_ms = self._xfer.place(group.frames)
+                    overlapped_ms = 0.0
+                inflight = self._run_step(step, group, placed, event, t_collect)
+            except BaseException:
+                for gj in range(gi, len(groups)):
+                    if gj < len(handles) and handles[gj] is not None:
+                        handles[gj].ready.wait(timeout=5.0)
+                    self._collector.release(groups[gj])
+                raise
+            with self._pipe_lock:
+                self._pipe.batches += 1
+                self._pipe.h2d_ms += h2d_ms
+                self._pipe.h2d_overlapped_ms += overlapped_ms
+            self._m_batches.inc()
+            self._enqueue_drain(inflight)
+
+    def _run_step(self, step: Callable, group: BatchGroup, placed: torch.Tensor, event,
+                  t_collect: float) -> _Inflight:
+        """Queue one step on the compute stream after its input's copy."""
+        start = done = None
+        if self._cuda:
+            stream = torch.cuda.current_stream(self._device)
+            stream.wait_event(event)
+            # The placed tensor was allocated on the transfer stream: its
+            # memory must not be reused before the step has read it.
+            placed.record_stream(stream)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
         if self._thumb:
-            side = self._thumb
-            zero = torch.zeros((side, side), dtype=torch.float32, device=self._device)
-            prev = [self._thumbs.get(d, zero) for d in group.device_ids]
-            prev += [zero] * group.padded_slots
-            out = step(frames, torch.stack(prev))
-            for i, d in enumerate(group.device_ids):
-                self._thumbs[d] = out["quality_thumbs"][i]
+            outputs = dict(step(placed, self._thumbs.gather(group.device_ids, group.bucket)))
+            self._thumbs.scatter(group.device_ids, outputs.pop("quality_thumbs"))
         else:
-            out = step(frames)
-        host = {k: v.cpu().numpy() for k, v in out.items() if k != "quality_thumbs"}
-        now_ms = time.time() * 1000.0
+            outputs = dict(step(placed))
+        if self._cuda:
+            done = torch.cuda.Event(enable_timing=True)
+            done.record(stream)
+        return _Inflight(group, outputs, t_collect, time.time(), start, done)
+
+    def _enqueue_drain(self, inflight: _Inflight) -> None:
+        """Hand a dispatched batch to the drain thread; blocks (in short
+        interruptible slices) while two are queued. On shutdown while full,
+        the batch's result is dropped and its lease returned."""
+        try:
+            self._drain_q.put_nowait(inflight)
+            return
+        except queue.Full:
+            self._drain_blocked = True   # the ladder's backpressure signal
+        while not self._stop.is_set():
+            try:
+                self._drain_q.put(inflight, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+        self._collector.release(inflight.group)
+
+    # -- drain and emit -----------------------------------------------------------
+
+    def _drain_loop(self) -> None:
+        """Read back the oldest dispatched batch as soon as its step is done
+        and emit its results. After a failure the loop keeps returning
+        leases but emits nothing more."""
+        if self._cuda:
+            torch.cuda.set_device(self._device)
+        while True:
+            inflight = self._drain_q.get()
+            try:
+                if inflight is None:
+                    return
+                if not self._errors:
+                    self._emit(inflight)
+            except BaseException as exc:  # the drain's boundary: record, end
+                self._fail(exc)
+            finally:
+                if inflight is not None:
+                    self._collector.release(inflight.group)
+                    inflight.outputs = None
+                self._drain_q.task_done()
+
+    def _read_back(self, inflight: _Inflight) -> Dict[str, np.ndarray]:
+        """The step's outputs on the host. On the card the copies run on the
+        read-back stream after the step's done event, so they neither race
+        the step nor queue behind later steps."""
+        if not self._cuda:
+            return {k: v.numpy() for k, v in inflight.outputs.items()}
+        with torch.cuda.stream(self._d2h):
+            self._d2h.wait_event(inflight.done)
+            host = {}
+            for k, v in inflight.outputs.items():
+                v.record_stream(self._d2h)
+                host[k] = v.to("cpu").numpy()
+        return host
+
+    def _emit(self, inflight: _Inflight) -> None:
+        group = inflight.group
+        host = self._read_back(inflight)
+        t_drained = time.time()
+        if self._cuda:
+            device_ms = inflight.start.elapsed_time(inflight.done)
+        else:
+            device_ms = (t_drained - inflight.t_submit) * 1000.0
+        now_ms = int(t_drained * 1000)
+        kind = self._spec.kind
         num_classes = self._model.cfg.num_classes
+        slo_latency = (self.slo.get("detect_latency_p50")
+                       if self.slo is not None and kind == "detect" else None)
+        capture_sum = 0.0
+        track_s = 0.0
         for i, (device_id, meta) in enumerate(zip(group.device_ids, group.metas)):
-            latency = now_ms - meta.timestamp_ms if meta.timestamp_ms else 0.0
-            result = InferenceResult(
-                device_id=device_id, timestamp=meta.timestamp_ms,
-                model=self._spec.name,
-                detections=to_detections(host, i, self._spec.kind, num_classes),
-                latency_ms=latency, batch_size=group.bucket,
+            detections = to_detections(host, i, kind, num_classes)
+            if self._cfg.track and kind == "detect":
+                # Empty frames too: misses must accumulate so stale tracks
+                # expire.
+                t_track = time.perf_counter()
+                self._assign_tracks(device_id, self._spec.name, detections)
+                track_s += time.perf_counter() - t_track
+            if self.quality is not None:
+                self._observe_quality(host, i, device_id, detections)
+            latency = max(0.0, now_ms - meta.timestamp_ms) if meta.timestamp_ms else 0.0
+            if meta.timestamp_ms:
+                capture_sum += inflight.t_collect * 1000.0 - meta.timestamp_ms
+            self._publish(InferenceResult(
+                device_id=device_id, timestamp=meta.timestamp_ms, model=self._spec.name,
+                detections=detections, latency_ms=latency, batch_size=group.bucket,
                 frame_packet=meta.packet,
-            )
+            ))
+            if kind == "detect":
+                self._checksum = (self._checksum + host_slot_checksum(host, i)) & CHECKSUM_MASK
             st = self._stats.setdefault(device_id, StreamStats())
             st.frames += 1
-            st.last_latency_ms = latency
+            st.note_latency(latency)
             st.last_batch = group.bucket
-            self._publish(result)
+            st.note_device(device_ms, group.padded_slots)
+            st.last_emit_mono = time.monotonic()
+            if slo_latency is not None and meta.timestamp_ms:
+                ok = latency <= self._cfg.slo_latency_ms
+                slo_latency.record(good=float(ok), bad=float(not ok))
+            self._m_frames.labels(device_id).inc()
+            self._m_latency.labels(device_id).observe(latency)
+        n = len(group.device_ids)
+        self._rate.note(n)
+        t_emitted = time.time()
+        with self._pipe_lock:
+            p = self._pipe
+            p.frames += n
+            p.device_ms += device_ms if self._cuda else 0.0
+            p.capture_to_collect_ms += capture_sum
+            p.collect_to_submit_ms += n * (inflight.t_submit - inflight.t_collect) * 1000.0
+            p.submit_to_drained_ms += n * (t_drained - inflight.t_submit) * 1000.0
+            p.drained_to_emitted_ms += n * (t_emitted - t_drained) * 1000.0
+            p.emit_ms += (t_emitted - t_drained) * 1000.0
+            p.track_ms += track_s * 1000.0
+
+    def _assign_tracks(self, device_id: str, model: str, detections: List[Detection]) -> None:
+        """Per-stream SORT-style association (engine/tracker.py) filling
+        Detection.track_id. The tracker resets when the stream's model
+        changes (class ids of two models are two vocabularies), and the new
+        one continues the old one's numbering."""
+        with self._state_lock:
+            entry = self._trackers.get(device_id)
+            if entry is None or entry[0] != model:
+                first = entry[1].next_id if entry else 1
+                entry = (model, IoUTracker(next_id=first))
+                self._trackers[device_id] = entry
+            ids = entry[1].update(
+                [(d.box.left, d.box.top, d.box.left + d.box.width, d.box.top + d.box.height)
+                 for d in detections],
+                [d.class_id for d in detections],
+                scores=[d.confidence for d in detections],
+            )
+        for det, tid in zip(detections, ids):
+            det.track_id = tid
+
+    def _observe_quality(self, host: Dict[str, np.ndarray], i: int, device_id: str,
+                         detections: List[Detection]) -> None:
+        """Fold one emitted slot into the quality plane: the step's frame
+        statistics, when it carried them, and the detection set."""
+        kwargs = {}
+        qs = host.get("quality_stats")
+        if qs is not None:
+            kwargs = {"luma_mean": float(qs[i, 0]), "luma_var": float(qs[i, 1]),
+                      "diff_energy": float(qs[i, 2])}
+        self.quality.observe(device_id, classes=[d.class_id for d in detections],
+                             scores=[d.confidence for d in detections], **kwargs)
 
     def _publish(self, result: InferenceResult) -> None:
         with self._sub_lock:
+            if self._fanout_closed:
+                return
             targets = [q for q, ids in self._subscribers
                        if ids is None or result.device_id in ids]
         for q in targets:

@@ -25,6 +25,8 @@ so the mapping is mechanical, by the leaf and the module that holds it:
 A leaf or collection it does not know raises; ``load_flax`` loads the
 result strictly, so a key missing from either side raises too. The stem
 kernel keeps its padded input channels (``stem_pad_c``), as in JAX.
+``zero_class_prior`` (defined in ``replay/checksum.py``, where the JAX
+package has it) is importable from here too.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from ..replay.checksum import zero_class_prior  # noqa: F401  (re-exported)
 
 _CONVS = {"conv", "patch_embed", "proj"}
 _DENSES = {"qkv", "out", "fc1", "fc2", "head", "classifier", "dec_embed", "dec_pred"}
@@ -129,21 +133,3 @@ def load_flax_pretrain(model: nn.Module, tree: Mapping) -> nn.Module:
     """Load a JAX pretraining tree into ``VideoMAEPretrain`` strictly."""
     model.load_state_dict(from_flax_pretrain(tree), strict=True)
     return model
-
-
-def zero_class_prior(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Zero the detection head's class-prior biases (the port of
-    ``replay/checksum.py`` ``zero_class_prior``).
-
-    The from-scratch prior (``cls{i}_out`` bias ~= -11.5) puts every
-    random-init score near 1e-5, below the NMS score threshold, so a
-    random-weight run would feed NMS empty candidate sets. With these
-    biases at zero the scores sit near sigmoid(0) = 0.5 and NMS does real
-    work. Nothing else changes."""
-    def is_cls_out(name: str) -> bool:
-        return any(p.startswith("cls") and p.endswith("_out") for p in name.split("."))
-
-    return {
-        name: torch.zeros_like(t) if is_cls_out(name) and t.ndim == 1 else t
-        for name, t in state_dict.items()
-    }

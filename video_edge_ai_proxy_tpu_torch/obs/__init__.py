@@ -1,0 +1,8 @@
+"""Observability plane of the port: the metrics registry (``metrics``),
+the output-quality verdicts (``quality``) and the SLO burn-rate engine
+(``slo``), counterparts of the JAX package's ``obs/`` modules of the same
+names."""
+
+from .metrics import Registry, registry
+
+__all__ = ["Registry", "registry"]
