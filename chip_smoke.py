@@ -84,20 +84,44 @@ exits non-zero:
    the step spans against wall time and the drain's host time per frame
    are reported, not gated; the traffic is the repo's detection traffic
    (class prior zeroed); (d) the step's synchronising operations by
-   source line (``torch.cuda.set_sync_debug_mode``), then (c)'s traffic
-   with only ``slo_warmup_s`` cut to 3 s for 12 s: its blocking CUDA
-   runtime calls, kernel launches and device copies per batch over the
-   first 3 s (torch.profiler), and the SLO verdict: the fps objective
-   (1000 frames/s, above the 480 offered) must fire and the ladder end
-   at ``admission_pause``, and the admitted streams must still be served.
+   source line (``torch.cuda.set_sync_debug_mode``): there must be none;
+   then (c)'s traffic with ``slo_warmup_s`` cut to 3 s and every bucket's
+   program prewarmed, for 12 s: its blocking CUDA runtime calls, launches
+   and device copies per batch over the first 3 s (torch.profiler), and
+   the SLO verdict: the fps objective (1000 frames/s, above the 480
+   offered) must fire and the ladder end at ``admission_pause``, and the
+   admitted streams must still be served;
+12. the engine's compiled step, one CUDA graph per (model, stem, geometry,
+   bucket) key: (a) the ``yolov8n`` detection step at 16x1080p with
+   ``quality_thumb=32`` as the engine captures it (``_GraphedStep``)
+   against the eager ``build_serving_step``: three distinct inputs
+   replayed back to back with every output held until the last has run,
+   each bit-identical to eager; no synchronising operation in a replay
+   nor in the eager step; the capture's seconds, the graph pool's bytes
+   and the peak memory beside the eager step's; the replay's and the
+   eager step's medians of 20 (wall and CUDA events); host runtime calls
+   per call and the device kernels of one replay (the keep-mask kernel
+   among them), and the keep mask's device time inside a replay; (b) the
+   same for the ``videomae_b_long`` step on 2 clips (the flash forward
+   among the replay's kernels); (c) prewarm: an engine with
+   ``prewarm=[[1080, 1920, 16]]`` and the prewarm manifest on a temporary
+   directory is complete after ``start()`` and serves its first batch as
+   a step-cache hit, and a second engine on the same directory with no
+   ``prewarm`` prewarms the same program from the manifest.
+
+On the card the engine runs every serving step as a graph replay, so
+phases 5, 8 and 11 run graphed; phases 4, 6, 7, 9 and 10 call the eager
+step, the model and the trainer directly.
 
 After phase 8 the script reports what outlives its engines (the cuBLAS
-workspace of each stream that ran a matmul) and frees it, so that phase
-9's peak memory counts the training alone.
+workspace of each stream that ran a matmul, and the preprocessing
+constants of every geometry met so far) and frees it, so that phase 9's
+peak memory counts the training alone.
 
 Phases 5, 8, 9 and 11c are the main paths: the kernels' launch counts are set
 to 0 just before each and read just after it, and every kernel of that
-path must have launched. The line before the last is one JSON object describing
+path must have launched (a graph replay adds the launches its capture
+recorded). The line before the last is one JSON object describing
 every kernel; the last line is ``{"ok": true, "device": {...}}``. Longer
 output (the profile tables) goes to ``chiprun_out/``.
 """
@@ -599,9 +623,9 @@ PACED_FPS = 30.0
 PACED_S = 20.0
 SETTLE_S = 10.0
 PACED_POOL = 30
-# 11d: the same traffic with only slo_warmup_s cut, so that the SLO plane
-# reaches its verdict within SLO_RUN_S; the first PROFILE_S under
-# torch.profiler.
+# 11d: the same traffic with slo_warmup_s cut, so that the SLO plane
+# reaches its verdict within SLO_RUN_S, and every bucket's program
+# prewarmed; the first PROFILE_S under torch.profiler.
 SLO_WARMUP_S = 3.0
 SLO_RUN_S = 12.0
 PROFILE_S = 3.0
@@ -611,6 +635,15 @@ REPLAY_FRAMES = 8
 # queued before them has finished.
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
               "cudaMemcpy")
+# CUDA runtime calls that put work on a stream: kernel launches (the
+# cluster launch of the keep mask is cudaLaunchKernelExC), graph launches
+# and asynchronous copies and fills.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
+                "cudaMemcpyAsync", "cudaMemsetAsync")
+# 11b's fold with the eager step on an NVIDIA H100 80GB HBM3: a graph
+# replays the eager step's kernels on the same inputs, so the graphed
+# engine should fold the same integer.
+EAGER_ENGINE_FOLD = 304869744
 
 
 def pct(values, p):
@@ -749,7 +782,8 @@ def pipeline_phase(dev, card: str, zero_launches, read_launches, kernels) -> Non
     if piped != sync or piped[1] != N_STREAMS * REPLAY_FRAMES or piped[0] == 0:
         raise AssertionError(f"pipelined (checksum, frames) {piped} != synchronous {sync}")
     log(f"phase 11b engine: prefetch and drain thread fold {piped[0]} over {piped[1]} "
-        f"results, the synchronous path the same, bit for bit")
+        f"results, the synchronous path the same, bit for bit; the eager step's fold "
+        f"{EAGER_ENGINE_FOLD}: {'the same' if piped[0] == EAGER_ENGINE_FOLD else 'differs'}")
     del ticks, by_packet
 
     # (c) a paced run: 16 streams at 30 fps on distinct frames.
@@ -785,6 +819,7 @@ def pipeline_phase(dev, card: str, zero_launches, read_launches, kernels) -> Non
     if reader.is_alive():
         raise AssertionError("paced-run subscriber did not end")
     p = engine.pipeline_stats()
+    graphs = engine.graph_stats()
     missing = [s for s in streams if not got.get(s)]
     lat = [r.latency_ms for v in got.values() for r in v]
     dets = [d for v in got.values() for r in v for d in r.detections]
@@ -806,7 +841,9 @@ def pipeline_phase(dev, card: str, zero_launches, read_launches, kernels) -> Non
         f"per batch), {p.h2d_overlapped_ms:.3f} ms of it ({p.h2d_overlapped_ms / max(p.h2d_ms, 1e-9):.4f}) "
         f"overlapped with a batch in flight; step spans on the compute stream "
         f"{p.device_ms:.3f} ms = {p.device_ms / (wall_s * 1000.0):.4f} of the wall time "
-        f"({p.device_ms / max(p.batches, 1):.3f} ms per batch); pinned batch pool "
+        f"({p.device_ms / max(p.batches, 1):.3f} ms per batch); graphs "
+        f"{graphs['programs']} captured in {graphs['capture_s']:.3f} s, pool "
+        f"{graphs['pool_bytes'] / 2 ** 20:.1f} MiB; pinned batch pool "
         f"{engine._collector.pool_nbytes() / 2 ** 20:.1f} MiB; publisher late "
         f"{len(late_ms)} times (max {max(late_ms) if late_ms else 0.0:.3f} ms)")
     log(f"phase 11c drain and planes: {len(dets)} detections "
@@ -858,15 +895,21 @@ def pipeline_slo_phase(dev, card: str, model, spec, streams, pool) -> None:
     step(x, thumbs)
     torch.cuda.synchronize()
     sites = sync_sites(lambda: step(x, thumbs))
-    log(f"phase 11d the step alone: {sum(sites.values())} synchronising operations a call, at "
-        + ", ".join(f"{site} x{n}" for site, n in sorted(sites.items())))
+    log(f"phase 11d the step alone: {sum(sites.values())} synchronising operations a call"
+        + "".join(f", {site} x{n}" for site, n in sorted(sites.items())))
+    if sites:
+        raise AssertionError(f"phase 11d: the eager step synchronises with the host: {sites}")
     del x, thumbs, step
 
     bus = MemoryFrameBus()
     for s in streams:
         bus.create_stream(s, FRAME_HW[0] * FRAME_HW[1] * 3)
-    engine = InferenceEngine(bus, EngineConfig(slo_warmup_s=SLO_WARMUP_S), device=dev,
-                             model=model)
+    # The programs of every bucket are captured at start(), so that the
+    # profile sees the steady state and no capture's eager warmup calls.
+    engine = InferenceEngine(bus, EngineConfig(
+        slo_warmup_s=SLO_WARMUP_S,
+        prewarm=[[FRAME_HW[0], FRAME_HW[1], b] for b in (1, 2, 4, 8, N_STREAMS)]),
+        device=dev, model=model)
     results = engine.subscribe()
     arrivals = []
 
@@ -889,8 +932,8 @@ def pipeline_slo_phase(dev, card: str, model, spec, streams, pool) -> None:
         if "paused" not in marks and engine.ladder.rung == "admission_pause":
             marks["paused"] = t
 
+    engine.start()      # the prewarm's captures and their eager warmup calls come first
     prof.start()
-    engine.start()
     try:
         published, wall_s, late_ms = paced_publish(bus, streams, pool, SLO_RUN_S, on_round)
         t_end = time.monotonic()
@@ -909,15 +952,16 @@ def pipeline_slo_phase(dev, card: str, model, spec, streams, pool) -> None:
             kind = "device" if e.device_type == DeviceType.CUDA else "host"
             calls[kind, e.name] = calls.get((kind, e.name), 0) + 1
     log(f"phase 11d profile of the first {PROFILE_S:g} s of the paced run on {card}: "
-        f"{batches} batches; per batch: kernel launches "
-        f"{calls.get(('host', 'cudaLaunchKernel'), 0) / batches:.2f}, blocking runtime calls "
+        f"{batches} batches; per batch: launches "
+        + ", ".join(f"{c} {calls.get(('host', c), 0) / batches:.2f}" for c in LAUNCH_CALLS)
+        + "; blocking runtime calls "
         + ", ".join(f"{c} {calls.get(('host', c), 0) / batches:.2f}" for c in SYNC_CALLS)
         + "; device copies " + (", ".join(f"{c} {n / batches:.2f}" for (k, c), n in
                                          sorted(calls.items()) if k == "device")
                                 or "none recorded"))
     recent = {d for t, d in arrivals if t >= t_end - 2.0}
-    log(f"phase 11d SLO plane (slo_warmup_s {SLO_WARMUP_S:g} s, the default EngineConfig "
-        f"otherwise; {published} frames published in {wall_s:.3f} s, {p.frames} results, "
+    log(f"phase 11d SLO plane (slo_warmup_s {SLO_WARMUP_S:g} s and the buckets prewarmed, the "
+        f"default EngineConfig otherwise; {published} frames published in {wall_s:.3f} s, {p.frames} results, "
         f"publisher late {len(late_ms)} times): burning from t = "
         f"{marks.get('burning', float('nan')):.2f} s; per SLO (fast burn, firing): "
         + ", ".join(f"{n} ({v['burn']['fast']}, {v['firing']})"
@@ -931,6 +975,232 @@ def pipeline_slo_phase(dev, card: str, model, spec, streams, pool) -> None:
                              "admission_pause")
     if not recent:
         raise AssertionError("phase 11d: no stream served under admission_pause")
+
+
+# -- phase 12: the compiled step ----------------------------------------------------------
+
+
+def median_call_ms(fn, iters: int = 20):
+    """Medians over ``iters`` calls of ``fn`` (after one warm call), each
+    ending in a synchronise: (wall ms, ms between CUDA events recorded on
+    the current stream around the call)."""
+    import torch
+
+    fn()
+    walls, evs = [], []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1000.0)
+        evs.append(start.elapsed_time(end))
+    return statistics.median(walls), statistics.median(evs)
+
+
+def one_call_profile(fn, attempts: int = 3):
+    """torch.profiler of one call of ``fn``: ({host runtime call: count}
+    for LAUNCH_CALLS and SYNC_CALLS, [device kernel names]). A session
+    with no device event is profiled again, as ``launched_kernels`` does."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in device_events(prof)]
+        if kernels:
+            break
+        log(f"profiler session {attempt + 1} of {attempts} recorded no device event")
+    host: dict = {}
+    for e in prof.events():
+        if e.name in LAUNCH_CALLS + SYNC_CALLS and e.device_type == DeviceType.CPU:
+            host[e.name] = host.get(e.name, 0) + 1
+    return host, kernels
+
+
+def graphed_against_eager(tag: str, card: str, engine, eager, inputs: list, src_hw: tuple,
+                          must_run: str):
+    """Phase 12 (a)/(b): the engine's graphed step of ``inputs[0]``'s key
+    against ``eager`` on three distinct inputs, bit for bit; syncs, memory,
+    timing, host calls and the replay's kernels (``must_run`` among them).
+    Returns the graphed step."""
+    import torch
+
+    dev = inputs[0][0].device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode():
+        want = [eager(*x) for x in inputs]
+        torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    torch.cuda.reset_peak_memory_stats(dev)
+    with engine._compute_stream(), torch.inference_mode():
+        step = engine._step(src_hw, inputs[0][0].shape[0])
+        step(*inputs[-1])                     # the first call: warmup, capture, replay
+        torch.cuda.synchronize()
+        capture_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = [step(*x) for x in inputs]      # all three held until the last has run
+        torch.cuda.synchronize()
+    graph_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in w:
+            if g[k].dtype != w[k].dtype or not torch.equal(g[k], w[k]):
+                bad = (g[k].float() - w[k].float()).abs().max() if g[k].shape == w[k].shape \
+                    else g[k].shape
+                raise AssertionError(f"phase 12{tag}: input {i}: the graphed {k} differs from "
+                                     f"eager ({bad})")
+    if all(torch.equal(got[0][k], got[1][k]) for k in got[0]):
+        raise AssertionError(f"phase 12{tag}: two distinct inputs gave the same outputs")
+    stats = engine.graph_stats()
+    log(f"phase 12{tag} graphed step: {len(inputs)} distinct inputs replayed back to back, "
+        f"every output ({', '.join(sorted(got[0]))}) bit-identical to the eager step; capture "
+        f"{step.capture_s:.4f} s, graph pool {stats['pool_bytes'] / 2 ** 20:.1f} MiB, static "
+        f"input {step.frames_in.numel() / 2 ** 20:.1f} MiB; peak memory {graph_peak:.1f} MiB "
+        f"(3 replays held; {capture_peak:.1f} MiB over the first call's warmup and capture) "
+        f"against the eager step's {eager_peak:.1f} MiB (3 calls held)")
+    del got, want
+
+    x = inputs[0]
+    with torch.inference_mode():
+        eager_sites = sync_sites(lambda: eager(*x))
+        with engine._compute_stream():
+            graph_sites = sync_sites(lambda: step(*x))
+            g_wall, g_ev = median_call_ms(lambda: step(*x))
+            g_host, g_kernels = one_call_profile(lambda: step(*x))
+        e_wall, e_ev = median_call_ms(lambda: eager(*x))
+        e_host, e_kernels = one_call_profile(lambda: eager(*x))
+    log(f"phase 12{tag} synchronising operations a call: replay {sum(graph_sites.values())}, "
+        f"eager {sum(eager_sites.values())}" + "".join(
+            f", {site} x{n}" for site, n in sorted({**graph_sites, **eager_sites}.items())))
+    if graph_sites or eager_sites:
+        raise AssertionError(f"phase 12{tag}: synchronising operations {graph_sites} "
+                             f"{eager_sites}")
+    log(f"phase 12{tag} timing on {card}: replay median {g_wall:.3f} ms wall, {g_ev:.3f} ms "
+        f"CUDA events (copy-in, replay, copy-out); eager median {e_wall:.3f} ms wall, "
+        f"{e_ev:.3f} ms CUDA events; median of 20 each")
+    log(f"phase 12{tag} one call by torch.profiler: replay {len(g_kernels)} device kernels and "
+        f"copies, host calls {g_host}; eager {len(e_kernels)} device kernels and copies, host "
+        f"calls {e_host}")
+    if not any(must_run in name for name in g_kernels):
+        raise AssertionError(f"phase 12{tag}: no {must_run} among the replay's device "
+                             f"kernels: {sorted(set(g_kernels))[:20]}")
+    return step
+
+
+def graphs_phase(dev, card: str, report: dict) -> None:
+    """Phase 12: the engine's compiled step, (a) detection and (b) long
+    clips graphed against eager, (c) prewarm from ``cfg.prewarm`` and from
+    the prewarm manifest."""
+    import tempfile
+
+    import torch
+
+    from video_edge_ai_proxy_tpu_torch.bus.interface import FrameMeta
+    from video_edge_ai_proxy_tpu_torch.bus.memory_bus import MemoryFrameBus
+    from video_edge_ai_proxy_tpu_torch.engine import aot_cache
+    from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine, build_serving_step
+    from video_edge_ai_proxy_tpu_torch.models import registry
+    from video_edge_ai_proxy_tpu_torch.obs import metrics
+    from video_edge_ai_proxy_tpu_torch.replay.checksum import zero_class_prior
+    from video_edge_ai_proxy_tpu_torch.utils.config import EngineConfig
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    # (a) the detection step.
+    spec = registry.get("yolov8n")
+    model = spec.init_params(torch.Generator().manual_seed(0), device=dev)
+    model.load_state_dict(zero_class_prior(model.state_dict()))
+    inputs = [(torch.randint(0, 256, (N_STREAMS,) + FRAME_HW + (3,), generator=gen,
+                             dtype=torch.uint8, device=dev),
+               torch.rand((N_STREAMS, THUMB, THUMB), generator=gen, device=dev))
+              for _ in range(3)]
+    engine = InferenceEngine(MemoryFrameBus(), EngineConfig(), device=dev, model=model)
+    engine.warmup()
+    step = graphed_against_eager("a", card, engine, build_serving_step(model, spec,
+                                                                       quality_thumb=THUMB),
+                                 inputs, FRAME_HW, "nms_keep_mask")
+    with engine._compute_stream(), torch.inference_mode():
+        replay_ms = profiled_device_ms(lambda: step(*inputs[0]), 10, "nms_keep_mask")
+    report["nms_keep_mask"]["replay_ms"] = replay_ms
+    log(f"phase 12a nms_keep_mask inside a replay on {card}: {replay_ms} ms a launch "
+        f"(profiler, 10 replays)")
+    del engine, step, inputs
+
+    # (c) prewarm from cfg.prewarm, then from the manifest alone.
+    streams = [f"cam{i:02d}" for i in range(N_STREAMS)]
+    frame = torch.randint(0, 256, FRAME_HW + (3,), generator=torch.Generator().manual_seed(13),
+                          dtype=torch.uint8).numpy()
+    misses = metrics.registry.counter("vep_step_cache_misses_total").labels()
+    hits = metrics.registry.counter("vep_step_cache_hits_total").labels()
+    with tempfile.TemporaryDirectory() as tmp:
+        for prewarm in ([[FRAME_HW[0], FRAME_HW[1], N_STREAMS]], []):
+            bus = MemoryFrameBus()
+            for s in streams:
+                bus.create_stream(s, frame.nbytes)
+                bus.publish(s, frame, FrameMeta(width=FRAME_HW[1], height=FRAME_HW[0],
+                                                packet=1))
+            eng = InferenceEngine(bus, EngineConfig(prewarm=prewarm, aot_cache=True,
+                                                    aot_cache_dir=tmp), device=dev,
+                                  model=model)
+            before = eng.prewarm_status()
+            m0, h0 = misses.value, hits.value
+            t0 = time.perf_counter()
+            eng.start()
+            start_s = time.perf_counter() - t0
+            try:
+                status = eng.prewarm_status()
+                deadline = time.monotonic() + 60
+                while any(eng.stats().get(s) is None for s in streams):
+                    if time.monotonic() > deadline:
+                        raise AssertionError("phase 12c: the prewarmed engine did not serve")
+                    time.sleep(0.005)
+            finally:
+                eng.stop()
+            d_miss, d_hit = misses.value - m0, hits.value - h0
+            batches = eng.pipeline_stats().batches
+            log(f"phase 12c prewarm {'from cfg.prewarm' if prewarm else 'from the manifest'}: "
+                f"status {before} before start(), {status} after it ({start_s:.3f} s); "
+                f"{eng.graph_stats()['programs']} graph captured; step-cache misses "
+                f"+{d_miss:g} (the prewarm), hits +{d_hit:g} over {batches} batches served; "
+                f"manifest {aot_cache.load_manifest(tmp)}")
+            # The one miss is the prewarm's capture: every batch served hit.
+            if status != {"required": 1, "done": 1, "complete": True, "aot_cache": True} \
+                    or before["complete"] or d_miss != 1 or batches < 1 or d_hit != batches \
+                    or eng.graph_stats()["programs"] != 1:
+                raise AssertionError("phase 12c: prewarm incomplete, or the first dispatch "
+                                     "was not a step-cache hit")
+            del eng, bus
+    del model
+    torch.cuda.empty_cache()
+
+    # (b) the videomae_b_long step on 2 clips.
+    vspec = registry.get("videomae_b_long")
+    vmodel = vspec.init_params(torch.Generator().manual_seed(0), device=dev)
+    clips = [(torch.randint(0, 256, (VIDEO_STREAMS, vspec.clip_len) + FRAME_HW + (3,),
+                            generator=gen, dtype=torch.uint8, device=dev),)
+             for _ in range(3)]
+    vengine = InferenceEngine(MemoryFrameBus(), EngineConfig(model="videomae_b_long"),
+                              device=dev, model=vmodel)
+    vengine.warmup()
+    vstep = graphed_against_eager("b", card, vengine, build_serving_step(vmodel, vspec), clips,
+                                  FRAME_HW, "flash_fwd_kernel")
+    with vengine._compute_stream(), torch.inference_mode():
+        replay_ms = profiled_device_ms(lambda: vstep(*clips[0]), 3, "flash_fwd_kernel")
+    report["flash_attention_fwd"]["replay_ms"] = replay_ms
+    log(f"phase 12b flash_attention_fwd inside a replay on {card}: {replay_ms} ms a launch "
+        f"(profiler, 3 replays of {vmodel.cfg.encoder.num_layers} launches)")
+    del vengine, vstep, vmodel, clips
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1605,9 +1875,16 @@ def main() -> int:
     held = torch.cuda.memory_allocated(dev)
     torch._C._cuda_clearCublasWorkspaces()
     freed = held - torch.cuda.memory_allocated(dev)
+    # The preprocessing constants (ops/preprocess.py) stay on the card for
+    # every geometry and dtype met so far; no graph is alive to read them.
+    from video_edge_ai_proxy_tpu_torch.ops import preprocess as preprocess_mod
+
+    held_c = torch.cuda.memory_allocated(dev)
+    preprocess_mod._constant.cache_clear()
+    freed_c = held_c - torch.cuda.memory_allocated(dev)
     log(f"phase 8 after the engines: {alive} InferenceEngine objects alive, "
         f"{held / 2**20:.1f} MiB allocated, of which {freed / 2**20:.1f} MiB were cuBLAS "
-        f"workspaces, now freed")
+        f"workspaces and {freed_c / 2**20:.1f} MiB preprocessing constants, now freed")
 
     # -- phase 9: the training slice at full width ---------------------------------
     from video_edge_ai_proxy_tpu_torch.models.videomae import (
@@ -1806,12 +2083,16 @@ def main() -> int:
     # -- phase 11: the default engine's serving pipeline ---------------------------
     pipeline_phase(dev, card, zero_launches, read_launches, kernels)
 
+    # -- phase 12: the compiled step ------------------------------------------------------
+    graphs_phase(dev, card, report)
+
     line = {"kernels": []}
     for name, meta in kernels.items():
         r = report[name]
         line["kernels"].append({
             "name": name, "route": meta["route"], "source": meta["source"],
             **({"source_f32": meta["source_f32"]} if "source_f32" in meta else {}),
+            **({"replay_ms": r["replay_ms"]} if "replay_ms" in r else {}),
             "replaces": meta["replaces"], "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -75,3 +75,72 @@ def test_pad_channels():
     y = tpre.pad_channels(x, 8, dim=1)
     assert y.shape == (1, 8, 4, 4) and y[:, 3:].abs().sum() == 0
     assert tpre.pad_channels(x, 3, dim=1) is x
+
+
+# -- device-resident constants ---------------------------------------------------------
+# Every constant of a call is built once per (device, dtype, geometry) and
+# cached (the card keeps it resident, so a call makes no host-to-device
+# copy and a CUDA graph can capture it). Repeated calls reuse the same
+# tensors and give the same outputs, and those stay equal to JAX's.
+
+def _calls(rng):
+    frames = rng.integers(0, 256, (2, 96, 128, 3), dtype=np.uint8)
+    clips = rng.integers(0, 256, (2, 3, 40, 48, 3), dtype=np.uint8)
+    prev = rng.uniform(0, 1, (2, 32, 32)).astype(np.float32)
+    boxes = rng.uniform(0, 640, (2, 10, 4)).astype(np.float32)
+    lb = ((96, 128), 64)
+    return {
+        "letterbox": (
+            lambda: tpre.preprocess_letterbox(torch.from_numpy(frames), 64,
+                                              out_dtype=torch.float32)[0],
+            lambda: jpre.preprocess_letterbox(jnp.asarray(frames), 64,
+                                              out_dtype=jnp.float32)[0]),
+        "classify": (
+            lambda: tpre.preprocess_classify(torch.from_numpy(frames), (32, 32),
+                                             out_dtype=torch.float32),
+            lambda: jpre.preprocess_classify(jnp.asarray(frames), (32, 32),
+                                             out_dtype=jnp.float32)),
+        "clip": (
+            lambda: tpre.preprocess_clip(torch.from_numpy(clips), (32, 32),
+                                         out_dtype=torch.float32),
+            lambda: jpre.preprocess_clip(jnp.asarray(clips), (32, 32), out_dtype=jnp.float32)),
+        "unletterbox": (
+            lambda: tpre.unletterbox_boxes(torch.from_numpy(boxes), tpre.letterbox_params(*lb)),
+            lambda: jpre.unletterbox_boxes(jnp.asarray(boxes), jpre.letterbox_params(*lb))),
+        "quality": (
+            lambda: tpre.frame_quality_stats(torch.from_numpy(frames), torch.from_numpy(prev),
+                                             (32, 32))[0],
+            lambda: jpre.frame_quality_stats(jnp.asarray(frames), jnp.asarray(prev),
+                                             (32, 32))[0]),
+    }
+
+
+@pytest.mark.parametrize("name", ["letterbox", "classify", "clip", "unletterbox", "quality"])
+def test_constants_built_once_and_outputs_unchanged(name):
+    torch_fn, jax_fn = _calls(np.random.default_rng(4))[name]
+    first = torch_fn()
+    misses = tpre._constant.cache_info().misses
+    again = torch_fn()
+    assert tpre._constant.cache_info().misses == misses, "a repeated call built a constant"
+    assert torch.equal(first, again)
+    np.testing.assert_allclose(again.numpy(), np.asarray(jax_fn()), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("kind,key,dtype,want", [
+    ("resize", (1080, 360), torch.float32, lambda: torch.from_numpy(tpre._resize_matrix(1080, 360))),
+    ("resize", (64, 96), torch.bfloat16,
+     lambda: torch.from_numpy(tpre._resize_matrix(64, 96)).to(torch.bfloat16)),
+    ("inv255", (), torch.bfloat16, lambda: torch.tensor(1.0 / 255.0, dtype=torch.bfloat16)),
+    ("inv255", (), torch.float32, lambda: torch.tensor(1.0 / 255.0, dtype=torch.float32)),
+    ("mean", tpre.IMAGENET_MEAN, torch.float32, lambda: torch.tensor(tpre.IMAGENET_MEAN)),
+    ("inv_std", tpre.IMAGENET_STD, torch.float32,
+     lambda: torch.tensor([1.0 / s for s in tpre.IMAGENET_STD])),
+    ("shift", tpre.letterbox_params((1080, 1920), 640), torch.float32,
+     lambda: torch.tensor([0.0, 140.0, 0.0, 140.0])),
+    ("luma", (), torch.float32, lambda: torch.tensor(tpre._LUMA_BGR)),
+])
+def test_constant_is_one_tensor_per_key_with_the_old_values(kind, key, dtype, want):
+    got = tpre._constant(kind, key, dtype, torch.device("cpu"))
+    assert tpre._constant(kind, key, dtype, torch.device("cpu")) is got
+    assert got.dtype == dtype and not got.is_inference()
+    assert torch.equal(got, want())

@@ -7,8 +7,17 @@ sigmoid of the per-anchor max logit -> batched NMS through the CUDA
 keep-mask kernel -> unletterbox. Classifiers and video models: stretch
 resize + ImageNet normalisation -> ViT / VideoMAE (long clips through the
 CUDA flash-attention kernel) -> float32 softmax -> top-5. Frame models
-add the frame-quality statistics. The engine runs it per (geometry,
-bucket); ``chip_smoke.py`` times it.
+add the frame-quality statistics. It runs eagerly; ``chip_smoke.py``
+times it.
+
+The engine compiles it once per (model, stem, geometry, bucket), the JAX
+engine's step-cache key: on the card ``_GraphedStep`` captures it into
+one CUDA graph over static input buffers and replays that graph for
+every batch of the key (the counterpart of the JAX ``_TimedStep``), with
+step-cache hit and miss counters, the capture's time in
+``obs/perf.py``, prewarming at ``start()`` from ``cfg.prewarm`` and the
+prewarm manifest (``engine/aot_cache.py``), and ``prewarm_status()``. On
+the CPU, where the caller asked for it, the step runs eagerly.
 
 ``InferenceEngine`` is the serving pipeline around it, on three threads:
 
@@ -25,14 +34,14 @@ bucket); ``chip_smoke.py`` times it.
   their own stream once the step's event completes, then per stream the
   tracker, the quality verdicts, the SLO samples and the result.
 
-Results are plain dataclasses with the proto's field names. CUDA graphs,
-stage traces, the journal, the watchdog, ROI, the cascade, the mesh
+Results are plain dataclasses with the proto's field names. Stage traces, the journal, the watchdog, ROI, the cascade, the mesh
 paths and the gRPC surface are later slices.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import queue
 import threading
@@ -48,6 +57,7 @@ from ..bus.interface import FrameBus
 from ..device import resolve_device
 from ..models import registry
 from ..obs import registry as obs_registry
+from ..obs.perf import PerfTracker
 from ..obs.quality import QualityTracker
 from ..obs.slo import SLOEngine, default_slos
 from ..ops.nms import _top, batched_nms, nms_keep_mask
@@ -58,6 +68,7 @@ from ..ops.preprocess import (
 from ..replay.checksum import CHECKSUM_MASK, host_slot_checksum
 from ..resilience.ladder import RUNGS, DegradationLadder
 from ..utils.config import EngineConfig
+from . import aot_cache
 from .classes import class_name
 from .collector import BatchGroup, Collector, bucket_for, host_empty
 from .tracker import IoUTracker
@@ -547,6 +558,110 @@ def _pinned_empty(shape: tuple) -> np.ndarray:
     return torch.empty(shape, dtype=torch.uint8, pin_memory=True).numpy()
 
 
+class _GraphedStep:
+    """The serving step of one (model, stem, geometry, bucket) key as one
+    CUDA graph: the card's counterpart of the JAX engine's ``_TimedStep``,
+    the compiled program of a step-cache key.
+
+    The first call builds the eager step (``build()``, i.e.
+    ``build_serving_step``), runs it ``WARMUP_CALLS`` times on the calling
+    stream (the engine's compute stream) over the static inputs, so that
+    cuBLAS, cuDNN and the constants of ``ops/preprocess.py`` are set up
+    outside the capture, then captures one call on that stream into the
+    engine's graph pool and hands the capture's seconds to ``on_capture``.
+    Every call copies its frames (and the previous thumbnails) into the
+    static inputs, replays the graph and returns fresh copies of the static
+    outputs: the next replay overwrites them while the drain still reads
+    this batch. A failed capture or replay raises; nothing runs the step
+    eagerly in its place. After a failed capture torch's allocator keeps
+    recording into the pool, so the engine's later captures raise too: a
+    step that cannot be captured ends the engine at its first batch.
+
+    Launch counts: a kernel wrapper counts when Python calls it, which
+    inside a capture records a launch but runs none. The capture's counts
+    are taken back and added at every replay, so each wrapper's count stays
+    the number of launches the device ran.
+    """
+
+    WARMUP_CALLS = 3
+
+    def __init__(self, build: Callable[[], Callable], frame_shape: tuple,
+                 thumb_hw: Optional[tuple], *, device: torch.device, pool,
+                 on_capture: Callable[[float], None]):
+        self._build = build
+        self._pool = pool
+        self._on_capture = on_capture
+        self.frames_in = torch.zeros(frame_shape, dtype=torch.uint8, device=device)
+        self.thumbs_in = None
+        if thumb_hw:
+            self.thumbs_in = torch.zeros((frame_shape[0],) + tuple(thumb_hw),
+                                         dtype=torch.float32, device=device)
+        self.capture_s = 0.0
+        self._graph: Optional["torch.cuda.CUDAGraph"] = None
+        self._out: Dict[str, torch.Tensor] = {}
+        self._launches: tuple = ()     # (wrapper, launches a replay)
+
+    def __call__(self, frames: torch.Tensor,
+                 prev_thumbs: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        if frames.shape != self.frames_in.shape:
+            raise ValueError(f"graphed step of {tuple(self.frames_in.shape)} frames called "
+                             f"with {tuple(frames.shape)}")
+        self.frames_in.copy_(frames)
+        if self.thumbs_in is not None:
+            if prev_thumbs is None:
+                self.thumbs_in.zero_()
+            else:
+                self.thumbs_in.copy_(prev_thumbs)
+        if self._graph is None:
+            self._capture()
+        self._graph.replay()
+        for wrapper, n in self._launches:
+            wrapper.launches += n
+        return {k: v.clone() for k, v in self._out.items()}
+
+    def _capture(self) -> None:
+        from ..kernels import launch_counters
+
+        step = self._build()
+        args = (self.frames_in,) if self.thumbs_in is None else (self.frames_in, self.thumbs_in)
+        for _ in range(self.WARMUP_CALLS):
+            step(*args)
+        counters = launch_counters()
+        before = [w.launches for w in counters]
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.current_stream(self.frames_in.device)
+        t0 = time.perf_counter()
+        try:
+            # thread_local: the transfer and drain threads keep copying
+            # and synchronising on their own streams meanwhile.
+            with torch.cuda.graph(graph, pool=self._pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                out = step(*args)
+        finally:
+            captured = tuple((w, w.launches - b) for w, b in zip(counters, before)
+                             if w.launches != b)
+            for w, b in zip(counters, before):
+                w.launches = b
+        self.capture_s = time.perf_counter() - t0
+        self._graph, self._out, self._launches = graph, dict(out), captured
+        self._on_capture(self.capture_s)
+
+
+def _record_after_first_success(step: Callable, record: Callable[[], None]) -> Callable:
+    """``step`` that calls ``record()`` once, after its first call that
+    returned: a program whose first call fails is never recorded in the
+    prewarm manifest (it would fail again at every start)."""
+    pending = [record]
+
+    def recorded(*args):
+        out = step(*args)
+        if pending:
+            pending.pop()()
+        return out
+
+    return recorded
+
+
 class InferenceEngine:
     """Tick loop serving one model over every stream of a frame bus: a
     detector or classifier on each stream's newest frame, a video model on
@@ -560,7 +675,17 @@ class InferenceEngine:
     stream), the transfer thread (``cfg.prefetch``), and the drain thread
     (read-back and emit). A failure on any of them ends the engine, and
     ``stop()`` raises it.
+
+    On the card every step runs as the replay of the CUDA graph of its
+    (model, stem, geometry, bucket) key (``_GraphedStep``), captured on the
+    key's first batch or at ``start()`` (``cfg.prewarm`` and the prewarm
+    manifest, ``compile_for``). The engine serves one model, with the
+    classic stem.
     """
+
+    # The stem variant of every program: the port serves the classic stem
+    # only (the JAX engine's cfg.stem; ``s2d`` is not ported).
+    _STEM = "classic"
 
     # Per-stream state of a stream absent from the bus this long is dropped;
     # shorter gaps (a producer re-creating its ring) keep it.
@@ -585,7 +710,18 @@ class InferenceEngine:
         # Thumbnails (quality statistics) only for frame models.
         self._thumb = 0 if self._spec.clip_len else self._cfg.quality_thumb
         self._thumbs = _ThumbPool(self._thumb, self._device)
+        # Step cache: (model, stem, src_hw, bucket) -> the step of that key.
         self._steps: Dict[tuple, Callable] = {}
+        self._graph_pool = None            # one graph memory pool (the card)
+        self._graphs: List[_GraphedStep] = []
+        self.perf = PerfTracker()
+        # Prewarm manifest (engine/aot_cache.py); "" = off. Prewarm
+        # progress for prewarm_status(): with the manifest on, the program
+        # set is known only once start() has read it.
+        self._aot_dir = self._cfg.aot_cache_dir if self._cfg.aot_cache else ""
+        self._prewarm_required = len(self._cfg.prewarm)
+        self._prewarm_done = 0
+        self._prewarm_started = not self._aot_dir
         self._stats: Dict[str, StreamStats] = {}
         self._subscribers: list = []
         self._sub_lock = threading.Lock()
@@ -650,6 +786,11 @@ class InferenceEngine:
         self._m_drain_depth = obs_registry.gauge(
             "vep_drain_queue_depth",
             "Dispatched batches waiting on the drain thread").labels()
+        self._m_cache_miss = obs_registry.counter(
+            "vep_step_cache_misses_total",
+            "Serving-step cache misses (each captures a CUDA graph on the card)").labels()
+        self._m_cache_hit = obs_registry.counter(
+            "vep_step_cache_hits_total", "Serving-step cache hits").labels()
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -668,6 +809,7 @@ class InferenceEngine:
             if self._compute is None:
                 self._compute = torch.cuda.Stream(self._device)
                 self._d2h = torch.cuda.Stream(self._device)
+                self._graph_pool = torch.cuda.graph_pool_handle()
 
     def _start_pipeline(self) -> None:
         """Start the transfer and drain threads (start() adds the tick
@@ -683,9 +825,113 @@ class InferenceEngine:
         self._drain_thread.start()
 
     def start(self) -> None:
+        """Warm up, prewarm (``cfg.prewarm`` and the manifest's programs),
+        then start the threads."""
+        if self._drain_thread is not None:
+            raise RuntimeError("engine already started")
+        self.warmup()
+        self._prewarm()
         self._start_pipeline()
         self._thread = threading.Thread(target=self._loop, name="vep-torch-engine", daemon=True)
         self._thread.start()
+
+    def _prewarm(self) -> None:
+        """Build the program of every ``cfg.prewarm`` entry and, with the
+        prewarm manifest on, of every program it records (the union, each
+        once). An entry whose bucket the engine does not serve is skipped,
+        and one that fails is logged: both count as done, so that
+        ``prewarm_status`` reaches ``complete``."""
+        entries = [list(g) for g in self._cfg.prewarm]
+        if self._aot_dir:
+            def entry_key(e):
+                try:
+                    return (int(e[0]), int(e[1]), int(e[2]),
+                            str(e[3]) if len(e) >= 4 and e[3] else "")
+                except (TypeError, ValueError, IndexError):
+                    return None
+
+            seen = {k for k in (entry_key(e) for e in entries) if k}
+            programs = aot_cache.load_manifest(self._aot_dir) or []
+            for entry in aot_cache.prewarm_entries(programs):
+                key = entry_key(entry)
+                if key is not None and key not in seen:
+                    seen.add(key)
+                    entries.append(entry)
+            if programs:
+                log.info("prewarm manifest: %d recorded programs, %d prewarm entries in all",
+                         len(programs), len(entries))
+        self._prewarm_required = len(entries)
+        self._prewarm_done = 0
+        self._prewarm_started = True     # the entry list is final
+        for geom in entries:
+            # [h, w, bucket], [h, w, bucket, model] or [h, w, bucket, model, stem]
+            try:
+                model = str(geom[3]) if len(geom) >= 4 else None
+                stem = str(geom[4]) if len(geom) >= 5 else None
+                h, w, bucket = (int(v) for v in geom[:3])
+                if bucket not in self._buckets:
+                    log.warning("prewarm bucket %d not in the engine's buckets %s; skipping",
+                                bucket, self._buckets)
+                    continue
+                log.info("prewarming the program of %dx%d bucket=%d model=%s", h, w, bucket,
+                         model or self._spec.name)
+                self.compile_for((h, w), bucket, model, stem=stem)
+            except Exception:   # a bad entry must not stop the start
+                log.exception("prewarm entry %r failed; continuing", geom)
+            finally:
+                self._prewarm_done += 1
+
+    def prewarm_status(self) -> dict:
+        """Prewarm progress, as the JAX engine reports it: ``required``
+        entries, ``done`` (skipped and failed ones included), ``complete``
+        and whether the manifest is on. With the manifest on, ``complete``
+        stays False until start() has read it."""
+        required = self._prewarm_required
+        done = self._prewarm_done
+        return {
+            "required": required,
+            "done": done,
+            "complete": self._prewarm_started and done >= required,
+            "aot_cache": bool(self._aot_dir),
+        }
+
+    def compile_for(self, src_hw: tuple, bucket: int, model: Optional[str] = None, *,
+                    stem: Optional[str] = None) -> None:
+        """Build the program of one (source geometry, bucket) ahead of its
+        first batch: on the card, capture its graph by running it once over
+        zero frames. An entry pinned to another stem, or naming another
+        model than the engine's own (an engine serves one model), is
+        skipped with a warning."""
+        if stem is not None and stem != self._STEM:
+            log.warning("prewarm entry pinned stem=%r but the engine serves stem=%r; "
+                        "skipping %sx%s bucket=%d", stem, self._STEM, src_hw[0], src_hw[1],
+                        bucket)
+            return
+        if model and model != self._spec.name:
+            log.warning("prewarm entry names model %r but the engine serves %r; skipping "
+                        "%sx%s bucket=%d", model, self._spec.name, src_hw[0], src_hw[1], bucket)
+            return
+        self.warmup()
+        shape = ((bucket,) + ((self._spec.clip_len,) if self._spec.clip_len else ())
+                 + tuple(src_hw) + (3,))
+        with self._compute_stream(), torch.inference_mode():
+            args = [torch.zeros(shape, dtype=torch.uint8, device=self._device)]
+            if self._thumb:
+                args.append(torch.zeros((bucket, self._thumb, self._thumb),
+                                        dtype=torch.float32, device=self._device))
+            self._step(src_hw, bucket)(*args)
+
+    def graph_stats(self) -> dict:
+        """The captured graphs: how many, their capture seconds in all, and
+        the bytes of the engine's graph memory pool (None on the CPU)."""
+        graphs = [g for g in self._graphs if g.capture_s > 0.0]
+        pool_bytes = None
+        if self._cuda and self._graph_pool is not None:
+            pool = tuple(self._graph_pool)
+            pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                             if tuple(seg.get("segment_pool_id", ())) == pool)
+        return {"programs": len(graphs), "capture_s": sum(s.capture_s for s in graphs),
+                "pool_bytes": pool_bytes}
 
     def stop(self, timeout: float = 30.0) -> None:
         """Stop the threads and end every subscription; everything already
@@ -800,11 +1046,11 @@ class InferenceEngine:
         (``stop()`` raises their errors)."""
         if self._thread is not None:
             raise RuntimeError("serve_lockstep needs an engine not started")
+        self.warmup()
+        self._prewarm()
         prefetch = self._cfg.prefetch
         if prefetch:
             self._start_pipeline()
-        else:
-            self.warmup()
         created = set(self._bus.streams())
         try:
             with self._compute_stream(), torch.inference_mode():
@@ -959,11 +1205,35 @@ class InferenceEngine:
             self._slo_burning = self.slo.evaluate()["burning"]
 
     def _step(self, src_hw: tuple, bucket: int) -> Callable:
-        key = (src_hw, bucket)
+        """The step of (the engine's model, its stem, ``src_hw``,
+        ``bucket``): on the card a ``_GraphedStep``, captured at its first
+        call; on the CPU the eager step. A new key records its program in
+        the prewarm manifest after its first call that returns."""
+        src_hw = tuple(int(v) for v in src_hw)
+        name = self._spec.name
+        key = (name, self._STEM, src_hw, bucket)
         fn = self._steps.get(key)
-        if fn is None:
-            fn = build_serving_step(self._model, self._spec, quality_thumb=self._thumb)
-            self._steps[key] = fn
+        if fn is not None:
+            self._m_cache_hit.inc()
+            return fn
+        self._m_cache_miss.inc()
+        build = functools.partial(build_serving_step, self._model, self._spec,
+                                  quality_thumb=self._thumb)
+        if self._cuda:
+            shape = ((bucket,) + ((self._spec.clip_len,) if self._spec.clip_len else ())
+                     + src_hw + (3,))
+            fn = _GraphedStep(
+                build, shape, (self._thumb, self._thumb) if self._thumb else None,
+                device=self._device, pool=self._graph_pool,
+                on_capture=functools.partial(self.perf.note_compile, name, src_hw, bucket))
+            self._graphs.append(fn)
+        else:
+            fn = build()
+        if self._aot_dir:
+            fn = _record_after_first_success(fn, functools.partial(
+                aot_cache.record_program, self._aot_dir, model=name, stem=self._STEM,
+                src_hw=src_hw, bucket=bucket))
+        self._steps[key] = fn
         return fn
 
     # -- placement, dispatch ---------------------------------------------------

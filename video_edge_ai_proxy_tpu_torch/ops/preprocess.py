@@ -14,6 +14,12 @@ The resize is the antialiased triangle filter with half-pixel centres of
 ``jax.image.resize(method="bilinear")``, as two dense matrix products
 against ``_resize_matrix`` -- not ``F.interpolate``, whose bilinear mode
 has no antialias.
+
+Every constant a call needs (the resize matrices, 1/255, the ImageNet
+mean and 1/std, the unletterbox shift, the luma weights) is built once per
+(device, dtype, geometry) by ``_constant`` and kept on the device, so a
+call on the card makes no host-to-device copy and never waits for the
+device: a CUDA graph captures it as it is.
 """
 
 from __future__ import annotations
@@ -48,8 +54,35 @@ def _resize_matrix(src: int, dst: int) -> np.ndarray:
     return out
 
 
+# Unbounded on purpose: a captured CUDA graph reads a constant by its
+# address, so a constant must live as long as the process. The keys are
+# the few (device, dtype, geometry) combinations a server meets.
+@functools.lru_cache(maxsize=None)
+def _constant(kind: str, key: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The device tensor of constant ``kind`` for ``key``, built on first
+    use by the same expression as an uncached call would use, and cached.
+    Built outside inference mode, so that a tensor first made by a serving
+    step can also enter a computation that records gradients."""
+    with torch.inference_mode(False):
+        if kind == "resize":
+            return torch.from_numpy(_resize_matrix(*key)).to(device=device, dtype=dtype)
+        if kind == "inv255":
+            values = 1.0 / 255.0
+        elif kind == "mean":
+            values = list(key)
+        elif kind == "inv_std":
+            values = [1.0 / s for s in key]
+        elif kind == "shift":
+            values = [key.pad_x, key.pad_y, key.pad_x, key.pad_y]
+        elif kind == "luma":
+            values = _LUMA_BGR
+        else:
+            raise ValueError(f"unknown constant {kind!r}")
+        return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _matrix(src: int, dst: int, dtype: torch.dtype, device) -> torch.Tensor:
-    return torch.from_numpy(_resize_matrix(src, dst)).to(device=device, dtype=dtype)
+    return _constant("resize", (src, dst), dtype, torch.device(device))
 
 
 def resize_bilinear(x: torch.Tensor, dst_hw: tuple) -> torch.Tensor:
@@ -84,7 +117,7 @@ def _scaled(frames_u8: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     """uint8 -> [0, 1] in ``out_dtype``. The 1/255 constant is rounded to
     ``out_dtype`` first, as JAX does with its weakly typed Python float (a
     Python float here would multiply in float32)."""
-    inv = torch.tensor(1.0 / 255.0, dtype=out_dtype, device=frames_u8.device)
+    inv = _constant("inv255", (), out_dtype, frames_u8.device)
     return frames_u8.to(out_dtype) * inv
 
 
@@ -99,8 +132,8 @@ def preprocess_classify(
     normalised in float32, returned in ``out_dtype``. The resize stretches
     (no aspect preservation)."""
     x = resize_bilinear(_scaled(frames_u8, out_dtype), size).flip(-1)
-    mean_a = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    inv_std = torch.tensor([1.0 / s for s in std], dtype=torch.float32, device=x.device)
+    mean_a = _constant("mean", tuple(mean), torch.float32, x.device)
+    inv_std = _constant("inv_std", tuple(std), torch.float32, x.device)
     return ((x.float() - mean_a) * inv_std).to(out_dtype)
 
 
@@ -162,10 +195,7 @@ def preprocess_letterbox(
 
 def unletterbox_boxes(boxes_xyxy: torch.Tensor, params: LetterboxParams) -> torch.Tensor:
     """Map detector-output xyxy boxes (letterboxed px) back to source px."""
-    shift = torch.tensor(
-        [params.pad_x, params.pad_y, params.pad_x, params.pad_y],
-        dtype=boxes_xyxy.dtype, device=boxes_xyxy.device,
-    )
+    shift = _constant("shift", params, boxes_xyxy.dtype, boxes_xyxy.device)
     return (boxes_xyxy - shift) / params.scale
 
 
@@ -181,7 +211,7 @@ def frame_quality_stats(
     """[N, H, W, 3] uint8 BGR + previous [N, th, tw] f32 luma thumbnails ->
     (stats [N, 3] f32 of (luma_mean, luma_var, diff_energy), thumbs
     [N, th, tw] f32). The variance is the population variance."""
-    w = torch.tensor(_LUMA_BGR, dtype=torch.float32, device=frames_u8.device)
+    w = _constant("luma", (), torch.float32, frames_u8.device)
     y = torch.matmul(frames_u8.to(torch.float32), w) * (1.0 / 255.0)
     thumbs = resize_bilinear(y[..., None], thumb_hw)[..., 0]
     mean = thumbs.mean(dim=(1, 2))

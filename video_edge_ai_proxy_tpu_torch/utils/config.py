@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass
@@ -20,6 +20,18 @@ class EngineConfig:
     # of batch t+1 overlaps the compute of batch t. False = the tick thread
     # places each batch itself, through the same placement.
     prefetch: bool = True
+    # Programs to capture at start() instead of on a geometry's first
+    # batch: [height, width, bucket], [height, width, bucket, model] or
+    # [height, width, bucket, model, stem]. On the card each is one CUDA
+    # graph of the serving step; a capture takes seconds, and prewarming
+    # moves it out of the hot path.
+    prewarm: list = field(default_factory=list)
+    # Prewarm manifest (engine/aot_cache.py): every program this engine
+    # (or another sharing aot_cache_dir) served is recorded there, and
+    # start() prewarms the recorded set too. "" with aot_cache=True is
+    # off, as in the JAX package, where the server resolves the dir.
+    aot_cache: bool = False
+    aot_cache_dir: str = ""
     # health() flags the tick loop wedged when no tick completed this long.
     health_stale_after_s: float = 300.0
     # Per-stream SORT-style tracker filling Detection.track_id.
