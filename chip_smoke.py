@@ -107,10 +107,38 @@ exits non-zero:
    ``prewarm=[[1080, 1920, 16]]`` and the prewarm manifest on a temporary
    directory is complete after ``start()`` and serves its first batch as
    a step-cache hit, and a second engine on the same directory with no
-   ``prewarm`` prewarms the same program from the manifest.
+   ``prewarm`` prewarms the same program from the manifest;
+13. the deployment's frame path: (a) 11a's trace through
+   ``lockstep_checksum`` and the engine's ``serve_lockstep`` over a
+   ``ShmFrameBus`` in a fresh ring directory, folding 11a's and 11b's
+   integers of the same run; (b) 16 ``python -m
+   video_edge_ai_proxy_tpu_torch.ingest.worker`` processes, one per camera,
+   on the environment contract (``test://`` 1080p at 30 fps, a ring of 2
+   slots each), read by ``InferenceEngine(open_bus("shm", dir),
+   EngineConfig())`` with one subscriber over all 16 for 20 s: frames/s,
+   latency p50/p95/p99 and stages, frames superseded, each worker's
+   published and decoded counts from its heartbeat, beside 11c's numbers;
+   gated: every stream served, every detection with a track id, no "engine
+   tick failed" or "drain failed" record on the engine's logger, every
+   worker exits 0 at SIGTERM, no worker initialises CUDA or maps the CUDA
+   driver (``nvidia-smi --query-compute-apps`` is printed); (c) 2 worker
+   processes with ``active_window_s`` cut to 2 s and a subscriber for one
+   stream: the other stops being inferred after its linger, its worker
+   falls back to keyframes (fps/gop frames a second), and a subscriber
+   for it brings it back within one tick; (d) three injected collect
+   failures are logged and results flow; a capture that fails for one
+   geometry (720p, which sorts first) retires its graph pool, and while
+   both geometries are published in the same ticks 1080p captures and is
+   served, the failed key is never captured again (two pools, their bytes
+   flat) and none of its batches is run eagerly or served. 11c and 13b
+   print how late a 5 ms sleep wakes in a process of its own (a core)
+   and in a thread of the engine's process (a core and the interpreter
+   lock) beside the threads' CPU time. The ring directory of each
+   part is chosen openly: the /dev/shm tmpfs when it has room for the
+   rings, else the temporary directory, and the script says which and why.
 
 On the card the engine runs every serving step as a graph replay, so
-phases 5, 8 and 11 run graphed; phases 4, 6, 7, 9 and 10 call the eager
+phases 5, 8, 11 and 13 run graphed; phases 4, 6, 7, 9 and 10 call the eager
 step, the model and the trainer directly.
 
 After phase 8 the script reports what outlives its engines (the cuBLAS
@@ -118,10 +146,10 @@ workspace of each stream that ran a matmul, and the preprocessing
 constants of every geometry met so far) and frees it, so that phase 9's
 peak memory counts the training alone.
 
-Phases 5, 8, 9 and 11c are the main paths: the kernels' launch counts are set
-to 0 just before each and read just after it, and every kernel of that
-path must have launched (a graph replay adds the launches its capture
-recorded). The line before the last is one JSON object describing
+Phases 5, 8, 9, 11c and 13b are the main paths: the kernels' launch counts
+are set to 0 just before each and read just after it, and every kernel of
+that path must have launched (a graph replay adds the launches its capture
+recorded); the keep mask's count in 13b is ``launches_frame_path``. The line before the last is one JSON object describing
 every kernel; the last line is ``{"ok": true, "device": {...}}``. Longer
 output (the profile tables) goes to ``chiprun_out/``.
 """
@@ -710,10 +738,12 @@ def sync_sites(fn) -> dict:
     return out
 
 
-def pipeline_phase(dev, card: str, zero_launches, read_launches, kernels) -> None:
+def pipeline_phase(dev, card: str, zero_launches, read_launches, kernels) -> dict:
     """Phase 11: the default engine's pipeline on yolov8n bf16 at 16x1080p:
     (a) replay twice, (b) pipelined against synchronous, (c) a paced run,
-    (d) the paced run's host syncs and its SLO verdict."""
+    (d) the paced run's host syncs and its SLO verdict. Returns 11a's and
+    11b's folds and 11c's frames/s and latency percentiles, which phase 13
+    prints beside its own."""
     import tempfile
 
     import numpy as np
@@ -804,8 +834,12 @@ def pipeline_phase(dev, card: str, zero_launches, read_launches, kernels) -> Non
     engine.warmup()
     zero_launches()
     engine.start()
+    threads0 = thread_cpu_seconds(engine)
+    probe = WakeProbe(PACED_S)
     try:
         published, wall_s, late_ms = paced_publish(bus, streams, pool, PACED_S)
+        threads1 = thread_cpu_seconds(engine)
+        wake = probe.result()
         slo_verdict = engine.slo.snapshot()
         settle = time.monotonic() + SETTLE_S
         while engine.ladder.rung != "normal" and time.monotonic() < settle:
@@ -845,7 +879,9 @@ def pipeline_phase(dev, card: str, zero_launches, read_launches, kernels) -> Non
         f"{graphs['programs']} captured in {graphs['capture_s']:.3f} s, pool "
         f"{graphs['pool_bytes'] / 2 ** 20:.1f} MiB; pinned batch pool "
         f"{engine._collector.pool_nbytes() / 2 ** 20:.1f} MiB; publisher late "
-        f"{len(late_ms)} times (max {max(late_ms) if late_ms else 0.0:.3f} ms)")
+        f"{len(late_ms)} times (max {max(late_ms) if late_ms else 0.0:.3f} ms); cores used "
+        f"by thread (main = the publisher): {thread_cores(threads0, threads1, wall_s)}; "
+        f"a {WAKE_SLEEP_S * 1000:g} ms sleep wakes late by: {wake}")
     log(f"phase 11c drain and planes: {len(dets)} detections "
         f"({len(dets) / max(p.frames, 1):.2f} per result, class prior zeroed), {untracked} "
         f"without a track id; the drain's emit {p.emit_ms / max(p.frames, 1):.4f} ms a frame "
@@ -855,6 +891,8 @@ def pipeline_phase(dev, card: str, zero_launches, read_launches, kernels) -> Non
         f"{slo_verdict['burning']}, fast burn "
         f"{ {n: v['burn']['fast'] for n, v in slo_verdict['slos'].items()} }; health ok "
         f"{health['ok']}; kernel launches {launches}")
+    out = {"11a": runs[0]["checksum"], "11b": piped[0], "fps": p.frames / wall_s,
+           "p50": pct(lat, 50), "p95": pct(lat, 95), "p99": pct(lat, 99)}
     if missing:
         raise AssertionError(f"paced run: streams without results: {missing}")
     if not dets or untracked:
@@ -872,6 +910,7 @@ def pipeline_phase(dev, card: str, zero_launches, read_launches, kernels) -> Non
     pipeline_slo_phase(dev, card, model, spec, streams, pool)
     del model, pool
     torch.cuda.empty_cache()
+    return out
 
 
 def pipeline_slo_phase(dev, card: str, model, spec, streams, pool) -> None:
@@ -1154,6 +1193,9 @@ def graphs_phase(dev, card: str, report: dict) -> None:
                                   model=model)
             before = eng.prewarm_status()
             m0, h0 = misses.value, hits.value
+            # A subscriber over every stream: the engine infers only what
+            # someone reads (interest gating).
+            eng.subscribe(streams)
             t0 = time.perf_counter()
             eng.start()
             start_s = time.perf_counter() - t0
@@ -1201,6 +1243,781 @@ def graphs_phase(dev, card: str, report: dict) -> None:
         f"(profiler, 3 replays of {vmodel.cfg.encoder.num_layers} launches)")
     del vengine, vstep, vmodel, clips
     torch.cuda.empty_cache()
+
+
+# -- phase 13: the deployment's frame path ------------------------------------------------
+
+# One ingest worker process per camera on the shm bus, as the process
+# manager starts them (the environment contract), at the north-star width.
+WORKER_RUN_S = 20.0          # 13b: the engine reads the workers this long
+WORKER_SLOTS = 2             # a worker's ring: max(2, in_memory_buffer + 1) slots
+GATE_WINDOW_S = 2.0          # 13c: active_window_s cut from 10 s
+GATE_BOTH_S = 3.0            # 13c: both streams of interest this long first
+GATE_WAIT_S = 30.0           # 13c: at most this long for the keyframe-only fallback
+ENGINE_LOGGER = "vep.torch.engine.runner"
+FAILURE_MESSAGES = ("engine tick failed; continuing", "drain failed; continuing")
+
+
+class LogCounter:
+    """A ``logging.Handler`` on the engine's logger that keeps every record
+    at ERROR and above, so that a phase can count the failures the engine
+    logged and went on from."""
+
+    def __init__(self):
+        import logging
+
+        class _Handler(logging.Handler):
+            def emit(inner, record):
+                self.records.append(record)
+
+        self.records: list = []
+        self._handler = _Handler(level=logging.ERROR)
+        self._logger = logging.getLogger(ENGINE_LOGGER)
+
+    def __enter__(self):
+        self._logger.addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self._handler)
+
+    def count(self, message: str) -> int:
+        return sum(1 for r in self.records if r.getMessage() == message)
+
+    def summary(self) -> str:
+        out = {}
+        for r in self.records:
+            err = repr(r.exc_info[1])[:160] if r.exc_info else ""
+            key = f"{r.getMessage()} {err}".strip()
+            out[key] = out.get(key, 0) + 1
+        return "; ".join(f"{n} x {k}" for k, n in out.items()) or "nothing"
+
+
+def ring_dir(tag: str, need: int) -> str:
+    """A fresh directory for ``need`` bytes of rings: on the /dev/shm tmpfs
+    when it has the room (with a quarter more), else under the temporary
+    directory (another file system runs the same code; a tmpfs that is too
+    small would end a worker with SIGBUS at its first write past the limit).
+    Says which and why; raises when neither has the room."""
+    import tempfile
+
+    for base, kind in (("/dev/shm", "tmpfs /dev/shm"), (tempfile.gettempdir(), "temp dir")):
+        if not os.path.isdir(base):
+            log(f"phase 13{tag} ring dir: {kind} absent")
+            continue
+        st = os.statvfs(base)
+        free, size = st.f_bavail * st.f_frsize, st.f_blocks * st.f_frsize
+        fits = free >= need * 1.25
+        log(f"phase 13{tag} ring dir: {kind} {base} has {free} B free of {size} B; the rings "
+            f"need {need} B: {'use it' if fits else 'too small'}")
+        if fits:
+            return tempfile.mkdtemp(prefix=f"vep_rings_{tag}_", dir=base)
+    raise AssertionError(f"phase 13{tag}: no directory has room for {need} B of rings")
+
+
+def worker_url() -> str:
+    """The camera every phase-13 worker opens: the synthetic pattern at the
+    north-star geometry, 30 fps, a keyframe a second."""
+    return (f"test://pattern?w={FRAME_HW[1]}&h={FRAME_HW[0]}&fps={PACED_FPS:g}"
+            f"&gop={int(PACED_FPS)}")
+
+
+def worker_env(shm_dir: str, device_id: str) -> dict:
+    """The environment a supervisor starts a port worker with."""
+    return dict(os.environ, PYTHONPATH=ROOT, rtsp_endpoint=worker_url(), device_id=device_id,
+                vep_shm_dir=shm_dir, vep_bus_backend="shm", in_memory_buffer="1")
+
+
+def start_workers(shm_dir: str, device_ids, out_dir: str) -> dict:
+    """One ``python -m video_edge_ai_proxy_tpu_torch.ingest.worker`` per
+    device id, all started at once; their output goes to ``out_dir``."""
+    procs = {}
+    for d in device_ids:
+        with open(os.path.join(out_dir, f"worker_{d}.log"), "wb") as fh:
+            procs[d] = subprocess.Popen(
+                [sys.executable, "-m", "video_edge_ai_proxy_tpu_torch.ingest.worker"],
+                cwd=ROOT, env=worker_env(shm_dir, d), stdout=fh, stderr=subprocess.STDOUT)
+    return procs
+
+
+def wait_for_rings(bus, procs: dict, timeout_s: float = 120.0) -> float:
+    """Until every worker has created its ring; a worker that exits first
+    fails the phase. Returns the seconds it took."""
+    t0 = time.monotonic()
+    while set(bus.streams()) < set(procs):
+        dead = {d: p.returncode for d, p in procs.items() if p.poll() is not None}
+        if dead:
+            raise AssertionError(f"worker processes exited before their rings were up: {dead}")
+        if time.monotonic() - t0 > timeout_s:
+            raise AssertionError(f"rings not up within {timeout_s:g} s: {bus.streams()}")
+        time.sleep(0.05)
+    return time.monotonic() - t0
+
+
+def stop_workers(procs: dict, timeout_s: float = 30.0) -> dict:
+    """SIGTERM every worker, wait, kill what is left; {device_id: exit code}."""
+    import signal
+
+    for p in procs.values():
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    codes = {}
+    deadline = time.monotonic() + timeout_s
+    for d, p in procs.items():
+        try:
+            codes[d] = p.wait(timeout=max(0.1, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            codes[d] = f"killed after {timeout_s:g} s ({p.wait()})"
+    return codes
+
+
+def heartbeats(bus, device_ids) -> dict:
+    """Each worker's status heartbeat (published, decoded, keyframes...)."""
+    from video_edge_ai_proxy_tpu_torch.ingest.worker import KEY_STATUS_PREFIX
+
+    out = {}
+    for d in device_ids:
+        raw = bus.kv_get(KEY_STATUS_PREFIX + d)
+        out[d] = json.loads(raw) if raw else {}
+    return out
+
+
+def compute_app_pids() -> list:
+    """The processes nvidia-smi lists on the card."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()]
+
+
+def cpu_seconds(pid: int) -> float:
+    """User and system CPU seconds process ``pid`` has used (/proc)."""
+    with open(f"/proc/{pid}/stat") as fh:
+        fields = fh.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def thread_cpu_seconds(engine) -> dict:
+    """CPU seconds used so far by the engine's tick, transfer and drain
+    threads and by this process's main thread (/proc/self/task)."""
+    threads = {"tick": engine._thread, "transfer": engine._xfer._thread,
+               "drain": engine._drain_thread, "main": threading.main_thread()}
+    out = {}
+    for name, th in threads.items():
+        tid = getattr(th, "native_id", None) if th is not None else None
+        try:
+            with open(f"/proc/self/task/{tid}/stat") as fh:
+                fields = fh.read().rsplit(")", 1)[1].split()
+            out[name] = (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+        except (OSError, TypeError):
+            out[name] = float("nan")
+    return out
+
+
+def thread_cores(before: dict, after: dict, wall_s: float) -> str:
+    return ", ".join(f"{k} {(after[k] - before[k]) / wall_s:.3f}" for k in after)
+
+
+# How late a WAKE_SLEEP_S sleep wakes: in a process of its own the sleeper
+# waits only for a core; in a thread of the engine's process it waits for a
+# core and then for the interpreter lock. The kernel's per-thread run-queue
+# wait (/proc/<pid>/task/<tid>/schedstat) is absent on the card's machine.
+WAKE_SLEEP_S = 0.005
+WAKE_PROBE = ("import json, sys, time\n"
+              "end, late = time.monotonic() + float(sys.argv[1]), []\n"
+              "while time.monotonic() < end:\n"
+              "    t = time.perf_counter()\n"
+              "    time.sleep(float(sys.argv[2]))\n"
+              "    late.append(time.perf_counter() - t - float(sys.argv[2]))\n"
+              "print(json.dumps(late))\n")
+
+
+class WakeProbe:
+    """Wake-up lateness of a WAKE_SLEEP_S sleep over ``seconds``, at once in
+    a process of its own (a core) and in a thread of this process (a core,
+    then the interpreter lock). Its cost: 1 / WAKE_SLEEP_S wake-ups a second
+    in each, the thread's each taking the lock for a few microseconds."""
+
+    def __init__(self, seconds: float):
+        self._proc = subprocess.Popen(
+            [sys.executable, "-c", WAKE_PROBE, str(seconds), str(WAKE_SLEEP_S)],
+            stdout=subprocess.PIPE, text=True)
+        self._late: list = []
+        self._end = time.monotonic() + seconds
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while time.monotonic() < self._end:
+            t = time.perf_counter()
+            time.sleep(WAKE_SLEEP_S)
+            self._late.append(time.perf_counter() - t - WAKE_SLEEP_S)
+
+    def result(self) -> str:
+        """'process p50/p99/mean ms; engine thread p50/p99/mean ms'."""
+        out, _ = self._proc.communicate(timeout=60)
+        self._thread.join(60)
+
+        def stats(late):
+            late = sorted(v * 1000.0 for v in late)
+            return (f"p50 {pct(late, 50):.3f}, p99 {pct(late, 99):.3f}, mean "
+                    f"{statistics.fmean(late):.3f} ms over {len(late)} wake-ups")
+        return (f"a process of its own {stats(json.loads(out))}; a thread of the engine's "
+                f"process {stats(self._late)}")
+
+
+def maps_cuda(pid: int) -> bool:
+    """True when process ``pid`` has the CUDA driver library mapped."""
+    try:
+        with open(f"/proc/{pid}/maps") as fh:
+            return "libcuda" in fh.read()
+    except OSError:
+        return False
+
+
+def frame_path_phase(dev, card: str, zero_launches, read_launches, kernels, report,
+                     pipeline: dict) -> None:
+    """Phase 13: the deployment's frame path on yolov8n bf16: (a) the replay
+    folds over the shm bus, (b) 16 worker processes at 1080p read by the
+    default engine for 20 s, (c) interest gating and lazy decode across 2
+    worker processes, (d) log and continue on the card."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from video_edge_ai_proxy_tpu_torch.bus.shm_bus import ShmFrameBus
+    from video_edge_ai_proxy_tpu_torch.models import registry
+    from video_edge_ai_proxy_tpu_torch.replay.checksum import zero_class_prior
+
+    spec = registry.get("yolov8n")
+    model = spec.init_params(torch.Generator().manual_seed(0), device=dev)
+    model.load_state_dict(zero_class_prior(model.state_dict()))
+    out_dir = os.path.join(ROOT, "chiprun_out", "phase13")
+    os.makedirs(out_dir, exist_ok=True)
+    # The ring library is built here, once, before any worker starts.
+    probe_dir = tempfile.mkdtemp(prefix="vep_rings_build_")
+    ShmFrameBus(probe_dir).close()
+    shutil.rmtree(probe_dir, ignore_errors=True)
+    shm_replay_phase(dev, card, model, pipeline)
+    worker_processes_phase(dev, card, model, out_dir, zero_launches, read_launches, kernels,
+                           report, pipeline)
+    interest_phase(dev, card, model, out_dir)
+    log_and_continue_phase(dev, card, model)
+    del model
+    torch.cuda.empty_cache()
+
+
+def shm_replay_phase(dev, card: str, model, pipeline: dict) -> None:
+    """Phase 13a: 11a's trace through ``lockstep_checksum`` and through the
+    engine's ``serve_lockstep`` over a ShmFrameBus: 11a's and 11b's folds."""
+    import shutil
+    import tempfile
+
+    from video_edge_ai_proxy_tpu_torch.bus import MemoryFrameBus
+    from video_edge_ai_proxy_tpu_torch.bus.shm_bus import ShmFrameBus, ring_bytes
+    from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine
+    from video_edge_ai_proxy_tpu_torch.replay.harness import lockstep_checksum
+    from video_edge_ai_proxy_tpu_torch.replay.player import TracePlayer
+    from video_edge_ai_proxy_tpu_torch.replay.recorder import record_synthetic_trace
+    from video_edge_ai_proxy_tpu_torch.utils.config import EngineConfig
+
+    streams = [f"cam{i:02d}" for i in range(N_STREAMS)]
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    frame_bytes = FRAME_HW[0] * FRAME_HW[1] * 3
+    # (a) 11a's trace over the shm bus: lockstep_checksum and the engine.
+    t0 = time.perf_counter()
+    rdir = ring_dir("a", N_STREAMS * ring_bytes(frame_bytes, 4))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = record_synthetic_trace(os.path.join(tmp, "pipeline.vtrace"), streams,
+                                          width=FRAME_HW[1], height=FRAME_HW[0], fps=30.0,
+                                          frames=REPLAY_FRAMES)
+            bus = ShmFrameBus(os.path.join(rdir, "lockstep"))
+            try:
+                lock = lockstep_checksum(path, model="yolov8n", device=dev, state_dict=weights,
+                                         bus=bus)
+            finally:
+                bus.close()
+                shutil.rmtree(os.path.join(rdir, "lockstep"), ignore_errors=True)
+            by_packet: dict = {}
+            for dev_id, frame, meta in TracePlayer(path).iter_frames():
+                by_packet.setdefault(meta.packet, []).append((dev_id, frame, meta))
+        ticks = [by_packet[n] for n in sorted(by_packet)]
+        folds = {}
+        for name in ("memory", "shm"):
+            bus = (MemoryFrameBus() if name == "memory"
+                   else ShmFrameBus(os.path.join(rdir, "engine")))
+            try:
+                engine = InferenceEngine(bus, EngineConfig(), device=dev, model=model)
+                folds[name] = (engine.serve_lockstep(ticks), engine.pipeline_stats().frames)
+            finally:
+                bus.close()
+            del engine
+    finally:
+        shutil.rmtree(rdir, ignore_errors=True)
+    del ticks, by_packet
+    log(f"phase 13a replay over the shm bus on {card}: lockstep_checksum {lock['checksum']} "
+        f"over {lock['frames']} frames (11a on the memory bus: {pipeline['11a']}); the "
+        f"engine's serve_lockstep {folds['shm'][0]} over {folds['shm'][1]} results (on the "
+        f"memory bus in this phase {folds['memory'][0]}, 11b {pipeline['11b']}); "
+        f"{time.perf_counter() - t0:.2f} s")
+    if lock["checksum"] != pipeline["11a"] or lock["frames"] != N_STREAMS * REPLAY_FRAMES:
+        raise AssertionError(f"phase 13a: the shm bus's lockstep fold {lock} is not 11a's "
+                             f"{pipeline['11a']}")
+    if not (folds["shm"] == folds["memory"] and folds["shm"][0] == pipeline["11b"]
+            and folds["shm"][1] == N_STREAMS * REPLAY_FRAMES):
+        raise AssertionError(f"phase 13a: the engine's folds {folds} differ from 11b's "
+                             f"{pipeline['11b']}")
+
+
+def worker_processes_phase(dev, card: str, model, out_dir: str, zero_launches, read_launches,
+                           kernels, report, pipeline: dict) -> None:
+    """Phase 13b: one worker process per camera (16 at 1080p), read by the
+    default engine through ``open_bus("shm", dir)`` for WORKER_RUN_S; the
+    slice's main path, so the kernels' launch counts are read around it."""
+    import shutil
+
+    from video_edge_ai_proxy_tpu_torch.bus import open_bus
+    from video_edge_ai_proxy_tpu_torch.bus.shm_bus import ring_bytes
+    from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine
+    from video_edge_ai_proxy_tpu_torch.obs import metrics
+    from video_edge_ai_proxy_tpu_torch.utils.config import EngineConfig
+
+    streams = [f"cam{i:02d}" for i in range(N_STREAMS)]
+    frame_bytes = FRAME_HW[0] * FRAME_HW[1] * 3
+    # (b) one worker process per camera, read by the default engine.
+    # First, one bounded worker in a process of its own: it never touches
+    # the card.
+    rdir = ring_dir("b", (N_STREAMS + 1) * ring_bytes(frame_bytes, WORKER_SLOTS))
+    try:
+        code = ("import json, sys\n"
+                "from video_edge_ai_proxy_tpu_torch.ingest import worker\n"
+                "worker.main(['--max_frames', '30'])\n"
+                "cuda = False\n"
+                "if 'torch' in sys.modules:\n"
+                "    import torch\n"
+                "    cuda = torch.cuda.is_initialized()\n"
+                "print(json.dumps({'torch_imported': 'torch' in sys.modules,"
+                " 'cuda_initialized': cuda}))\n")
+        probe = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                               env=worker_env(os.path.join(rdir, "probe"), "probe"),
+                               capture_output=True, text=True, timeout=120)
+        if probe.returncode != 0:
+            raise AssertionError(f"phase 13b: a bounded worker failed: {probe.stderr[-2000:]}")
+        probe_out = json.loads(probe.stdout.strip().splitlines()[-1])
+        if probe_out["cuda_initialized"]:
+            raise AssertionError(f"phase 13b: a worker initialised CUDA: {probe_out}")
+        shutil.rmtree(os.path.join(rdir, "probe"), ignore_errors=True)
+        log(f"phase 13b a worker process (30 frames, then exit 0): {probe_out}")
+
+        bus = open_bus("shm", rdir)
+        skipped = metrics.registry.counter("vep_frames_skipped_total", "", ("stream",))
+        skipped0 = {s: skipped.labels(s).value for s in streams}
+        engine = InferenceEngine(bus, EngineConfig(), device=dev, model=model)
+        results = engine.subscribe(streams)
+        got: dict = {}
+
+        def consume():
+            for r in results:
+                got.setdefault(r.device_id, []).append(r)
+
+        reader = threading.Thread(target=consume, daemon=True)
+        reader.start()
+        engine.warmup()
+        idle_wake = WakeProbe(2.0).result()     # before the workers and the engine's threads
+        procs = start_workers(rdir, streams, out_dir)
+        try:
+            up_s = wait_for_rings(bus, procs)
+            with LogCounter() as logged:
+                beats0 = heartbeats(bus, streams)
+                cpu0 = {d: cpu_seconds(pr.pid) for d, pr in procs.items()}
+                cpu0["engine"] = cpu_seconds(os.getpid())
+                zero_launches()
+                engine.start()
+                t_start = time.monotonic()
+                threads0 = thread_cpu_seconds(engine)
+                probe = WakeProbe(WORKER_RUN_S)
+                try:
+                    time.sleep(WORKER_RUN_S / 4)
+                    apps = compute_app_pids()
+                    cuda_workers = [d for d, p in procs.items() if maps_cuda(p.pid)]
+                    time.sleep(max(0.0, t_start + WORKER_RUN_S - time.monotonic()))
+                    wall_s = time.monotonic() - t_start
+                    cpu = {d: cpu_seconds(pr.pid) - cpu0[d] for d, pr in procs.items()}
+                    cpu["engine"] = cpu_seconds(os.getpid()) - cpu0["engine"]
+                    threads1 = thread_cpu_seconds(engine)
+                    wake = probe.result()
+                    beats = heartbeats(bus, streams)
+                    health = engine.health()
+                finally:
+                    engine.stop()
+                launches = read_launches()
+                codes = stop_workers(procs)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+            bus.close()
+    finally:
+        shutil.rmtree(rdir, ignore_errors=True)
+    reader.join(10)
+    p = engine.pipeline_stats()
+    lat = [r.latency_ms for v in got.values() for r in v]
+    dets = [d for v in got.values() for r in v for d in r.detections]
+    untracked = sum(1 for d in dets if not d.track_id)
+    missing = [s for s in streams if not got.get(s)]
+    superseded = sum(skipped.labels(s).value - skipped0[s] for s in streams)
+    published = sum(beats[s].get("published", 0) - beats0[s].get("published", 0)
+                    for s in streams)
+    failures = {m: logged.count(m) for m in FAILURE_MESSAGES}
+    log(f"phase 13b {N_STREAMS} worker processes ({worker_url()}, rings up in {up_s:.2f} s) "
+        f"read by InferenceEngine(open_bus('shm'), EngineConfig()) for {wall_s:.3f} s on "
+        f"{card}: {p.frames} results ({p.frames / wall_s:.2f} frames/s), {p.batches} batches "
+        f"({p.frames / max(p.batches, 1):.2f} frames per batch), {published} frames "
+        f"published by the workers meanwhile (heartbeat deltas), {superseded:g} superseded "
+        f"before a read, {p.shed_frames} shed")
+    log(f"phase 13b capture->result latency ms on {card}: p50 {pct(lat, 50):.3f}, p95 "
+        f"{pct(lat, 95):.3f}, p99 {pct(lat, 99):.3f}; mean by stage: capture->collect "
+        f"{p.capture_to_collect_ms / max(p.frames, 1):.3f}, collect->submit "
+        f"{p.collect_to_submit_ms / max(p.frames, 1):.3f}, submit->drained "
+        f"{p.submit_to_drained_ms / max(p.frames, 1):.3f}, drained->emitted "
+        f"{p.drained_to_emitted_ms / max(p.frames, 1):.3f}; the drain's emit "
+        f"{p.emit_ms / max(p.frames, 1):.4f} ms a frame (tracker "
+        f"{p.track_ms / max(p.frames, 1):.4f}); step spans "
+        f"{p.device_ms / (wall_s * 1000.0):.4f} of the wall time")
+    log(f"phase 13b beside 11c on {card} (the same engine, a publisher thread in the engine's "
+        f"process): 11c {pipeline['fps']:.2f} frames/s, p50 {pipeline['p50']:.3f}, p95 "
+        f"{pipeline['p95']:.3f}, p99 {pipeline['p99']:.3f}; 13b {p.frames / wall_s:.2f} "
+        f"frames/s, p50 {pct(lat, 50):.3f}, p95 {pct(lat, 95):.3f}, p99 {pct(lat, 99):.3f}")
+    log("phase 13b workers (published/decoded/keyframes/fps from the heartbeats): "
+        + ", ".join(f"{d} {b.get('published')}/{b.get('decoded')}/{b.get('keyframes')}/"
+                    f"{b.get('fps')}" for d, b in beats.items()))
+    from video_edge_ai_proxy_tpu_torch.ingest.sources import SyntheticSource
+
+    src = SyntheticSource(worker_url())
+    render_ms = []
+    for n in range(10):
+        t0 = time.perf_counter()
+        src.render(FRAME_HW[0], FRAME_HW[1], n, bg=src._bg, yy=src._yy)
+        render_ms.append((time.perf_counter() - t0) * 1000.0)
+    worker_cores = sum(v for d, v in cpu.items() if d != "engine") / wall_s
+    log(f"phase 13b host CPU over the run ({os.cpu_count()} cores): the {len(procs)} workers "
+        f"{worker_cores:.3f} cores in all ({min(v for d, v in cpu.items() if d != 'engine') / wall_s:.3f}"
+        f"-{max(v for d, v in cpu.items() if d != 'engine') / wall_s:.3f} each), the engine's "
+        f"process {cpu['engine'] / wall_s:.3f} cores (its threads: "
+        f"{thread_cores(threads0, threads1, wall_s)}); one {FRAME_HW[1]}x{FRAME_HW[0]} pattern "
+        f"render {statistics.median(render_ms):.3f} ms (median of 10, this process)")
+    log(f"phase 13b a {WAKE_SLEEP_S * 1000:g} ms sleep wakes late by: before the workers "
+        f"and the engine's threads, {idle_wake}; over the run, {wake}")
+    log(f"phase 13b isolation: nvidia-smi compute apps {apps} (this process is pid "
+        f"{os.getpid()}; worker pids {sorted(pr.pid for pr in procs.values())}); workers with "
+        f"libcuda mapped: {cuda_workers}; worker exit codes at SIGTERM {sorted(set(map(str, codes.values())))}")
+    log(f"phase 13b engine: {len(dets)} detections, {untracked} without a track id; logged "
+        f"failures {failures} ({logged.summary()}); ladder {engine.ladder.rung}, transitions "
+        f"{engine.ladder.transitions}; health ok {health['ok']}; kernel launches {launches}")
+    worker_pids = {str(pr.pid) for pr in procs.values()}
+    if missing:
+        raise AssertionError(f"phase 13b: streams without results: {missing}")
+    if not dets or untracked:
+        raise AssertionError(f"phase 13b: {untracked} of {len(dets)} detections without a "
+                             f"track id")
+    if any(failures.values()):
+        raise AssertionError(f"phase 13b: the engine logged failures: {logged.summary()}")
+    if any(c != 0 for c in codes.values()):
+        raise AssertionError(f"phase 13b: worker exit codes at SIGTERM {codes}")
+    if cuda_workers or any(a.split(",")[0].strip() in worker_pids for a in apps):
+        raise AssertionError(f"phase 13b: a worker process is on the card: {cuda_workers} {apps}")
+    if not health["ok"]:
+        raise AssertionError(f"phase 13b: engine unhealthy {health}")
+    for name, meta in kernels.items():
+        if meta["path"] == "detect":
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched in phase 13b")
+            report[name]["launches_frame_path"] = launches[name]
+    del engine, got, results
+
+
+def interest_phase(dev, card: str, model, out_dir: str) -> None:
+    """Phase 13c: interest gating and the workers' lazy decode across 2
+    worker processes, with active_window_s cut to GATE_WINDOW_S."""
+    import shutil
+
+    from video_edge_ai_proxy_tpu_torch.bus import open_bus
+    from video_edge_ai_proxy_tpu_torch.bus.shm_bus import ring_bytes
+    from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine
+    from video_edge_ai_proxy_tpu_torch.utils.config import EngineConfig
+
+    frame_bytes = FRAME_HW[0] * FRAME_HW[1] * 3
+    # (c) interest and lazy decode across 2 worker processes.
+    pair = ["gateA", "gateB"]
+    rdir = ring_dir("c", len(pair) * ring_bytes(frame_bytes, WORKER_SLOTS))
+
+    class Context:
+        active = True
+
+        def is_active(self):
+            return self.active
+
+    try:
+        bus = open_bus("shm", rdir)
+        engine = InferenceEngine(bus, EngineConfig(active_window_s=GATE_WINDOW_S), device=dev,
+                                 model=model)
+        both = Context()
+        subs = {"both": engine.subscribe(pair, context=both), "A": engine.subscribe(["gateA"])}
+
+        def consume(sub):
+            for _ in sub:
+                pass
+
+        readers = [threading.Thread(target=consume, args=(sub,), daemon=True)
+                   for sub in subs.values()]
+        for th in readers:
+            th.start()
+        engine.warmup()
+        procs = start_workers(rdir, pair, out_dir)
+        series = []
+        try:
+            wait_for_rings(bus, procs)
+            engine.start()
+            t_start = time.monotonic()
+
+            def sample():
+                beats_c, stats = heartbeats(bus, pair), engine.stats()
+                series.append((round(time.monotonic() - t_start, 2),
+                               {d: beats_c[d].get("published", 0) for d in pair},
+                               {d: stats[d].frames if d in stats else 0 for d in pair}))
+
+            def rate(d, back=2):
+                (t1, pub1, _), (t0_, pub0, _) = series[-1], series[-1 - back]
+                return (pub1[d] - pub0[d]) / max(t1 - t0_, 1e-9)
+
+            while time.monotonic() - t_start < GATE_BOTH_S:
+                time.sleep(1.0)
+                sample()
+            both.active = False        # only the subscriber of gateA is left
+            t_drop = time.monotonic() - t_start
+            fell_back = None
+            while time.monotonic() - t_start < GATE_BOTH_S + GATE_WAIT_S:
+                time.sleep(1.0)
+                sample()
+                if len(series) > 3 and rate("gateB") <= 2.0 * PACED_FPS / int(PACED_FPS):
+                    fell_back = series[-1][0]
+                    break
+            gated_rate = {d: rate(d) for d in pair}
+            # gateB's results once its linger (and what was in flight) is over.
+            gated_results = [served["gateB"] for t, _, served in series
+                             if t >= t_drop + GATE_WINDOW_S + 1.0]
+            # A subscriber arrives for gateB: it is inferred and kept hot at
+            # the next tick.
+            ticks0, stamp0 = engine.ticks, int(time.time() * 1000)
+            subs["B"] = engine.subscribe(["gateB"])
+            th = threading.Thread(target=consume, args=(subs["B"],), daemon=True)
+            th.start()
+            readers.append(th)
+            deadline = time.monotonic() + 10
+            while (bus.last_query_ms("gateB") or 0) < stamp0:
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase 13c: gateB was not kept hot again")
+                time.sleep(0.0005)
+            back_ticks = engine.ticks - ticks0
+            for _ in range(3):
+                time.sleep(1.0)
+                sample()
+            back_rate = {d: rate(d) for d in pair}
+        finally:
+            engine.stop()
+            codes = stop_workers(procs)
+            bus.close()
+    finally:
+        shutil.rmtree(rdir, ignore_errors=True)
+    for th in readers:
+        th.join(10)
+    log(f"phase 13c interest across 2 worker processes on {card}, active_window_s "
+        f"{GATE_WINDOW_S:g} s (the workers' decode window 10 s): (seconds, published by each "
+        f"worker, results of each stream) {series}")
+    log(f"phase 13c gateB's interest dropped at {t_drop:.2f} s; it fell back to keyframes at "
+        f"{fell_back} s: published/s over the last 2 s {gated_rate} (fps/gop = "
+        f"{PACED_FPS / int(PACED_FPS):g}); gateB's results from its linger's end to the fall "
+        f"back {gated_results}; a subscriber for gateB kept it hot again after {back_ticks} "
+        f"tick(s); published/s after it {back_rate}; worker exit codes {codes}")
+    if fell_back is None:
+        raise AssertionError(f"phase 13c: gateB did not fall back to keyframes: {series}")
+    if gated_rate["gateA"] < PACED_FPS / 2:
+        raise AssertionError(f"phase 13c: gateA stopped decoding: {gated_rate}")
+    if len(set(gated_results)) != 1:
+        raise AssertionError(f"phase 13c: gateB was inferred while gated: {gated_results}")
+    if series[-1][2]["gateB"] <= gated_results[-1]:
+        raise AssertionError("phase 13c: gateB was not served after its subscriber came")
+    if back_ticks > 2 or back_rate["gateB"] < PACED_FPS / 2:
+        raise AssertionError(f"phase 13c: gateB did not come back within one tick: "
+                             f"{back_ticks} ticks, {back_rate}")
+    if any(c != 0 for c in codes.values()):
+        raise AssertionError(f"phase 13c: worker exit codes at SIGTERM {codes}")
+    del engine
+
+
+def log_and_continue_phase(dev, card: str, model) -> None:
+    """Phase 13d: three injected collect failures, then a capture failure
+    confined to one geometry key, on the card."""
+    import numpy as np
+    import torch
+
+    from video_edge_ai_proxy_tpu_torch.bus import MemoryFrameBus
+    from video_edge_ai_proxy_tpu_torch.bus.interface import FrameMeta
+    from video_edge_ai_proxy_tpu_torch.engine import runner
+    from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine
+    from video_edge_ai_proxy_tpu_torch.utils.config import EngineConfig
+
+    frame_bytes = FRAME_HW[0] * FRAME_HW[1] * 3
+    # (d) log and continue on the card.
+    pool = [np.ascontiguousarray(np.broadcast_to(
+        np.uint8(40 * i), FRAME_HW + (3,))) for i in range(4)]
+    bus = MemoryFrameBus()
+    bus.create_stream("cam00", frame_bytes)
+    engine = InferenceEngine(bus, EngineConfig(), device=dev, model=model)
+    orig_collect = engine._collector.collect
+    calls = {"n": 0}
+
+    def flaky(*args, **kwargs):
+        calls["n"] += 1
+        if calls["n"] <= 3:
+            raise RuntimeError("injected tick failure")
+        return orig_collect(*args, **kwargs)
+
+    engine._collector.collect = flaky
+    results = engine.subscribe(["cam00"])
+    got_d: list = []
+    reader = threading.Thread(target=lambda: got_d.extend(results), daemon=True)
+    reader.start()
+    with LogCounter() as logged:
+        engine.start()
+        try:
+            deadline = time.monotonic() + 60
+            n = 0
+            while len(got_d) < 5:
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase 13d: no results after the injected failures")
+                bus.publish("cam00", pool[n % 4], FrameMeta(width=FRAME_HW[1],
+                                                            height=FRAME_HW[0], packet=n,
+                                                            timestamp_ms=int(time.time() * 1000)))
+                n += 1
+                time.sleep(1.0 / PACED_FPS)
+            health = engine.health()
+        finally:
+            engine.stop()
+    reader.join(10)
+    tick_failed = logged.count(FAILURE_MESSAGES[0])
+    log(f"phase 13d three collect failures on {card}: logged {logged.summary()}; then "
+        f"{len(got_d)} results; health ok {health['ok']}; stop() did not raise")
+    if calls["n"] <= 3 or tick_failed != 3 or not health["ok"]:
+        raise AssertionError(f"phase 13d: {calls['n']} collects, {tick_failed} logged tick "
+                             f"failures, health {health}")
+    del engine
+
+    # A capture that fails for one geometry: a synchronising read inside
+    # the step is refused while the graph is captured. The failing key
+    # (720p) sorts before the served one (1080p), and both are published in
+    # the same ticks.
+    fail_hw, ok_hw = (720, 1280), FRAME_HW
+    build = runner.build_serving_step
+    eager_calls = {"n": 0}
+
+    def breaking(model_, spec_, **kw):
+        step = build(model_, spec_, **kw)
+
+        def run(frames, *rest):
+            out = step(frames, *rest)
+            if tuple(frames.shape[1:3]) == fail_hw:
+                eager_calls["n"] += not torch.cuda.is_current_stream_capturing()
+                out["boxes"].sum().item()
+            return out
+        return run
+
+    bus = MemoryFrameBus()
+    bus.create_stream("fail", fail_hw[0] * fail_hw[1] * 3)
+    bus.create_stream("ok", frame_bytes)
+    engine = InferenceEngine(bus, EngineConfig(), device=dev, model=model)
+    results = engine.subscribe(["fail", "ok"])
+    got_c: dict = {}
+    reader = threading.Thread(target=lambda: [got_c.setdefault(r.device_id, []).append(r)
+                                              for r in results], daemon=True)
+    reader.start()
+    dispatch = engine._dispatch
+    shared = {"ticks": 0, "served": 0}
+
+    def counted(groups, *args, **kwargs):
+        both = {d for g in groups for d in g.device_ids} >= {"fail", "ok"}
+        before = engine._pipe.batches
+        dispatch(groups, *args, **kwargs)
+        shared["ticks"] += both
+        shared["served"] += both and engine._pipe.batches > before
+    engine._dispatch = counted
+    frames = {"fail": np.full(fail_hw + (3,), 60, np.uint8),
+              "ok": np.full(ok_hw + (3,), 90, np.uint8)}
+
+    def publish_both(n):
+        for d, f in frames.items():
+            bus.publish(d, f, FrameMeta(width=f.shape[1], height=f.shape[0], packet=n))
+
+    runner.build_serving_step = breaking
+    try:
+        with LogCounter() as logged:
+            engine.start()
+            try:
+                n = 0
+                deadline = time.monotonic() + 60
+                while len(got_c.get("ok", [])) < 3:
+                    if time.monotonic() > deadline:
+                        raise AssertionError("phase 13d: the second geometry did not serve")
+                    publish_both(n)
+                    n += 1
+                    time.sleep(1.0 / PACED_FPS)
+                first = engine.graph_stats()
+                # What the repair avoids: the failed capture's pool.
+                old_pool = engine._graph_pools[0]
+                side = torch.cuda.Stream(dev)
+                try:
+                    # The outer stream context restores this thread's stream
+                    # when the capture's own context is left half entered.
+                    with torch.cuda.stream(side), torch.cuda.graph(
+                            torch.cuda.CUDAGraph(), pool=old_pool, stream=side,
+                            capture_error_mode="thread_local"):
+                        torch.zeros(4, device=dev).add_(1)
+                    old_pool_state = "still captures"
+                except Exception as exc:   # a capture into it raises
+                    old_pool_state = f"refuses a capture: {str(exc).splitlines()[0][:160]}"
+                torch.cuda.synchronize()
+                # The failing key keeps coming, for GATE_BOTH_S more.
+                failed0 = logged.count(FAILURE_MESSAGES[0])
+                t_end = time.monotonic() + GATE_BOTH_S
+                while time.monotonic() < t_end:
+                    publish_both(n)
+                    n += 1
+                    time.sleep(1.0 / PACED_FPS)
+                last = engine.graph_stats()
+                failed_more = logged.count(FAILURE_MESSAGES[0]) - failed0
+                health = engine.health()
+            finally:
+                engine.stop()
+    finally:
+        runner.build_serving_step = build
+    reader.join(10)
+    log(f"phase 13d a capture failure for {fail_hw[1]}x{fail_hw[0]} on {card}, published in "
+        f"the same ticks as {ok_hw[1]}x{ok_hw[0]}: logged {logged.summary()}; the failed "
+        f"capture's pool {old_pool_state}; {ok_hw[1]}x{ok_hw[0]} served "
+        f"{len(got_c.get('ok', []))} results, {shared['served']} of them in the "
+        f"{shared['ticks']} ticks that held both keys; results of the failed key "
+        f"{len(got_c.get('fail', []))} (its eager warmup calls before the capture: "
+        f"{eager_calls['n']}); graphs after the first results {first}, {GATE_BOTH_S:g} s and "
+        f"{failed_more} more failed batches later {last}; health ok {health['ok']}")
+    if (got_c.get("fail") or eager_calls["n"] != runner._GraphedStep.WARMUP_CALLS
+            or shared["served"] < 3 or failed_more < 3 or not health["ok"]):
+        raise AssertionError("phase 13d: the failed capture was not confined to its key")
+    if (first["programs"], first["pools"]) != (1, 2) or \
+            (last["programs"], last["pools"], last["pool_bytes"]) != (1, 2, first["pool_bytes"]):
+        raise AssertionError(f"phase 13d: a failing key took more pools: {first} then {last}")
+    del engine
 
 
 def main() -> int:
@@ -2081,10 +2898,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 11: the default engine's serving pipeline ---------------------------
-    pipeline_phase(dev, card, zero_launches, read_launches, kernels)
+    pipeline = pipeline_phase(dev, card, zero_launches, read_launches, kernels)
 
     # -- phase 12: the compiled step ------------------------------------------------------
     graphs_phase(dev, card, report)
+
+    # -- phase 13: the deployment's frame path ---------------------------------------------
+    frame_path_phase(dev, card, zero_launches, read_launches, kernels, report, pipeline)
 
     line = {"kernels": []}
     for name, meta in kernels.items():
@@ -2093,6 +2913,8 @@ def main() -> int:
             "name": name, "route": meta["route"], "source": meta["source"],
             **({"source_f32": meta["source_f32"]} if "source_f32" in meta else {}),
             **({"replay_ms": r["replay_ms"]} if "replay_ms" in r else {}),
+            **({"launches_frame_path": r["launches_frame_path"]}
+               if "launches_frame_path" in r else {}),
             "replaces": meta["replaces"], "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

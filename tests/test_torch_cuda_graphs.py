@@ -77,7 +77,7 @@ def _graphed(card, model, spec, shape, thumb=0):
     captures = []
     step = _GraphedStep(functools.partial(build_serving_step, model, spec, quality_thumb=thumb),
                         shape, (thumb, thumb) if thumb else None, device=card,
-                        pool=torch.cuda.graph_pool_handle(), on_capture=captures.append)
+                        pool=torch.cuda.graph_pool_handle, on_capture=captures.append)
     return step, torch.cuda.Stream(card), captures
 
 
@@ -140,7 +140,7 @@ def test_a_synchronising_step_raises_at_capture(card):
         return step
 
     step = _GraphedStep(build, (1, 8, 8, 3), None, device=card,
-                        pool=torch.cuda.graph_pool_handle(), on_capture=lambda s: None)
+                        pool=torch.cuda.graph_pool_handle, on_capture=lambda s: None)
     frames = torch.zeros((1, 8, 8, 3), dtype=torch.uint8, device=card)
     out = []
     with torch.cuda.stream(torch.cuda.Stream(card)):

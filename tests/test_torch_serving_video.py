@@ -225,8 +225,11 @@ def test_engine_serves_two_streams(name):
         while any(len(got.get(s, [])) < 2 for s in streams):
             assert time.monotonic() < deadline, "streams not served in time"
             packet += 1
-            seqs = {s: bus.publish(s, rng.integers(0, 256, (48, 64, 3), dtype=np.uint8),
-                                   FrameMeta(packet=packet, timestamp_ms=int(time.time() * 1000)))
+            # Frames made first, then published back to back, so that a
+            # tick does not fall between the two streams' publishes.
+            frames = {s: rng.integers(0, 256, (48, 64, 3), dtype=np.uint8) for s in streams}
+            stamp = int(time.time() * 1000)
+            seqs = {s: bus.publish(s, frames[s], FrameMeta(packet=packet, timestamp_ms=stamp))
                     for s in streams}
             while any(bus.read.get(s, 0) < seq for s, seq in seqs.items()):
                 assert time.monotonic() < deadline, "collector stopped reading"

@@ -1,8 +1,9 @@
 """In-process frame bus (counterpart of ``video_edge_ai_proxy_tpu/bus/memory_bus.py``).
 
-Latest-wins ring per stream with plain Python data structures, for tests
-and single-process deployments, with the publish doorbell (a condition
-variable) that wakes the collector's assembly sweep.
+Latest-wins ring per stream and the string KV with plain Python data
+structures, for tests and single-process deployments, with the publish
+doorbell (a condition variable) that wakes the collector's assembly sweep.
+The same semantics as ``ShmFrameBus``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ class MemoryFrameBus(FrameBus):
         self._lock = threading.Lock()
         self._rings: dict = {}
         self._seq: dict = {}
+        self._kv: dict = {}
         self._db = threading.Condition()
         self._db_value = 0
 
@@ -94,6 +96,22 @@ class MemoryFrameBus(FrameBus):
         with self._lock:
             self._rings.pop(device_id, None)
             self._seq.pop(device_id, None)
+
+    def kv_set(self, key: str, value: str) -> None:
+        with self._lock:
+            self._kv[key] = value
+
+    def kv_get(self, key: str) -> Optional[str]:
+        with self._lock:
+            return self._kv.get(key)
+
+    def kv_del(self, key: str) -> None:
+        with self._lock:
+            self._kv.pop(key, None)
+
+    def kv_keys(self) -> list:
+        with self._lock:
+            return sorted(self._kv)
 
     def close(self) -> None:
         # Wake doorbell waiters so nothing sleeps out a timeout against a

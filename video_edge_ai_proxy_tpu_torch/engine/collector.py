@@ -25,9 +25,18 @@ closed set of shapes.
   joins them to the fast path on the next tick.
 - ``set_bucket_cap`` hides the largest buckets (degradation-ladder rung
   ``bucket_downshift``), ``restrict`` limits the streams read.
+- **Interest gating.** With ``interest_of`` (device_id -> does anything
+  consume this stream's results now), a stream whose interest lapsed
+  keeps being inferred for ``active_window_s`` (the linger), then drops
+  out of the batches (``partition``, ``inference_streams``) and out of
+  ``keep_streams_hot``, which touches the bus's ``last_query`` key of the
+  inferred streams only: the ingest worker of a gated stream stops
+  decoding the frames between keyframes. A stream that never had interest
+  is gated at once. Without ``interest_of`` nothing is gated.
 
-ROI canvases (``CanvasPacker``), per-stream model routing, inference
-gating and the mesh-sharded layouts are later slices.
+ROI canvases (``CanvasPacker``), per-stream model routing (and its
+``inference_model: "none"`` gate) and the mesh-sharded layouts are later
+slices.
 """
 
 from __future__ import annotations
@@ -93,7 +102,9 @@ class Collector:
     MAX_POOL_BUFFERS = 8
 
     def __init__(self, bus: FrameBus, *, buckets: Sequence[int] = (1, 2, 4, 8, 16, 32, 64),
-                 clip_len: int = 0, default_model: str = "", strict_lease: bool = False,
+                 clip_len: int = 0, active_window_s: float = 10.0, default_model: str = "",
+                 interest_of: Optional[Callable[[str], bool]] = None,
+                 strict_lease: bool = False,
                  alloc: Callable[[tuple], np.ndarray] = host_empty):
         self._bus = bus
         self._buckets = tuple(sorted(buckets))
@@ -102,6 +113,9 @@ class Collector:
         self._default_model = default_model
         self._strict_lease = strict_lease
         self._alloc = alloc
+        self._active_window_s = active_window_s
+        self._interest_of = interest_of
+        self._last_interest: Dict[str, float] = {}   # device_id -> monotonic s
         self._cursors: Dict[str, int] = {}
         self._clips: Dict[str, deque] = {}
         self._geom: Dict[str, tuple] = {}    # last-seen (h, w, c) per stream
@@ -141,10 +155,47 @@ class Collector:
             ids = [d for d in ids if d in self._only]
         return sorted(ids)
 
+    def _gated(self, device_id: str) -> bool:
+        """True when the stream must not be inferred this tick: nothing
+        consumes its results and the ``active_window_s`` linger ran out
+        (or it never had interest)."""
+        if self._interest_of is None:
+            return False
+        now = time.monotonic()
+        if self._interest_of(device_id):
+            self._last_interest[device_id] = now
+            return False
+        last = self._last_interest.get(device_id)
+        return last is None or now - last >= self._active_window_s
+
+    def partition(self) -> tuple:
+        """One bus enumeration -> (present, inferred): every listed stream,
+        and the subset the engine infers this tick. The engine's tick calls
+        this once and hands the lists to keep_streams_hot, collect and its
+        state GC."""
+        present = self.active_streams()
+        return present, [d for d in present if not self._gated(d)]
+
+    def inference_streams(self) -> List[str]:
+        """The streams the engine infers this tick."""
+        return self.partition()[1]
+
+    def keep_streams_hot(self, now_ms: Optional[int] = None,
+                         device_ids: Optional[Sequence[str]] = None) -> List[str]:
+        """Touch ``last_query`` of the inferred streams (``device_ids``, a
+        set from ``partition``; None enumerates), as a client reading the
+        stream would: their workers keep decoding every frame. A gated
+        stream is not touched, so its worker falls back to keyframes."""
+        ids = list(device_ids) if device_ids is not None else self.inference_streams()
+        for device_id in ids:
+            self._bus.touch_query(device_id, now_ms)
+        return ids
+
     def drop_stream(self, device_id: str) -> None:
         self._cursors.pop(device_id, None)
         self._clips.pop(device_id, None)
         self._geom.pop(device_id, None)
+        self._last_interest.pop(device_id, None)
 
     # -- cursors ---------------------------------------------------------------
 
@@ -293,7 +344,7 @@ class Collector:
         chunking as in collect(), a pooled buffer per group. Streams of
         unknown geometry and clip streams stay unplanned."""
         if device_ids is None:
-            device_ids = self.active_streams()
+            device_ids = self.inference_streams()
         buckets = self._effective_buckets()
         max_bucket = buckets[-1]
         plan: Dict[tuple, list] = {}
@@ -390,10 +441,10 @@ class Collector:
         """One tick: newest unseen frame per stream -> geometry-grouped,
         bucket-padded batches of frames, or of clips for a video model (a
         group larger than the biggest bucket is split into chunks of that
-        size). ``device_ids``: the streams to read (None = every active
-        stream)."""
+        size). ``device_ids``: the streams to read (None = the streams
+        ``inference_streams`` returns)."""
         if device_ids is None:
-            device_ids = self.active_streams()
+            device_ids = self.inference_streams()
         self._begin_tick()
         buckets = self._effective_buckets()
         max_bucket = buckets[-1]

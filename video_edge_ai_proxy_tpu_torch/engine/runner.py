@@ -573,9 +573,15 @@ class _GraphedStep:
     static inputs, replays the graph and returns fresh copies of the static
     outputs: the next replay overwrites them while the drain still reads
     this batch. A failed capture or replay raises; nothing runs the step
-    eagerly in its place. After a failed capture torch's allocator keeps
-    recording into the pool, so the engine's later captures raise too: a
-    step that cannot be captured ends the engine at its first batch.
+    eagerly in its place, and the engine drops the batch with a log line.
+
+    A failed capture leaves torch's allocator recording into the pool it
+    captured into (``beginAllocateToPool: already recording``), so the pool
+    is given up: ``pool()`` is asked for the pool at every capture, and
+    ``on_capture_failed`` lets the engine hand out a fresh pool to the
+    captures that follow, of this key and of any other. The key is never
+    captured again: its batches raise at once for the engine's lifetime,
+    so a key that cannot be captured gives up one pool, not one a try.
 
     Launch counts: a kernel wrapper counts when Python calls it, which
     inside a capture records a launch but runs none. The capture's counts
@@ -586,11 +592,16 @@ class _GraphedStep:
     WARMUP_CALLS = 3
 
     def __init__(self, build: Callable[[], Callable], frame_shape: tuple,
-                 thumb_hw: Optional[tuple], *, device: torch.device, pool,
-                 on_capture: Callable[[float], None]):
+                 thumb_hw: Optional[tuple], *, device: torch.device,
+                 pool: Callable[[], tuple],
+                 on_capture: Callable[[float], None],
+                 on_capture_failed: Callable[[BaseException], None] = lambda exc: None):
         self._build = build
         self._pool = pool
         self._on_capture = on_capture
+        self._on_capture_failed = on_capture_failed
+        self._failure: Optional[BaseException] = None
+        self._failed_graph: Optional["torch.cuda.CUDAGraph"] = None
         self.frames_in = torch.zeros(frame_shape, dtype=torch.uint8, device=device)
         self.thumbs_in = None
         if thumb_hw:
@@ -606,6 +617,9 @@ class _GraphedStep:
         if frames.shape != self.frames_in.shape:
             raise ValueError(f"graphed step of {tuple(self.frames_in.shape)} frames called "
                              f"with {tuple(frames.shape)}")
+        if self._failure is not None:
+            raise RuntimeError(f"the graph of {tuple(self.frames_in.shape)} frames failed to "
+                               f"capture; its batches are dropped") from self._failure
         self.frames_in.copy_(frames)
         if self.thumbs_in is not None:
             if prev_thumbs is None:
@@ -634,9 +648,15 @@ class _GraphedStep:
         try:
             # thread_local: the transfer and drain threads keep copying
             # and synchronising on their own streams meanwhile.
-            with torch.cuda.graph(graph, pool=self._pool, stream=stream,
+            with torch.cuda.graph(graph, pool=self._pool(), stream=stream,
                                   capture_error_mode="thread_local"):
                 out = step(*args)
+        except BaseException as exc:
+            # The graph is kept alive: the allocator may still hold a
+            # filter that reads its capture id.
+            self._failure, self._failed_graph = exc, graph
+            self._on_capture_failed(exc)
+            raise
         finally:
             captured = tuple((w, w.launches - b) for w, b in zip(counters, before)
                              if w.launches != b)
@@ -673,8 +693,19 @@ class InferenceEngine:
 
     Threads: the tick thread (collect, shed, dispatch on the compute
     stream), the transfer thread (``cfg.prefetch``), and the drain thread
-    (read-back and emit). A failure on any of them ends the engine, and
-    ``stop()`` raises it.
+    (read-back and emit). A tick or a batch that fails is logged ("engine
+    tick failed; continuing", "drain failed; continuing") and the engine
+    serves the next one; a failed batch is dropped, never run eagerly or
+    with a plain version in place of a kernel. Only a thread that cannot
+    run at all (its device cannot be set) ends the engine, and ``stop()``
+    raises that error.
+
+    Interest gating: the collector infers only the streams a subscriber
+    covers (``_stream_interest``), for ``cfg.active_window_s`` after the
+    last one went away, and each tick touches the bus's ``last_query`` key
+    of exactly those streams (``keep_streams_hot``), which keeps their
+    ingest workers decoding every frame. ``serve_lockstep`` (replay) infers
+    every published stream.
 
     On the card every step runs as the replay of the CUDA graph of its
     (model, stem, geometry, bucket) key (``_GraphedStep``), captured on the
@@ -704,7 +735,8 @@ class InferenceEngine:
         self._bus = bus
         self._collector = Collector(
             bus, buckets=self._buckets, clip_len=self._spec.clip_len,
-            default_model=self._spec.name, strict_lease=True,
+            active_window_s=self._cfg.active_window_s, default_model=self._spec.name,
+            interest_of=self._stream_interest, strict_lease=True,
             alloc=_pinned_empty if self._cuda else host_empty,
         )
         # Thumbnails (quality statistics) only for frame models.
@@ -712,7 +744,11 @@ class InferenceEngine:
         self._thumbs = _ThumbPool(self._thumb, self._device)
         # Step cache: (model, stem, src_hw, bucket) -> the step of that key.
         self._steps: Dict[tuple, Callable] = {}
-        self._graph_pool = None            # one graph memory pool (the card)
+        # The graph memory pool the captures share (the card); a failed
+        # capture retires it (_GraphedStep) and the next capture opens a
+        # fresh one. Every pool opened is kept for graph_stats().
+        self._graph_pool = None
+        self._graph_pools: list = []
         self._graphs: List[_GraphedStep] = []
         self.perf = PerfTracker()
         # Prewarm manifest (engine/aot_cache.py); "" = off. Prewarm
@@ -809,7 +845,6 @@ class InferenceEngine:
             if self._compute is None:
                 self._compute = torch.cuda.Stream(self._device)
                 self._d2h = torch.cuda.Stream(self._device)
-                self._graph_pool = torch.cuda.graph_pool_handle()
 
     def _start_pipeline(self) -> None:
         """Start the transfer and drain threads (start() adds the tick
@@ -926,16 +961,32 @@ class InferenceEngine:
         the bytes of the engine's graph memory pool (None on the CPU)."""
         graphs = [g for g in self._graphs if g.capture_s > 0.0]
         pool_bytes = None
-        if self._cuda and self._graph_pool is not None:
-            pool = tuple(self._graph_pool)
+        if self._cuda and self._graph_pools:
+            pools = {tuple(p) for p in self._graph_pools}
             pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                             if tuple(seg.get("segment_pool_id", ())) == pool)
+                             if tuple(seg.get("segment_pool_id", ())) in pools)
         return {"programs": len(graphs), "capture_s": sum(s.capture_s for s in graphs),
-                "pool_bytes": pool_bytes}
+                "pools": len(self._graph_pools), "pool_bytes": pool_bytes}
+
+    def _current_graph_pool(self) -> tuple:
+        """The pool the next capture records into, opened on first use."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._graph_pools.append(self._graph_pool)
+        return self._graph_pool
+
+    def _retire_graph_pool(self, exc: BaseException) -> None:
+        """A capture failed: torch's allocator may still be recording into
+        the pool, so no later capture uses it."""
+        log.warning("graph capture failed; its pool is retired and later captures get a "
+                    "fresh one: %r", exc)
+        self._graph_pool = None
 
     def stop(self, timeout: float = 30.0) -> None:
         """Stop the threads and end every subscription; everything already
-        dispatched is drained first. Raises the first error of any thread."""
+        dispatched is drained first. Raises the error of a thread that could
+        not run (``_fail``); failed ticks and batches were logged, not
+        raised."""
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout)
@@ -963,7 +1014,10 @@ class InferenceEngine:
             raise RuntimeError("engine failed") from self._errors[0]
 
     def _fail(self, exc: BaseException) -> None:
-        """A thread's boundary: record the error and end the engine."""
+        """A thread that cannot go on (it could not set its device, or a
+        non-Exception such as SystemExit reached its boundary): record the
+        error and end the engine. A failed tick or batch does not come
+        here."""
         log.error("engine thread failed", exc_info=exc)
         self._errors.append(exc)
         self._stop.set()
@@ -989,19 +1043,32 @@ class InferenceEngine:
 
     # -- consumers ---------------------------------------------------------
 
-    def subscribe(self, device_ids=None, timeout: float = 0.5):
+    def _stream_interest(self, device_id: str) -> bool:
+        """Does anything consume this stream's results now: a live
+        subscriber that covers it. With none, inferring would compute
+        results nobody reads, and the collector gates the stream out. (The
+        annotation uplink and the canary loop, also interest in the JAX
+        engine, are not ported.)"""
+        with self._sub_lock:
+            return any(ids is None or device_id in ids for _, ids in self._subscribers)
+
+    def subscribe(self, device_ids=None, context=None, timeout: float = 0.5):
         """Iterator of InferenceResult for ``device_ids`` (None = all). The
-        subscription starts when this is called; the iterator ends when the
-        engine stops."""
+        subscription starts when this is called, and from the next tick on
+        the streams it covers are of interest; the iterator ends when the
+        engine stops or ``context.is_active()`` turns false (a gRPC
+        context, or anything with that method)."""
         q: queue.Queue = queue.Queue(maxsize=256)
         ids = set(device_ids) if device_ids else None
         with self._sub_lock:
             self._subscribers.append((q, ids))
-        return self._drain_subscription(q, timeout)
+        return self._drain_subscription(q, timeout, context)
 
-    def _drain_subscription(self, q: queue.Queue, timeout: float):
+    def _drain_subscription(self, q: queue.Queue, timeout: float, context=None):
         try:
             while True:
+                if context is not None and not context.is_active():
+                    return
                 try:
                     item = q.get(timeout=timeout)
                 except queue.Empty:
@@ -1043,7 +1110,8 @@ class InferenceEngine:
         ladder, shedding or SLO tick runs, so with one frame a stream a
         tick every published frame is served once. Returns ``checksum``
         once everything is emitted; the threads it started are stopped
-        (``stop()`` raises their errors)."""
+        (``stop()`` raises their errors). A failed batch raises: a replay
+        does not log and go on."""
         if self._thread is not None:
             raise RuntimeError("serve_lockstep needs an engine not started")
         self.warmup()
@@ -1060,12 +1128,14 @@ class InferenceEngine:
                             self._bus.create_stream(device_id, frame.nbytes)
                             created.add(device_id)
                         self._bus.publish(device_id, frame, meta)
-                    groups = self._collector.collect()
+                    # Ungated: replay infers every published stream.
+                    groups = self._collector.collect(
+                        device_ids=self._collector.active_streams())
                     if prefetch:
-                        self._dispatch(groups)
+                        self._dispatch(groups, strict=True)
                         continue
                     for group in groups:
-                        self._dispatch([group])
+                        self._dispatch([group], strict=True)
                         inflight = self._drain_q.get_nowait()
                         try:
                             self._emit(inflight)
@@ -1082,35 +1152,55 @@ class InferenceEngine:
     # -- tick loop ---------------------------------------------------------
 
     def _loop(self) -> None:
-        tick_s = self._cfg.tick_ms / 1000.0
         try:
             if self._cuda:
                 torch.cuda.set_device(self._device)
             with self._compute_stream(), torch.inference_mode():
-                while not self._stop.is_set():
-                    t0 = time.monotonic()
-                    inferred = self._tick(tick_s)
-                    self.ticks += 1
-                    self.last_tick_monotonic = time.monotonic()
-                    # The ladder's staleness signal: the work phase, not the
-                    # assembly window that absorbs the rest of the budget.
-                    self._last_tick_dur_s = self.last_tick_monotonic - t0
-                    self._m_drain_depth.set(self._drain_q.qsize())
-                    if self.slo is not None:
-                        self._slo_tick(inferred)
-                    self._collector.assemble_until(t0 + tick_s, device_ids=inferred,
-                                                   stop_event=self._stop)
-        except _Stopping:
-            log.info("engine tick aborted by shutdown")
-        except BaseException as exc:  # the loop's boundary: record, report, end
+                self._serve_ticks()
+        except BaseException as exc:  # the thread cannot go on: record, end
             self._fail(exc)
+
+    def _serve_ticks(self) -> None:
+        """The tick loop. It outlives any bad tick or batch: a failure is
+        logged and the next tick serves, as in the JAX engine."""
+        tick_s = self._cfg.tick_ms / 1000.0
+        inferred: List[str] = []
+        while not self._stop.is_set():
+            t0 = time.monotonic()
+            try:
+                inferred = self._tick(tick_s)
+            except Exception:
+                if self._stop.is_set():
+                    # A shutdown race (a prefetched placement abandoned
+                    # mid-dispatch) is not an error.
+                    log.info("engine tick aborted by shutdown")
+                else:
+                    log.exception("engine tick failed; continuing")
+            self.ticks += 1
+            self.last_tick_monotonic = time.monotonic()
+            # The ladder's staleness signal: the work phase, not the
+            # assembly window that absorbs the rest of the budget.
+            self._last_tick_dur_s = self.last_tick_monotonic - t0
+            self._m_drain_depth.set(self._drain_q.qsize())
+            try:
+                if self.slo is not None:
+                    self._slo_tick(inferred)
+                self._collector.assemble_until(t0 + tick_s, device_ids=inferred,
+                                               stop_event=self._stop)
+            except Exception:
+                log.exception("window assembly failed; continuing")
+                elapsed = time.monotonic() - t0
+                if elapsed < tick_s:
+                    self._stop.wait(tick_s - elapsed)
 
     def _compute_stream(self):
         return torch.cuda.stream(self._compute) if self._cuda else contextlib.nullcontext()
 
     def _tick(self, tick_s: float) -> List[str]:
-        """One tick: ladder, collect, shed, dispatch, forget absent streams.
-        Returns the streams inferred."""
+        """One tick: ladder, one bus enumeration (``partition``: the present
+        streams and the inferred subset), the ``admission_pause`` subset of
+        the inferred, keep-hot of exactly what is inferred, collect, shed,
+        dispatch, forget absent streams. Returns the streams inferred."""
         # With prefetch the depth-2 drain queue is full in healthy saturated
         # serving; only a handoff that had to block counts as backpressure.
         depth = self._drain_q.qsize()
@@ -1123,12 +1213,16 @@ class InferenceEngine:
                 queue_depth=depth, tick_lag_s=self._last_tick_dur_s, tick_budget_s=tick_s,
                 slo_burning=self._slo_burning and self._cfg.slo_ladder)
             self._apply_rung_cap(rung)
-        present = self._collector.active_streams()
-        inferred = present
+        present, inferred = self._collector.partition()
         if rung == "admission_pause":
+            # Only the admitted half competes for the device; the paused
+            # half's workers stop decoding too (keep-hot skips them).
             dep = (self.quality.unhealthy() if self.quality is not None
                    and self._cfg.quality_ladder else frozenset())
-            inferred = admitted_streams(present, dep)
+            inferred = admitted_streams(inferred, dep)
+        # Keep-hot before collect, for the inferred set only: the workers'
+        # decode gates follow what is inferred, and do not flap.
+        self._collector.keep_streams_hot(device_ids=inferred)
         groups = self._collector.collect(device_ids=inferred)
         t_collect = time.time()
         if rung != "normal" and groups:
@@ -1224,8 +1318,9 @@ class InferenceEngine:
                      + src_hw + (3,))
             fn = _GraphedStep(
                 build, shape, (self._thumb, self._thumb) if self._thumb else None,
-                device=self._device, pool=self._graph_pool,
-                on_capture=functools.partial(self.perf.note_compile, name, src_hw, bucket))
+                device=self._device, pool=self._current_graph_pool,
+                on_capture=functools.partial(self.perf.note_compile, name, src_hw, bucket),
+                on_capture_failed=self._retire_graph_pool)
             self._graphs.append(fn)
         else:
             fn = build()
@@ -1238,12 +1333,18 @@ class InferenceEngine:
 
     # -- placement, dispatch ---------------------------------------------------
 
-    def _dispatch(self, groups: List[BatchGroup], t_collect: Optional[float] = None) -> None:
+    def _dispatch(self, groups: List[BatchGroup], t_collect: Optional[float] = None, *,
+                  strict: bool = False) -> None:
         """Place and run each group, then hand it to the drain thread. With
         the transfer stage the placements of groups g + 1 and g + 2 run
-        while group g is dispatched. On a failure every group not yet handed
-        to the drain thread returns its lease, after its placement (which
-        may still read the host buffer) has resolved."""
+        while group g is dispatched. A group that fails returns its lease,
+        after its placement (which may still read the host buffer) has
+        resolved, is logged with the tick's words ("engine tick failed;
+        continuing") and dropped, and the next group is dispatched: one
+        failing key does not starve the keys that sort after it. When the
+        engine stops (or ``strict``, or on a ``BaseException``) every group
+        not yet handed to the drain thread returns its lease and the error
+        is raised."""
         if t_collect is None:
             t_collect = time.time()
         handles: List[Optional[_Prefetched]] = []
@@ -1274,12 +1375,17 @@ class InferenceEngine:
                     placed, event, h2d_ms = self._xfer.place(group.frames)
                     overlapped_ms = 0.0
                 inflight = self._run_step(step, group, placed, event, t_collect)
-            except BaseException:
-                for gj in range(gi, len(groups)):
+            except BaseException as exc:
+                fatal = (strict or self._stop.is_set() or isinstance(exc, _Stopping)
+                         or not isinstance(exc, Exception))
+                for gj in range(gi, len(groups) if fatal else gi + 1):
                     if gj < len(handles) and handles[gj] is not None:
                         handles[gj].ready.wait(timeout=5.0)
                     self._collector.release(groups[gj])
-                raise
+                if fatal:
+                    raise
+                log.exception("engine tick failed; continuing")
+                continue
             with self._pipe_lock:
                 self._pipe.batches += 1
                 self._pipe.h2d_ms += h2d_ms
@@ -1330,24 +1436,26 @@ class InferenceEngine:
 
     def _drain_loop(self) -> None:
         """Read back the oldest dispatched batch as soon as its step is done
-        and emit its results. After a failure the loop keeps returning
-        leases but emits nothing more."""
-        if self._cuda:
-            torch.cuda.set_device(self._device)
-        while True:
-            inflight = self._drain_q.get()
-            try:
+        and emit its results. A batch that fails to emit is logged and its
+        lease returned; the next batch is emitted."""
+        try:
+            if self._cuda:
+                torch.cuda.set_device(self._device)
+            while True:
+                inflight = self._drain_q.get()
                 if inflight is None:
+                    self._drain_q.task_done()
                     return
-                if not self._errors:
+                try:
                     self._emit(inflight)
-            except BaseException as exc:  # the drain's boundary: record, end
-                self._fail(exc)
-            finally:
-                if inflight is not None:
+                except Exception:
+                    log.exception("drain failed; continuing")
+                finally:
                     self._collector.release(inflight.group)
                     inflight.outputs = None
-                self._drain_q.task_done()
+                    self._drain_q.task_done()
+        except BaseException as exc:  # the thread cannot go on: record, end
+            self._fail(exc)
 
     def _read_back(self, inflight: _Inflight) -> Dict[str, np.ndarray]:
         """The step's outputs on the host. On the card the copies run on the

@@ -5,8 +5,10 @@ the two-phase source contract and the synthetic pattern source.
 ``retrieve()`` produces the BGR24 frame. ``SyntheticSource`` is the
 deterministic moving test pattern; its ``render(h, w, n)`` is the single
 source of truth the replay plane regenerates ``synth`` trace events from.
-The sources that open cameras or files (libav, OpenCV) and the
-``replay://`` source are later slices.
+``open_source`` routes a URL: ``test://`` to ``SyntheticSource`` and
+``replay://`` to the recorded-trace source (``replay/player.py``
+``ReplaySource``). The sources that open cameras or files (``rtsp://``
+and the rest, through libav or OpenCV) are a later slice.
 """
 
 from __future__ import annotations
@@ -128,3 +130,27 @@ class SyntheticSource(VideoSource):
 
     def close(self) -> None:
         self._open = False
+
+
+def open_source(url: str, prefer: str = "") -> VideoSource:
+    """Route a URL to a source: ``test://`` (the synthetic pattern) or
+    ``replay://`` (a recorded trace). Camera and file URLs need the libav
+    or OpenCV sources, which are not ported yet: they raise. ``prefer``
+    (``opencv`` / ``packet``) chooses among those and is not used yet."""
+    from ..obs import registry as obs_registry
+
+    opens = obs_registry.counter(
+        "vep_source_opens_total", "Video sources opened, by backend kind", ("kind",))
+    scheme = urlparse(url).scheme
+    if scheme == "test":
+        opens.labels("synthetic").inc()
+        return SyntheticSource(url)
+    if scheme == "replay":
+        from ..replay.player import ReplaySource
+
+        opens.labels("replay").inc()
+        return ReplaySource(url)
+    raise NotImplementedError(
+        f"source {url!r} needs the libav "
+        "(PyAV) or OpenCV sources, which come in a later slice; the port opens "
+        "test:// and replay:// URLs")

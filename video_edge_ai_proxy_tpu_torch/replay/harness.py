@@ -9,6 +9,7 @@ from typing import Callable, Mapping, Optional
 
 import torch
 
+from ..bus.interface import FrameBus
 from ..bus.memory_bus import MemoryFrameBus
 from ..device import resolve_device
 from ..engine.collector import Collector
@@ -25,7 +26,7 @@ def lockstep_checksum(
     dtype: torch.dtype = torch.bfloat16, preprocess_dtype: torch.dtype = torch.bfloat16,
     device_id: Optional[str] = None, limit: int = 0,
     perturb: Optional[Callable[[dict], dict]] = None, zero_prior: bool = True,
-    on_batch: Optional[Callable] = None,
+    on_batch: Optional[Callable] = None, bus: Optional[FrameBus] = None,
 ) -> dict:
     """Replay a trace deterministically through bus -> collector -> serving
     step and fold the content checksum over every batch's outputs.
@@ -37,7 +38,11 @@ def lockstep_checksum(
     from ``generator`` (default seed 0), or ``state_dict``; with
     ``zero_prior`` a detector's class prior is zeroed, then
     ``perturb(state_dict) -> state_dict`` applies (the seeded-fault hook).
-    ``on_batch(group, outputs)`` sees every batch as it is served.
+    ``on_batch(group, outputs)`` sees every batch as it is served. ``bus``
+    (default a fresh ``MemoryFrameBus``, closed at the end) carries the
+    frames; a bus passed in (a ``ShmFrameBus`` on an empty ring directory)
+    stays open, its owner's to close. The collector is built without
+    interest, so every published stream is inferred.
 
     Returns {"checksum", "frames", "batches", "batch_streams" (streams per
     batch), "model"}."""
@@ -53,7 +58,8 @@ def lockstep_checksum(
     step = build_serving_step(net, spec, preprocess_dtype=preprocess_dtype)
 
     player = TracePlayer(trace_path)
-    bus = MemoryFrameBus()
+    owns_bus = bus is None
+    bus = MemoryFrameBus() if owns_bus else bus
     col = Collector(bus, buckets=(1, 2, 4, 8, 16), default_model=spec.name,
                     clip_len=spec.clip_len)
     created: set = set()
@@ -77,7 +83,8 @@ def lockstep_checksum(
                 if on_batch is not None:
                     on_batch(group, outputs)
     finally:
-        bus.close()
+        if owns_bus:
+            bus.close()
     return {"checksum": finalize_checksum(carry), "frames": frames,
             "batches": len(batch_streams), "batch_streams": batch_streams,
             "model": spec.name}

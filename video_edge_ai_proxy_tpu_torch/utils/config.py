@@ -1,9 +1,21 @@
-"""Engine configuration: the subset of ``video_edge_ai_proxy_tpu/utils/config.py``
-``EngineConfig`` that the port's serving engine reads, with the same defaults."""
+"""Configuration: the subsets of ``video_edge_ai_proxy_tpu/utils/config.py``
+``BusConfig`` and ``EngineConfig`` that the port's bus, ingest workers and
+serving engine read, with the same defaults."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+
+@dataclass
+class BusConfig:
+    """Frame-bus connection: the defaults of ``open_bus`` and of the ingest
+    workers' environment contract."""
+
+    backend: str = "shm"  # "shm" (native ring) | "memory" (in-process, tests)
+    # Directory holding the shared-memory segments (one ring per camera,
+    # the control KV, the publish doorbell).
+    shm_dir: str = "/dev/shm/vep_tpu"
 
 
 @dataclass
@@ -14,6 +26,10 @@ class EngineConfig:
     batch_buckets: tuple = (1, 2, 4, 8, 16, 32, 64)
     # Collector tick: stack whatever arrived, pad to bucket, go.
     tick_ms: int = 10
+    # Seconds a stream keeps being inferred after the last consumer of its
+    # results went away (the linger of interest gating); mirrors the
+    # workers' 10 s decode gate.
+    active_window_s: float = 10.0
     dtype: str = "bfloat16"
     # H2D prefetch stage: batches are placed on the device by a transfer
     # thread (a side CUDA stream on the card), double-buffered, so the copy
