@@ -135,7 +135,37 @@ exits non-zero:
    and in a thread of the engine's process (a core and the interpreter
    lock) beside the threads' CPU time. The ring directory of each
    part is chosen openly: the /dev/shm tmpfs when it has room for the
-   rings, else the temporary directory, and the script says which and why.
+   rings, else the temporary directory, and the script says which and why;
+14. the default ``Server``'s planes around the engine: a ``Server`` built
+   from ``Config()`` (its ring directory, the annotation and API endpoints
+   pointed at a local HTTP sink, ``slo_warmup_s`` 3 s) with the engine on
+   the card, driven in ``start()``'s order without the wire (registry
+   resume, cron, the annotation consumer, the engine); 16 cameras
+   registered through its process
+   manager (``test://`` 1080p at 30 fps, 14 on yolov8n, one of them with the
+   keyframe annotation policy, one on vit_b16, one with inference off), one
+   subscriber for 20 s: frames/s and p50/p95/p99 per model beside 13b's,
+   results per camera, each worker's decoded frames a second, the graph
+   keys, the ladder, the workers' limits and cores, the annotation events
+   the sink got (signed, per stream and type) and the queue's shed count;
+   then one worker SIGKILLed (respawned with failing_streak 1 and the OOM
+   flag, its results back), ``Server.stop()`` (workers detached) and a new
+   ``Server`` on the same data dir whose resume re-adopts them (pid and
+   birth tick), started with the whole ``Server.start()`` when this machine
+   has ``grpcio``, ``protobuf`` and ``aiohttp`` (the script prints which it
+   has): REST and gRPC on ephemeral ports, checked through gRPC
+   ListStreams, Inference, VideoLatestImage and Annotate and REST
+   /healthz, /api/v1/stats and /metrics; served 10 s more, then its
+   workers shut down. Gated: every
+   camera but the one switched off served, that one never; vit_b16's
+   results are top-5 without boxes; every yolov8n detection tracked; events
+   offered to the uplink from every yolov8n camera (accepted or shed at
+   the queue's limit) and none from the one switched off, the sink's
+   events as many as the queue acked, every POST signed, the keyframe
+   camera's events from keyframes only; the
+   killed worker back; every yolov8n camera served after the resume; the
+   wire's answers where it ran; no worker on the card; no logged tick or
+   drain failure.
 
 On the card the engine runs every serving step as a graph replay, so
 phases 5, 8, 11 and 13 run graphed; phases 4, 6, 7, 9 and 10 call the eager
@@ -146,10 +176,12 @@ workspace of each stream that ran a matmul, and the preprocessing
 constants of every geometry met so far) and frees it, so that phase 9's
 peak memory counts the training alone.
 
-Phases 5, 8, 9, 11c and 13b are the main paths: the kernels' launch counts
-are set to 0 just before each and read just after it, and every kernel of
-that path must have launched (a graph replay adds the launches its capture
-recorded); the keep mask's count in 13b is ``launches_frame_path``. The line before the last is one JSON object describing
+Phases 5, 8, 9, 11c, 13b and 14 are the main paths: the kernels' launch
+counts are set to 0 just before each and read just after it, and every
+kernel of that path must have launched (a graph replay adds the launches
+its capture recorded); the keep mask's count in 13b is
+``launches_frame_path``, in 14's first server (zeroed before its engine
+starts) ``launches_server``. The line before the last is one JSON object describing
 every kernel; the last line is ``{"ok": true, "device": {...}}``. Longer
 output (the profile tables) goes to ``chiprun_out/``.
 """
@@ -1293,7 +1325,7 @@ class LogCounter:
         return "; ".join(f"{n} x {k}" for k, n in out.items()) or "nothing"
 
 
-def ring_dir(tag: str, need: int) -> str:
+def ring_dir(tag: str, need: int, phase: str = "13") -> str:
     """A fresh directory for ``need`` bytes of rings: on the /dev/shm tmpfs
     when it has the room (with a quarter more), else under the temporary
     directory (another file system runs the same code; a tmpfs that is too
@@ -1303,16 +1335,16 @@ def ring_dir(tag: str, need: int) -> str:
 
     for base, kind in (("/dev/shm", "tmpfs /dev/shm"), (tempfile.gettempdir(), "temp dir")):
         if not os.path.isdir(base):
-            log(f"phase 13{tag} ring dir: {kind} absent")
+            log(f"phase {phase}{tag} ring dir: {kind} absent")
             continue
         st = os.statvfs(base)
         free, size = st.f_bavail * st.f_frsize, st.f_blocks * st.f_frsize
         fits = free >= need * 1.25
-        log(f"phase 13{tag} ring dir: {kind} {base} has {free} B free of {size} B; the rings "
+        log(f"phase {phase}{tag} ring dir: {kind} {base} has {free} B free of {size} B; the rings "
             f"need {need} B: {'use it' if fits else 'too small'}")
         if fits:
             return tempfile.mkdtemp(prefix=f"vep_rings_{tag}_", dir=base)
-    raise AssertionError(f"phase 13{tag}: no directory has room for {need} B of rings")
+    raise AssertionError(f"phase {phase}{tag}: no directory has room for {need} B of rings")
 
 
 def worker_url() -> str:
@@ -1476,11 +1508,12 @@ def maps_cuda(pid: int) -> bool:
 
 
 def frame_path_phase(dev, card: str, zero_launches, read_launches, kernels, report,
-                     pipeline: dict) -> None:
+                     pipeline: dict) -> dict:
     """Phase 13: the deployment's frame path on yolov8n bf16: (a) the replay
     folds over the shm bus, (b) 16 worker processes at 1080p read by the
     default engine for 20 s, (c) interest gating and lazy decode across 2
-    worker processes, (d) log and continue on the card."""
+    worker processes, (d) log and continue on the card. Returns 13b's
+    frames/s and latency percentiles."""
     import shutil
     import tempfile
 
@@ -1500,12 +1533,13 @@ def frame_path_phase(dev, card: str, zero_launches, read_launches, kernels, repo
     ShmFrameBus(probe_dir).close()
     shutil.rmtree(probe_dir, ignore_errors=True)
     shm_replay_phase(dev, card, model, pipeline)
-    worker_processes_phase(dev, card, model, out_dir, zero_launches, read_launches, kernels,
-                           report, pipeline)
+    frame_path = worker_processes_phase(dev, card, model, out_dir, zero_launches,
+                                        read_launches, kernels, report, pipeline)
     interest_phase(dev, card, model, out_dir)
     log_and_continue_phase(dev, card, model)
     del model
     torch.cuda.empty_cache()
+    return frame_path
 
 
 def shm_replay_phase(dev, card: str, model, pipeline: dict) -> None:
@@ -1572,7 +1606,7 @@ def shm_replay_phase(dev, card: str, model, pipeline: dict) -> None:
 
 
 def worker_processes_phase(dev, card: str, model, out_dir: str, zero_launches, read_launches,
-                           kernels, report, pipeline: dict) -> None:
+                           kernels, report, pipeline: dict) -> dict:
     """Phase 13b: one worker process per camera (16 at 1080p), read by the
     default engine through ``open_bus("shm", dir)`` for WORKER_RUN_S; the
     slice's main path, so the kernels' launch counts are read around it."""
@@ -1736,6 +1770,8 @@ def worker_processes_phase(dev, card: str, model, out_dir: str, zero_launches, r
                 raise AssertionError(f"kernel {name} was not launched in phase 13b")
             report[name]["launches_frame_path"] = launches[name]
     del engine, got, results
+    return {"fps": p.frames / wall_s, "p50": pct(lat, 50), "p95": pct(lat, 95),
+            "p99": pct(lat, 99)}
 
 
 def interest_phase(dev, card: str, model, out_dir: str) -> None:
@@ -2018,6 +2054,517 @@ def log_and_continue_phase(dev, card: str, model) -> None:
             (last["programs"], last["pools"], last["pool_bytes"]) != (1, 2, first["pool_bytes"]):
         raise AssertionError(f"phase 13d: a failing key took more pools: {first} then {last}")
     del engine
+
+
+# -- phase 14: the server's planes -------------------------------------------------------
+
+SERVER_MODEL = "yolov8n"     # 14: the default model (EngineConfig's)
+SERVER_EXTRA_MODEL = "vit_b16"   # 14: one camera's own model
+SERVER_RUN_S = 20.0          # 14: the engine serves the 16 cameras this long
+SERVER_AFTER_RESUME_S = 10.0  # 14: served this much more after the re-adopting restart
+EDGE_KEY, EDGE_SECRET = "edge-key-14", "edge-secret-14"
+WIRE_PACKAGES = ("grpc", "google.protobuf", "aiohttp", "yaml")
+
+
+class AnnotationSink:
+    """A stdlib HTTP server on 127.0.0.1 that records every POST: the
+    path, the JSON events and whether the signature header verifies with
+    EDGE_SECRET."""
+
+    def __init__(self):
+        import http.server
+
+        from video_edge_ai_proxy_tpu_torch.utils.signing import verify_signature
+
+        posts = self.posts = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                head = {"X-ChrysEdge-Auth": self.headers.get("X-ChrysEdge-Auth", ""),
+                        "X-Chrys-Date": self.headers.get("X-Chrys-Date", ""),
+                        "Content-MD5": self.headers.get("Content-MD5", "")}
+                posts.append((self.path, json.loads(body),
+                               verify_signature(body, head, EDGE_SECRET)))
+                self.send_response(200)
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            do_PUT = do_POST
+
+            def log_message(self, *_a):
+                pass
+
+        self._httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self._httpd.server_port}"
+        self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(10)
+
+
+def server_cameras() -> dict:
+    """The 16 cameras of phase 14: name -> (inference_model, annotation_policy)."""
+    cams = {f"cam{i:02d}": ("", "") for i in range(N_STREAMS - 2)}
+    # In the half the ladder's admission_pause keeps admitted (sorted first).
+    cams["cam01"] = ("", "keyframe")
+    cams["vit00"] = (SERVER_EXTRA_MODEL, "")
+    cams["off00"] = ("none", "")
+    return cams
+
+
+def worker_limits(pid: int) -> str:
+    """'<RLIMIT_AS soft> B, nice <n>' of process ``pid`` (/proc)."""
+    with open(f"/proc/{pid}/limits") as fh:
+        line = next(ln for ln in fh if ln.startswith("Max address space"))
+    with open(f"/proc/{pid}/stat") as fh:
+        nice = int(fh.read().rsplit(")", 1)[1].split()[16])
+    return f"{line.split()[3]} B, nice {nice}"
+
+
+def adoption_checks(pid: int, starttime, device_id: str) -> str:
+    """What re-adoption reads of a recorded worker: its /proc stat field 22
+    against the recorded birth tick, the worker module in its cmdline, its
+    device_id in its environ."""
+    from video_edge_ai_proxy_tpu_torch.serve.process_manager import WORKER_MODULE, _proc_starttime
+
+    out = [f"starttime {_proc_starttime(pid)} (recorded {starttime})"]
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as fh:
+            out.append(f"cmdline has the module {WORKER_MODULE.encode() in fh.read().split(bytes(1))}")
+        with open(f"/proc/{pid}/environ", "rb") as fh:
+            env = dict(p.split(b"=", 1) for p in fh.read().split(bytes(1)) if b"=" in p)
+        out.append(f"environ device_id {env.get(b'device_id', b'').decode()!r}")
+    except OSError as exc:
+        out.append(f"/proc unreadable: {exc!r}")
+    return "; ".join(out)
+
+
+def annotation_device(payload: bytes) -> str:
+    """The device_name of an AnnotateRequest's wire bytes: field 1, written
+    first when set (tag 0x0a, a one-byte length for names under 128 B)."""
+    if payload[:1] != b"\x0a" or payload[1] > 0x7F:
+        return ""
+    return payload[2:2 + payload[1]].decode("utf-8", "replace")
+
+
+def count_offered(queue) -> dict:
+    """Count each event the queue is offered by device: {device: [accepted,
+    shed at the unacked limit]}, by wrapping its publish."""
+    counts: dict = {}
+    publish = queue.publish
+
+    def counted(payload: bytes) -> bool:
+        ok = publish(payload)
+        counts.setdefault(annotation_device(payload), [0, 0])[0 if ok else 1] += 1
+        return ok
+
+    queue.publish = counted
+    return counts
+
+
+def run_server(cfg, data_dir: str, model_state: dict, cams: dict, *, register: bool,
+               serve_s: float, wire: bool = False, zero_launches=None, read_launches=None,
+               on_serving=None):
+    """One ``Server`` with the phase's weights, started in start()'s order:
+    its card-side planes (resume, cron, the annotation consumer, the
+    engine), or with ``wire`` the whole ``Server.start()`` (REST and gRPC
+    on ephemeral ports too). Registers ``cams`` when asked, subscribes to
+    all of them and serves ``serve_s`` after every ring is up.
+    ``on_serving(srv, got, out)`` runs at the end of the window, before the
+    server stops. Returns a dict of what was seen."""
+    from video_edge_ai_proxy_tpu_torch.serve import StreamProcess
+    from video_edge_ai_proxy_tpu_torch.serve.server import Server
+
+    srv = Server(cfg, data_dir=data_dir, enable_engine=True, grpc_port=0, rest_port=0)
+    out: dict = {"server": srv, "offered": count_offered(srv.annotations)}
+    try:
+        srv.settings.overwrite(EDGE_KEY, EDGE_SECRET)
+        srv.engine.warmup()
+        srv.engine._model.load_state_dict(model_state)
+        # The counts are zeroed before the engine starts: a reset while a
+        # graph is being captured would corrupt the launches the capture
+        # records for its replays.
+        if zero_launches is not None:
+            zero_launches()
+        t_boot = out["t_boot"] = time.monotonic()
+        if wire:
+            srv.start()
+        else:
+            srv.process_manager.resume()
+            srv.cron.start()
+            srv.annotations.start()
+            srv.engine.start()
+        out["resumed"] = len(srv.process_manager.device_ids())
+        out["start_s"] = time.monotonic() - t_boot
+        if register:
+            for name, (model, policy) in cams.items():
+                srv.process_manager.start(StreamProcess(
+                    name=name, rtsp_endpoint=worker_url(), inference_model=model,
+                    annotation_policy=policy))
+        got: dict = {}
+        results = srv.engine.subscribe(list(cams))
+        reader = threading.Thread(target=lambda: [got.setdefault(r.device_id, []).append(
+            (time.monotonic(), r)) for r in results], daemon=True)
+        reader.start()
+        t_wait = time.monotonic()
+        while set(srv.bus.streams()) < set(cams):
+            if time.monotonic() - t_wait > 120:
+                raise AssertionError(f"phase 14: rings not up within 120 s: {srv.bus.streams()}")
+            time.sleep(0.05)
+        out["rings_s"] = time.monotonic() - t_boot
+        beats0 = heartbeats(srv.bus, cams)
+        pids = {d: srv.process_manager.info(d).state.pid for d in cams}
+        cpu0 = {d: cpu_seconds(p) for d, p in pids.items()}
+        cpu0["server"] = cpu_seconds(os.getpid())
+        p0 = srv.engine.pipeline_stats()
+        t0 = time.monotonic()
+        threads0 = thread_cpu_seconds(srv.engine)
+        probe = WakeProbe(serve_s)
+        time.sleep(serve_s / 4)
+        out["cuda_workers"] = [d for d, p in pids.items() if maps_cuda(p)]
+        out["limits"] = sorted({worker_limits(p) for p in pids.values()})
+        time.sleep(max(0.0, t0 + serve_s - time.monotonic()))
+        wall_s = time.monotonic() - t0
+        out["launches"] = read_launches() if read_launches is not None else None
+        out.update(wall_s=wall_s, t0=t0, got=got, pids=pids, wake=probe.result(),
+                   threads=thread_cores(threads0, thread_cpu_seconds(srv.engine), wall_s),
+                   beats0=beats0, beats=heartbeats(srv.bus, cams), p0=p0,
+                   p1=srv.engine.pipeline_stats(), health=srv.engine.health(),
+                   cpu={d: cpu_seconds(p) - cpu0[d] for d, p in pids.items()},
+                   cpu_server=cpu_seconds(os.getpid()) - cpu0["server"])
+        if on_serving is not None:
+            on_serving(srv, got, out)
+        out["runtime"] = {d: srv.process_manager.info(d).runtime for d in cams}
+    finally:
+        srv.stop()
+    reader.join(10)
+    return out
+
+
+def wire_check(srv, sink) -> dict:
+    """The running server's wire: gRPC ListStreams, three Inference results
+    of cam00 (boxed, tracked, the frame's trace id echoed), one VideoLatestImage frame and an acked Annotate (whether it
+    reached the sink is reported, not checked: under the engine's own
+    annotation load the queue may shed it); REST /healthz, /api/v1/stats
+    and /metrics."""
+    import urllib.request
+
+    import grpc
+
+    from video_edge_ai_proxy_tpu_torch.proto import video_streaming_pb2 as pb
+    from video_edge_ai_proxy_tpu_torch.proto import video_streaming_pb2_grpc as pb_grpc
+
+    rest = f"http://127.0.0.1:{srv._rest.bound_port}"
+    out: dict = {"grpc_port": srv.bound_grpc_port, "rest_port": srv._rest.bound_port}
+    with grpc.insecure_channel(f"127.0.0.1:{srv.bound_grpc_port}",
+                               options=[("grpc.max_receive_message_length", 64 << 20)]) as ch:
+        stub = pb_grpc.ImageStub(ch)
+        listed = list(stub.ListStreams(pb.ListStreamRequest(), timeout=30))
+        out["list_streams"] = {"n": len(listed), "running": sum(s.running for s in listed)}
+        results = []
+        for r in stub.Inference(pb.InferenceRequest(device_ids=["cam00"]), timeout=30):
+            results.append(r)
+            if len(results) == 3:
+                break
+        out["inference"] = [(r.model, len(r.detections),
+                             all(d.HasField("box") and d.track_id for d in r.detections),
+                             r.trace_id != 0) for r in results]
+
+        def one_frame():
+            yield pb.VideoFrameRequest(device_id="cam00")
+
+        frame = next(iter(stub.VideoLatestImage(one_frame(), timeout=30)))
+        out["frame"] = (frame.width, frame.height, len(frame.data))
+        ts = int(time.time() * 1000)
+        ack = stub.Annotate(pb.AnnotateRequest(device_name="cam00", type="wire-check",
+                                               start_timestamp=ts), timeout=30)
+        out["annotate_ack"] = (ack.device_name, ack.type, ack.start_timestamp) == (
+            "cam00", "wire-check", ts)
+    deadline = time.monotonic() + 5
+    while time.monotonic() < deadline and not any(
+            e.get("type") == "wire-check" for _, body, _ in list(sink.posts) for e in body):
+        time.sleep(0.1)
+    out["annotate_at_sink"] = any(e.get("type") == "wire-check" and ok
+                                  for _, body, ok in list(sink.posts) for e in body)
+    with urllib.request.urlopen(rest + "/healthz", timeout=30) as resp:
+        out["healthz"] = resp.status
+    with urllib.request.urlopen(rest + "/api/v1/stats", timeout=30) as resp:
+        out["stats_streams"] = len(json.loads(resp.read())["engine"]["streams"])
+    with urllib.request.urlopen(rest + "/metrics", timeout=30) as resp:
+        out["metrics_workers"] = b"vep_workers_total 16" in resp.read()
+    out["ok"] = (out["list_streams"]["n"] == N_STREAMS and len(results) == 3
+                 and all(m == SERVER_MODEL and ok and traced
+                         for m, _, ok, traced in out["inference"])
+                 and out["frame"] == (FRAME_HW[1], FRAME_HW[0], FRAME_HW[0] * FRAME_HW[1] * 3)
+                 and out["annotate_ack"] and out["healthz"] == 200
+                 and out["metrics_workers"])
+    return out
+
+
+def server_phase(dev, card: str, zero_launches, read_launches, kernels, report,
+                 frame_path: dict) -> None:
+    """Phase 14: the default ``Server``'s planes around the engine on the
+    card: 16 cameras registered through its process manager (14 on
+    yolov8n, one of them with the keyframe annotation policy, one on
+    vit_b16, one with inference off), the annotation uplink posting to a
+    local sink, one subscriber for SERVER_RUN_S; then a SIGKILLed worker
+    restarted, and a stop (workers detached) and a new ``Server`` on the
+    same data dir that re-adopts them, served SERVER_AFTER_RESUME_S more,
+    with the wire when this machine has its packages. The slice's main
+    path: the kernels' launch counts are zeroed before the first server's
+    engine starts and read after its window, which runs without the wire,
+    as 13b does."""
+    import importlib
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    from video_edge_ai_proxy_tpu_torch.bus.shm_bus import ring_bytes
+    from video_edge_ai_proxy_tpu_torch.models import registry
+    from video_edge_ai_proxy_tpu_torch.replay.checksum import zero_class_prior
+    from video_edge_ai_proxy_tpu_torch.utils.config import Config
+
+    found = {}
+    for m in WIRE_PACKAGES:
+        try:
+            found[m] = getattr(importlib.import_module(m), "__version__", "?")
+        except ImportError as exc:
+            found[m] = f"absent ({exc})"
+    wire = all(not str(v).startswith("absent") for k, v in found.items() if k != "yaml")
+    log(f"phase 14 the wire's packages on this machine: {found}; the first server drives "
+        f"its planes in start()'s order without REST and gRPC (the window beside 13b); the "
+        + ("second runs the whole Server.start(), the wire on ephemeral ports, and checks it"
+           if wire else "second too: without them Server.start() raises ImportError"))
+    cams = server_cameras()
+    default = [d for d, (m, _) in cams.items() if m == ""]
+    kf_cam = next(d for d, (_, p) in cams.items() if p == "keyframe")
+    model_state = zero_class_prior(registry.get(SERVER_MODEL).init_params(
+        torch.Generator().manual_seed(0), device=dev).state_dict())
+    frame_bytes = FRAME_HW[0] * FRAME_HW[1] * 3
+    rdir = ring_dir("", (len(cams) + 1) * ring_bytes(frame_bytes, WORKER_SLOTS), phase="14")
+    data_dir = tempfile.mkdtemp(prefix="vep_server_")
+    sink = AnnotationSink()
+    cfg = Config()
+    cfg.bus.shm_dir = rdir
+    cfg.annotation.endpoint = sink.url + "/api/v1/annotate"
+    cfg.api.endpoint = sink.url
+    cfg.engine.slo_warmup_s = 3.0
+    kill: dict = {}
+
+    def restart_check(srv, got, out):
+        """SIGKILL one default camera's worker; the supervisor respawns it
+        with failing_streak 1 and the OOM flag; results resume."""
+        pm = srv.process_manager
+        victim = default[0]
+        pid = pm.info(victim).state.pid
+        t_kill = time.monotonic()
+        os.kill(pid, signal.SIGKILL)
+        deadline = t_kill + 60
+        while time.monotonic() < deadline:
+            st = pm.info(victim).state
+            if st.running and st.pid != pid:
+                break
+            time.sleep(0.05)
+        st = pm.info(victim).state
+        t_respawn, wall_respawn_ms = time.monotonic(), time.time() * 1000.0
+
+        def back():
+            return [t for t, r in list(got.get(victim, [])) if r.timestamp >= wall_respawn_ms]
+
+        while time.monotonic() < deadline and not back():
+            time.sleep(0.05)
+        back = back()
+        kill.update(victim=victim, pid=pid, new_pid=st.pid, running=st.running,
+                    streak=st.failing_streak, oom=st.oom_killed,
+                    respawn_s=t_respawn - t_kill,
+                    results_s=(back[0] - t_kill) if back else None)
+
+    # The queue logs every 100th annotation it sheds past its unacked
+    # limit; the phase prints the count instead.
+    import logging
+
+    queue_log = logging.getLogger("vep.torch.uplink.queue")
+    queue_level = queue_log.level
+    queue_log.setLevel(logging.ERROR)
+    try:
+        with LogCounter() as logged:
+            first = run_server(cfg, data_dir, model_state, cams, register=True,
+                               serve_s=SERVER_RUN_S, zero_launches=zero_launches,
+                               read_launches=read_launches, on_serving=restart_check)
+            eng1 = first["server"].engine
+            graphs1 = eng1.graph_stats()
+            keys1 = sorted(k[0] for k in eng1._steps)
+            spool = first["server"].annotations._handler.spool.snapshot()
+            ann = first["server"].annotations
+            ann_counts = {"published": ann.published, "acked": ann.acked,
+                          "dropped": ann.dropped, "depth": ann.depth(),
+                          "suppressed": eng1.annotations_suppressed}
+            del eng1
+            first["server"] = None
+            torch.cuda.empty_cache()
+            posts_first = len(sink.posts)
+            recorded = {d: (rt or {}).get("pid") for d, rt in first["runtime"].items()}
+            starts = {d: (rt or {}).get("starttime") for d, rt in first["runtime"].items()}
+            alive = [d for d, p in recorded.items() if p and os.path.exists(f"/proc/{p}")]
+            # What re-adoption will read of each detached worker.
+            why = {d: adoption_checks(p, starts[d], d) for d, p in recorded.items() if p}
+            second = run_server(cfg, data_dir, model_state, cams, register=False,
+                                serve_s=SERVER_AFTER_RESUME_S, wire=wire,
+                                on_serving=lambda srv, got, out: (
+                                    wire and out.update(wire=wire_check(srv, sink)),
+                                    srv.process_manager.shutdown_workers()))
+            second["server"] = None
+            torch.cuda.empty_cache()
+    finally:
+        queue_log.setLevel(queue_level)
+        sink.close()
+        shutil.rmtree(rdir, ignore_errors=True)
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+    # -- the first window ---------------------------------------------------------------
+    got, wall_s = first["got"], first["wall_s"]
+    p0, p1 = first["p0"], first["p1"]
+    window = {d: [r for t, r in v if first["t0"] <= t <= first["t0"] + wall_s]
+              for d, v in got.items()}
+    by_model: dict = {}
+    for d, rs in window.items():
+        for r in rs:
+            by_model.setdefault(r.model, []).append(r)
+    for model, rs in sorted(by_model.items()):
+        lat = [r.latency_ms for r in rs]
+        log(f"phase 14 {model} on {card}: {len(rs)} results in {wall_s:.3f} s "
+            f"({len(rs) / wall_s:.2f} frames/s), latency ms p50 {pct(lat, 50):.3f}, p95 "
+            f"{pct(lat, 95):.3f}, p99 {pct(lat, 99):.3f}")
+    lat_all = [r.latency_ms for rs in window.values() for r in rs]
+    frames = sum(len(v) for v in window.values())
+    log(f"phase 14 beside 13b on {card}: 13b {frame_path['fps']:.2f} frames/s, p50 "
+        f"{frame_path['p50']:.3f}, p95 {frame_path['p95']:.3f}, p99 {frame_path['p99']:.3f}; "
+        f"14 (16 cameras, {len(default)} on yolov8n, one vit_b16, one off) "
+        f"{frames / wall_s:.2f} frames/s, p50 {pct(lat_all, 50):.3f}, p95 "
+        f"{pct(lat_all, 95):.3f}, p99 {pct(lat_all, 99):.3f}")
+    log("phase 14 results per camera in the window: "
+        + ", ".join(f"{d} {len(window.get(d, []))}" for d in cams))
+    decoded = {d: first["beats"][d].get("decoded", 0) - first["beats0"][d].get("decoded", 0)
+               for d in cams}
+    log("phase 14 frames decoded per second by each worker over the window (heartbeats): "
+        + ", ".join(f"{d} {decoded[d] / wall_s:.2f}" for d in cams))
+    vit = [r for _, r in got.get("vit00", [])]
+    vit_boxless = all(len(r.detections) == 5 and r.detections[0].box.width == 0
+                      and r.detections[0].box.height == 0 for r in vit)
+    t_vit = min((t for t, _ in got.get("vit00", [])), default=None)
+    t_det = min((t for d in default for t, _ in got.get(d, [])), default=None)
+    log(f"phase 14 vit00: {len(vit)} results, models {sorted({r.model for r in vit})}, 5 "
+        f"box-less detections each {vit_boxless}; its first result "
+        f"{(t_vit - t_det) if t_vit and t_det else float('nan'):.3f} s after the first "
+        f"yolov8n result (its program captured on its first batch, no prewarm)")
+    log(f"phase 14 graphs: {len(keys1)} step keys, of the models {sorted(set(keys1))}; "
+        f"{graphs1}")
+    dets = [d for cam in default for r in window.get(cam, []) for d in r.detections]
+    untracked = sum(1 for d in dets if not d.track_id)
+    engine_frames = p1.frames - p0.frames
+    log(f"phase 14 engine over the window: {p1.batches - p0.batches} batches, shed "
+        f"{p1.shed_frames - p0.shed_frames}, the drain's emit "
+        f"{(p1.emit_ms - p0.emit_ms) / max(engine_frames, 1):.4f} ms a frame (tracker "
+        f"{(p1.track_ms - p0.track_ms) / max(engine_frames, 1):.4f}); ladder "
+        f"{first['health']['ladder']}, health ok {first['health']['ok']}; kernel launches "
+        f"{first['launches']}")
+    worker_cores = sum(first["cpu"].values()) / wall_s
+    log(f"phase 14 host CPU ({os.cpu_count()} cores): the 16 workers {worker_cores:.3f} cores "
+        f"in all, the server's process {first['cpu_server'] / wall_s:.3f} (its engine's "
+        f"threads: {first['threads']}); worker limits {first['limits']}; workers with "
+        f"libcuda mapped {first['cuda_workers']}; a {WAKE_SLEEP_S * 1000:g} ms sleep wakes "
+        f"late by: {first['wake']}")
+    events: dict = {}
+    signed_ok = True
+    for path, body, ok in sink.posts[:posts_first]:
+        signed_ok = signed_ok and ok
+        for e in body:
+            events.setdefault((e["device_name"], e["type"]), []).append(e)
+    per_stream = {d: sum(len(v) for (dn, _), v in events.items() if dn == d) for d in cams}
+    kf_events = [e for (dn, _), v in events.items() if dn == kf_cam for e in v]
+    offered = first["offered"]
+    log("phase 14 annotation events offered to the uplink by device (accepted/shed at the "
+        "queue's limit): " + ", ".join(f"{d} {offered.get(d, [0, 0])[0]}/"
+                                     f"{offered.get(d, [0, 0])[1]}" for d in cams)
+        + f"; cameras whose events were all shed, none at the sink: "
+          f"{[d for d in default if not per_stream[d]]}")
+    log(f"phase 14 annotation events at the sink: {posts_first} signed POSTs (every signature "
+        f"verifies: {signed_ok}); per stream and type "
+        f"{ {f'{d}/{t}': len(v) for (d, t), v in sorted(events.items())} }; the keyframe "
+        f"stream's {len(kf_events)} events all from keyframes "
+        f"{all(e['is_keyframe'] for e in kf_events)}; queue {ann_counts} (unacked limit "
+        f"{cfg.annotation.unacked_limit}, the shed count is 'dropped'); spool {spool}")
+    log(f"phase 14 restart: SIGKILL {kill['victim']} (pid {kill['pid']}): respawned as pid "
+        f"{kill['new_pid']} after {kill['respawn_s']:.3f} s, failing_streak {kill['streak']}, "
+        f"oom_killed {kill['oom']}; its results back {kill['results_s']} s after the kill")
+    # -- the re-adopting restart --------------------------------------------------------------
+    now = second["runtime"]
+    adopted = [d for d in cams if recorded.get(d) and (now.get(d) or {}).get("pid") == recorded[d]
+               and (now.get(d) or {}).get("starttime") == starts[d]]
+    respawned = [d for d in cams if d not in adopted]
+    got2 = second["got"]
+    first_after = {d: min((t for t, _ in got2.get(d, [])), default=None) for d in default}
+    all_back = (max(first_after.values()) - second["t_boot"]
+                if all(first_after.values()) else None)
+    log(f"phase 14 re-adoption: Server.stop() detached {len(alive)} live workers; a new "
+        f"Server on the same data dir resumed {second['resumed']} cameras (its start "
+        f"{second['start_s']:.3f} s): {len(adopted)} re-adopted with the same pid and "
+        f"starttime, {len(respawned)} respawned {respawned}; every yolov8n camera served again "
+        f"{all_back} s after the resume began; results in its {SERVER_AFTER_RESUME_S:g} s: "
+        + ", ".join(f"{d} {len(got2.get(d, []))}" for d in cams))
+    if wire:
+        log(f"phase 14 the wire on the card (the second server's Server.start()): "
+            f"{second['wire']}")
+    for d in respawned[:3]:
+        log(f"phase 14 {d} not re-adopted; at the first server's stop its recorded worker read: "
+            f"{why.get(d, 'no recorded pid')}")
+    failures = {m: logged.count(m) for m in FAILURE_MESSAGES}
+    # -- gates --------------------------------------------------------------------------------
+    missing = [d for d in cams if d != "off00" and not window.get(d)]
+    if missing:
+        raise AssertionError(f"phase 14: cameras without results: {missing}")
+    if got.get("off00") or got2.get("off00"):
+        raise AssertionError("phase 14: the camera with inference off has results")
+    if not vit or {r.model for r in vit} != {SERVER_EXTRA_MODEL} or not vit_boxless:
+        raise AssertionError(f"phase 14: vit00's results are not {SERVER_EXTRA_MODEL} top-5: "
+                             f"{vit[:1]}")
+    if untracked or not dets:
+        raise AssertionError(f"phase 14: {untracked} of {len(dets)} detections without a "
+                             f"track id")
+    quiet = [d for d in default if not sum(offered.get(d, (0, 0)))]
+    if quiet or per_stream["off00"] or sum(offered.get("off00", (0, 0))):
+        raise AssertionError(f"phase 14: no annotation events offered to the uplink from "
+                             f"{quiet}, or events from off00")
+    if sum(per_stream.values()) != ann_counts["acked"]:
+        raise AssertionError(f"phase 14: the sink got {sum(per_stream.values())} events, the "
+                             f"queue acked {ann_counts['acked']}")
+    if not signed_ok or not all(e["is_keyframe"] for e in kf_events):
+        raise AssertionError("phase 14: an unsigned POST, or a non-keyframe event from the "
+                             "keyframe stream")
+    if not (kill["running"] and kill["new_pid"] != kill["pid"] and kill["streak"] == 1
+            and kill["oom"] and kill["results_s"] is not None):
+        raise AssertionError(f"phase 14: the killed worker did not come back: {kill}")
+    if all_back is None:
+        raise AssertionError(f"phase 14: after the resume, cameras without results: "
+                             f"{[d for d, t in first_after.items() if t is None]}")
+    if first["cuda_workers"]:
+        raise AssertionError(f"phase 14: workers on the card: {first['cuda_workers']}")
+    if wire and not second["wire"]["ok"]:
+        raise AssertionError(f"phase 14: the wire check failed: {second['wire']}")
+    if any(failures.values()):
+        raise AssertionError(f"phase 14: the engine logged failures: {logged.summary()}")
+    for name, meta in kernels.items():
+        if meta["path"] == "detect":
+            if first["launches"][name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched in phase 14")
+            report[name]["launches_server"] = first["launches"][name]
+
 
 
 def main() -> int:
@@ -2904,7 +3451,11 @@ def main() -> int:
     graphs_phase(dev, card, report)
 
     # -- phase 13: the deployment's frame path ---------------------------------------------
-    frame_path_phase(dev, card, zero_launches, read_launches, kernels, report, pipeline)
+    frame_path = frame_path_phase(dev, card, zero_launches, read_launches, kernels, report,
+                                  pipeline)
+
+    # -- phase 14: the server's planes -------------------------------------------------------
+    server_phase(dev, card, zero_launches, read_launches, kernels, report, frame_path)
 
     line = {"kernels": []}
     for name, meta in kernels.items():
@@ -2915,6 +3466,7 @@ def main() -> int:
             **({"replay_ms": r["replay_ms"]} if "replay_ms" in r else {}),
             **({"launches_frame_path": r["launches_frame_path"]}
                if "launches_frame_path" in r else {}),
+            **({"launches_server": r["launches_server"]} if "launches_server" in r else {}),
             "replaces": meta["replaces"], "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -301,9 +301,14 @@ def test_a_program_whose_first_call_failed_is_not_recorded(tmp_path):
 
 
 def test_compile_for_skips_another_model_and_another_stem():
+    # An entry pinned to another stem is skipped; another registry model
+    # is a per-stream model, and compile_for builds its program as one more
+    # key of the step cache, as the JAX engine's does.
     eng = InferenceEngine(MemoryFrameBus(), EngineConfig(model="tiny_yolov8"), device="cpu")
-    eng.compile_for(HW, 1, "tiny_videomae")
     eng.compile_for(HW, 1, stem="s2d")
     assert eng._steps == {}
     eng.compile_for(HW, 1, "tiny_yolov8", stem="classic")
     assert list(eng._steps) == [("tiny_yolov8", "classic", (32, 48), 1)]
+    eng.compile_for(HW, 1, "tiny_vit")
+    assert list(eng._steps) == [("tiny_yolov8", "classic", (32, 48), 1),
+                                ("tiny_vit", "classic", (32, 48), 1)]

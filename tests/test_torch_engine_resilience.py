@@ -125,8 +125,8 @@ def test_a_failed_step_drops_its_batch_and_returns_its_lease(caplog):
     step_of = engine._step
     calls = {"n": 0}
 
-    def flaky_step(src_hw, bucket):
-        step = step_of(src_hw, bucket)
+    def flaky_step(src_hw, bucket, model=None):
+        step = step_of(src_hw, bucket, model)
 
         def run(*args):
             calls["n"] += 1
@@ -162,8 +162,8 @@ def test_a_failing_key_does_not_starve_the_keys_after_it(caplog, prefetch):
     engine = _engine(bus, prefetch=prefetch)
     step_of = engine._step
 
-    def failing_step(src_hw, bucket):
-        step = step_of(src_hw, bucket)
+    def failing_step(src_hw, bucket, model=None):
+        step = step_of(src_hw, bucket, model)
         if tuple(src_hw) != (48, 64):
             return step
 

@@ -1,0 +1,605 @@
+"""The port's ``Server`` on the CPU, driven as ``tests/test_serve.py``'s
+``TestEndToEnd`` and ``TestInferenceEndToEnd`` drive the JAX one: REST
+process CRUD and log follow, the six gRPC methods (``VideoLatestImage``
+with per-connection cursors, ``ListStreams``, ``Annotate`` reaching a
+local sink as a signed POST, ``Proxy``, ``Storage``'s signed PUT,
+``Inference`` with its model filter), the admin RPCs, the observability
+routes, a killed worker restarted, and workers re-adopted across two
+servers on one data dir. One engine server (``tiny_yolov8``,
+``device="cpu"``, ephemeral ports) serves the module; every wait has a
+timeout of its own.
+
+Beside it runs the JAX package's ``Server`` on the same weights, and the
+same requests go to both: the answers of ``/api/v1/process``,
+``/api/v1/processlist``, ``/api/v1/settings``, the logs and the error
+codes, the ``ListStreams`` fields and one frame's ``Inference`` result,
+field by field with ``track_id`` and the box, must agree. Last, the wire's
+packages blocked in a fresh interpreter: the server's planes import and
+build without them, and ``Server.start()`` raises ``ImportError``."""
+
+import http.server
+import itertools
+import json
+import os
+import signal
+import subprocess
+import sys
+import threading
+import time
+import urllib.error
+import urllib.request
+
+import grpc
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from video_edge_ai_proxy_tpu.models import yolov8 as jyolo
+from video_edge_ai_proxy_tpu.proto import pb as jpb
+from video_edge_ai_proxy_tpu.proto import video_streaming_pb2_grpc as jpb_grpc
+from video_edge_ai_proxy_tpu.replay import checksum as jchecksum
+from video_edge_ai_proxy_tpu.utils.checkpoint import save_msgpack
+from video_edge_ai_proxy_tpu.utils.config import Config as JaxConfig
+from video_edge_ai_proxy_tpu.utils.signing import verify_signature
+from video_edge_ai_proxy_tpu_torch.models.carry import from_flax
+from video_edge_ai_proxy_tpu_torch.proto import video_streaming_pb2 as pb
+from video_edge_ai_proxy_tpu_torch.proto import video_streaming_pb2_grpc as pb_grpc
+from video_edge_ai_proxy_tpu_torch.serve import StreamProcess
+from video_edge_ai_proxy_tpu_torch.serve.server import Server
+from video_edge_ai_proxy_tpu_torch.utils.config import Config
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def synth_url(frames=0, w=32, h=24):
+    extra = f"&frames={frames}" if frames else ""
+    return f"test://pattern?w={w}&h={h}&fps=30&gop=5{extra}"
+
+
+def wait_for(cond, timeout=20.0, interval=0.05):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(interval)
+    return False
+
+
+class Sink(http.server.BaseHTTPRequestHandler):
+    """Records every POST and PUT: (method, path, body, lower-case headers)."""
+
+    requests: list = []
+
+    def _record(self):
+        n = int(self.headers.get("Content-Length", 0))
+        self.requests.append((self.command, self.path, self.rfile.read(n),
+                              {k.lower(): v for k, v in self.headers.items()}))
+        self.send_response(200)
+        self.end_headers()
+        self.wfile.write(b"{}")
+
+    do_POST = do_PUT = _record
+
+    def log_message(self, *_a):
+        pass
+
+
+def signed(body: bytes, head: dict, secret: str) -> bool:
+    return verify_signature(body, {"X-ChrysEdge-Auth": head.get("x-chrysedge-auth", ""),
+                                   "X-Chrys-Date": head.get("x-chrys-date", ""),
+                                   "Content-MD5": head.get("content-md5", "")}, secret)
+
+
+@pytest.fixture(scope="module")
+def sink():
+    Sink.requests = []
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Sink)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    yield f"http://127.0.0.1:{httpd.server_port}", Sink.requests
+    httpd.shutdown()
+    httpd.server_close()
+
+
+@pytest.fixture(scope="module")
+def variables():
+    """tiny_yolov8's flax init in float32 with randomised BatchNorm terms and
+    the class prior zeroed (so NMS sees real candidates, without ties), as
+    numpy: the weights of both packages' servers."""
+    model = jyolo.YOLOv8(jyolo.tiny_yolov8_config(), dtype=jnp.float32)
+    v = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)))
+    rng = np.random.default_rng(0)
+
+    def walk(node, path):
+        if hasattr(node, "items"):
+            return {k: walk(val, path + (k,)) for k, val in node.items()}
+        if path[-1] in ("scale", "var"):
+            return rng.uniform(0.5, 1.5, node.shape).astype(np.float32)
+        if path[-1] == "mean" or (path[-1] == "bias" and "bn" in path):
+            return rng.normal(0.0, 0.2, node.shape).astype(np.float32)
+        return np.asarray(node, np.float32)
+    return jax.tree_util.tree_map(np.asarray, jchecksum.zero_class_prior(walk(v, ())))
+
+
+def _shm():
+    import tempfile
+
+    return tempfile.mkdtemp(prefix="vep_srv_", dir="/dev/shm" if os.path.isdir("/dev/shm")
+                            else None)
+
+
+def _config(shm_dir, sink_url, **engine):
+    cfg = Config()
+    cfg.bus.shm_dir = shm_dir
+    cfg.annotation.endpoint = sink_url + "/api/v1/annotate"
+    cfg.annotation.poll_duration_ms = 50
+    cfg.api.endpoint = sink_url
+    cfg.worker_adoption = False   # workers die with the server
+    cfg.engine.model = "tiny_yolov8"
+    cfg.engine.tick_ms = 20
+    cfg.engine.batch_buckets = (1, 2, 4)
+    cfg.engine.dtype = "float32"
+    for k, v in engine.items():
+        setattr(cfg.engine, k, v)
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def server(tmp_path_factory, sink, variables):
+    import shutil
+
+    shm = _shm()
+    srv = Server(_config(shm, sink[0]), data_dir=str(tmp_path_factory.mktemp("srv")),
+                 grpc_port=0, rest_port=0, enable_engine=True, device="cpu")
+    srv.engine.warmup()
+    srv.engine._model.load_state_dict(from_flax(variables))
+    srv.start()
+    yield srv
+    srv.stop()
+    shutil.rmtree(shm, ignore_errors=True)
+
+
+@pytest.fixture(scope="module")
+def jax_server(tmp_path_factory, variables):
+    """The JAX package's Server on the CPU with the port's settings and the
+    same weights (a checkpoint of ``variables``); its uplink fails fast. The
+    JAX registry builds ``tiny_yolov8`` in bfloat16 and its engine has no
+    dtype switch, so for this module its entry builds the float32 model, as
+    the port's server runs it."""
+    import dataclasses
+    import shutil
+
+    from video_edge_ai_proxy_tpu.models import registry as jregistry
+    from video_edge_ai_proxy_tpu.serve.server import Server as JaxServer
+
+    patch = pytest.MonkeyPatch()
+    patch.setitem(jregistry._REGISTRY, "tiny_yolov8", dataclasses.replace(
+        jregistry.get("tiny_yolov8"),
+        build=lambda: jyolo.YOLOv8(jyolo.tiny_yolov8_config(), dtype=jnp.float32)))
+
+    data = tmp_path_factory.mktemp("jax_srv")
+    save_msgpack(str(data / "tiny_yolov8.msgpack"), variables)
+    cfg = JaxConfig()
+    cfg.bus.shm_dir = shm = _shm()
+    cfg.annotation.endpoint = "http://127.0.0.1:1/annotate"
+    cfg.worker_adoption = False
+    cfg.engine.model = "tiny_yolov8"
+    cfg.engine.tick_ms = 20
+    cfg.engine.batch_buckets = (1, 2, 4)
+    cfg.engine.dtype = "float32"
+    cfg.engine.checkpoint_path = str(data / "tiny_yolov8.msgpack")
+    srv = JaxServer(cfg, data_dir=str(data), grpc_port=0, rest_port=0, enable_engine=True)
+    srv.start()
+    yield srv
+    srv.stop()
+    patch.undo()
+    shutil.rmtree(shm, ignore_errors=True)
+
+
+@pytest.fixture(scope="module")
+def stub(server):
+    channel = grpc.insecure_channel(f"127.0.0.1:{server.bound_grpc_port}")
+    yield pb_grpc.ImageStub(channel), channel
+    channel.close()
+
+
+def rest(server, path, body=None, method=None):
+    url = f"http://127.0.0.1:{server._rest.bound_port}{path}"
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data, method=method or ("POST" if data else "GET"),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        raw = resp.read()
+        return resp.status, (json.loads(raw) if raw and raw[:1] in b"[{" else raw)
+
+
+def rest_error(server, path, body=None, method=None) -> int:
+    with pytest.raises(urllib.error.HTTPError) as err:
+        rest(server, path, body, method)
+    return err.value.code
+
+
+def test_rest_process_crud_and_log_follow(server):
+    assert rest(server, "/api/v1/settings", {"edge_key": "k", "edge_secret": "s"})[0] == 200
+    assert rest(server, "/api/v1/settings")[1]["edge_key"] == "k"
+    assert rest(server, "/api/v1/process", {"name": "crud", "rtsp_endpoint": synth_url(5),
+                                            "annotation_policy": "keyframe"})[0] == 200
+    assert rest_error(server, "/api/v1/process", {"name": "crud",
+                                                  "rtsp_endpoint": synth_url()}) == 409
+    assert rest_error(server, "/api/v1/process", {"name": "x"}) == 400
+    assert rest_error(server, "/api/v1/process", {"name": "x", "rtsp_endpoint": "a",
+                                                  "annotation_policy": "oops"}) == 400
+    assert "crud" in [p["name"] for p in rest(server, "/api/v1/processlist")[1]]
+    assert wait_for(lambda: rest(server, "/api/v1/process/crud")[1].get("source")
+                    == "synthetic")
+    info = rest(server, "/api/v1/process/crud")[1]
+    assert info["annotation_policy"] == "keyframe" and info["state"]["running"]
+    assert info["limits"]["mem_limit_mb"] == 2048
+    assert wait_for(lambda: rest(server, "/api/v1/process/crud/logs?since=0")[1]["lines"])
+    first = rest(server, "/api/v1/process/crud/logs?since=0")[1]
+    # The bounded source's reconnect lines keep the log growing.
+    assert wait_for(lambda: rest(server, f"/api/v1/process/crud/logs?since={first['total']}")
+                    [1]["lines"])
+    assert rest_error(server, "/api/v1/process/ghost/logs") == 400
+    assert rest_error(server, "/api/v1/process/crud/logs?since=x") == 400
+    assert rest(server, "/api/v1/process/crud", method="DELETE")[0] == 200
+    assert rest_error(server, "/api/v1/process/crud", method="DELETE") == 409
+    assert "crud" not in [p["name"] for p in rest(server, "/api/v1/processlist")[1]]
+
+
+TWIN = {"name": "twin", "rtsp_endpoint": synth_url(1, w=64, h=48), "annotation_policy": "keyframe"}
+
+
+@pytest.fixture(scope="module")
+def twins(server, jax_server):
+    """The same requests to the port's server and the JAX one. Each gets
+    one camera over REST on a one-frame source (frame 0 of the pattern,
+    then EOF), with an Inference subscription opened before the camera
+    starts: each engine serves that frame once, to a fresh tracker. Returns
+    each server's answers by name."""
+    out = {}
+    ts = int(time.time() * 1000)
+    for tag, srv, mod, mod_grpc in (("port", server, pb, pb_grpc),
+                                    ("jax", jax_server, jpb, jpb_grpc)):
+        channel = grpc.insecure_channel(f"127.0.0.1:{srv.bound_grpc_port}")
+        stub = mod_grpc.ImageStub(channel)
+        n_subs = len(srv.engine._subscribers)
+        call = stub.Inference(mod.InferenceRequest(device_ids=["twin"]), timeout=60)
+        results: list = []
+        reader = threading.Thread(target=lambda: results.extend(itertools.islice(call, 1)),
+                                  daemon=True)
+        reader.start()
+        assert wait_for(lambda: len(srv.engine._subscribers) > n_subs), tag
+        got = out[tag] = {
+            "POST settings": rest(srv, "/api/v1/settings", {"edge_key": "k", "edge_secret": "s"}),
+            "POST process": rest(srv, "/api/v1/process", TWIN),
+            "POST process again": rest_error(srv, "/api/v1/process", TWIN),
+            "POST process without endpoint": rest_error(srv, "/api/v1/process", {"name": "x"}),
+            "POST process bad policy": rest_error(srv, "/api/v1/process", {
+                "name": "x", "rtsp_endpoint": "a", "annotation_policy": "oops"}),
+            "logs of no process": rest_error(srv, "/api/v1/process/ghost/logs"),
+            "logs bad cursor": rest_error(srv, "/api/v1/process/twin/logs?since=x"),
+            "GET process of none": rest_error(srv, "/api/v1/process/ghost"),
+        }
+        reader.join(timeout=60)
+        call.cancel()
+        assert results, f"{tag}: no Inference result for the one frame"
+        assert wait_for(lambda: (rest(srv, "/api/v1/process/twin")[1].get("heartbeat") or {})
+                        .get("published") == 1), tag
+        with pytest.raises(grpc.RpcError) as err:
+            next(iter(stub.Inference(mod.InferenceRequest(model="yolov8m_typo"), timeout=10)))
+        def ask():
+            for _ in range(80):
+                yield mod.VideoFrameRequest(device_id="twin")
+                time.sleep(0.02)
+        got.update({
+            "VideoLatestImage": next(iter(stub.VideoLatestImage(ask(), timeout=30))),
+            "Annotate": stub.Annotate(mod.AnnotateRequest(
+                device_name="twin", type="parked", start_timestamp=ts, confidence=0.5)),
+            "Inference unknown model": err.value.code(),
+            "result": results[0],
+            "GET process": rest(srv, "/api/v1/process/twin"),
+            "GET processlist": rest(srv, "/api/v1/processlist"),
+            "GET settings": rest(srv, "/api/v1/settings"),
+            "GET logs": rest(srv, "/api/v1/process/twin/logs?since=0"),
+            "ListStreams": [s for s in stub.ListStreams(mod.ListStreamRequest())
+                            if s.name == "twin"],
+        })
+        channel.close()
+    return out
+
+
+# Values that differ from run to run (pids, clocks, a clock-window rate).
+VOLATILE = {"container_id", "pid", "created", "modified", "ts_ms", "fps"}
+
+
+def _stable(obj):
+    """A REST answer with its run-dependent values replaced by their type
+    name, and a log tail by its keys; every key and every other value stays.
+    The log lines are held apart (``_worker_up``): the two packages' workers
+    format their lines differently."""
+    if isinstance(obj, dict):
+        return {k: (type(v).__name__ if k in VOLATILE else sorted(v) if k == "logs"
+                    else _stable(v)) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_stable(v) for v in obj]
+    return obj
+
+
+def _worker_up(lines):
+    return [line[line.index("ingest worker up:"):] for line in lines
+            if "ingest worker up:" in line]
+
+
+def test_rest_answers_equal_jax(twins):
+    port, jax_ = twins["port"], twins["jax"]
+    for name in ("POST settings", "POST process", "POST process again",
+                 "POST process without endpoint", "POST process bad policy",
+                 "logs of no process", "logs bad cursor", "GET process", "GET processlist",
+                 "GET settings", "GET process of none"):
+        assert _stable(port[name]) == _stable(jax_[name]), name
+    assert port["GET process"][1]["heartbeat"]["published"] == 1
+    assert port["GET settings"][1]["edge_key"] == "k"
+    status, logs = port["GET logs"]
+    assert (status, sorted(logs)) == (jax_["GET logs"][0], sorted(jax_["GET logs"][1]))
+    assert _worker_up(logs["lines"]) == _worker_up(jax_["GET logs"][1]["lines"]) != []
+
+
+def test_list_streams_equal_jax(twins):
+    def fields(streams):
+        return [{f.name: v for f, v in s.ListFields() if f.name != "pid"} for s in streams]
+
+    port, jax_ = twins["port"]["ListStreams"], twins["jax"]["ListStreams"]
+    assert fields(port) == fields(jax_) != []
+    assert [s.pid > 0 for s in port] == [s.pid > 0 for s in jax_] == [True]
+
+
+def test_video_frame_and_annotate_answers_equal_jax(twins):
+    def wire(msg, skip=()):
+        """The message's bytes on the wire, without the fields in ``skip``."""
+        msg = type(msg).FromString(msg.SerializeToString())
+        for name in skip:
+            msg.ClearField(name)
+        return msg.SerializeToString(deterministic=True)
+
+    port, jax_ = twins["port"], twins["jax"]
+    frame = port["VideoLatestImage"]
+    assert wire(frame, ["timestamp"]) == wire(jax_["VideoLatestImage"], ["timestamp"])
+    assert (frame.width, frame.height, len(frame.data), frame.trace_id != 0) == \
+        (64, 48, 64 * 48 * 3, True)
+    assert wire(port["Annotate"]) == wire(jax_["Annotate"])
+    assert port["Annotate"].type == "parked"
+
+
+def test_inference_result_equals_jax(twins):
+    """One frame through both engines and out of both wires: every field,
+    the timestamps and latency apart; confidences within 1e-5 and boxes
+    within 1 px (float32 on both, from the same weights)."""
+    got, want = twins["port"]["result"], twins["jax"]["result"]
+    for name in ("device_id", "model", "model_version", "batch_size", "frame_packet",
+                 "trace_id", "parent_span"):
+        assert getattr(got, name) == getattr(want, name), name
+    assert want.trace_id != 0 and got.timestamp > 0 and want.timestamp > 0
+    assert len(got.detections) == len(want.detections) > 0
+    for a, b in zip(got.detections, want.detections):
+        assert (a.class_id, a.class_name, a.track_id, list(a.embedding)) == \
+            (b.class_id, b.class_name, b.track_id, list(b.embedding))
+        assert a.track_id and a.HasField("box") and b.HasField("box")
+        for k in ("top", "left", "width", "height"):
+            assert abs(getattr(a.box, k) - getattr(b.box, k)) <= 1, k
+        assert abs(a.confidence - b.confidence) <= 1e-5
+    assert twins["port"]["Inference unknown model"] == twins["jax"]["Inference unknown model"] \
+        == grpc.StatusCode.INVALID_ARGUMENT
+
+
+def test_rest_delete_equal_jax(server, jax_server, twins):
+    answers = []
+    for srv in (server, jax_server):
+        answers.append([rest(srv, "/api/v1/process/twin", method="DELETE"),
+                        rest_error(srv, "/api/v1/process/twin", method="DELETE"),
+                        rest(srv, "/api/v1/processlist")])
+    assert answers[0] == answers[1] == [(200, b""), 409, (200, [])]
+
+
+def test_grpc_frames_streams_and_toggles(server, stub, sink):
+    stub, _ = stub
+    server.settings.overwrite("edgekey", "edgesecret")
+    server.process_manager.start(StreamProcess(name="cam1", rtsp_endpoint=synth_url()))
+    server.process_manager.start(StreamProcess(
+        name="stor", rtsp_endpoint=synth_url(), rtmp_endpoint="rtmp://cloud/live/streamKey9"))
+    assert wait_for(lambda: any(s.name == "cam1" and s.running and s.source == "synthetic"
+                                for s in stub.ListStreams(pb.ListStreamRequest())))
+
+    def fetch_one():
+        def gen():
+            for _ in range(80):
+                yield pb.VideoFrameRequest(device_id="cam1")
+                time.sleep(0.02)
+        for frame in stub.VideoLatestImage(gen(), timeout=30):
+            return frame
+        return None
+
+    f1, f2 = fetch_one(), fetch_one()          # per-connection cursors
+    assert f1 is not None and f2 is not None
+    assert (f1.width, f1.height, len(f1.data)) == (32, 24, 32 * 24 * 3)
+    assert [(d.name, d.size) for d in f1.shape.dim] == [("height", 24), ("width", 32),
+                                                        ("channels", 3)]
+    ts = int(time.time() * 1000)
+    resp = stub.Annotate(pb.AnnotateRequest(device_name="cam1", type="moving",
+                                            start_timestamp=ts, confidence=0.5))
+    assert resp.device_name == "cam1" and resp.type == "moving"
+    with pytest.raises(grpc.RpcError) as err:
+        stub.Annotate(pb.AnnotateRequest(device_name="cam1", type="x", start_timestamp=1))
+    assert err.value.code() == grpc.StatusCode.INVALID_ARGUMENT
+
+    def posted_moving():
+        for method, path, body, head in list(sink[1]):
+            if method == "POST" and any(e["type"] == "moving" for e in json.loads(body)):
+                return body, head
+        return None
+
+    assert wait_for(lambda: posted_moving() is not None, timeout=30)
+    body, head = posted_moving()
+    (event,) = [e for e in json.loads(body) if e["type"] == "moving"]
+    assert event["start_timestamp"] == ts and event["confidence"] == 0.5
+    assert signed(body, head, "edgesecret")
+    assert stub.Proxy(pb.ProxyRequest(device_id="cam1", passthrough=True)).passthrough
+    assert server.bus.proxy_rtmp("cam1")
+    with pytest.raises(grpc.RpcError) as err:
+        stub.Proxy(pb.ProxyRequest(device_id="ghost", passthrough=True))
+    assert err.value.code() == grpc.StatusCode.NOT_FOUND
+    with pytest.raises(grpc.RpcError) as err:
+        stub.Storage(pb.StorageRequest(device_id="cam1", start=True))
+    assert err.value.code() == grpc.StatusCode.FAILED_PRECONDITION
+    assert stub.Storage(pb.StorageRequest(device_id="stor", start=True)).start
+    (put,) = [r for r in sink[1] if r[0] == "PUT"]
+    assert put[1] == "/api/v1/edge/storage/streamKey9" and signed(put[2], put[3], "edgesecret")
+    assert server.bus.hget("last_access_time_stor", "store") == "true"
+    assert server.process_manager.info("stor").rtmp_stream_status.storing is True
+    server.process_manager.stop("stor")
+    server.process_manager.stop("cam1")
+
+
+def test_grpc_inference_and_model_filter(server, stub):
+    stub, _ = stub
+    server.process_manager.start(StreamProcess(name="inf", rtsp_endpoint=synth_url(w=64, h=48)))
+    results = []
+    for r in stub.Inference(pb.InferenceRequest(device_ids=["inf"]), timeout=60):
+        results.append(r)
+        if len(results) >= 3:
+            break
+    assert len(results) == 3
+    for r in results:
+        assert r.device_id == "inf" and r.model == "tiny_yolov8" and r.batch_size >= 1
+        assert r.model_version == "0" and r.timestamp > 0
+        assert all(d.HasField("box") and d.track_id for d in r.detections)
+    assert any(r.detections for r in results)
+    with pytest.raises(grpc.RpcError) as err:
+        for _ in stub.Inference(pb.InferenceRequest(device_ids=["inf"], model="tiny_vit"),
+                                timeout=2):
+            pass
+    assert err.value.code() == grpc.StatusCode.DEADLINE_EXCEEDED
+    with pytest.raises(grpc.RpcError) as err:
+        next(iter(stub.Inference(pb.InferenceRequest(model="yolov8m_typo"), timeout=5)))
+    assert err.value.code() == grpc.StatusCode.INVALID_ARGUMENT
+    assert rest(server, "/api/v1/stats")[1]["engine"]["streams"]["inf"]["frames"] >= 3
+    # One stream at a time: on a loaded CPU the ladder's admission_pause
+    # would pause the later streams of a crowd.
+    server.process_manager.stop("inf")
+
+
+def test_admin_and_observability_routes(server, stub):
+    _, channel = stub
+    assert json.loads(channel.unary_unary("/vep.Admin/RouterState")(b""))["rung"] in (
+        "normal", "shed", "bucket_downshift", "admission_pause")
+    assert "streams" in json.loads(channel.unary_unary("/vep.Admin/Quality")(b""))
+    with pytest.raises(grpc.RpcError) as err:
+        channel.unary_unary("/vep.Admin/ProfileCapture")(b'{"ms": 100}')
+    assert err.value.code() == grpc.StatusCode.FAILED_PRECONDITION
+    status, health = rest(server, "/healthz")
+    assert status == 200 and health["engine"]["ok"] and health["status"] == "ok"
+    stats = rest(server, "/api/v1/stats")[1]
+    assert stats["engine"]["model"] == "tiny_yolov8" and stats["engine"]["prewarm"]["complete"]
+    assert stats["annotation_queue"]["published"] >= 1
+    assert "slos" in rest(server, "/api/v1/slo")[1]
+    assert rest(server, "/api/v1/router")[1]["fleet_attached"] is False
+    assert "streams" in rest(server, "/api/v1/quality")[1]
+    status, text = rest(server, "/metrics")
+    assert b"vep_workers_total" in text and b"vep_annotations_published_total" in text
+    req = urllib.request.Request(f"http://127.0.0.1:{server._rest.bound_port}/api/v1/process",
+                                 method="OPTIONS")
+    with urllib.request.urlopen(req, timeout=10) as resp:
+        assert resp.status == 204
+        assert resp.headers["Access-Control-Allow-Origin"] == "*"
+    # A plane not ported: only the OPTIONS route matches its path.
+    assert rest_error(server, "/api/v1/journal") == 405
+
+
+def test_killed_worker_restarts_and_serves_again(server, stub):
+    stub, _ = stub
+    pm = server.process_manager
+    pm.start(StreamProcess(name="kill", rtsp_endpoint=synth_url(w=64, h=48)))
+    assert wait_for(lambda: pm.info("kill").state.running)
+    pid = pm.info("kill").state.pid
+    os.kill(pid, signal.SIGKILL)
+    assert wait_for(lambda: pm.info("kill").state.running and pm.info("kill").state.pid != pid,
+                    timeout=30)
+    state = pm.info("kill").state
+    assert state.failing_streak == 1 and state.oom_killed
+    t_back = time.time() * 1000
+    for r in stub.Inference(pb.InferenceRequest(device_ids=["kill"]), timeout=60):
+        if r.timestamp >= t_back:
+            break
+    else:
+        pytest.fail("no result after the restart")
+
+
+def test_readoption_across_two_servers(tmp_path, shm_dir, sink):
+    """worker_adoption: stop() detaches, a second server on the same data
+    dir re-adopts the live worker (same pid and birth tick) and frames keep
+    flowing; shutdown_workers() ends it."""
+    cfg = _config(shm_dir, sink[0])
+    cfg.worker_adoption = True
+    srv = Server(cfg, data_dir=str(tmp_path), grpc_port=0, rest_port=0)
+    srv.start()
+    srv.process_manager.start(StreamProcess(name="adopt", rtsp_endpoint=synth_url()))
+    srv.bus.touch_query("adopt")
+    assert wait_for(lambda: srv.bus.read_latest("adopt") is not None)
+    rec = srv.process_manager.info("adopt")
+    pid, starttime = rec.state.pid, rec.runtime["starttime"]
+    srv.stop()
+    assert os.path.exists(f"/proc/{pid}")
+    srv2 = Server(cfg, data_dir=str(tmp_path), grpc_port=0, rest_port=0)
+    try:
+        srv2.start()
+        rec = srv2.process_manager.info("adopt")
+        assert (rec.state.pid, rec.runtime["starttime"]) == (pid, starttime)
+        t_adopt = int(time.time() * 1000)
+        srv2.bus.touch_query("adopt")
+        assert wait_for(lambda: (f := srv2.bus.read_latest("adopt")) is not None
+                        and f.meta.timestamp_ms >= t_adopt)
+    finally:
+        srv2.process_manager.shutdown_workers()
+        srv2.stop()
+    assert wait_for(lambda: not os.path.exists(f"/proc/{pid}")
+                    or open(f"/proc/{pid}/stat").read().rsplit(")", 1)[1].split()[0] == "Z")
+
+
+BLOCKED = """
+import sys
+for name in ("grpc", "google", "google.protobuf", "aiohttp", "yaml"):
+    sys.modules[name] = None
+import video_edge_ai_proxy_tpu_torch.serve.server as server_mod
+import video_edge_ai_proxy_tpu_torch.serve.process_manager
+import video_edge_ai_proxy_tpu_torch.uplink.queue
+import video_edge_ai_proxy_tpu_torch.uplink.cloud
+import video_edge_ai_proxy_tpu_torch.proto.annotate
+from video_edge_ai_proxy_tpu_torch.utils.config import Config, load_config
+cfg = load_config(sys.argv[3])
+cfg.bus.shm_dir = sys.argv[1]
+cfg.worker_adoption = False
+srv = server_mod.Server(cfg, data_dir=sys.argv[2], grpc_port=0, rest_port=0)
+try:
+    srv.start()
+except ImportError as exc:
+    print("ImportError", exc.name)
+else:
+    print("started")
+finally:
+    srv.stop()
+# What got imported (the blocked names stay None).
+print(sorted(m for m, mod in sys.modules.items() if mod is not None
+             and (m.split(".")[0] in ("grpc", "aiohttp", "yaml")
+                  or m.startswith("google.protobuf"))))
+"""
+
+
+def test_without_the_wire_packages_the_planes_build_and_start_raises(tmp_path, shm_dir):
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED, shm_dir, str(tmp_path / "data"),
+         str(tmp_path / "absent.yaml")],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-2] == "ImportError grpc" and lines[-1] == "[]"

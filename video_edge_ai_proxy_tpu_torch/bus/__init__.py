@@ -20,9 +20,9 @@ def open_bus(backend: str = BusConfig.backend, shm_dir: str = BusConfig.shm_dir,
              redis_addr: str = "127.0.0.1:6379", redis_password: str = "",
              redis_db: int = 0) -> FrameBus:
     """``shm`` (the native shared-memory rings, one host) or ``memory``
-    (in-process). The reference's ``redis`` backend is not ported yet: it
-    comes with the wire and the control plane in a later slice, and asking
-    for it raises rather than serving another backend."""
+    (in-process). The reference's ``redis`` backend is not ported yet (it
+    comes with the Redis annotation queue in a later slice), and asking for
+    it raises rather than serving another backend."""
     if backend == "shm":
         from .shm_bus import ShmFrameBus
 
@@ -31,9 +31,8 @@ def open_bus(backend: str = BusConfig.backend, shm_dir: str = BusConfig.shm_dir,
         return MemoryFrameBus()
     if backend == "redis":
         raise NotImplementedError(
-            "bus backend 'redis' is not ported yet: it comes with the wire and the "
-            "stream-control plane (gRPC, Server, ProcessManager) in a later slice; "
-            "use 'shm' or 'memory'")
+            "bus backend 'redis' is not ported yet: it comes with the Redis annotation "
+            "queue in a later slice; use 'shm' or 'memory'")
     raise ValueError(f"unknown bus backend {backend!r}")
 
 

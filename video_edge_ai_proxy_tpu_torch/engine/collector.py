@@ -25,6 +25,13 @@ closed set of shapes.
   joins them to the fast path on the next tick.
 - ``set_bucket_cap`` hides the largest buckets (degradation-ladder rung
   ``bucket_downshift``), ``restrict`` limits the streams read.
+- **Per-stream models.** With ``model_of`` (device_id -> ``(model,
+  clip_len)``, or None for the default model), each stream is batched
+  with the streams of its own model: groups are keyed by (model,
+  geometry), a video model's streams sample clips of its own
+  ``clip_len``, and ``inference_model: "none"`` (the resolver's
+  ``("none", 0)``) gates the stream out of the batches and out of
+  ``keep_streams_hot``, whatever its interest.
 - **Interest gating.** With ``interest_of`` (device_id -> does anything
   consume this stream's results now), a stream whose interest lapsed
   keeps being inferred for ``active_window_s`` (the linger), then drops
@@ -34,8 +41,7 @@ closed set of shapes.
   decoding the frames between keyframes. A stream that never had interest
   is gated at once. Without ``interest_of`` nothing is gated.
 
-ROI canvases (``CanvasPacker``), per-stream model routing (and its
-``inference_model: "none"`` gate) and the mesh-sharded layouts are later
+ROI canvases (``CanvasPacker``) and the mesh-sharded layouts are later
 slices.
 """
 
@@ -91,7 +97,8 @@ def host_empty(shape: tuple) -> np.ndarray:
 
 class Collector:
     """Per-stream cursors, the batch pool, clip windows and per-tick batch
-    assembly. ``clip_len`` > 0 (a video model) makes every sample a clip.
+    assembly. ``clip_len`` > 0 (a video model) makes every sample of the
+    default model a clip.
     ``alloc(shape)`` returns an uninitialised uint8 host array for batch
     buffers (default ``np.empty``)."""
 
@@ -104,6 +111,7 @@ class Collector:
     def __init__(self, bus: FrameBus, *, buckets: Sequence[int] = (1, 2, 4, 8, 16, 32, 64),
                  clip_len: int = 0, active_window_s: float = 10.0, default_model: str = "",
                  interest_of: Optional[Callable[[str], bool]] = None,
+                 model_of: Optional[Callable[[str], Optional[tuple]]] = None,
                  strict_lease: bool = False,
                  alloc: Callable[[tuple], np.ndarray] = host_empty):
         self._bus = bus
@@ -115,6 +123,7 @@ class Collector:
         self._alloc = alloc
         self._active_window_s = active_window_s
         self._interest_of = interest_of
+        self._model_of = model_of
         self._last_interest: Dict[str, float] = {}   # device_id -> monotonic s
         self._cursors: Dict[str, int] = {}
         self._clips: Dict[str, deque] = {}
@@ -155,10 +164,22 @@ class Collector:
             ids = [d for d in ids if d in self._only]
         return sorted(ids)
 
+    def _stream_model(self, device_id: str) -> tuple:
+        """(model name, clip_len) of one stream: the resolver's answer, or
+        the default model's."""
+        if self._model_of is not None:
+            resolved = self._model_of(device_id)
+            if resolved:
+                return resolved
+        return self._default_model, self.clip_len
+
     def _gated(self, device_id: str) -> bool:
-        """True when the stream must not be inferred this tick: nothing
+        """True when the stream must not be inferred this tick: its
+        inference is switched off (``inference_model: "none"``), or nothing
         consumes its results and the ``active_window_s`` linger ran out
         (or it never had interest)."""
+        if self._stream_model(device_id)[0] == "none":
+            return True
         if self._interest_of is None:
             return False
         now = time.monotonic()
@@ -348,22 +369,22 @@ class Collector:
         buckets = self._effective_buckets()
         max_bucket = buckets[-1]
         plan: Dict[tuple, list] = {}
-        if not self.clip_len:
-            for device_id in device_ids:
-                geom = self._geom.get(device_id)
-                if geom is not None:
-                    plan.setdefault(geom, []).append(device_id)
+        for device_id in device_ids:
+            model, clip_len = self._stream_model(device_id)
+            geom = self._geom.get(device_id)
+            if not clip_len and geom is not None:
+                plan.setdefault((model, geom), []).append(device_id)
         groups: Dict[tuple, dict] = {}
         of: Dict[str, tuple] = {}
-        for geom, devs in sorted(plan.items()):
+        for (model, geom), devs in sorted(plan.items()):
             for ci, start in enumerate(range(0, len(devs), max_bucket)):
                 chunk = devs[start:start + max_bucket]
                 alloc = bucket_for(len(chunk), buckets)
                 shape = (alloc,) + geom
                 buf, bidx = self._pooled(shape)
-                key = (geom, ci)
-                groups[key] = {"geom": geom, "shape": shape, "buf": buf, "idx": bidx,
-                               "ids": [], "metas": [], "slot": {}, "hw": 0}
+                key = (model, geom, ci)
+                groups[key] = {"model": model, "geom": geom, "shape": shape, "buf": buf,
+                               "idx": bidx, "ids": [], "metas": [], "slot": {}, "hw": 0}
                 for device_id in chunk:
                     of[device_id] = key
         self._window = {"groups": groups, "of": of, "spill": []}
@@ -396,7 +417,7 @@ class Collector:
                 self._note_read(device_id, res.seq)
                 if res.data.ndim == 3:
                     self._geom[device_id] = res.data.shape
-                win["spill"].append((device_id, res))
+                win["spill"].append((device_id, g["model"], res))
                 drifted.append(device_id)
                 continue
             seq, meta = res
@@ -415,27 +436,27 @@ class Collector:
     # -- the tick ----------------------------------------------------------------
 
     def _fast_group(self, buf: np.ndarray, shape: tuple, idx, ids: list, metas: list,
-                    touched: int, buckets: Sequence[int]) -> BatchGroup:
+                    touched: int, buckets: Sequence[int], model: str) -> BatchGroup:
         n = len(ids)
         bucket = bucket_for(n, buckets)
         self._zero_pad_rows(buf, shape, idx, n, touched)
         group = BatchGroup(src_hw=shape[1:3], device_ids=ids, frames=buf[:bucket],
-                           metas=metas, bucket=bucket, model=self._default_model)
+                           metas=metas, bucket=bucket, model=model)
         self._lease(group, shape, idx)
         return group
 
-    def _clip(self, device_id: str, frame: Frame) -> "deque | None":
+    def _clip(self, device_id: str, frame: Frame, clip_len: int) -> "deque | None":
         """Append ``frame`` to the stream's window; the full window once it
         holds clip_len frames, else None."""
         window = self._clips.get(device_id)
-        if window is None or window.maxlen != self.clip_len:
+        if window is None or window.maxlen != clip_len:
             # (Re)create on a clip-length change: no stale window carries over.
-            window = deque(maxlen=self.clip_len)
+            window = deque(maxlen=clip_len)
             self._clips[device_id] = window
         if window and window[-1].data.shape != frame.data.shape:
             window.clear()      # a geometry change starts a new clip
         window.append(frame)
-        return window if len(window) == self.clip_len else None
+        return window if len(window) == clip_len else None
 
     def collect(self, device_ids: Optional[Sequence[str]] = None) -> List[BatchGroup]:
         """One tick: newest unseen frame per stream -> geometry-grouped,
@@ -464,20 +485,22 @@ class Collector:
                     # The full bucket list: the window's buffer predates any
                     # cap and its size is a member of the full list >= n.
                     groups.append(self._fast_group(g["buf"], g["shape"], g["idx"], g["ids"],
-                                                   g["metas"], g["hw"], self._buckets))
+                                                   g["metas"], g["hw"], self._buckets,
+                                                   g["model"]))
 
         fast: Dict[tuple, list] = {}
         slow: List[str] = []
         for device_id in device_ids:
             if device_id in planned:
                 continue
+            model, clip_len = self._stream_model(device_id)
             geom = self._geom.get(device_id)
-            if self.clip_len or geom is None:
+            if clip_len or geom is None:
                 slow.append(device_id)
             else:
-                fast.setdefault(geom, []).append(device_id)
+                fast.setdefault((model, geom), []).append(device_id)
 
-        for geom, devs in sorted(fast.items()):
+        for (model, geom), devs in sorted(fast.items()):
             for start in range(0, len(devs), max_bucket):
                 chunk = devs[start:start + max_bucket]
                 shape = (bucket_for(len(chunk), buckets),) + geom
@@ -497,7 +520,7 @@ class Collector:
                         self._note_read(device_id, res.seq)
                         if res.data.ndim == 3:
                             self._geom[device_id] = res.data.shape
-                        spill.append((device_id, res))
+                        spill.append((device_id, model, res))
                         continue
                     seq, meta = res
                     self._note_read(device_id, seq)
@@ -505,7 +528,7 @@ class Collector:
                     metas.append(meta)
                 if ids:
                     groups.append(self._fast_group(buf, shape, bidx, ids, metas, touched,
-                                                   buckets))
+                                                   buckets, model))
                 elif bidx is not None:
                     self._unrotate(shape)
 
@@ -521,21 +544,24 @@ class Collector:
             if frame.data.ndim != 3:
                 continue    # a corrupt frame carries no geometry to batch on
             self._geom[device_id] = frame.data.shape
-            sample = self._clip(device_id, frame) if self.clip_len else frame.data
+            model, clip_len = self._stream_model(device_id)
+            sample = self._clip(device_id, frame, clip_len) if clip_len else frame.data
             if sample is not None:
-                by_hw.setdefault(frame.data.shape, []).append((device_id, frame.meta, sample))
-        for device_id, frame in spill:
+                by_hw.setdefault((model, clip_len, frame.data.shape), []).append(
+                    (device_id, frame.meta, sample))
+        for device_id, model, frame in spill:
             if frame.data.ndim == 3:
-                by_hw.setdefault(frame.data.shape, []).append((device_id, frame.meta, frame.data))
-        for shape, items in sorted(by_hw.items()):
+                by_hw.setdefault((model, 0, frame.data.shape), []).append(
+                    (device_id, frame.meta, frame.data))
+        for (model, clip_len, shape), items in sorted(by_hw.items()):
             for start in range(0, len(items), max_bucket):
                 chunk = items[start:start + max_bucket]
                 n = len(chunk)
                 bucket = bucket_for(n, buckets)
-                sample_shape = ((self.clip_len,) + shape) if self.clip_len else shape
+                sample_shape = ((clip_len,) + shape) if clip_len else shape
                 batch = self._alloc((bucket,) + sample_shape)
                 for i, (_, _, sample) in enumerate(chunk):
-                    if self.clip_len:
+                    if clip_len:
                         for t, f in enumerate(sample):
                             batch[i, t] = f.data
                     else:
@@ -544,6 +570,6 @@ class Collector:
                     batch[n:] = 0
                 groups.append(BatchGroup(
                     src_hw=shape[:2], device_ids=[d for d, _, _ in chunk], frames=batch,
-                    metas=[m for _, m, _ in chunk], bucket=bucket, model=self._default_model,
+                    metas=[m for _, m, _ in chunk], bucket=bucket, model=model,
                 ))
         return groups

@@ -34,8 +34,27 @@ the CPU, where the caller asked for it, the step runs eagerly.
   their own stream once the step's event completes, then per stream the
   tracker, the quality verdicts, the SLO samples and the result.
 
-Results are plain dataclasses with the proto's field names. Stage traces, the journal, the watchdog, ROI, the cascade, the mesh
-paths and the gRPC surface are later slices.
+Results are plain dataclasses with the proto's field names; the server's
+gRPC wire converts them to the proto messages.
+
+Per-stream models: with ``model_resolver`` (device_id -> registry name,
+"" for the default, "none" for inference off) a stream is served by a
+model of its own, built on first use from the port's registry on the
+engine's device (``_ensure_model``); its program is one more key of the
+step cache. An unknown name, or a model that fails to build, falls back
+to the default model behind a failure breaker that half-opens after
+``BAD_MODEL_BACKOFF_S``, doubling up to ``BAD_MODEL_BACKOFF_MAX_S``.
+
+The annotation uplink: with ``annotations`` (an ``AnnotationQueue``) every
+emitted frame's detections become ``AnnotateRequest`` wire bytes on the
+queue (``proto/annotate.py``), thinned by the emit policy
+(``cfg.annotation_emit`` or the stream's ``annotation_policy_resolver``
+override: all, keyframe, min_interval, on_change), and the quality
+verdicts' transitions go out as ``type="quality"`` events. An engine with
+an uplink has standing interest in every stream.
+
+Stage traces, the journal, the watchdog, ROI, the cascade and the mesh
+paths are later slices.
 """
 
 from __future__ import annotations
@@ -65,6 +84,8 @@ from ..ops.preprocess import (
     frame_quality_stats, preprocess_classify, preprocess_clip, preprocess_letterbox,
     unletterbox_boxes,
 )
+from ..proto.annotate import AnnotateRequest, encode as encode_annotation
+from ..proto.annotate import BoundingBox as AnnotationBox
 from ..replay.checksum import CHECKSUM_MASK, host_slot_checksum
 from ..resilience.ladder import RUNGS, DegradationLadder
 from ..utils.config import EngineConfig
@@ -179,6 +200,8 @@ class InferenceResult:
     latency_ms: float = 0.0       # capture -> result latency
     batch_size: int = 0           # device batch this frame rode in
     frame_packet: int = 0         # source packet counter
+    trace_id: int = 0             # the source frame's trace context (0 = unstamped)
+    parent_span: int = 0
 
 
 def to_detections(host: Dict[str, np.ndarray], i: int, kind: str,
@@ -710,8 +733,12 @@ class InferenceEngine:
     On the card every step runs as the replay of the CUDA graph of its
     (model, stem, geometry, bucket) key (``_GraphedStep``), captured on the
     key's first batch or at ``start()`` (``cfg.prewarm`` and the prewarm
-    manifest, ``compile_for``). The engine serves one model, with the
-    classic stem.
+    manifest, ``compile_for``), with the classic stem.
+
+    ``annotations``: the uplink queue (None: no annotations);
+    ``model_resolver`` and ``annotation_policy_resolver``: the per-stream
+    model and emit-policy overrides (the process manager's
+    ``inference_model_of`` and ``annotation_policy_of``).
     """
 
     # The stem variant of every program: the port serves the classic stem
@@ -722,9 +749,17 @@ class InferenceEngine:
     # shorter gaps (a producer re-creating its ring) keep it.
     _STATE_GC_GRACE_S = 10.0
 
+    # Per-stream model failure breaker: the first retry after this long,
+    # doubling per consecutive failure up to the cap.
+    BAD_MODEL_BACKOFF_S = 30.0
+    BAD_MODEL_BACKOFF_MAX_S = 600.0
+
     def __init__(self, bus: FrameBus, cfg: Optional[EngineConfig] = None, *,
                  device: "str | torch.device" = "cuda",
-                 model: Optional[torch.nn.Module] = None):
+                 model: Optional[torch.nn.Module] = None,
+                 annotations=None,
+                 model_resolver: Optional[Callable[[str], str]] = None,
+                 annotation_policy_resolver: Optional[Callable[[str], str]] = None):
         self._device = resolve_device(device)
         self._cuda = self._device.type == "cuda"
         self._cfg = cfg or EngineConfig()
@@ -733,15 +768,22 @@ class InferenceEngine:
         self._model = model
         self._buckets = tuple(sorted(self._cfg.batch_buckets))
         self._bus = bus
+        self._annotations = annotations
+        self._model_resolver = model_resolver
+        self._ann_policy_resolver = annotation_policy_resolver
+        # Per-stream extra models, name -> (spec, module), built on first
+        # use; the default model is (self._spec, self._model).
+        self._models: Dict[str, tuple] = {}
+        # The failure breaker: name -> {"failures", "retry_at" (monotonic),
+        # "error"}.
+        self._bad_models: Dict[str, dict] = {}
         self._collector = Collector(
             bus, buckets=self._buckets, clip_len=self._spec.clip_len,
             active_window_s=self._cfg.active_window_s, default_model=self._spec.name,
-            interest_of=self._stream_interest, strict_lease=True,
-            alloc=_pinned_empty if self._cuda else host_empty,
+            interest_of=self._stream_interest, model_of=self._stream_model,
+            strict_lease=True, alloc=_pinned_empty if self._cuda else host_empty,
         )
-        # Thumbnails (quality statistics) only for frame models.
-        self._thumb = 0 if self._spec.clip_len else self._cfg.quality_thumb
-        self._thumbs = _ThumbPool(self._thumb, self._device)
+        self._thumbs = _ThumbPool(self._cfg.quality_thumb, self._device)
         # Step cache: (model, stem, src_hw, bucket) -> the step of that key.
         self._steps: Dict[tuple, Callable] = {}
         # The graph memory pool the captures share (the card); a failed
@@ -774,6 +816,11 @@ class InferenceEngine:
         # loop forgets absent streams: one lock covers both.
         self._state_lock = threading.Lock()
         self._trackers: Dict[str, tuple] = {}        # device_id -> (model, IoUTracker)
+        # Emit-policy state per stream (on_change signatures, min_interval
+        # stamps), under _state_lock like the trackers.
+        self._ann_state: Dict[str, dict] = {}
+        self._ann_policy_warned: set = set()   # (device_id, unknown policy)
+        self.annotations_suppressed = 0
         self._known: set = set()                     # streams seen on the bus
         self._absent: Dict[str, float] = {}          # device_id -> absent since
         self.ticks = 0
@@ -809,6 +856,7 @@ class InferenceEngine:
                 enter_s=self._cfg.quality_enter_s, exit_s=self._cfg.quality_exit_s,
                 flatline_s=self._cfg.quality_flatline_s, window_s=self._cfg.quality_window_s,
                 drift_threshold=self._cfg.quality_drift_threshold,
+                on_transition=self._on_quality_transition,
             )
         self._m_batches = obs_registry.counter(
             "vep_engine_batches_total", "Device batches dispatched").labels()
@@ -827,6 +875,67 @@ class InferenceEngine:
             "Serving-step cache misses (each captures a CUDA graph on the card)").labels()
         self._m_cache_hit = obs_registry.counter(
             "vep_step_cache_hits_total", "Serving-step cache hits").labels()
+
+    # -- models ---------------------------------------------------------------
+
+    def _thumb_side(self, spec) -> int:
+        """Quality thumbnails only for frame models."""
+        return 0 if spec.clip_len else self._cfg.quality_thumb
+
+    def _model_entry(self, name: Optional[str]) -> tuple:
+        """(spec, module) of the default model (None, "" or its name) or
+        of a per-stream model already built."""
+        if not name or name == self._spec.name:
+            return self._spec, self._model
+        return self._models[name]
+
+    def _ensure_model(self, name: str) -> tuple:
+        """(spec, module) of a registry model, built on first use on the
+        engine's device and dtype with random weights from seed 0 (as the
+        JAX engine initialises its extras from PRNGKey(0))."""
+        entry = self._models.get(name)
+        if entry is None:
+            spec = registry.get(name)
+            module = spec.init_params(torch.Generator().manual_seed(0), device=self._device,
+                                      dtype=self._dtype)
+            if self._cuda:
+                torch.cuda.synchronize(self._device)
+            entry = (spec, module)
+            self._models[name] = entry
+            log.info("engine loaded extra model '%s' (kind=%s)", name, spec.kind)
+        return entry
+
+    def _stream_model(self, device_id: str) -> Optional[tuple]:
+        """The collector's resolver: (model name, clip_len) of a stream,
+        ("none", 0) when its inference is off, None for the default model.
+        A model that cannot be built falls back to the default behind the
+        failure breaker (half-open after an exponential backoff)."""
+        if self._model_resolver is None:
+            return None
+        name = self._model_resolver(device_id)
+        if name == "none":
+            return "none", 0
+        if not name or name == self._spec.name:
+            return None
+        bad = self._bad_models.get(name)
+        if bad is not None and time.monotonic() < bad["retry_at"]:
+            return None
+        try:
+            spec, _ = self._ensure_model(name)
+        except Exception as exc:
+            failures = (bad["failures"] if bad else 0) + 1
+            backoff = min(self.BAD_MODEL_BACKOFF_S * (2 ** (failures - 1)),
+                          self.BAD_MODEL_BACKOFF_MAX_S)
+            self._bad_models[name] = {"failures": failures,
+                                      "retry_at": time.monotonic() + backoff,
+                                      "error": f"{type(exc).__name__}: {exc}"}
+            log.exception("stream %s model '%s' unavailable (failure %d); using default, "
+                          "retrying in %.0fs", device_id, name, failures, backoff)
+            return None
+        if bad is not None:
+            self._bad_models.pop(name, None)
+            log.info("model '%s' recovered after %d failure(s)", name, bad["failures"])
+        return name, spec.clip_len
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -934,27 +1043,27 @@ class InferenceEngine:
                     stem: Optional[str] = None) -> None:
         """Build the program of one (source geometry, bucket) ahead of its
         first batch: on the card, capture its graph by running it once over
-        zero frames. An entry pinned to another stem, or naming another
-        model than the engine's own (an engine serves one model), is
-        skipped with a warning."""
+        zero frames. ``model``: a registry model other than the default
+        (a per-stream model, built here if it is not yet). An entry pinned
+        to another stem is skipped with a warning."""
         if stem is not None and stem != self._STEM:
             log.warning("prewarm entry pinned stem=%r but the engine serves stem=%r; "
                         "skipping %sx%s bucket=%d", stem, self._STEM, src_hw[0], src_hw[1],
                         bucket)
             return
-        if model and model != self._spec.name:
-            log.warning("prewarm entry names model %r but the engine serves %r; skipping "
-                        "%sx%s bucket=%d", model, self._spec.name, src_hw[0], src_hw[1], bucket)
-            return
         self.warmup()
-        shape = ((bucket,) + ((self._spec.clip_len,) if self._spec.clip_len else ())
+        if model and model != self._spec.name:
+            self._ensure_model(model)
+        spec, _ = self._model_entry(model)
+        thumb = self._thumb_side(spec)
+        shape = ((bucket,) + ((spec.clip_len,) if spec.clip_len else ())
                  + tuple(src_hw) + (3,))
         with self._compute_stream(), torch.inference_mode():
             args = [torch.zeros(shape, dtype=torch.uint8, device=self._device)]
-            if self._thumb:
-                args.append(torch.zeros((bucket, self._thumb, self._thumb),
+            if thumb:
+                args.append(torch.zeros((bucket, thumb, thumb),
                                         dtype=torch.float32, device=self._device))
-            self._step(src_hw, bucket)(*args)
+            self._step(src_hw, bucket, spec.name)(*args)
 
     def graph_stats(self) -> dict:
         """The captured graphs: how many, their capture seconds in all, and
@@ -1034,6 +1143,13 @@ class InferenceEngine:
             "last_tick_age_s": age,
             "ladder": self.ladder.rung if self.ladder is not None else "normal",
             "error": repr(self._errors[0]) if self._errors else None,
+            # Per-stream models behind the failure breaker (informational:
+            # their streams serve the default model meanwhile).
+            "disabled_models": {
+                name: {"failures": bad["failures"],
+                       "retry_in_s": round(max(0.0, bad["retry_at"] - time.monotonic()), 1),
+                       "error": bad["error"]}
+                for name, bad in list(self._bad_models.items())},
         }
         out["ok"] = (out["engine_thread_alive"] and out["drain_thread_alive"]
                      and (not self._cfg.prefetch or out["xfer_thread_alive"])
@@ -1044,11 +1160,14 @@ class InferenceEngine:
     # -- consumers ---------------------------------------------------------
 
     def _stream_interest(self, device_id: str) -> bool:
-        """Does anything consume this stream's results now: a live
-        subscriber that covers it. With none, inferring would compute
-        results nobody reads, and the collector gates the stream out. (The
-        annotation uplink and the canary loop, also interest in the JAX
-        engine, are not ported.)"""
+        """Does anything consume this stream's results now: the annotation
+        uplink (standing interest in every stream: the engine feeds the
+        cloud what the reference's clients fed it), else a live subscriber
+        that covers it. With neither, inferring would compute results
+        nobody reads, and the collector gates the stream out. (The canary
+        loop, also interest in the JAX engine, is not ported.)"""
+        if self._annotations is not None:
+            return True
         with self._sub_lock:
             return any(ids is None or device_id in ids for _, ids in self._subscribers)
 
@@ -1273,6 +1392,7 @@ class InferenceEngine:
             self._collector.drop_stream(d)
             with self._state_lock:
                 self._trackers.pop(d, None)
+                self._ann_state.pop(d, None)
                 self._thumbs.pop(d)
                 if self.quality is not None:
                     self.quality.forget(d)
@@ -1298,26 +1418,27 @@ class InferenceEngine:
             self._slo_next_eval = now + self._cfg.slo_eval_interval_s
             self._slo_burning = self.slo.evaluate()["burning"]
 
-    def _step(self, src_hw: tuple, bucket: int) -> Callable:
-        """The step of (the engine's model, its stem, ``src_hw``,
-        ``bucket``): on the card a ``_GraphedStep``, captured at its first
-        call; on the CPU the eager step. A new key records its program in
-        the prewarm manifest after its first call that returns."""
+    def _step(self, src_hw: tuple, bucket: int, model: Optional[str] = None) -> Callable:
+        """The step of (``model``, default: the engine's; its stem,
+        ``src_hw``, ``bucket``): on the card a ``_GraphedStep``, captured
+        at its first call; on the CPU the eager step. A new key records its
+        program in the prewarm manifest after its first call that
+        returns."""
         src_hw = tuple(int(v) for v in src_hw)
-        name = self._spec.name
+        spec, module = self._model_entry(model)
+        name = spec.name
+        thumb = self._thumb_side(spec)
         key = (name, self._STEM, src_hw, bucket)
         fn = self._steps.get(key)
         if fn is not None:
             self._m_cache_hit.inc()
             return fn
         self._m_cache_miss.inc()
-        build = functools.partial(build_serving_step, self._model, self._spec,
-                                  quality_thumb=self._thumb)
+        build = functools.partial(build_serving_step, module, spec, quality_thumb=thumb)
         if self._cuda:
-            shape = ((bucket,) + ((self._spec.clip_len,) if self._spec.clip_len else ())
-                     + src_hw + (3,))
+            shape = ((bucket,) + ((spec.clip_len,) if spec.clip_len else ()) + src_hw + (3,))
             fn = _GraphedStep(
-                build, shape, (self._thumb, self._thumb) if self._thumb else None,
+                build, shape, (thumb, thumb) if thumb else None,
                 device=self._device, pool=self._current_graph_pool,
                 on_capture=functools.partial(self.perf.note_compile, name, src_hw, bucket),
                 on_capture_failed=self._retire_graph_pool)
@@ -1358,7 +1479,7 @@ class InferenceEngine:
             top_up(_PrefetchStage.DEPTH)
         for gi, group in enumerate(groups):
             try:
-                step = self._step(group.src_hw, group.bucket)
+                step = self._step(group.src_hw, group.bucket, group.model)
                 if prefetch:
                     top_up(gi + 1 + _PrefetchStage.DEPTH)
                     pre = handles[gi]
@@ -1405,7 +1526,7 @@ class InferenceEngine:
             placed.record_stream(stream)
             start = torch.cuda.Event(enable_timing=True)
             start.record(stream)
-        if self._thumb:
+        if self._thumb_side(self._model_entry(group.model)[0]):
             outputs = dict(step(placed, self._thumbs.gather(group.device_ids, group.bucket)))
             self._thumbs.scatter(group.device_ids, outputs.pop("quality_thumbs"))
         else:
@@ -1480,8 +1601,9 @@ class InferenceEngine:
         else:
             device_ms = (t_drained - inflight.t_submit) * 1000.0
         now_ms = int(t_drained * 1000)
-        kind = self._spec.kind
-        num_classes = self._model.cfg.num_classes
+        spec, module = self._model_entry(group.model)
+        kind = spec.kind
+        num_classes = module.cfg.num_classes
         slo_latency = (self.slo.get("detect_latency_p50")
                        if self.slo is not None and kind == "detect" else None)
         capture_sum = 0.0
@@ -1492,7 +1614,7 @@ class InferenceEngine:
                 # Empty frames too: misses must accumulate so stale tracks
                 # expire.
                 t_track = time.perf_counter()
-                self._assign_tracks(device_id, self._spec.name, detections)
+                self._assign_tracks(device_id, spec.name, detections)
                 track_s += time.perf_counter() - t_track
             if self.quality is not None:
                 self._observe_quality(host, i, device_id, detections)
@@ -1500,10 +1622,11 @@ class InferenceEngine:
             if meta.timestamp_ms:
                 capture_sum += inflight.t_collect * 1000.0 - meta.timestamp_ms
             self._publish(InferenceResult(
-                device_id=device_id, timestamp=meta.timestamp_ms, model=self._spec.name,
+                device_id=device_id, timestamp=meta.timestamp_ms, model=spec.name,
                 detections=detections, latency_ms=latency, batch_size=group.bucket,
-                frame_packet=meta.packet,
+                frame_packet=meta.packet, trace_id=meta.trace_id, parent_span=meta.parent_span,
             ))
+            self._annotate(device_id, meta, detections, spec)
             if kind == "detect":
                 self._checksum = (self._checksum + host_slot_checksum(host, i)) & CHECKSUM_MASK
             st = self._stats.setdefault(device_id, StreamStats())
@@ -1562,6 +1685,102 @@ class InferenceEngine:
                       "diff_energy": float(qs[i, 2])}
         self.quality.observe(device_id, classes=[d.class_id for d in detections],
                              scores=[d.confidence for d in detections], **kwargs)
+
+    # -- the annotation uplink --------------------------------------------------
+
+    def _annotate(self, device_id: str, meta, detections: Sequence[Detection], spec=None) -> None:
+        """One emitted frame's detections -> AnnotateRequest wire bytes on
+        the uplink queue, when the stream's emit policy lets them through
+        (the rest count in ``annotations_suppressed``)."""
+        if self._annotations is None:
+            return
+        spec = spec or self._spec
+        eligible = [d for d in detections if d.confidence > 0.0 and d.class_id >= 0]
+        if not self._should_annotate(device_id, meta, eligible):
+            self.annotations_suppressed += len(eligible)
+            return
+        detect = spec.kind == "detect"
+        for det in eligible:
+            req = AnnotateRequest(
+                device_name=device_id,
+                type="detection" if detect else spec.kind,
+                start_timestamp=meta.timestamp_ms or int(time.time() * 1000),
+                object_type=det.class_name,
+                object_tracking_id=det.track_id,
+                confidence=det.confidence,
+                # A detector's results carry a box, a classifier's none.
+                object_bouding_box=(AnnotationBox(top=det.box.top, left=det.box.left,
+                                                  width=det.box.width, height=det.box.height)
+                                    if detect else None),
+                ml_model=spec.name,
+                ml_model_version="0",
+                width=meta.width,
+                height=meta.height,
+                is_keyframe=meta.is_keyframe,
+            )
+            self._annotations.publish(encode_annotation(req))
+
+    def _should_annotate(self, device_id: str, meta, eligible: Sequence[Detection]) -> bool:
+        """The stream's emit policy (cfg.annotation_emit, or its
+        annotation_policy override): all, keyframe, min_interval (at most
+        one frame's annotations per annotation_min_interval_ms; a frame
+        with nothing to emit does not use the slot) or on_change (the
+        tracked object set changed, or a confidence moved more than
+        annotation_confidence_delta). An unknown policy emits all, with
+        one warning per stream."""
+        policy = ""
+        if self._ann_policy_resolver is not None:
+            policy = self._ann_policy_resolver(device_id) or ""
+        policy = policy or self._cfg.annotation_emit
+        if policy == "all":
+            return True
+        if policy == "keyframe":
+            return bool(meta.is_keyframe)
+        if policy not in ("min_interval", "on_change"):
+            if (device_id, policy) not in self._ann_policy_warned:
+                self._ann_policy_warned.add((device_id, policy))
+                log.warning("unknown annotation policy %r for %s; emitting all", policy,
+                            device_id)
+            return True
+        # Under _state_lock: the tick thread's GC drops the state of
+        # streams gone from the bus.
+        with self._state_lock:
+            st = self._ann_state.setdefault(device_id, {})
+            if policy == "min_interval":
+                if not eligible:
+                    return True
+                now = meta.timestamp_ms or int(time.time() * 1000)
+                last = st.get("last_ms")
+                if last is not None and now - last < self._cfg.annotation_min_interval_ms:
+                    return False
+                st["last_ms"] = now
+                return True
+            # on_change: track ids when the tracker runs, else per-class
+            # maximum confidence.
+            cur: Dict[str, float] = {}
+            for det in eligible:
+                key = det.track_id or f"class{det.class_id}"
+                cur[key] = max(cur.get(key, 0.0), det.confidence)
+            prev = st.get("sig")
+            delta = self._cfg.annotation_confidence_delta
+            changed = prev is None or set(cur) != set(prev) or any(
+                abs(cur[k] - prev[k]) > delta for k in cur)
+            if changed:
+                st["sig"] = cur
+            return changed and bool(eligible)
+
+    def _on_quality_transition(self, stream: str, old: str, new: str) -> None:
+        """A quality verdict's transition (black, frozen, flatline, their
+        recoveries) goes out on the uplink as a ``type="quality"`` event."""
+        if self._annotations is None:
+            return
+        req = AnnotateRequest(device_name=stream, type="quality",
+                              start_timestamp=int(time.time() * 1000), object_type=new,
+                              confidence=1.0, ml_model="obs.quality", ml_model_version=old)
+        try:
+            self._annotations.publish(encode_annotation(req))
+        except Exception:
+            log.exception("quality alert publish failed")
 
     def _publish(self, result: InferenceResult) -> None:
         with self._sub_lock:

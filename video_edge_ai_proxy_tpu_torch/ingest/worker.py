@@ -181,6 +181,7 @@ class IngestWorker:
             "pid": os.getpid(),
             "running": not self._stop.is_set(),
             "packets": self._packets,
+            "audio_packets": 0,       # the port's sources carry no audio
             "keyframes": self._keyframes,
             "decoded": self._decoded,
             "published": self._published,

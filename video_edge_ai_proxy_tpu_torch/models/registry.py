@@ -75,6 +75,10 @@ def register(spec: ModelSpec) -> ModelSpec:
     return spec
 
 
+def names() -> list:
+    return sorted(_REGISTRY)
+
+
 def get(name: str) -> ModelSpec:
     if name not in _REGISTRY:
         raise KeyError(f"unknown model '{name}'; registered: {sorted(_REGISTRY)}")

@@ -5,14 +5,17 @@ port's modules record into: families of counters, gauges and fixed log2
 histograms (2^-4 ms .. 2^14 ms plus overflow; percentiles derived from
 the bucket counts, no samples stored). One lock acquire and an add per
 observation; hot paths hold a child handle so no observation looks a name
-up. The Prometheus text rendering and its linter are not ported.
+up. ``render`` writes the Prometheus text exposition (0.0.4) and
+``snapshot`` a JSON view, for the server's ``/metrics`` and
+``/api/v1/stats``; the exposition linter and the constant labels of the
+fleet tier are not ported.
 """
 
 from __future__ import annotations
 
 import math
 import threading
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 LOG2_LO = -4
 LOG2_HI = 14
@@ -46,6 +49,11 @@ class Counter:
     def inc(self, n: float = 1.0) -> None:
         with self._lock:
             self._v += n
+
+    def set(self, v: float) -> None:
+        """Scrape-time mirror of a total another object counts (the
+        annotation queue's acks); hot paths call inc()."""
+        self._v = float(v)
 
     @property
     def value(self) -> float:
@@ -118,6 +126,17 @@ class Histogram:
                 return lo + (hi - lo) * (rank - lo_cum) / c
         return BUCKET_BOUNDS[-1]
 
+    def snapshot(self) -> dict:
+        with self._lock:
+            total = self._count
+            s = self._sum
+        out = {"count": total, "sum": round(s, 3),
+               "avg": round(s / total, 3) if total else None}
+        for p in (50, 90, 99):
+            q = self.percentile(p)
+            out[f"p{p}"] = round(q, 3) if q is not None else None
+        return out
+
 
 _KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
 
@@ -147,6 +166,20 @@ class Family:
                 child = _KINDS[self.kind]()
                 self._children[values] = child
             return child
+
+    def set(self, v: float) -> None:
+        """An unlabelled family's value: ``registry.gauge("x").set(v)``."""
+        self.labels().set(v)
+
+    def clear(self) -> None:
+        """Drop every child: a family repopulated at each scrape (per
+        worker), where a removed camera must stop exporting."""
+        with self._lock:
+            self._children.clear()
+
+    def children(self) -> List[Tuple[Tuple[str, ...], object]]:
+        with self._lock:
+            return sorted(self._children.items())
 
 
 class Registry:
@@ -180,6 +213,68 @@ class Registry:
     def histogram(self, name: str, help_text: str = "",
                   labelnames: Iterable[str] = ()) -> Family:
         return self._family(name, "histogram", help_text, labelnames)
+
+
+    def families(self) -> List[Family]:
+        with self._lock:
+            return list(self._families.values())
+
+    @staticmethod
+    def _labelstr(names: Tuple[str, ...], values: Tuple[str, ...], extra: str = "") -> str:
+        def esc(v: str) -> str:
+            return str(v).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+        pairs = [f'{n}="{esc(v)}"' for n, v in zip(names, values)]
+        if extra:
+            pairs.append(extra)
+        return "{" + ",".join(pairs) + "}" if pairs else ""
+
+    def render(self) -> str:
+        """Prometheus text exposition 0.0.4: HELP and TYPE per family,
+        histograms as cumulative _bucket/_sum/_count."""
+        lines: List[str] = []
+        for fam in self.families():
+            children = fam.children()
+            if not children:
+                continue
+            help_text = fam.help.replace("\\", "\\\\").replace("\n", "\\n")
+            lines.append(f"# HELP {fam.name} {help_text}")
+            lines.append(f"# TYPE {fam.name} {fam.kind}")
+            for values, child in children:
+                if fam.kind != "histogram":
+                    lines.append(f"{fam.name}{self._labelstr(fam.labelnames, values)} "
+                                 f"{child.value:g}")
+                    continue
+                with child._lock:
+                    counts = list(child._counts)
+                    total = child._count
+                    s = child._sum
+                cum = 0
+                for i, bound in enumerate(BUCKET_BOUNDS):
+                    cum += counts[i]
+                    ls = self._labelstr(fam.labelnames, values, f'le="{bound:g}"')
+                    lines.append(f"{fam.name}_bucket{ls} {cum}")
+                ls = self._labelstr(fam.labelnames, values, 'le="+Inf"')
+                lines.append(f"{fam.name}_bucket{ls} {total}")
+                ls = self._labelstr(fam.labelnames, values)
+                lines.append(f"{fam.name}_sum{ls} {s:g}")
+                lines.append(f"{fam.name}_count{ls} {total}")
+        return "\n".join(lines) + "\n"
+
+    def snapshot(self) -> dict:
+        """JSON view of every family with a child."""
+        out: dict = {}
+        for fam in self.families():
+            samples = []
+            for values, child in fam.children():
+                labels = dict(zip(fam.labelnames, values))
+                if fam.kind == "histogram":
+                    samples.append({"labels": labels, **child.snapshot()})
+                else:
+                    samples.append({"labels": labels, "value": child.value})
+            if samples:
+                out[fam.name] = {"kind": fam.kind, "samples": samples}
+        return out
 
 
 # The process-wide registry the port's modules record into.

@@ -109,3 +109,11 @@ class DegradationLadder:
         with self._lock:
             return RUNGS[self._rung]
 
+
+    def snapshot(self) -> dict:
+        """The rung and the transition counts (the server's
+        ``/api/v1/router`` and the admin ``RouterState``); no fleet router
+        attaches to the port's ladder."""
+        with self._lock:
+            return {"rung": RUNGS[self._rung], "transitions": dict(self.transitions),
+                    "fleet_attached": False}

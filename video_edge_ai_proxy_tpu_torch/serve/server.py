@@ -1,0 +1,252 @@
+"""Server entry point (counterpart of ``video_edge_ai_proxy_tpu/serve/server.py``):
+wires the registry, the bus, the camera process manager, the cron, the
+annotation uplink, the inference engine and the REST and gRPC wire.
+
+    python -m video_edge_ai_proxy_tpu_torch.serve.server --conf conf.yaml \\
+        --data_dir /data/chrysalis --engine
+
+Boot order as in the JAX server: registry resume (cameras restart, or are
+re-adopted with ``worker_adoption``), cron, the annotation consumer, REST,
+the engine, gRPC. Stop order: gRPC, REST, the engine, the uplink, the
+cron, then the workers are detached (``worker_adoption``: they keep
+publishing and the next boot re-adopts them) or stopped, and the bus and
+the registry are closed.
+
+The engine runs on the card (``device="cuda"``) unless the caller asks
+for the CPU. It takes its per-stream model and annotation policy from the
+process manager's registry records.
+
+``Server.__init__`` and every plane but the wire import neither ``grpc``,
+``google.protobuf`` nor ``aiohttp`` (nor ``yaml``, unless ``load_config``
+reads a file); ``start()`` imports the wire modules first and raises their
+``ImportError`` before it starts anything: there is no server without its
+wire. Planes of the JAX server that the port lacks stay off, each with a
+log line: the decision journal and the profiler, the fleet aggregator,
+router and supervisor, and the persistent XLA compile cache (no
+counterpart).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import os
+import signal
+import threading
+from typing import Optional
+
+from ..bus import open_bus
+from ..resilience.spool import DeadLetterSpool
+from ..uplink import AnnotationQueue, make_batch_handler
+from ..utils.config import Config, load_config
+from .cron import CronJobs
+from .process_manager import ProcessManager
+from .settings import SettingsManager
+from .storage import Storage
+
+log = logging.getLogger("vep.torch.serve.server")
+
+# (config switch, what stays off) for the JAX server's planes the port
+# lacks; a YAML file may set them, and the server says it ignores them.
+_NOT_PORTED = (
+    ("engine.journal", "the decision journal"),
+    ("engine.prof", "the profiler"),
+    ("obs.fleet_members", "the fleet aggregator"),
+    ("router.members", "the fleet router"),
+    ("supervisor.enabled", "the fleet supervisor"),
+    ("engine.compile_cache_dir", "the persistent XLA compile cache (no counterpart)"),
+)
+
+
+def make_admin_handler(engine):
+    """gRPC admin mirror of REST endpoints, JSON bytes in and out:
+    ``/vep.Admin/Quality`` (= ``GET /api/v1/quality``),
+    ``/vep.Admin/RouterState`` (= ``GET /api/v1/router``) and
+    ``/vep.Admin/ProfileCapture``, which answers FAILED_PRECONDITION: the
+    profiler is not ported. Imports ``grpc``."""
+    import json
+
+    import grpc
+
+    def profile_capture(request: bytes, context):
+        context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                      "profiling disabled (the profiler is not ported)")
+
+    def quality(request: bytes, context):
+        if engine is None or engine.quality is None:
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                          "quality tracking disabled (engine.quality config)")
+        out = engine.quality.snapshot()
+        out["canary"] = None
+        return json.dumps(out).encode()
+
+    def router_state(request: bytes, context):
+        if engine is None or engine.ladder is None:
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                          "degradation ladder disabled (engine.ladder config)")
+        return json.dumps(engine.ladder.snapshot()).encode()
+
+    def _rpc(fn):
+        return grpc.unary_unary_rpc_method_handler(
+            fn, request_deserializer=lambda b: b, response_serializer=lambda b: b)
+
+    return grpc.method_handlers_generic_handler(
+        "vep.Admin", {"ProfileCapture": _rpc(profile_capture), "Quality": _rpc(quality),
+                      "RouterState": _rpc(router_state)})
+
+
+class Server:
+    def __init__(self, cfg: Optional[Config] = None, *, data_dir: str = "/data/chrysalis",
+                 enable_engine: bool = False, grpc_port: Optional[int] = None,
+                 rest_port: Optional[int] = None, device: str = "cuda"):
+        self.cfg = cfg or load_config()
+        self.data_dir = data_dir
+        backend = self.cfg.bus.backend
+        if self.cfg.runner.kind != "subprocess":
+            raise ValueError(f"runner.kind={self.cfg.runner.kind!r}: the port runs "
+                             "'subprocess' workers (the container runner is not ported)")
+        for switch, what in _NOT_PORTED:
+            log.info("%s stays off: not ported (%s)", what, switch)
+        self.storage = Storage(os.path.join(data_dir, "registry.db"))
+        self.bus = open_bus(backend, self.cfg.bus.shm_dir, self.cfg.bus.redis_addr,
+                            self.cfg.bus.redis_password, self.cfg.bus.redis_db)
+        self.settings = SettingsManager(self.storage)
+        self.process_manager = ProcessManager(
+            self.storage, self.bus,
+            shm_dir=self.cfg.bus.shm_dir,
+            disk_buffer_path=(self.cfg.buffer.on_disk_folder if self.cfg.buffer.on_disk
+                              else ""),
+            bus_backend=backend,
+            redis_addr=self.cfg.bus.redis_addr,
+            redis_password=self.cfg.bus.redis_password,
+            redis_db=self.cfg.bus.redis_db,
+            # Adoption mode: camera pipelines survive a control-plane
+            # restart (workers log to files, resume() re-attaches).
+            log_dir=(os.path.join(data_dir, "worker_logs") if self.cfg.worker_adoption
+                     else ""),
+        )
+        # Batches that exhaust the uplink's retries persist under the data
+        # dir and drain again once it heals.
+        ann = self.cfg.annotation
+        spool_dir = ann.spool_dir or os.path.join(data_dir, "annotation_spool")
+        self.annotations = AnnotationQueue(
+            handler=make_batch_handler(
+                self.settings, ann.endpoint,
+                spool=DeadLetterSpool(spool_dir, max_bytes=ann.spool_max_bytes)),
+            max_batch_size=ann.max_batch_size,
+            poll_duration_ms=ann.poll_duration_ms,
+            unacked_limit=ann.unacked_limit,
+        )
+        self.engine = None
+        if enable_engine:
+            from ..engine.runner import InferenceEngine
+
+            engine_cfg = self.cfg.engine
+            if engine_cfg.aot_cache and engine_cfg.aot_cache_dir in ("", "auto"):
+                # The prewarm manifest persists under the data dir, like
+                # the registry, without changing the caller's Config.
+                engine_cfg = dataclasses.replace(
+                    engine_cfg, aot_cache_dir=os.path.join(data_dir, "aot_cache"))
+            self.engine = InferenceEngine(
+                self.bus, engine_cfg, device=device, annotations=self.annotations,
+                model_resolver=self.process_manager.inference_model_of,
+                annotation_policy_resolver=self.process_manager.annotation_policy_of,
+            )
+            if self.engine.slo is not None:
+                for name, state in sorted(self.engine.slo.snapshot()["slos"].items()):
+                    log.info("SLO %s: %s (objective %.3g, fire burn > %.3g, windows %gs/%gs)",
+                             name, state["description"], state["objective"],
+                             state["fire_burn_rate"], state["windows_s"]["fast"],
+                             state["windows_s"]["slow"])
+        self.cron = CronJobs(self.cfg.buffer)
+        self._grpc_port = grpc_port if grpc_port is not None else self.cfg.grpc_port
+        self._rest_port = rest_port if rest_port is not None else self.cfg.port
+        self._grpc_server = None
+        self._rest = None
+        self._stopped = threading.Event()
+        self.bound_grpc_port = self._grpc_port
+
+    def start(self) -> None:
+        # The wire's packages first: without them nothing starts.
+        import grpc
+        from concurrent import futures
+
+        from ..proto import video_streaming_pb2_grpc as pb_grpc
+        from .grpc_api import ImageServicer
+        from .rest_api import RestServer
+
+        resumed = self.process_manager.resume()
+        if resumed:
+            log.info("resumed %d cameras from registry", resumed)
+        self.cron.start()
+        self.annotations.start()
+        # REST binds before the engine prewarms: the server answers during
+        # the compile ramp (prewarm incomplete in /api/v1/stats).
+        self._rest = RestServer(self.process_manager, self.settings, port=self._rest_port,
+                                engine=self.engine, annotations=self.annotations)
+        self._rest.start()
+        if self.engine is not None:
+            self.engine.start()
+        servicer = ImageServicer(self.bus, self.process_manager, self.settings,
+                                 self.annotations, engine=self.engine,
+                                 api_endpoint=self.cfg.api.endpoint)
+        server = grpc.server(
+            futures.ThreadPoolExecutor(max_workers=64),
+            options=[("grpc.max_send_message_length", 64 << 20),
+                     ("grpc.max_receive_message_length", 64 << 20)])
+        pb_grpc.add_ImageServicer_to_server(servicer, server)
+        server.add_generic_rpc_handlers((make_admin_handler(self.engine),))
+        self.bound_grpc_port = server.add_insecure_port(f"0.0.0.0:{self._grpc_port}")
+        server.start()
+        self._grpc_server = server
+        log.info("gRPC Image service on :%d (admin: /vep.Admin/*), REST on :%d",
+                 self.bound_grpc_port, self._rest.bound_port)
+
+    def wait(self) -> None:
+        self._stopped.wait()
+
+    def stop(self) -> None:
+        log.info("shutting down")
+        if self._grpc_server is not None:
+            self._grpc_server.stop(grace=2).wait()
+        if self._rest is not None:
+            self._rest.stop()
+        if self.engine is not None:
+            self.engine.stop()
+        self.annotations.stop()
+        self.cron.stop()
+        # The registry stays: cameras resume on the next boot. Adoption
+        # mode detaches: workers keep publishing through the restart.
+        if self.cfg.worker_adoption:
+            self.process_manager.detach()
+        else:
+            self.process_manager.close()
+        self.bus.close()
+        self.storage.close()
+        self._stopped.set()
+
+
+def main(argv: Optional[list] = None) -> None:
+    p = argparse.ArgumentParser(description="video-edge-ai-proxy server (PyTorch port)")
+    p.add_argument("--conf", default=None, help="path to conf.yaml")
+    p.add_argument("--data_dir", default="/data/chrysalis")
+    p.add_argument("--engine", action="store_true", help="run the inference engine")
+    p.add_argument("--device", default="cuda", help="the engine's device (cuda or cpu)")
+    args = p.parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    server = Server(load_config(args.conf), data_dir=args.data_dir, enable_engine=args.engine,
+                    device=args.device)
+    server.start()
+
+    def _sig(_s, _f):
+        threading.Thread(target=server.stop, daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _sig)
+    signal.signal(signal.SIGINT, _sig)
+    server.wait()
+
+
+if __name__ == "__main__":
+    main()

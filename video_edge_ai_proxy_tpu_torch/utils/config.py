@@ -1,10 +1,18 @@
-"""Configuration: the subsets of ``video_edge_ai_proxy_tpu/utils/config.py``
-``BusConfig`` and ``EngineConfig`` that the port's bus, ingest workers and
-serving engine read, with the same defaults."""
+"""Configuration: the subset of ``video_edge_ai_proxy_tpu/utils/config.py``
+that the port's bus, ingest workers, engine and server read, with the same
+defaults and the same YAML loading (``load_config``: explicit path, else
+``$VEP_TPU_CONF``, else ``/data/chrysalis/conf.yaml``, else the defaults;
+keys of sections the port lacks are ignored). ``yaml`` is imported only
+when there is a file to read."""
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from dataclasses import dataclass, field
+from typing import Any, Optional
+
+DEFAULT_CONFIG_PATH = "/data/chrysalis/conf.yaml"
 
 
 @dataclass
@@ -16,6 +24,51 @@ class BusConfig:
     # Directory holding the shared-memory segments (one ring per camera,
     # the control KV, the publish doorbell).
     shm_dir: str = "/dev/shm/vep_tpu"
+    # The Redis connection of the workers' environment contract (the
+    # port's buses are shm and memory; the redis bus is not ported).
+    redis_addr: str = "127.0.0.1:6379"
+    redis_password: str = ""
+    redis_db: int = 0
+
+
+@dataclass
+class AnnotationConfig:
+    """Annotation uplink batching (the reference's defaults)."""
+
+    endpoint: str = "https://event.chryscloud.com/api/v1/annotate"
+    unacked_limit: int = 1000
+    poll_duration_ms: int = 300
+    max_batch_size: int = 299
+    # Dead-letter spool for batches that exhaust the uplink's retries:
+    # "" = <data_dir>/annotation_spool.
+    spool_dir: str = ""
+    spool_max_bytes: int = 64 << 20
+
+
+@dataclass
+class ApiConfig:
+    """Cloud REST endpoint (the Storage toggle's signed PUT)."""
+
+    endpoint: str = "https://api.chryscloud.com"
+
+
+@dataclass
+class BufferConfig:
+    """The disk buffer: ``on_disk`` turns on the archive clean-up cron."""
+
+    on_disk: bool = False
+    on_disk_folder: str = "/data/chrysalis/archive"
+    on_disk_clean_older_than: str = "5m"
+    on_disk_schedule: str = "@every 5m"
+
+
+@dataclass
+class RunnerConfig:
+    """Worker isolation runner. The port runs ``subprocess`` workers
+    (RLIMIT_AS and nice); the container runner and its settings are not
+    ported."""
+
+    kind: str = "subprocess"
 
 
 @dataclass
@@ -88,3 +141,63 @@ class EngineConfig:
     quality_window_s: float = 5.0      # drift scoring window
     quality_drift_threshold: float = 0.35
     quality_ladder: bool = True
+    # Annotation emit policy of the engine's uplink: "all" (every
+    # detection of every frame), "keyframe" (GOP heads only), "on_change"
+    # (the tracked object set changed, or a confidence moved more than
+    # annotation_confidence_delta), "min_interval" (at most one frame's
+    # annotations per annotation_min_interval_ms). Per-stream override:
+    # StreamProcess.annotation_policy.
+    annotation_emit: str = "on_change"
+    annotation_min_interval_ms: int = 1000
+    annotation_confidence_delta: float = 0.15
+
+
+@dataclass
+class Config:
+    port: int = 8080
+    grpc_port: int = 50001
+    # Worker re-adoption across server restarts: workers log to
+    # <data_dir>/worker_logs, survive the server, and resume() re-adopts
+    # them; False: workers pipe to the server, die with it, resume =
+    # respawn.
+    worker_adoption: bool = True
+    bus: BusConfig = field(default_factory=BusConfig)
+    runner: RunnerConfig = field(default_factory=RunnerConfig)
+    annotation: AnnotationConfig = field(default_factory=AnnotationConfig)
+    api: ApiConfig = field(default_factory=ApiConfig)
+    buffer: BufferConfig = field(default_factory=BufferConfig)
+    engine: EngineConfig = field(default_factory=EngineConfig)
+
+
+def _merge(dc: Any, data: dict) -> Any:
+    """Overlay a dict onto a dataclass, recursing into nested dataclasses;
+    keys that name no field are ignored."""
+    kwargs: dict = {}
+    for f in dataclasses.fields(dc):
+        if f.name not in data:
+            continue
+        cur = getattr(dc, f.name)
+        val = data[f.name]
+        if dataclasses.is_dataclass(cur) and isinstance(val, dict):
+            kwargs[f.name] = _merge(cur, val)
+        elif isinstance(cur, tuple) and isinstance(val, list):
+            kwargs[f.name] = tuple(val)
+        else:
+            kwargs[f.name] = val
+    return dataclasses.replace(dc, **kwargs)
+
+
+def load_config(path: Optional[str] = None) -> Config:
+    """Explicit path > $VEP_TPU_CONF > the default path > the defaults. A
+    missing file is not an error."""
+    cfg = Config()
+    candidate = path or os.environ.get("VEP_TPU_CONF") or DEFAULT_CONFIG_PATH
+    if candidate and os.path.isfile(candidate):
+        import yaml
+
+        with open(candidate, "r", encoding="utf-8") as fh:
+            data = yaml.safe_load(fh) or {}
+        if not isinstance(data, dict):
+            raise ValueError(f"config root must be a mapping: {candidate}")
+        cfg = _merge(cfg, data)
+    return cfg
