@@ -165,7 +165,24 @@ exits non-zero:
    camera's events from keyframes only; the
    killed worker back; every yolov8n camera served after the resume; the
    wire's answers where it ran; no worker on the card; no logged tick or
-   drain failure.
+   drain failure. The audit and profiling planes, on by default: the
+   first window prints ``_watch_tick``'s cost a tick (mean and p99 µs,
+   timed from the script) and the journal's events a second; the second
+   server samples lineage spans (``obs.trace``, 1 in 16: a departure from
+   the shipped config) and, while its cameras are served, takes a
+   torch.profiler capture of 500 ms over REST, one of 300 ms over gRPC
+   ``vep.Admin/ProfileCapture`` and two of 500 ms at once over REST, then
+   reads ``/api/v1/journal``, ``/api/v1/why?subject=ladder:engine`` and
+   ``/api/v1/trace``. Gated: every bundle's manifest without an error,
+   its device trace found and parsed with ``nms_keep_mask_kernel``
+   events among its CUDA kernels (printed beside the batches stepped and
+   the keep-mask launches during the call), its spans and journal files;
+   one 409 of the two at once; an ``escalate`` link in the ladder's chain
+   (whether it roots at an SLO ``episode_open`` is printed); a complete
+   lineage. Printed too: each capture's wall time against its length
+   (the first pays CUPTI's start), results/s inside its window beside the
+   same length before, the stage legs' p50/p95, and any worker respawned
+   while the captures ran.
 
 On the card the engine runs every serving step as a graph replay, so
 phases 5, 8, 11 and 13 run graphed; phases 4, 6, 7, 9 and 10 call the eager
@@ -2062,6 +2079,12 @@ SERVER_MODEL = "yolov8n"     # 14: the default model (EngineConfig's)
 SERVER_EXTRA_MODEL = "vit_b16"   # 14: one camera's own model
 SERVER_RUN_S = 20.0          # 14: the engine serves the 16 cameras this long
 SERVER_AFTER_RESUME_S = 10.0  # 14: served this much more after the re-adopting restart
+# 14: the captures of the second server's window (ms): one over REST, one
+# over gRPC, two at once over REST (one must answer 409); the lineage
+# tracer samples 1 frame in TRACE_EVERY there (obs.trace is off as shipped).
+CAPTURE_REST_MS, CAPTURE_GRPC_MS, CAPTURE_PAIR_MS = 500, 300, 500
+TRACE_EVERY = 16
+NMS_KERNEL = "nms_keep_mask_kernel"
 EDGE_KEY, EDGE_SECRET = "edge-key-14", "edge-secret-14"
 WIRE_PACKAGES = ("grpc", "google.protobuf", "aiohttp", "yaml")
 
@@ -2221,7 +2244,20 @@ def run_server(cfg, data_dir: str, model_state: dict, cams: dict, *, register: b
         cpu0 = {d: cpu_seconds(p) for d, p in pids.items()}
         cpu0["server"] = cpu_seconds(os.getpid())
         p0 = srv.engine.pipeline_stats()
+        # The per-tick watch work, timed from here: (monotonic, µs) a call.
+        watch_us = out["watch_us"] = []
+        watch_tick = srv.engine._watch_tick
+
+        def timed_watch(*args):
+            t_in = time.perf_counter()
+            try:
+                return watch_tick(*args)
+            finally:
+                watch_us.append((time.monotonic(), (time.perf_counter() - t_in) * 1e6))
+
+        srv.engine._watch_tick = timed_watch
         t0 = time.monotonic()
+        out["t0_wall"] = time.time()
         threads0 = thread_cpu_seconds(srv.engine)
         probe = WakeProbe(serve_s)
         time.sleep(serve_s / 4)
@@ -2230,6 +2266,9 @@ def run_server(cfg, data_dir: str, model_state: dict, cams: dict, *, register: b
         time.sleep(max(0.0, t0 + serve_s - time.monotonic()))
         wall_s = time.monotonic() - t0
         out["launches"] = read_launches() if read_launches is not None else None
+        out["journal_window"] = [e for e in (srv.journal.events() if srv.journal else [])
+                                 if out["t0_wall"] <= e["ts"] <= out["t0_wall"] + wall_s]
+        out["watch_window_us"] = [us for t, us in watch_us if t0 <= t <= t0 + wall_s]
         out.update(wall_s=wall_s, t0=t0, got=got, pids=pids, wake=probe.result(),
                    threads=thread_cores(threads0, thread_cpu_seconds(srv.engine), wall_s),
                    beats0=beats0, beats=heartbeats(srv.bus, cams), p0=p0,
@@ -2305,6 +2344,171 @@ def wire_check(srv, sink) -> dict:
     return out
 
 
+def trace_kernels(path: str) -> dict:
+    """{kernel name: events} of the device kernels in a bundle's Chrome
+    trace (torch.profiler's ``export_chrome_trace``)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out: dict = {}
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            out[ev["name"]] = out.get(ev["name"], 0) + 1
+    return out
+
+
+def stage_legs(events) -> dict:
+    """Per-leg samples (ms) of lineage spans, folded as ``obs/spans.py``
+    ``stage_breakdown`` folds them (its table gives p50/p90/p99; this one
+    keeps the samples for p95): publish -> collect (the collect span's
+    ``pub_ms``, the worker's grab), collect -> submit, the device span,
+    the drain's end -> emit, and publish -> emit."""
+    lineages: dict = {}
+    for ev in events:
+        lineages.setdefault((ev.get("stream"), ev.get("frame")), {})[ev.get("stage")] = ev
+    legs: dict = {k: [] for k in ("publish->collect", "collect->submit", "device (drain)",
+                                  "drain->emit", "publish->emit")}
+    for st in lineages.values():
+        col, sub, dev_, emit = (st.get(k) for k in ("collect", "submit", "device", "emit"))
+        pub = col.get("pub_ms") if col is not None else None
+        if pub is not None:
+            legs["publish->collect"].append(col["ts"] * 1000.0 - pub)
+        if col is not None and sub is not None:
+            legs["collect->submit"].append((sub["ts"] - col["ts"]) * 1000.0)
+        if dev_ is not None and dev_.get("dur_ms") is not None:
+            legs["device (drain)"].append(float(dev_["dur_ms"]))
+        if dev_ is not None and emit is not None:
+            legs["drain->emit"].append((emit["ts"] - dev_["ts"]) * 1000.0)
+        if pub is not None and emit is not None:
+            legs["publish->emit"].append(emit["ts"] * 1000.0 - pub)
+    return legs
+
+
+def audit_check(srv, got: dict, nms_wrapper) -> dict:
+    """The audit and profiling planes of the running server, while its
+    cameras are served: a REST capture of CAPTURE_REST_MS, a gRPC
+    ``vep.Admin/ProfileCapture`` of CAPTURE_GRPC_MS, two REST captures at
+    once (one must answer 409); each bundle's manifest, device trace
+    (its kernel events, the keep mask's beside the batches stepped and
+    the keep-mask launches during the call), spans and journal files,
+    and the results/s inside its window beside the same length just
+    before; the journal, the ladder's ``why`` chain and the lineage
+    spans' legs. Returns what was seen, with ``problems``."""
+    import urllib.error
+    import urllib.request
+
+    import grpc
+
+    rest = f"http://127.0.0.1:{srv._rest.bound_port}"
+    pm = srv.process_manager
+    pids0 = {d: pm.info(d).state.pid for d in pm.device_ids()}
+    out: dict = {"captures": [], "problems": []}
+
+    def get(path):
+        with urllib.request.urlopen(rest + path, timeout=120) as resp:
+            return json.loads(resp.read())
+
+    def post_capture(ms):
+        req = urllib.request.Request(f"{rest}/api/v1/profile?ms={ms}", method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as err:
+            return err.code, json.loads(err.read())
+
+    def grpc_capture(ms):
+        with grpc.insecure_channel(f"127.0.0.1:{srv.bound_grpc_port}") as ch:
+            raw = ch.unary_unary("/vep.Admin/ProfileCapture")(
+                json.dumps({"ms": ms}).encode(), timeout=600)
+        return 200, json.loads(raw)
+
+    def results_between(a, b):
+        return sum(1 for v in list(got.values()) for t, _ in list(v) if a <= t < b)
+
+    def capture(via, fn):
+        m0, w0 = time.monotonic(), time.time()
+        b0, l0 = srv.engine.pipeline_stats().batches, nms_wrapper.launches
+        status, man = fn()
+        rec = {"via": via, "status": status, "call_s": time.monotonic() - m0,
+               "batches": srv.engine.pipeline_stats().batches - b0,
+               "nms_launches": nms_wrapper.launches - l0}
+        if status != 200:
+            rec["answer"] = man
+            return rec
+        rec.update(bundle=man["bundle"], ms=man["ms"], wall_ms=man["wall_ms"],
+                   error=man["error"], device_trace=man["device_trace"],
+                   span_events=man["span_events"], journal_events=man["journal_events"])
+        a = m0 + (man["t_start"] - w0)
+        dur = max(man["t_end"] - man["t_start"], 1e-6)
+        rec["fps_in"] = results_between(a, a + dur) / dur
+        rec["fps_before"] = results_between(a - dur, a) / dur
+        rec["files"] = {name: os.path.isfile(os.path.join(man["path"], name))
+                        for name in ("spans.json", "journal.json", "snapshot.json")}
+        if man["device_trace"]:
+            try:
+                kinds = trace_kernels(os.path.join(man["path"], man["device_trace"]))
+                rec["kernel_events"] = sum(kinds.values())
+                rec["kernel_kinds"] = len(kinds)
+                rec["nms_events"] = sum(n for k, n in kinds.items() if NMS_KERNEL in k)
+                rec["trace_bytes"] = os.path.getsize(os.path.join(man["path"],
+                                                                  man["device_trace"]))
+            except (OSError, ValueError, KeyError) as exc:
+                rec["parse_error"] = repr(exc)
+        if man["error"] is not None:
+            out["problems"].append(f"{via}: manifest error {man['error']}")
+        elif not man["device_trace"] or "parse_error" in rec:
+            out["problems"].append(f"{via}: no device trace, or it does not parse: {rec}")
+        elif not rec.get("nms_events"):
+            out["problems"].append(f"{via}: no {NMS_KERNEL} event among "
+                                   f"{rec.get('kernel_events')} kernel events")
+        if not all(rec["files"].values()):
+            out["problems"].append(f"{via}: bundle files missing {rec['files']}")
+        return rec
+
+    out["captures"].append(capture("rest", lambda: post_capture(CAPTURE_REST_MS)))
+    out["captures"].append(capture("grpc", lambda: grpc_capture(CAPTURE_GRPC_MS)))
+    pair: list = [None, None]
+    threads = [threading.Thread(target=lambda i=i: pair.__setitem__(
+        i, capture(f"rest pair {i}", lambda: post_capture(CAPTURE_PAIR_MS)))) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    out["captures"] += [p for p in pair if p is not None]
+    statuses = sorted(p["status"] for p in pair if p is not None)
+    out["pair_statuses"] = statuses
+    if statuses != [200, 409]:
+        out["problems"].append(f"the concurrent captures answered {statuses}, not 200 and 409")
+    if [c["status"] for c in out["captures"][:2]] != [200, 200]:
+        out["problems"].append("the REST or gRPC capture did not answer 200")
+    pids1 = {d: pm.info(d).state.pid for d in pm.device_ids()}
+    out["respawned_during"] = {d: (pids0[d], pids1.get(d)) for d in pids0
+                               if pids1.get(d) != pids0[d]}
+    journal = get("/api/v1/journal")
+    actions: dict = {}
+    for ev in journal["events"]:
+        key = f"{ev['actor']}.{ev['action']}"
+        actions[key] = actions.get(key, 0) + 1
+    out["journal"] = {"next_seq": journal["next_seq"], "by_action": actions}
+    why = get("/api/v1/why?subject=ladder:engine")
+    chain = why["chain"]
+    out["why"] = {"links": why["links"], "text": why["text"],
+                  "escalates": sum(1 for e in chain if e["action"] == "escalate"),
+                  "roots_at_slo": bool(chain) and (chain[0]["actor"], chain[0]["action"])
+                  == ("slo", "episode_open"),
+                  "rung": srv.engine.ladder.rung}
+    if not out["why"]["escalates"]:
+        out["problems"].append(f"the ladder's why chain has no escalate link: {why['text']}")
+    trace = get("/api/v1/trace")
+    legs = stage_legs(trace["events"])
+    out["trace"] = {"enabled": trace["enabled"], "sample_every": trace["sample_every"],
+                    "events": len(trace["events"]),
+                    "legs": {k: (len(v), pct(v, 50) if v else None, pct(v, 95) if v else None)
+                             for k, v in legs.items()}}
+    if not legs["publish->emit"]:
+        out["problems"].append("no complete lineage among the sampled spans")
+    return out
+
+
 def server_phase(dev, card: str, zero_launches, read_launches, kernels, report,
                  frame_path: dict) -> None:
     """Phase 14: the default ``Server``'s planes around the engine on the
@@ -2314,7 +2518,8 @@ def server_phase(dev, card: str, zero_launches, read_launches, kernels, report,
     local sink, one subscriber for SERVER_RUN_S; then a SIGKILLed worker
     restarted, and a stop (workers detached) and a new ``Server`` on the
     same data dir that re-adopts them, served SERVER_AFTER_RESUME_S more,
-    with the wire when this machine has its packages. The slice's main
+    with the wire when this machine has its packages, and the audit and
+    profiling planes checked over it (``audit_check``). The slice's main
     path: the kernels' launch counts are zeroed before the first server's
     engine starts and read after its window, which runs without the wire,
     as 13b does."""
@@ -2414,14 +2619,23 @@ def server_phase(dev, card: str, zero_launches, read_launches, kernels, report,
             alive = [d for d, p in recorded.items() if p and os.path.exists(f"/proc/{p}")]
             # What re-adoption will read of each detached worker.
             why = {d: adoption_checks(p, starts[d], d) for d, p in recorded.items() if p}
+            # The second server samples lineage spans (obs.trace, off as
+            # shipped) for the audit check's stage legs.
+            cfg.obs.trace, cfg.obs.sample_every = True, TRACE_EVERY
+            nms_wrapper = kernels["nms_keep_mask"]["wrapper"]
             second = run_server(cfg, data_dir, model_state, cams, register=False,
                                 serve_s=SERVER_AFTER_RESUME_S, wire=wire,
                                 on_serving=lambda srv, got, out: (
                                     wire and out.update(wire=wire_check(srv, sink)),
+                                    wire and out.update(audit=audit_check(srv, got, nms_wrapper)),
                                     srv.process_manager.shutdown_workers()))
             second["server"] = None
             torch.cuda.empty_cache()
     finally:
+        from video_edge_ai_proxy_tpu_torch.obs import tracer
+
+        tracer.configure(enabled=False)
+        tracer.clear()
         queue_log.setLevel(queue_level)
         sink.close()
         shutil.rmtree(rdir, ignore_errors=True)
@@ -2500,6 +2714,16 @@ def server_phase(dev, card: str, zero_launches, read_launches, kernels, report,
         f"stream's {len(kf_events)} events all from keyframes "
         f"{all(e['is_keyframe'] for e in kf_events)}; queue {ann_counts} (unacked limit "
         f"{cfg.annotation.unacked_limit}, the shed count is 'dropped'); spool {spool}")
+    watch_us = first["watch_window_us"]
+    by_action: dict = {}
+    for ev in first["journal_window"]:
+        key = f"{ev['actor']}.{ev['action']}"
+        by_action[key] = by_action.get(key, 0) + 1
+    log(f"phase 14 audit planes over the first window on {card}: _watch_tick "
+        f"{len(watch_us)} ticks, mean {sum(watch_us) / max(len(watch_us), 1):.3f} us, p99 "
+        f"{pct(watch_us, 99):.3f} us (timed from the script); journal "
+        f"{len(first['journal_window'])} events, {len(first['journal_window']) / wall_s:.3f} "
+        f"a second: {by_action}")
     log(f"phase 14 restart: SIGKILL {kill['victim']} (pid {kill['pid']}): respawned as pid "
         f"{kill['new_pid']} after {kill['respawn_s']:.3f} s, failing_streak {kill['streak']}, "
         f"oom_killed {kill['oom']}; its results back {kill['results_s']} s after the kill")
@@ -2521,6 +2745,27 @@ def server_phase(dev, card: str, zero_launches, read_launches, kernels, report,
     if wire:
         log(f"phase 14 the wire on the card (the second server's Server.start()): "
             f"{second['wire']}")
+        audit = second["audit"]
+        for c in audit["captures"]:
+            log(f"phase 14 capture {c['via']} on {card}: {c}")
+        log(f"phase 14 captures: the keep mask's kernel events per bundle "
+            + ", ".join(f"{c['via']} {c.get('nms_events')} (batches stepped during the call "
+                        f"{c['batches']}, keep-mask launches {c['nms_launches']})"
+                        for c in audit["captures"] if c["status"] == 200)
+            + f"; results/s inside each window against the same length before: "
+            + ", ".join(f"{c['via']} {c['fps_in']:.2f}/{c['fps_before']:.2f}"
+                        for c in audit["captures"] if c["status"] == 200)
+            + f"; the concurrent pair answered {audit['pair_statuses']}; workers respawned "
+              f"during the captures {audit['respawned_during']}")
+        log(f"phase 14 journal: {audit['journal']}")
+        log(f"phase 14 why ladder:engine ({audit['why']['links']} links, "
+            f"{audit['why']['escalates']} escalate, rooted at an SLO episode_open "
+            f"{audit['why']['roots_at_slo']}, rung {audit['why']['rung']}): "
+            + " <- ".join(reversed(audit["why"]["text"])))
+        log(f"phase 14 stage legs on {card} (spans 1 in {audit['trace']['sample_every']}, "
+            f"{audit['trace']['events']} events; leg: lineages, p50 ms, p95 ms): "
+            + ", ".join(f"{k} {n} {p50:.3f} {p95:.3f}" if n else f"{k} 0"
+                        for k, (n, p50, p95) in audit["trace"]["legs"].items()))
     for d in respawned[:3]:
         log(f"phase 14 {d} not re-adopted; at the first server's stop its recorded worker read: "
             f"{why.get(d, 'no recorded pid')}")
@@ -2557,6 +2802,10 @@ def server_phase(dev, card: str, zero_launches, read_launches, kernels, report,
         raise AssertionError(f"phase 14: workers on the card: {first['cuda_workers']}")
     if wire and not second["wire"]["ok"]:
         raise AssertionError(f"phase 14: the wire check failed: {second['wire']}")
+    if not wire:
+        raise AssertionError("phase 14: the audit routes need the wire's packages")
+    if second["audit"]["problems"]:
+        raise AssertionError(f"phase 14: the audit planes: {second['audit']['problems']}")
     if any(failures.values()):
         raise AssertionError(f"phase 14: the engine logged failures: {logged.summary()}")
     for name, meta in kernels.items():

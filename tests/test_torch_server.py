@@ -401,6 +401,141 @@ def test_rest_delete_equal_jax(server, jax_server, twins):
     assert answers[0] == answers[1] == [(200, b""), 409, (200, [])]
 
 
+class _FakeClock:
+    def __init__(self, t):
+        self.t = t
+
+    def __call__(self):
+        return self.t
+
+    def advance(self, dt):
+        self.t += dt
+
+
+class _StubTracer:
+    """A device tracer that writes the bundle's trace as the port's
+    torch.profiler tracer names it and advances the fake clocks."""
+
+    def __init__(self, *clocks):
+        self.clocks = clocks
+
+    def __call__(self, log_dir, ms):
+        for clk in self.clocks:
+            clk.advance(ms / 1000.0)
+        name = os.path.basename(os.path.dirname(log_dir))
+        with open(os.path.join(log_dir, f"{name}.trace.json"), "w") as f:
+            json.dump({"traceEvents": []}, f)
+
+
+def _planes_answers(srv, channel):
+    """The audit and profiling routes' answers of one server, over REST
+    and the admin RPCs, with run-dependent values (wall stamps, paths)
+    dropped."""
+    def strip(obj):
+        if isinstance(obj, dict):
+            return {k: strip(v) for k, v in obj.items() if k not in ("ts", "path", "dir")}
+        if isinstance(obj, (list, tuple)):
+            return [strip(v) for v in obj]
+        return obj
+
+    def call(path, method=None):
+        try:
+            return strip(rest(srv, path, method=method))
+        except urllib.error.HTTPError as err:
+            return err.code
+
+    def admin(name, body):
+        try:
+            return strip(json.loads(channel.unary_unary(f"/vep.Admin/{name}")(body)))
+        except grpc.RpcError as err:
+            return err.code()
+
+    out = {path: call(path) for path in (
+        "/api/v1/journal", "/api/v1/journal?actor=ladder", "/api/v1/journal?subject=slo:lat",
+        "/api/v1/journal?subject=ladder", "/api/v1/journal?since=1",
+        "/api/v1/journal?limit=1", "/api/v1/journal?since=x",
+        "/api/v1/why?subject=ladder:engine", "/api/v1/why?stream=nope", "/api/v1/why",
+        "/api/v1/why?stream=a&max_links=x",
+        "/api/v1/trace?stream=parity", "/api/v1/trace?stream=parity&format=chrome",
+        "/api/v1/trace?limit=x",
+        "/api/v1/profile?ms=0", "/api/v1/profile?ms=x", "/api/v1/profile?ms=20000")}
+    out["POST profile"] = call("/api/v1/profile?ms=50", method="POST")
+    out["GET profile"] = call("/api/v1/profile?ms=40")
+    out["stop not running"] = call("/api/v1/profile/stop", method="POST")
+    out["admin capture"] = admin("ProfileCapture", b'{"ms": 30}')
+    out["admin bad"] = [admin("ProfileCapture", b) for b in (b'{"ms": 0}', b"not json")]
+    prof = srv.engine.prof
+    if prof is not None:
+        prof._acquire("capture")
+        try:
+            out["busy"] = [call("/api/v1/profile?ms=50", method="POST"),
+                           call("/api/v1/profile/start", method="POST"),
+                           admin("ProfileCapture", b'{"ms": 50}')]
+        finally:
+            prof._release()
+    obs = rest(srv, "/api/v1/stats")[1]["obs"]
+    out["stats"] = strip({k: obs[k] for k in ("journal", "prof")})
+    if obs["prof"] is not None:
+        out["stats"]["prof"].pop("retained_bytes")   # each manifest holds its path
+    out["quality canary"] = admin("Quality", b"").get("canary", "absent") \
+        if srv.engine.quality is not None else None
+    return out
+
+
+def test_audit_and_profiling_routes_equal_jax(server, jax_server, tmp_path):
+    """The journal, why, trace and profile routes and the admin
+    ProfileCapture of both packages' servers on the same plane state: a
+    journal of the same events on one fake clock, the same lineage spans,
+    a profiler on fake clocks with a stub device tracer; then the journal
+    and the profiler switched off (400 and FAILED_PRECONDITION)."""
+    from video_edge_ai_proxy_tpu.obs import journal as jjournal
+    from video_edge_ai_proxy_tpu.obs import prof as jprof
+    from video_edge_ai_proxy_tpu.obs import spans as jspans
+    from video_edge_ai_proxy_tpu_torch.obs import journal, prof, spans
+
+    answers = {}
+    for tag, srv, jmod, pmod, smod in (("port", server, journal, prof, spans),
+                                       ("jax", jax_server, jjournal, jprof, jspans)):
+        eng = srv.engine
+        saved = (eng.journal, eng.prof, smod.tracer.enabled, smod.tracer.sample_every)
+        clk, mono = _FakeClock(1.7e9), _FakeClock(100.0)
+        eng.journal = jmod.DecisionJournal(64, clock=clk)
+        s1 = eng.journal.record("slo", "episode_open", subject=("slo", "lat"),
+                                trigger={"fast": 2.0, "slow": 1.5, "threshold": 1.2})
+        eng.journal.record("ladder", "escalate", subject=("ladder", "engine"),
+                           trigger={"from": "normal", "to": "shed"}, cause=s1)
+        eng.prof = pmod.Profiler(str(tmp_path / tag[0]), clock=mono, wall_clock=clk,
+                                 sleep=lambda s: None, device_tracer=_StubTracer(mono, clk),
+                                 journal=eng.journal, snapshot_fn=lambda: {"fixed": 1})
+        smod.tracer.configure(enabled=True, sample_every=1)
+        smod.tracer.record("parity", "collect", 7, ts=1000.005, pub_ms=1000000.0)
+        smod.tracer.record("parity", "device", 7, ts=1000.011, dur_ms=4.0, bucket=2)
+        smod.tracer.record("parity", "emit", 7, ts=1000.0115)
+        channel = grpc.insecure_channel(f"127.0.0.1:{srv.bound_grpc_port}")
+        try:
+            on = _planes_answers(srv, channel)
+            eng.journal, eng.prof = None, None
+            off = _planes_answers(srv, channel)
+        finally:
+            channel.close()
+            eng.journal, eng.prof = saved[0], saved[1]
+            smod.tracer.configure(enabled=saved[2], sample_every=saved[3])
+        answers[tag] = (on, off)
+    for state in (0, 1):
+        port, jax_ = answers["port"][state], answers["jax"][state]
+        for key in port:
+            assert port[key] == jax_[key], (state, key)
+    on, off = answers["port"]
+    assert on["POST profile"][0] == 200 and on["POST profile"][1]["error"] is None
+    assert on["POST profile"][1]["journal_events"] == 2
+    assert on["busy"][:2] == [409, 409] and on["busy"][2] == grpc.StatusCode.ABORTED
+    assert on["/api/v1/why?subject=ladder:engine"][1]["links"] == 2
+    assert on["/api/v1/trace?stream=parity"][1]["breakdown"]["device"]["count"] == 1
+    assert on["/api/v1/profile?ms=20000"] == 400 and on["stop not running"] == 409
+    assert off["/api/v1/journal"] == off["POST profile"] == 400
+    assert off["admin capture"] == grpc.StatusCode.FAILED_PRECONDITION
+
+
 def test_grpc_frames_streams_and_toggles(server, stub, sink):
     stub, _ = stub
     server.settings.overwrite("edgekey", "edgesecret")
@@ -492,10 +627,12 @@ def test_admin_and_observability_routes(server, stub):
     _, channel = stub
     assert json.loads(channel.unary_unary("/vep.Admin/RouterState")(b""))["rung"] in (
         "normal", "shed", "bucket_downshift", "admission_pause")
-    assert "streams" in json.loads(channel.unary_unary("/vep.Admin/Quality")(b""))
-    with pytest.raises(grpc.RpcError) as err:
-        channel.unary_unary("/vep.Admin/ProfileCapture")(b'{"ms": 100}')
-    assert err.value.code() == grpc.StatusCode.FAILED_PRECONDITION
+    quality = json.loads(channel.unary_unary("/vep.Admin/Quality")(b""))
+    assert "streams" in quality and quality["canary"] is None
+    # The profiler is on by default: a capture on the CPU engine.
+    man = json.loads(channel.unary_unary("/vep.Admin/ProfileCapture")(b'{"ms": 100}'))
+    assert man["ms"] == 100 and man["error"] is None and man["device_trace"]
+    assert man["context"] == {"via": "grpc"}
     status, health = rest(server, "/healthz")
     assert status == 200 and health["engine"]["ok"] and health["status"] == "ok"
     stats = rest(server, "/api/v1/stats")[1]
@@ -511,8 +648,9 @@ def test_admin_and_observability_routes(server, stub):
     with urllib.request.urlopen(req, timeout=10) as resp:
         assert resp.status == 204
         assert resp.headers["Access-Control-Allow-Origin"] == "*"
+    assert rest(server, "/api/v1/journal")[1]["next_seq"] >= 1
     # A plane not ported: only the OPTIONS route matches its path.
-    assert rest_error(server, "/api/v1/journal") == 405
+    assert rest_error(server, "/api/v1/cascade") == 405
 
 
 def test_killed_worker_restarts_and_serves_again(server, stub):
@@ -574,6 +712,10 @@ import video_edge_ai_proxy_tpu_torch.serve.process_manager
 import video_edge_ai_proxy_tpu_torch.uplink.queue
 import video_edge_ai_proxy_tpu_torch.uplink.cloud
 import video_edge_ai_proxy_tpu_torch.proto.annotate
+import video_edge_ai_proxy_tpu_torch.obs.journal
+import video_edge_ai_proxy_tpu_torch.obs.prof
+import video_edge_ai_proxy_tpu_torch.obs.spans
+import video_edge_ai_proxy_tpu_torch.obs.watch
 from video_edge_ai_proxy_tpu_torch.utils.config import Config, load_config
 cfg = load_config(sys.argv[3])
 cfg.bus.shm_dir = sys.argv[1]

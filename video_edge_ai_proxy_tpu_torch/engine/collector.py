@@ -58,6 +58,7 @@ import numpy as np
 
 from ..bus.interface import Frame, FrameBus, FrameMeta
 from ..obs import registry as obs_registry
+from ..obs.spans import trace_id_of, tracer
 
 log = logging.getLogger("vep.torch.engine.collector")
 
@@ -233,11 +234,18 @@ class Collector:
                 return True
         return False
 
-    def _note_read(self, device_id: str, seq: int) -> None:
+    def _note_read(self, device_id: str, seq: int, meta) -> None:
+        """Every cursor advance: counts latest-wins skips and stamps the
+        frame's ``collect`` lineage span, with ``pub_ms`` (the publish
+        span lives in the worker's process, so the ingest -> collect leg
+        must be computable from the engine's side alone)."""
         prev = self._cursors.get(device_id, 0)
         if prev and seq > prev + 1:
             self._m_skipped.labels(device_id).inc(seq - prev - 1)
         self._cursors[device_id] = seq
+        if meta is not None and tracer.sampled(meta.packet):
+            tracer.record(device_id, "collect", meta.packet, pub_ms=meta.timestamp_ms,
+                          trace_id=trace_id_of(meta, device_id))
 
     # -- the batch pool --------------------------------------------------------
 
@@ -414,14 +422,14 @@ class Collector:
             if res is None:
                 continue
             if isinstance(res, Frame):   # geometry drifted mid-window
-                self._note_read(device_id, res.seq)
+                self._note_read(device_id, res.seq, res.meta)
                 if res.data.ndim == 3:
                     self._geom[device_id] = res.data.shape
                 win["spill"].append((device_id, g["model"], res))
                 drifted.append(device_id)
                 continue
             seq, meta = res
-            self._note_read(device_id, seq)
+            self._note_read(device_id, seq, meta)
             if slot is None:
                 g["slot"][device_id] = len(g["ids"])
                 g["ids"].append(device_id)
@@ -517,13 +525,13 @@ class Collector:
                     if res is None:
                         continue
                     if isinstance(res, Frame):   # geometry drifted
-                        self._note_read(device_id, res.seq)
+                        self._note_read(device_id, res.seq, res.meta)
                         if res.data.ndim == 3:
                             self._geom[device_id] = res.data.shape
                         spill.append((device_id, model, res))
                         continue
                     seq, meta = res
-                    self._note_read(device_id, seq)
+                    self._note_read(device_id, seq, meta)
                     ids.append(device_id)
                     metas.append(meta)
                 if ids:
@@ -540,7 +548,7 @@ class Collector:
                 frame = self._bus.read_latest(device_id, min_seq=0)
             if frame is None:
                 continue
-            self._note_read(device_id, frame.seq)
+            self._note_read(device_id, frame.seq, frame.meta)
             if frame.data.ndim != 3:
                 continue    # a corrupt frame carries no geometry to batch on
             self._geom[device_id] = frame.data.shape

@@ -53,8 +53,22 @@ override: all, keyframe, min_interval, on_change), and the quality
 verdicts' transitions go out as ``type="quality"`` events. An engine with
 an uplink has standing interest in every stream.
 
-Stage traces, the journal, the watchdog, ROI, the cascade and the mesh
-paths are later slices.
+The audit and profiling planes: the decision journal (``journal``,
+``obs/journal.py``; or one passed in, shared with the server) records the
+ladder's transitions, the SLO episodes, the shed excursion
+(``shed_open``/``shed_close``) and the watchdog's episodes; the watchdog
+(``obs/watch.py``) checks drain backpressure, recompile storms (step-cache
+misses on consecutive ticks), the ladder and the SLOs once a tick
+(``_watch_tick``); the profiler (``obs/prof.py``, ``cfg.prof``) takes
+bounded torch.profiler captures on demand and, with ``cfg.prof_trigger``,
+once per SLO episode or escalation; the lineage spans (``obs/spans.py``
+``tracer``, when the server turns it on) record submit, device, emit and
+dropped; ``stage_records`` (``cfg.stage_trace``) keep each frame's stage
+times; and the canary loop (``cfg.quality_canary``) replays a golden trace
+through the bus and checks its fold once a loop. All are off the per-frame
+path or one poll a tick: a replay is bit-identical with them on and off.
+
+ROI, the cascade, the fault domain and the mesh paths are later slices.
 """
 
 from __future__ import annotations
@@ -62,7 +76,9 @@ from __future__ import annotations
 import contextlib
 import functools
 import logging
+import os
 import queue
+import tempfile
 import threading
 import time
 from collections import deque
@@ -77,8 +93,11 @@ from ..device import resolve_device
 from ..models import registry
 from ..obs import registry as obs_registry
 from ..obs.perf import PerfTracker
+from ..obs.prof import Profiler
 from ..obs.quality import QualityTracker
 from ..obs.slo import SLOEngine, default_slos
+from ..obs.spans import trace_id_of, tracer
+from ..obs.watch import Watchdog
 from ..ops.nms import _top, batched_nms, nms_keep_mask
 from ..ops.preprocess import (
     frame_quality_stats, preprocess_classify, preprocess_clip, preprocess_letterbox,
@@ -257,6 +276,12 @@ def shed_stale(group: BatchGroup, now_ms: float, max_staleness_ms: float,
     shed = len(group.metas) - len(keep)
     if shed == 0:
         return group, 0
+    if tracer.enabled:
+        kept = set(keep)
+        for i, m in enumerate(group.metas):
+            if i not in kept and tracer.sampled(m.packet):
+                tracer.record(group.device_ids[i], "dropped", m.packet, reason="stale_shed",
+                              trace_id=trace_id_of(m, group.device_ids[i]))
     if not keep:
         return None, shed
     for new_i, old_i in enumerate(keep):
@@ -738,7 +763,9 @@ class InferenceEngine:
     ``annotations``: the uplink queue (None: no annotations);
     ``model_resolver`` and ``annotation_policy_resolver``: the per-stream
     model and emit-policy overrides (the process manager's
-    ``inference_model_of`` and ``annotation_policy_of``).
+    ``inference_model_of`` and ``annotation_policy_of``); ``journal``: a
+    decision journal to record into (the server's, shared by the process)
+    instead of one of the engine's own, with ``cfg.journal`` on.
     """
 
     # The stem variant of every program: the port serves the classic stem
@@ -759,7 +786,8 @@ class InferenceEngine:
                  model: Optional[torch.nn.Module] = None,
                  annotations=None,
                  model_resolver: Optional[Callable[[str], str]] = None,
-                 annotation_policy_resolver: Optional[Callable[[str], str]] = None):
+                 annotation_policy_resolver: Optional[Callable[[str], str]] = None,
+                 journal=None):
         self._device = resolve_device(device)
         self._cuda = self._device.type == "cuda"
         self._cfg = cfg or EngineConfig()
@@ -826,6 +854,8 @@ class InferenceEngine:
         self.ticks = 0
         self.last_tick_monotonic = 0.0
         self._last_tick_dur_s = 0.0
+        # stage_trace: per-frame stage times (wall s), bounded.
+        self.stage_records: deque = deque(maxlen=4096)
         self._checksum = 0
         self._pipe = PipelineStats()
         self._pipe_lock = threading.Lock()
@@ -836,17 +866,56 @@ class InferenceEngine:
         # transfer stream. Its thread runs only with cfg.prefetch.
         self._compute = self._d2h = None
         self._xfer = _PrefetchStage(self._device, self._drain_q)
+        # The decision journal first, so every plane below records into
+        # it; cfg.journal=False leaves it None and no plane has a hook.
+        self.journal = None
+        if self._cfg.journal:
+            if journal is not None:
+                self.journal = journal
+            else:
+                from ..obs.journal import DecisionJournal
+
+                self.journal = DecisionJournal(self._cfg.journal_capacity)
+        self.watchdog = Watchdog(journal=self.journal)
+        # _watch_tick's state (tick thread only): the effective drain
+        # depth, the step-cache misses seen and the consecutive-miss streak.
+        self._bp_depth = 0
+        self._miss_seen = 0.0
+        self._miss_streak = 0
         self.ladder: Optional[DegradationLadder] = None
         if self._cfg.ladder:
             self.ladder = DegradationLadder(escalate_after_s=self._cfg.ladder_escalate_after_s,
-                                            recover_after_s=self._cfg.ladder_recover_after_s)
+                                            recover_after_s=self._cfg.ladder_recover_after_s,
+                                            watchdog=self.watchdog, journal=self.journal)
+        # The open shed excursion's journal seq and its frames so far.
+        self._shed_seq: Optional[int] = None
+        self._shed_excursion_frames = 0
         self.slo: Optional[SLOEngine] = None
         self._slo_burning = False
+        self._slo_episodes = 0        # opened episodes of every SLO: the trigger watermark
         self._slo_next_eval = 0.0
         if self._cfg.slo:
             self.slo = SLOEngine(default_slos(latency_ms=self._cfg.slo_latency_ms,
                                               target_fps=self._cfg.slo_target_fps,
-                                              warmup_s=self._cfg.slo_warmup_s))
+                                              warmup_s=self._cfg.slo_warmup_s),
+                                 watchdog=self.watchdog, journal=self.journal)
+        # Bounded torch.profiler captures (obs/prof.py), on demand or, with
+        # cfg.prof_trigger, once per SLO episode or escalation from
+        # _watch_tick. cfg.prof=False disables it (REST answers 400).
+        self.prof: Optional[Profiler] = None
+        if self._cfg.prof:
+            self.prof = Profiler(
+                self._cfg.prof_dir or os.path.join(tempfile.gettempdir(), "vep_prof"),
+                retention_bytes=self._cfg.prof_retention_bytes,
+                trigger=self._cfg.prof_trigger,
+                trigger_ms=self._cfg.prof_trigger_ms,
+                trigger_min_interval_s=self._cfg.prof_trigger_min_interval_s,
+                max_ms=self._cfg.prof_max_ms,
+                tracer=tracer,
+                journal=self.journal,
+                snapshot_fn=self._prof_snapshot,
+                cuda=self._cuda,
+            )
         self.quality: Optional[QualityTracker] = None
         if self._cfg.quality:
             self.quality = QualityTracker(
@@ -858,6 +927,9 @@ class InferenceEngine:
                 drift_threshold=self._cfg.quality_drift_threshold,
                 on_transition=self._on_quality_transition,
             )
+        # The canary integrity loop (cfg.quality_canary), armed by start().
+        self.canary = None
+        self._canary_thread: Optional[threading.Thread] = None
         self._m_batches = obs_registry.counter(
             "vep_engine_batches_total", "Device batches dispatched").labels()
         self._m_frames = obs_registry.counter(
@@ -978,6 +1050,11 @@ class InferenceEngine:
         self._start_pipeline()
         self._thread = threading.Thread(target=self._loop, name="vep-torch-engine", daemon=True)
         self._thread.start()
+        if self.quality is not None and self._cfg.quality_canary:
+            try:
+                self._start_canary()
+            except Exception:
+                log.exception("canary start failed; integrity loop disabled")
 
     def _prewarm(self) -> None:
         """Build the program of every ``cfg.prewarm`` entry and, with the
@@ -1102,6 +1179,9 @@ class InferenceEngine:
             if self._thread.is_alive():
                 raise RuntimeError("engine loop did not stop")
             self._thread = None
+        if self._canary_thread is not None:
+            self._canary_thread.join(timeout)
+            self._canary_thread = None
         self._xfer.stop()
         if self._drain_thread is not None:
             try:
@@ -1157,15 +1237,108 @@ class InferenceEngine:
                      and not self._errors)
         return out
 
+    # -- profiling -------------------------------------------------------
+
+    def _prof_snapshot(self) -> dict:
+        """Engine state frozen into every capture bundle (obs/prof.py): the
+        numbers that were true while the trace ran. ``perf`` holds the
+        compile records; MFU and the programs' FLOPs are not ported."""
+        snap = {"ticks": self.ticks, "batches": self.pipeline_stats().batches,
+                "perf": self.perf.snapshot()}
+        if self.slo is not None:
+            snap["slo"] = self.slo.snapshot()
+        if self.ladder is not None:
+            snap["rung"] = self.ladder.rung
+        return snap
+
+    def start_profile(self, log_dir: str) -> None:
+        """Begin an unbounded torch.profiler trace (``self.prof.start``;
+        it shares one busy flag with the bounded captures)."""
+        if self.prof is None:
+            raise RuntimeError("profiling disabled (engine.prof=False)")
+        self.prof.start(log_dir)
+
+    def stop_profile(self) -> None:
+        """Stop the trace begun by :meth:`start_profile`."""
+        if self.prof is None:
+            raise RuntimeError("profiling disabled (engine.prof=False)")
+        self.prof.stop()
+
+    # -- the canary integrity loop (obs/quality.py) -------------------------
+
+    def _start_canary(self) -> None:
+        """Arm the canary loop: an engine-owned publisher replays the
+        golden trace (cfg.quality_canary) into the bus at low cadence under
+        cfg.quality_canary_stream, and the drain folds each emitted slot's
+        host checksum into the CanaryChecker, which compares once a trace
+        loop. The canary rides the whole serving path (bus, collector,
+        graphed step, keep mask, drain), so a numerics regression anywhere
+        on it moves the fold and fires the ``canary_integrity`` SLO and
+        watchdog episode."""
+        from ..obs.quality import CanaryChecker
+        from ..obs.slo import BurnRateSLO, integrity_slo
+        from ..replay.player import TracePlayer
+
+        player = TracePlayer(self._cfg.quality_canary)
+        if not player.devices:
+            raise ValueError(f"canary trace {self._cfg.quality_canary!r} has no streams")
+        events = player.frame_events(player.devices[0])
+        if not events:
+            raise ValueError(f"canary trace {self._cfg.quality_canary!r} has no frames")
+        slo = None
+        if self.slo is not None:
+            slo = self.slo.add(BurnRateSLO(integrity_slo(warmup_s=self._cfg.slo_warmup_s)))
+        self.canary = CanaryChecker(
+            loop_len=len(events), stream=self._cfg.quality_canary_stream,
+            golden=self._cfg.quality_canary_golden or None, watchdog=self.watchdog, slo=slo)
+        self._canary_thread = threading.Thread(target=self._canary_loop, args=(events,),
+                                               name="vep-torch-canary", daemon=True)
+        self._canary_thread.start()
+
+    def _canary_loop(self, events: list) -> None:
+        """The golden-replay publisher (its own thread): frames enter
+        through the bus like any camera's, with the recorded packet index
+        (``meta_for``) and a fresh capture stamp. A publish failure is
+        logged once per run of failures and skipped: the checker voids an
+        incomplete cycle, so a dropped canary frame never reads as a
+        mismatch."""
+        from ..replay.player import meta_for
+        from ..replay.trace import decode_frame
+
+        name = self._cfg.quality_canary_stream
+        period = 1.0 / max(self._cfg.quality_canary_fps, 0.1)
+        frame0 = decode_frame(events[0])
+        i = 0
+        alive = False
+        warned = False
+        while not self._stop.wait(period):
+            ev = events[i % len(events)]
+            i += 1
+            try:
+                if not alive:
+                    self._bus.create_stream(name, frame0.nbytes)
+                    alive = True
+                frame = decode_frame(ev)
+                self._bus.publish(name, frame,
+                                  meta_for(ev, frame, timestamp_ms=int(time.time() * 1000)))
+                warned = False
+            except Exception as exc:
+                alive = False
+                if not warned:
+                    log.warning("canary publish failed: %s", exc)
+                    warned = True
+
     # -- consumers ---------------------------------------------------------
 
     def _stream_interest(self, device_id: str) -> bool:
-        """Does anything consume this stream's results now: the annotation
+        """Does anything consume this stream's results now: the canary's
+        checker (its stream, while the loop is armed), the annotation
         uplink (standing interest in every stream: the engine feeds the
         cloud what the reference's clients fed it), else a live subscriber
-        that covers it. With neither, inferring would compute results
-        nobody reads, and the collector gates the stream out. (The canary
-        loop, also interest in the JAX engine, is not ported.)"""
+        that covers it. With none, inferring would compute results nobody
+        reads, and the collector gates the stream out."""
+        if self.canary is not None and device_id == self.canary.stream:
+            return True
         if self._annotations is not None:
             return True
         with self._sub_lock:
@@ -1300,10 +1473,8 @@ class InferenceEngine:
             # The ladder's staleness signal: the work phase, not the
             # assembly window that absorbs the rest of the budget.
             self._last_tick_dur_s = self.last_tick_monotonic - t0
-            self._m_drain_depth.set(self._drain_q.qsize())
             try:
-                if self.slo is not None:
-                    self._slo_tick(inferred)
+                self._watch_tick(inferred)
                 self._collector.assemble_until(t0 + tick_s, device_ids=inferred,
                                                stop_event=self._stop)
             except Exception:
@@ -1326,19 +1497,32 @@ class InferenceEngine:
         if self._cfg.prefetch and not self._drain_blocked:
             depth = min(depth, 1)
         self._drain_blocked = False
+        self._bp_depth = depth
         rung = "normal"
         if self.ladder is not None:
             rung = self.ladder.observe(
                 queue_depth=depth, tick_lag_s=self._last_tick_dur_s, tick_budget_s=tick_s,
                 slo_burning=self._slo_burning and self._cfg.slo_ladder)
             self._apply_rung_cap(rung)
+        if rung == "normal" and self._shed_seq is not None:
+            # The shed excursion closes when the ladder recovers (journaled
+            # on the edge, never per tick).
+            self._close_shed_excursion()
         present, inferred = self._collector.partition()
         if rung == "admission_pause":
             # Only the admitted half competes for the device; the paused
             # half's workers stop decoding too (keep-hot skips them).
+            # Quality-unhealthy streams pause first; the canary never
+            # pauses (the integrity probe matters most under degradation).
             dep = (self.quality.unhealthy() if self.quality is not None
                    and self._cfg.quality_ladder else frozenset())
-            inferred = admitted_streams(inferred, dep)
+            canary = self.canary.stream if self.canary is not None else None
+            if canary is not None:
+                dep = dep - {canary}
+            admitted = admitted_streams(inferred, dep)
+            if canary is not None and canary in inferred and canary not in admitted:
+                admitted.append(canary)
+            inferred = admitted
         # Keep-hot before collect, for the inferred set only: the workers'
         # decode gates follow what is inferred, and do not flap.
         self._collector.keep_streams_hot(device_ids=inferred)
@@ -1363,17 +1547,40 @@ class InferenceEngine:
         groups return their lease here."""
         now_ms = time.time() * 1000.0
         out: List[BatchGroup] = []
+        tick_shed = 0
         for group in groups:
             kept, shed = shed_stale(group, now_ms, self._cfg.shed_staleness_ms, self._buckets)
             if shed:
                 with self._pipe_lock:
                     self._pipe.shed_frames += shed
                 self._m_shed.inc(shed)
+                tick_shed += shed
             if kept is None:
                 self._collector.release(group)
             else:
                 out.append(kept)
+        # One shed excursion event per degraded episode: opened on the
+        # first frame actually dropped, caused by the ladder transition
+        # that engaged shedding, closed when the ladder recovers (_tick).
+        if tick_shed and self.journal is not None:
+            if self._shed_seq is None:
+                self._shed_seq = self.journal.record(
+                    "engine", "shed_open", subject=("engine", "dispatch"),
+                    trigger={"frames": tick_shed, "staleness_ms": self._cfg.shed_staleness_ms},
+                    cause=(self.ladder.last_transition_seq if self.ladder is not None
+                           else None))
+                self._shed_excursion_frames = 0
+            self._shed_excursion_frames += tick_shed
         return out
+
+    def _close_shed_excursion(self) -> None:
+        """Close the open shed excursion (the ladder is back at normal)."""
+        if self.journal is not None and self._shed_seq is not None:
+            self.journal.record("engine", "shed_close", subject=("engine", "dispatch"),
+                                trigger={"frames": self._shed_excursion_frames},
+                                cause=self._shed_seq)
+        self._shed_seq = None
+        self._shed_excursion_frames = 0
 
     def _forget_absent(self, present: Sequence[str]) -> None:
         """Drop the collector's cursor, geometry and clip window and the
@@ -1399,6 +1606,31 @@ class InferenceEngine:
             self._known.discard(d)
             del self._absent[d]
 
+    def _watch_tick(self, inferred: Sequence[str] = ()) -> None:
+        """Per-tick checks (obs/watch.py), each logged once per episode:
+        drain backpressure and a recompile storm (a step-cache miss on 3+
+        consecutive ticks: shapes churning faster than the cache warms).
+        Then the SLO samples and the throttled evaluation, and the
+        profiler's trigger poll (one capture per new SLO episode or
+        escalation, rate-limited, on its own thread; idle: compares under
+        a lock)."""
+        self._m_drain_depth.set(self._drain_q.qsize())
+        self.watchdog.check("drain_backpressure", self._bp_depth, above=1,
+                            detail="device slower than the tick loop (double buffer full)")
+        misses = self._m_cache_miss.value
+        self._miss_streak = self._miss_streak + 1 if misses > self._miss_seen else 0
+        self._miss_seen = misses
+        self.watchdog.check("recompile_storm", self._miss_streak, above=2,
+                            detail="step-cache miss on 3+ consecutive ticks (shape churn)")
+        if self.slo is not None:
+            self._slo_tick(inferred)
+        if self.prof is not None:
+            rung_idx = self.ladder.rung_index if self.ladder is not None else 0
+            self.prof.poll(episodes=self._slo_episodes, rung=rung_idx,
+                           context={"slo_episode": self._slo_episodes or None,
+                                    "slo_burning": self._slo_burning,
+                                    "rung": RUNGS[rung_idx]})
+
     def _slo_tick(self, inferred: Sequence[str]) -> None:
         """Per-tick fps and availability samples (only while streams are
         inferred) and the throttled SLO evaluation."""
@@ -1416,7 +1648,10 @@ class InferenceEngine:
                 avail.record(good=float(ok), bad=float(not ok))
         if now >= self._slo_next_eval:
             self._slo_next_eval = now + self._cfg.slo_eval_interval_s
-            self._slo_burning = self.slo.evaluate()["burning"]
+            verdict = self.slo.evaluate()
+            self._slo_burning = verdict["burning"]
+            # Episodes opened by every SLO: the profiler's trigger watermark.
+            self._slo_episodes = sum(st["episodes"] for st in verdict["slos"].values())
 
     def _step(self, src_hw: tuple, bucket: int, model: Optional[str] = None) -> Callable:
         """The step of (``model``, default: the engine's; its stem,
@@ -1503,6 +1738,8 @@ class InferenceEngine:
                     if gj < len(handles) and handles[gj] is not None:
                         handles[gj].ready.wait(timeout=5.0)
                     self._collector.release(groups[gj])
+                    if tracer.enabled:
+                        self._record_dropped(groups[gj], "dispatch_error")
                 if fatal:
                     raise
                 log.exception("engine tick failed; continuing")
@@ -1512,7 +1749,21 @@ class InferenceEngine:
                 self._pipe.h2d_ms += h2d_ms
                 self._pipe.h2d_overlapped_ms += overlapped_ms
             self._m_batches.inc()
+            if tracer.enabled:
+                for did, meta in zip(group.device_ids, group.metas):
+                    if tracer.sampled(meta.packet):
+                        tracer.record(did, "submit", meta.packet, ts=inflight.t_submit,
+                                      bucket=group.bucket, trace_id=trace_id_of(meta, did))
             self._enqueue_drain(inflight)
+
+    @staticmethod
+    def _record_dropped(group: BatchGroup, reason: str) -> None:
+        """Close the sampled lineages of a group that leaves without a
+        result (a ``dropped`` span)."""
+        for did, m in zip(group.device_ids, group.metas):
+            if tracer.sampled(m.packet):
+                tracer.record(did, "dropped", m.packet, reason=reason,
+                              trace_id=trace_id_of(m, did))
 
     def _run_step(self, step: Callable, group: BatchGroup, placed: torch.Tensor, event,
                   t_collect: float) -> _Inflight:
@@ -1551,6 +1802,8 @@ class InferenceEngine:
                 return
             except queue.Full:
                 continue
+        if tracer.enabled:
+            self._record_dropped(inflight.group, "shutdown_drain")
         self._collector.release(inflight.group)
 
     # -- drain and emit -----------------------------------------------------------
@@ -1594,6 +1847,7 @@ class InferenceEngine:
 
     def _emit(self, inflight: _Inflight) -> None:
         group = inflight.group
+        t_drain0 = time.time()
         host = self._read_back(inflight)
         t_drained = time.time()
         if self._cuda:
@@ -1617,7 +1871,7 @@ class InferenceEngine:
                 self._assign_tracks(device_id, spec.name, detections)
                 track_s += time.perf_counter() - t_track
             if self.quality is not None:
-                self._observe_quality(host, i, device_id, detections)
+                self._observe_quality(host, i, device_id, meta, detections)
             latency = max(0.0, now_ms - meta.timestamp_ms) if meta.timestamp_ms else 0.0
             if meta.timestamp_ms:
                 capture_sum += inflight.t_collect * 1000.0 - meta.timestamp_ms
@@ -1640,6 +1894,17 @@ class InferenceEngine:
                 slo_latency.record(good=float(ok), bad=float(not ok))
             self._m_frames.labels(device_id).inc()
             self._m_latency.labels(device_id).observe(latency)
+            if self._cfg.stage_trace:
+                self.stage_records.append({
+                    "device_id": device_id, "ts_pub_ms": meta.timestamp_ms,
+                    "t_collect": inflight.t_collect, "t_submit": inflight.t_submit,
+                    "t_drain0": t_drain0, "t_drained": t_drained, "t_emitted": time.time(),
+                    "bucket": group.bucket})
+            if tracer.sampled(meta.packet):
+                tid = trace_id_of(meta, device_id)
+                tracer.record(device_id, "device", meta.packet, ts=t_drained,
+                              dur_ms=device_ms, bucket=group.bucket, trace_id=tid)
+                tracer.record(device_id, "emit", meta.packet, trace_id=tid)
         n = len(group.device_ids)
         self._rate.note(n)
         t_emitted = time.time()
@@ -1674,10 +1939,11 @@ class InferenceEngine:
         for det, tid in zip(detections, ids):
             det.track_id = tid
 
-    def _observe_quality(self, host: Dict[str, np.ndarray], i: int, device_id: str,
+    def _observe_quality(self, host: Dict[str, np.ndarray], i: int, device_id: str, meta,
                          detections: List[Detection]) -> None:
         """Fold one emitted slot into the quality plane: the step's frame
-        statistics, when it carried them, and the detection set."""
+        statistics, when it carried them, and the detection set; a canary
+        slot's host checksum goes to the integrity checker."""
         kwargs = {}
         qs = host.get("quality_stats")
         if qs is not None:
@@ -1685,6 +1951,9 @@ class InferenceEngine:
                       "diff_energy": float(qs[i, 2])}
         self.quality.observe(device_id, classes=[d.class_id for d in detections],
                              scores=[d.confidence for d in detections], **kwargs)
+        if (self.canary is not None and device_id == self.canary.stream
+                and "boxes" in host):
+            self.canary.note(meta.packet, host_slot_checksum(host, i))
 
     # -- the annotation uplink --------------------------------------------------
 

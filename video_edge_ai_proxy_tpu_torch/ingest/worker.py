@@ -45,7 +45,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from ..bus import FrameBus, FrameMeta, RingSlotTooSmall, open_bus
-from ..obs import registry as obs_registry, trace_id_for
+from ..obs import registry as obs_registry, trace_id_for, tracer
 from ..utils.config import BusConfig
 from .sources import VideoSource, open_source
 
@@ -155,6 +155,11 @@ class IngestWorker:
         self._m_reconnects = obs_registry.counter(
             "vep_ingest_reconnects_total", "Mid-stream EOF reconnect loops",
             ("stream",)).labels(*dev)
+        # A worker process inherits the tracing intent through the
+        # environment (the server's tracer does not cross the exec).
+        if os.environ.get("VEP_OBS_TRACE"):
+            tracer.configure(enabled=True,
+                             sample_every=int(os.environ.get("VEP_OBS_SAMPLE_EVERY") or 16))
 
     # -- control-plane reads (per packet; a KV load on the shm bus) --
 
@@ -255,6 +260,10 @@ class IngestWorker:
             self.bus.publish(cfg.device_id, frame, meta)
         self._published += 1
         self._m_published.inc()
+        if tracer.sampled(meta.packet):
+            # The lineage's origin: the frame id (the packet number) is
+            # stamped here and flows unchanged to the result.
+            tracer.record(cfg.device_id, "publish", meta.packet, trace_id=meta.trace_id)
         if self._recorder is not None:
             # Synthetic frames are a function of (w, h, n): the trace keeps
             # the seed, not the pixels.

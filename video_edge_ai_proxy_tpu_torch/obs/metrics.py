@@ -7,13 +7,15 @@ the bucket counts, no samples stored). One lock acquire and an add per
 observation; hot paths hold a child handle so no observation looks a name
 up. ``render`` writes the Prometheus text exposition (0.0.4) and
 ``snapshot`` a JSON view, for the server's ``/metrics`` and
-``/api/v1/stats``; the exposition linter and the constant labels of the
-fleet tier are not ported.
+``/api/v1/stats``; ``set_const_labels`` adds labels to every sample at
+render time (a member's ``instance``), and ``lint_exposition`` checks a
+rendered page.
 """
 
 from __future__ import annotations
 
 import math
+import re
 import threading
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -188,6 +190,9 @@ class Registry:
     def __init__(self):
         self._lock = threading.Lock()
         self._families: Dict[str, Family] = {}
+        # Constant labels applied to every sample at render time, not
+        # stored per child: observation cost is unchanged.
+        self._const: Tuple[Tuple[str, str], ...] = ()
 
     def _family(self, name: str, kind: str, help_text: str,
                 labelnames: Iterable[str]) -> Family:
@@ -219,12 +224,21 @@ class Registry:
         with self._lock:
             return list(self._families.values())
 
-    @staticmethod
-    def _labelstr(names: Tuple[str, ...], values: Tuple[str, ...], extra: str = "") -> str:
+    def set_const_labels(self, **labels: str) -> None:
+        """Set the render-time constant label set (replacing any previous
+        one). A family that carries one of these names keeps its own."""
+        self._const = tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+    @property
+    def const_labels(self) -> Dict[str, str]:
+        return dict(self._const)
+
+    def _labelstr(self, names: Tuple[str, ...], values: Tuple[str, ...], extra: str = "") -> str:
         def esc(v: str) -> str:
             return str(v).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
 
-        pairs = [f'{n}="{esc(v)}"' for n, v in zip(names, values)]
+        pairs = [f'{n}="{esc(v)}"' for n, v in self._const if n not in names]
+        pairs += [f'{n}="{esc(v)}"' for n, v in zip(names, values)]
         if extra:
             pairs.append(extra)
         return "{" + ",".join(pairs) + "}" if pairs else ""
@@ -279,3 +293,90 @@ class Registry:
 
 # The process-wide registry the port's modules record into.
 registry = Registry()
+
+
+def lint_exposition(text: str) -> List[str]:
+    """Validate Prometheus text-format 0.0.4 structure. Returns a list of
+    problems (empty = clean). Checks: every sample belongs to an announced
+    family, HELP/TYPE precede samples, families are contiguous (no family
+    re-opened later), no duplicate (name, labels) samples, label values
+    quoted with only valid escapes."""
+    problems: List[str] = []
+    seen_families: List[str] = []
+    closed: set = set()
+    current: Optional[str] = None
+    current_kind = ""
+    seen_samples: set = set()
+    for ln, line in enumerate(text.splitlines(), 1):
+        if not line.strip():
+            continue
+        if line.startswith("# HELP ") or line.startswith("# TYPE "):
+            parts = line.split(None, 3)
+            if len(parts) < 3:
+                problems.append(f"line {ln}: malformed comment {line!r}")
+                continue
+            name = parts[2]
+            if name != current:
+                if name in closed:
+                    problems.append(
+                        f"line {ln}: family {name} re-opened (samples must "
+                        "be contiguous per family)")
+                if current is not None:
+                    closed.add(current)
+                current = name
+                seen_families.append(name)
+            if line.startswith("# TYPE "):
+                if len(parts) < 4 or parts[3] not in (
+                        "counter", "gauge", "histogram", "summary",
+                        "untyped"):
+                    problems.append(f"line {ln}: bad TYPE {line!r}")
+                else:
+                    current_kind = parts[3]
+            continue
+        if line.startswith("#"):
+            continue
+        # sample line: name[{labels}] value
+        brace = line.find("{")
+        if brace >= 0:
+            name = line[:brace]
+            close = line.rfind("}")
+            if close < 0:
+                problems.append(f"line {ln}: unterminated label set")
+                continue
+            labels = line[brace + 1:close]
+            rest = line[close + 1:].strip()
+            # name="value" tokens with escaped quotes
+            token = re.compile(
+                r'\s*([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"\s*(,|$)')
+            pos = 0
+            while pos < len(labels):
+                m = token.match(labels, pos)
+                if m is None:
+                    problems.append(
+                        f"line {ln}: bad label syntax near {labels[pos:]!r}")
+                    break
+                pos = m.end()
+        else:
+            name, _, rest = line.partition(" ")
+            labels = ""
+            rest = rest.strip()
+        base = name
+        for suffix in ("_bucket", "_sum", "_count"):
+            if current_kind in ("histogram", "summary") and \
+                    name.endswith(suffix) and \
+                    name[: -len(suffix)] == current:
+                base = name[: -len(suffix)]
+                break
+        if base != current:
+            problems.append(
+                f"line {ln}: sample {name} outside its family block "
+                f"(current family: {current})")
+        try:
+            float(rest.split()[0])
+        except (ValueError, IndexError):
+            problems.append(f"line {ln}: non-numeric value {rest!r}")
+        key = (name, labels)
+        if key in seen_samples:
+            problems.append(f"line {ln}: duplicate sample {name}{{{labels}}}")
+        seen_samples.add(key)
+    return problems

@@ -8,7 +8,7 @@ time per (model, geometry, bucket) into ``vep_compile_seconds`` and
 ``vep_compile_programs_total``, under the JAX names and labels. The JAX
 tracker's FLOPs per program (``vep_compile_program_gflop``) and its MFU
 gauges read XLA's cost analysis, which has no counterpart here; they are
-not ported.
+not ported, and ``snapshot`` holds the compile records only.
 """
 
 from __future__ import annotations
@@ -61,3 +61,9 @@ class PerfTracker:
         """Copies of the compile records, one per (model, geometry, bucket)."""
         with self._lock:
             return [dict(rec) for rec in self._compiles.values()]
+
+    def snapshot(self) -> dict:
+        """JSON-able view for /api/v1/stats and the profiler's bundles:
+        the compile records. The JAX snapshot's per-bucket MFU and FLOPs
+        are absent (not ported)."""
+        return {"compiles": self.compiles()}

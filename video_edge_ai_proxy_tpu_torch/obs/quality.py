@@ -13,8 +13,11 @@ the degradation ladder sheds first. ``observe()`` runs on the engine's
 drain thread, ``unhealthy()`` on its tick thread; all state is
 lock-guarded.
 
-The canary integrity loop (``CanaryChecker``, off by default) is a later
-slice.
+:class:`CanaryChecker` is the canary integrity loop's checker: the engine
+replays a committed golden trace into the bus at low cadence
+(``cfg.quality_canary``, off by default) and folds each emitted canary
+frame's host checksum into it; a cycle whose fold differs from the golden
+fires the ``canary_integrity`` SLO and watchdog episode.
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ from typing import Callable, Dict, Optional, Sequence
 from . import metrics as metrics_mod
 
 log = logging.getLogger("vep.torch.obs.quality")
+
+# The replay checksums' mask (replay/checksum.py CHECKSUM_MASK, the int32
+# non-negative range): the canary's fold stays comparable with a golden.
+_MASK = 0x7FFFFFFF
 
 #: Verdicts in priority order — when several conditions hold at once the
 #: earlier one wins (a black frame is also frozen; black explains more).
@@ -387,4 +394,125 @@ class QualityTracker:
                     }
                     for name, st in sorted(self._streams.items())
                 },
+            }
+
+
+class CanaryChecker:
+    """Golden-replay integrity: fold host-side per-frame result checksums
+    of the canary stream once per trace loop, compare to the golden.
+
+    Cycle accounting keys off the replayed frame's packet index (the
+    trace player preserves it, replay/player.py ``meta_for``), NOT wall
+    time: a cycle closes when the packet index wraps, must contain
+    exactly ``loop_len`` distinct packets (dropped or duplicated frames
+    make the cycle *void* — not checked, so scheduling jitter can never
+    manufacture a false mismatch), and its checksums fold in packet
+    order so the comparison is timing-independent. ``golden=None``
+    adopts the first complete cycle's value (first-run semantics, same
+    as replay/checksum.py record-only goldens).
+    """
+
+    def __init__(
+        self,
+        *,
+        loop_len: int,
+        stream: str = "_canary",
+        golden: Optional[int] = None,
+        registry: Optional[metrics_mod.Registry] = None,
+        watchdog=None,
+        slo=None,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        if loop_len <= 0:
+            raise ValueError(f"loop_len must be positive, got {loop_len}")
+        self._loop_len = int(loop_len)
+        self.stream = stream
+        self._golden = int(golden) if golden else None
+        self.adopted = False
+        self._watchdog = watchdog
+        self._slo = slo
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._cycle: Dict[int, int] = {}
+        self._last_packet: Optional[int] = None
+        self.match_cycles = 0
+        self.mismatch_cycles = 0
+        self.void_cycles = 0
+        self.last_value: Optional[int] = None
+        reg = registry if registry is not None else metrics_mod.registry
+        self._c_cycles = reg.counter(
+            "vep_quality_canary_cycles_total",
+            "Canary golden-replay cycles checked, by result",
+            ("result",))
+        self._g_ok = reg.gauge(
+            "vep_quality_canary_ok",
+            "1 while the canary checksum matches its golden "
+            "(0 during a mismatch run)").labels()
+        self._g_ok.set(1)
+
+    def note(self, packet: int, checksum: int) -> None:
+        """One emitted canary frame: its packet index and host-side
+        content checksum (replay/checksum.py ``host_slot_checksum``)."""
+        with self._lock:
+            p = int(packet)
+            if self._last_packet is not None and p <= self._last_packet:
+                self._close_cycle_locked()
+            self._cycle[p] = int(checksum) & _MASK
+            self._last_packet = p
+
+    def _close_cycle_locked(self) -> None:
+        cycle, self._cycle = self._cycle, {}
+        if (len(cycle) != self._loop_len
+                or sorted(cycle) != list(range(self._loop_len))):
+            self.void_cycles += 1
+            self._c_cycles.labels("void").inc()
+            return
+        value = 0
+        for p in range(self._loop_len):
+            value = (value * 1000003 + cycle[p]) & _MASK
+        self.last_value = value
+        if self._golden is None:
+            self._golden = value
+            self.adopted = True
+            log.info("canary %s adopted golden checksum %d over %d frames",
+                     self.stream, value, self._loop_len)
+        if value == self._golden:
+            self.match_cycles += 1
+            self._c_cycles.labels("match").inc()
+            self._g_ok.set(1)
+            if self._slo is not None:
+                self._slo.record(good=1.0)
+            if self._watchdog is not None:
+                self._watchdog.check("canary_integrity", 0.0, above=0.5)
+        else:
+            self.mismatch_cycles += 1
+            self._c_cycles.labels("mismatch").inc()
+            self._g_ok.set(0)
+            log.error("canary %s cycle checksum %d != golden %d",
+                      self.stream, value, self._golden)
+            if self._slo is not None:
+                self._slo.record(bad=1.0)
+            if self._watchdog is not None:
+                self._watchdog.check(
+                    "canary_integrity", 1.0, above=0.5,
+                    detail=f"cycle checksum {value} != golden "
+                           f"{self._golden}")
+
+    @property
+    def golden(self) -> Optional[int]:
+        with self._lock:
+            return self._golden
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "stream": self.stream,
+                "loop_len": self._loop_len,
+                "golden": self._golden,
+                "adopted": self.adopted,
+                "match_cycles": self.match_cycles,
+                "mismatch_cycles": self.mismatch_cycles,
+                "void_cycles": self.void_cycles,
+                "last_value": self.last_value,
+                "pending_frames": len(self._cycle),
             }

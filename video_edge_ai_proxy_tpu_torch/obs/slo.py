@@ -18,13 +18,16 @@ per-tick frames/s and availability samples from the tick loop;
   first event.
 - Injectable clock, so burn-rate math is tested on fake time.
 
-The JAX module's decision-journal and watchdog hooks are not ported; an
-episode opening or closing is logged instead.
+With a decision journal each episode's opening and closing is an event
+(``slo.episode_open``/``episode_close``, the burn numbers as trigger;
+``last_open_seq`` is the cause the ladder links an SLO-driven escalation
+to), and with a watchdog each SLO is an episode ``slo_burn:<name>``
+logged once per excursion. ``integrity_slo`` is the canary loop's
+objective.
 """
 
 from __future__ import annotations
 
-import logging
 import math
 import threading
 import time
@@ -32,8 +35,6 @@ from dataclasses import dataclass
 from typing import Dict, Iterable, Optional
 
 from . import metrics
-
-log = logging.getLogger("vep.torch.obs.slo")
 
 
 @dataclass(frozen=True)
@@ -99,7 +100,8 @@ class BurnRateSLO:
     burn, keeps episode state, and feeds ``vep_slo_*`` gauges."""
 
     def __init__(self, spec: SLOSpec, *, clock=time.monotonic,
-                 registry: Optional[metrics.Registry] = None):
+                 registry: Optional[metrics.Registry] = None,
+                 journal=None):
         if not 0.0 < spec.objective < 1.0:
             raise ValueError(
                 f"SLO {spec.name!r}: objective must be in (0, 1), "
@@ -114,6 +116,10 @@ class BurnRateSLO:
         self.firing = False
         self.episodes = 0
         self._last: dict = {"fast": None, "slow": None}
+        # Decision journal: episode open/close events; last_open_seq is
+        # the cause handle the ladder links SLO-driven transitions to.
+        self.journal = journal
+        self.last_open_seq: Optional[int] = None
         self._g_fast = reg.gauge(
             "vep_slo_burn_rate",
             "Error-budget burn-rate multiple per window",
@@ -151,8 +157,9 @@ class BurnRateSLO:
             return None
         return (bad / total) / self.budget
 
-    def evaluate(self) -> dict:
-        """Update episode state from both windows; returns the state dict."""
+    def evaluate(self, watchdog=None) -> dict:
+        """Update episode state from both windows; returns the state dict
+        served at /api/v1/slo."""
         spec = self.spec
         now = self._clock()
         fast = self.burn_rate(spec.fast_window_s)
@@ -163,25 +170,46 @@ class BurnRateSLO:
             burning = (covered and fast is not None and slow is not None
                        and fast > spec.fire_burn_rate
                        and slow > spec.fire_burn_rate)
+            opened = closed = False
             if burning and not self.firing:
                 self.firing = True
                 self.episodes += 1
                 self._c_episodes.inc()
-                log.warning("SLO %s burning: fast=%s slow=%s threshold=%s",
-                            spec.name, fast, slow, spec.fire_burn_rate)
+                opened = True
             elif self.firing and (fast is None
                                   or fast <= spec.fire_burn_rate):
                 # Fast window clearing resolves the episode: budget is no
                 # longer burning *now*, even though the slow window still
                 # remembers the excursion.
                 self.firing = False
-                log.info("SLO %s recovered: fast=%s", spec.name, fast)
+                closed = True
             self._last = {"fast": fast, "slow": slow}
+        if self.journal is not None and opened:
+            self.last_open_seq = self.journal.record(
+                "slo", "episode_open", subject=("slo", spec.name),
+                trigger={"fast": fast, "slow": slow,
+                         "threshold": spec.fire_burn_rate})
+        elif self.journal is not None and closed:
+            self.journal.record(
+                "slo", "episode_close", subject=("slo", spec.name),
+                trigger={"fast": fast, "slow": slow,
+                         "threshold": spec.fire_burn_rate,
+                         "episodes": self.episodes},
+                cause=self.last_open_seq)
         if fast is not None:
             self._g_fast.set(fast)
         if slow is not None:
             self._g_slow.set(slow)
         self._g_firing.set(1.0 if self.firing else 0.0)
+        if watchdog is not None:
+            # The once-per-episode operator log, keyed per SLO so that
+            # concurrent burns log independently.
+            watchdog.check(
+                f"slo_burn:{spec.name}",
+                fast if (covered and fast is not None) else 0.0,
+                above=spec.fire_burn_rate,
+                detail=(f"fast={fast} slow={slow} "
+                        f"threshold={spec.fire_burn_rate}"))
         return self.state()
 
     def state(self) -> dict:
@@ -235,23 +263,46 @@ def default_slos(*, latency_ms: float = 40.0, target_fps: float = 1000.0,
     )
 
 
+def integrity_slo(*, warmup_s: float = 60.0) -> SLOSpec:
+    """The canary-integrity objective (obs/quality.py CanaryChecker):
+    virtually every golden-replay cycle must reproduce the committed
+    result checksum. Cycles are rare events (one per trace loop, a
+    handful per fast window), so a single mismatch burns far above 1.0
+    and fires as soon as the window is covered — integrity failures are
+    binary, not budgeted like latency."""
+    return SLOSpec(
+        name="canary_integrity",
+        objective=0.99,
+        description="canary golden-replay cycles matching the committed "
+                    "result checksum",
+        fire_burn_rate=1.0,
+        warmup_s=warmup_s,
+    )
+
+
 class SLOEngine:
     """A set of burn-rate SLOs with one evaluate/snapshot surface.
 
     Owned by the inference engine; ``evaluate`` runs off the engine tick
-    (throttled there to ~1/s), pushes gauges, logs each episode's opening
-    and closing, and returns the aggregate ``burning`` verdict the
+    (throttled there to ~1/s), pushes gauges and the once-per-episode
+    watchdog lines, and returns the aggregate ``burning`` verdict the
     degradation ladder consumes.
     """
 
     def __init__(self, specs: Iterable[SLOSpec] = (), *,
                  clock=time.monotonic,
-                 registry: Optional[metrics.Registry] = None):
+                 registry: Optional[metrics.Registry] = None,
+                 watchdog=None, journal=None):
+        self._watchdog = watchdog
+        self.journal = journal
         self._slos: Dict[str, BurnRateSLO] = {}
         for spec in specs:
-            self.add(BurnRateSLO(spec, clock=clock, registry=registry))
+            self.add(BurnRateSLO(spec, clock=clock, registry=registry,
+                                 journal=journal))
 
     def add(self, slo: BurnRateSLO) -> BurnRateSLO:
+        if slo.journal is None:
+            slo.journal = self.journal
         self._slos[slo.name] = slo
         return slo
 
@@ -264,7 +315,7 @@ class SLOEngine:
 
     def evaluate(self) -> dict:
         """Evaluate every SLO; {"burning": any-firing, "slos": {...}}."""
-        states = {name: slo.evaluate()
+        states = {name: slo.evaluate(self._watchdog)
                   for name, slo in sorted(self._slos.items())}
         return {"burning": any(s["firing"] for s in states.values()),
                 "slos": states}

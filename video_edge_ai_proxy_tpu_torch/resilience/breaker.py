@@ -11,8 +11,8 @@ outcome decides between closing and re-opening.
 
 State and transition counters live in the obs metrics registry
 (``vep_breaker_state{dep}``, ``vep_breaker_transitions_total{dep,to}``)
-so ``/metrics`` exposes them. (The JAX package's watchdog bound on a
-breaker stuck open is not ported.)
+so ``/metrics`` exposes them. With a watchdog, a breaker open longer
+than ``max_open_s`` is one ``breaker_<name>_open`` episode, logged once.
 
 The clock is injectable so tier-1 tests run sleep-free.
 """
@@ -62,14 +62,18 @@ class CircuitBreaker:
         *,
         failure_threshold: int = 5,
         recovery_timeout_s: float = 30.0,
+        max_open_s: float = 300.0,
         clock: Callable[[], float] = time.monotonic,
+        watchdog=None,
     ):
         if failure_threshold < 1:
             raise ValueError(f"failure_threshold must be >= 1, got {failure_threshold}")
         self.name = name
         self.failure_threshold = int(failure_threshold)
         self.recovery_timeout_s = float(recovery_timeout_s)
+        self.max_open_s = float(max_open_s)
         self._clock = clock
+        self._watchdog = watchdog
         self._lock = threading.Lock()
         self._state = CLOSED
         self._failures = 0
@@ -113,7 +117,12 @@ class CircuitBreaker:
         now = self._clock()
         with self._lock:
             if self._state == OPEN:
-                if now - self._opened_at >= self.recovery_timeout_s:
+                open_for = now - self._opened_at
+                if self._watchdog is not None:
+                    self._watchdog.check(
+                        f"breaker_{self.name}_open", open_for, above=self.max_open_s,
+                        detail=f"breaker '{self.name}' open for {open_for:.0f}s")
+                if open_for >= self.recovery_timeout_s:
                     self._transition(HALF_OPEN, now)
                 else:
                     return False
@@ -125,6 +134,8 @@ class CircuitBreaker:
                     return False
                 self._probe_at = now
                 return True
+            if self._watchdog is not None:
+                self._watchdog.check(f"breaker_{self.name}_open", 0.0, above=self.max_open_s)
             return True
 
     def record_success(self) -> None:

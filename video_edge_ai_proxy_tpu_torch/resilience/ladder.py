@@ -22,6 +22,15 @@ Pressure is ``queue_depth >= depth_threshold`` (drain backpressure),
 ladder escalates one rung after ``escalate_after_s`` of continuous
 pressure (the timer restarts at each transition, so rung N takes N
 windows) and recovers one rung per ``recover_after_s`` pressure-free.
+Transitions count in ``vep_ladder_rung`` and
+``vep_ladder_transitions_total{to}``. With a watchdog, a degraded
+excursion is one ``engine_degraded`` episode, logged once. With a decision
+journal every transition is an event (``ladder.escalate``/``recover``,
+subject ``ladder:engine``) whose trigger is the pressure breakdown and
+whose cause is the previous transition, or, for a fresh escalation under
+SLO burn, the SLO's ``episode_open``; ``last_transition_seq`` is the
+handle the engine's shed excursion links to.
+
 The clock is injectable, so rung tests run on fake time.
 """
 
@@ -46,12 +55,17 @@ class DegradationLadder:
 
     def __init__(self, *, escalate_after_s: float = 0.5, recover_after_s: float = 2.0,
                  depth_threshold: int = 2, lag_factor: float = 3.0,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 watchdog=None, journal=None):
         self.escalate_after_s = float(escalate_after_s)
         self.recover_after_s = float(recover_after_s)
         self.depth_threshold = int(depth_threshold)
         self.lag_factor = float(lag_factor)
         self._clock = clock
+        self._watchdog = watchdog
+        self.journal = journal
+        self.last_transition_seq: Optional[int] = None
+        self._pressure_detail: Dict = {}
         self._lock = threading.Lock()
         self._rung = 0
         self._pressure_since: Optional[float] = None
@@ -69,8 +83,28 @@ class DegradationLadder:
         # Caller holds self._lock.
         prev = self._rung
         name = RUNGS[idx]
+        seq = None
+        if self.journal is not None:
+            trigger = dict(self._pressure_detail)
+            trigger["from"] = RUNGS[prev]
+            trigger["to"] = name
+            if idx > prev:
+                action = "escalate"
+                cause = self.last_transition_seq if prev != 0 else None
+                if cause is None and trigger.get("slo_burning"):
+                    # A fresh excursion under SLO burn: the chain roots
+                    # at the SLO's episode_open.
+                    cause = self.journal.latest_seq(actor="slo", action="episode_open")
+            else:
+                action = "recover"
+                cause = self.last_transition_seq
+            seq = self.journal.record("ladder", action, subject=("ladder", "engine"),
+                                      trigger=trigger, cause=cause)
+            self.last_transition_seq = seq
         log.log(logging.WARNING if idx > prev else logging.INFO,
-                "degradation ladder: %s -> %s", RUNGS[prev], name)
+                "degradation ladder: %s -> %s", RUNGS[prev], name,
+                extra={"vep_actor": "ladder", "vep_subject": "ladder:engine",
+                       "vep_journal_seq": seq})
         self._rung = idx
         self.transitions[name] = self.transitions.get(name, 0) + 1
         self._m_rung.set(idx)
@@ -84,6 +118,16 @@ class DegradationLadder:
                     or tick_lag_s > self.lag_factor * tick_budget_s
                     or slo_burning)
         with self._lock:
+            # The breakdown a transition this tick journals as its
+            # trigger. The port has no HBM tracker: its pressure is
+            # always False, as the JAX ladder's is without one.
+            self._pressure_detail = {
+                "queue_depth": int(queue_depth),
+                "tick_lag_s": round(float(tick_lag_s), 4),
+                "tick_budget_s": round(float(tick_budget_s), 4),
+                "slo_burning": bool(slo_burning),
+                "hbm_pressure": False,
+            }
             if pressure:
                 self._calm_since = None
                 if self._pressure_since is None:
@@ -102,13 +146,23 @@ class DegradationLadder:
                         self._calm_since = now
                 else:
                     self._calm_since = None
-            return RUNGS[self._rung]
+            rung = self._rung
+        if self._watchdog is not None:
+            # One "degraded" episode across the whole excursion, closed
+            # when the ladder is back at normal.
+            self._watchdog.check("engine_degraded", float(rung), above=0.0,
+                                 detail=f"degradation ladder at '{RUNGS[rung]}'")
+        return RUNGS[rung]
 
     @property
     def rung(self) -> str:
         with self._lock:
             return RUNGS[self._rung]
 
+    @property
+    def rung_index(self) -> int:
+        with self._lock:
+            return self._rung
 
     def snapshot(self) -> dict:
         """The rung and the transition counts (the server's

@@ -14,15 +14,26 @@ Routes of the planes the port has, with the JAX server's payloads:
     GET    /api/v1/slo                SLO burn state
     GET    /api/v1/quality            quality verdicts
     GET    /api/v1/router             degradation-ladder rung
+    GET    /api/v1/journal            decision journal (?actor= ?action=
+                                      ?subject=kind[:id] ?since=seq ?limit=n)
+    GET    /api/v1/why                causal chain (?stream=S, ?member=M or
+                                      ?subject=kind:id; ?max_links=n)
+    GET    /api/v1/trace              lineage spans and stage breakdown
+                                      (?stream= ?limit= ?format=chrome)
+    GET|POST /api/v1/profile?ms=N     bounded torch.profiler capture ->
+                                      the bundle manifest
+    POST   /api/v1/profile/start      unbounded trace ({"log_dir": ...})
+    POST   /api/v1/profile/stop
     GET    /healthz                   liveness (503 when degraded)
     GET    /metrics                   Prometheus text
     OPTIONS /api/v1/...               CORS preflight
 
 CORS is wide open like the reference; errors use its JSON envelope
-(``{"code", "message"}``). A plane that is switched off answers 400. The
-routes of planes not ported (cascade, capacity, hbm, faults, journal,
-why, trace, profile, fleet, router attach/detach, supervisor, rtspscan,
-the portal) are absent. Served on a thread of its own with its own event
+(``{"code", "message"}``). A plane that is switched off answers 400, a
+capture out of (0, ``prof_max_ms``] answers 400 and a second capture in
+flight 409. The routes of planes not ported (cascade, capacity, hbm,
+faults, fleet, router attach/detach, supervisor, rtspscan, the portal)
+are absent. Served on a thread of its own with its own event
 loop. Imports ``aiohttp``: only ``Server.start`` imports this module.
 """
 
@@ -31,12 +42,15 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import logging
+import os
+import tempfile
 import threading
 from typing import Optional
 
 from aiohttp import web
 
 from ..obs import registry as obs_registry
+from ..obs.spans import stage_breakdown, to_chrome_trace, tracer
 from .models import RTMPStreamStatus, StreamProcess
 from .process_manager import ProcessError, ProcessManager
 from .settings import SettingsManager
@@ -173,10 +187,18 @@ def build_app(pm: ProcessManager, settings: SettingsManager, engine=None,
             }
         out["obs"] = {
             "metrics": obs_registry.snapshot(),
+            "watch": engine.watchdog.snapshot() if engine is not None else None,
+            "trace": {"enabled": tracer.enabled, "sample_every": tracer.sample_every,
+                      "streams": tracer.streams()},
+            "perf": engine.perf.snapshot() if engine is not None else None,
             "slo": engine.slo.snapshot() if engine is not None and engine.slo is not None
             else None,
+            "prof": engine.prof.snapshot()
+            if engine is not None and engine.prof is not None else None,
             "quality": engine.quality.snapshot()
             if engine is not None and engine.quality is not None else None,
+            "journal": engine.journal.snapshot(tail=32)
+            if engine is not None and engine.journal is not None else None,
         }
         return web.json_response(out)
 
@@ -193,7 +215,7 @@ def build_app(pm: ProcessManager, settings: SettingsManager, engine=None,
         if engine.quality is None:
             return _error(400, "quality tracking disabled (engine.quality config)")
         out = await asyncio.to_thread(engine.quality.snapshot)
-        out["canary"] = None    # the canary loop is not ported
+        out["canary"] = engine.canary.snapshot() if engine.canary is not None else None
         return web.json_response(out)
 
     async def router_state(_request: web.Request) -> web.Response:
@@ -202,6 +224,124 @@ def build_app(pm: ProcessManager, settings: SettingsManager, engine=None,
         if engine.ladder is None:
             return _error(400, "degradation ladder disabled (engine.ladder config)")
         return web.json_response(engine.ladder.snapshot())
+
+    async def journal(request: web.Request) -> web.Response:
+        """Retained decision events oldest to newest, filtered by
+        ``?actor=``, ``?action=``, ``?subject=kind:id`` (or a bare kind),
+        ``?since=seq`` (exclusive) and ``?limit=n`` (the newest n)."""
+        if engine is None:
+            return _error(400, "engine not running")
+        if engine.journal is None:
+            return _error(400, "decision journal disabled (engine.journal config)")
+        q = request.query
+        subject = subject_kind = None
+        raw = q.get("subject")
+        if raw:
+            kind, sep, ident = raw.partition(":")
+            if sep:
+                subject = (kind, ident)
+            else:
+                subject_kind = kind
+        try:
+            since = int(q["since"]) if "since" in q else None
+            limit = int(q["limit"]) if "limit" in q else None
+        except ValueError:
+            return _error(400, "since/limit must be integers")
+        events = await asyncio.to_thread(
+            engine.journal.events, subject=subject, subject_kind=subject_kind,
+            actor=q.get("actor") or None, action=q.get("action") or None,
+            since=since, limit=limit)
+        return web.json_response({"next_seq": engine.journal.next_seq, "events": events})
+
+    async def why(request: web.Request) -> web.Response:
+        """The causal chain behind a subject's state: its newest journal
+        event and the cause links walked back, root first."""
+        if engine is None:
+            return _error(400, "engine not running")
+        if engine.journal is None:
+            return _error(400, "decision journal disabled (engine.journal config)")
+        q = request.query
+        if "stream" in q:
+            kind, ident = "stream", q["stream"]
+        elif "member" in q:
+            kind, ident = "member", q["member"]
+        elif "subject" in q and ":" in q["subject"]:
+            kind, _, ident = q["subject"].partition(":")
+        else:
+            return _error(400, "pass ?stream=S, ?member=M, or ?subject=kind:id")
+        try:
+            max_links = int(q.get("max_links", "8"))
+        except ValueError:
+            return _error(400, "max_links must be an integer")
+        out = await asyncio.to_thread(engine.journal.why, kind, ident, max_links=max_links)
+        return web.json_response(out)
+
+    async def trace(request: web.Request) -> web.Response:
+        """Buffered lineage spans and their per-leg breakdown, or
+        (``?format=chrome``) Chrome trace-event JSON."""
+        stream = request.query.get("stream")
+        try:
+            limit = int(request.query.get("limit", "0")) or None
+        except ValueError:
+            return _error(400, "limit must be an integer")
+        events = tracer.events(stream=stream, limit=limit)
+        if request.query.get("format") == "chrome":
+            return web.json_response(to_chrome_trace(events))
+        return web.json_response({"enabled": tracer.enabled,
+                                  "sample_every": tracer.sample_every,
+                                  "events": events, "breakdown": stage_breakdown(events)})
+
+    async def profile_capture(request: web.Request) -> web.Response:
+        """A bounded capture of ``?ms=N`` (default 500): the bundle
+        manifest. 400 when profiling is off or the duration is out of
+        range, 409 when a capture is in flight."""
+        if engine is None:
+            return _error(400, "engine not running")
+        if engine.prof is None:
+            return _error(400, "profiling disabled (engine.prof config)")
+        try:
+            ms = int(request.query.get("ms", "500"))
+        except ValueError:
+            return _error(400, "ms must be an integer")
+        try:
+            manifest = await asyncio.to_thread(engine.prof.capture, ms, trigger="manual",
+                                               context={"via": "rest"})
+        except ValueError as exc:
+            return _error(400, str(exc))
+        except RuntimeError as exc:
+            return _error(409, str(exc))
+        return web.json_response(manifest)
+
+    async def profile_start(request: web.Request) -> web.Response:
+        """An unbounded trace (the start/stop pair), on the same busy
+        flag as the bounded captures."""
+        if engine is None:
+            return _error(400, "engine not running")
+        if engine.prof is None:
+            return _error(400, "profiling disabled (engine.prof config)")
+        try:
+            body = await request.json()
+        except Exception:
+            body = {}
+        if not isinstance(body, dict):
+            return _error(400, "JSON object body expected")
+        log_dir = body.get("log_dir") or os.path.join(tempfile.gettempdir(), "vep_tpu_profile")
+        try:
+            await asyncio.to_thread(engine.start_profile, log_dir)
+        except RuntimeError as exc:
+            return _error(409, str(exc))
+        return web.json_response({"log_dir": log_dir})
+
+    async def profile_stop(_request: web.Request) -> web.Response:
+        if engine is None:
+            return _error(400, "engine not running")
+        if engine.prof is None:
+            return _error(400, "profiling disabled (engine.prof config)")
+        try:
+            await asyncio.to_thread(engine.stop_profile)
+        except RuntimeError as exc:
+            return _error(409, str(exc))
+        return web.Response(status=200)
 
     def _sync_scrape_families() -> str:
         """Mirror control-plane state the registry cannot observe live (the
@@ -290,6 +430,13 @@ def build_app(pm: ProcessManager, settings: SettingsManager, engine=None,
     app.router.add_get("/api/v1/slo", slo)
     app.router.add_get("/api/v1/quality", quality)
     app.router.add_get("/api/v1/router", router_state)
+    app.router.add_get("/api/v1/journal", journal)
+    app.router.add_get("/api/v1/why", why)
+    app.router.add_get("/api/v1/trace", trace)
+    app.router.add_get("/api/v1/profile", profile_capture)
+    app.router.add_post("/api/v1/profile", profile_capture)
+    app.router.add_post("/api/v1/profile/start", profile_start)
+    app.router.add_post("/api/v1/profile/stop", profile_stop)
     app.router.add_get("/healthz", healthz)
     app.router.add_get("/metrics", metrics)
     app.router.add_route("OPTIONS", "/api/v1/{tail:.*}", options)

@@ -14,16 +14,19 @@ the registry are closed.
 
 The engine runs on the card (``device="cuda"``) unless the caller asks
 for the CPU. It takes its per-stream model and annotation policy from the
-process manager's registry records.
+process manager's registry records. The process's decision journal
+(``engine.journal``) is built here and shared with the engine; the lineage
+tracer is process-global and configured from ``obs`` (``trace``,
+``sample_every``, ``trace_ring``); the profiler's bundles go under
+``<data_dir>/prof`` unless ``engine.prof_dir`` says otherwise.
 
 ``Server.__init__`` and every plane but the wire import neither ``grpc``,
 ``google.protobuf`` nor ``aiohttp`` (nor ``yaml``, unless ``load_config``
 reads a file); ``start()`` imports the wire modules first and raises their
 ``ImportError`` before it starts anything: there is no server without its
 wire. Planes of the JAX server that the port lacks stay off, each with a
-log line: the decision journal and the profiler, the fleet aggregator,
-router and supervisor, and the persistent XLA compile cache (no
-counterpart).
+log line: the fleet aggregator, router and supervisor, and the persistent
+XLA compile cache (no counterpart).
 """
 
 from __future__ import annotations
@@ -50,8 +53,6 @@ log = logging.getLogger("vep.torch.serve.server")
 # (config switch, what stays off) for the JAX server's planes the port
 # lacks; a YAML file may set them, and the server says it ignores them.
 _NOT_PORTED = (
-    ("engine.journal", "the decision journal"),
-    ("engine.prof", "the profiler"),
     ("obs.fleet_members", "the fleet aggregator"),
     ("router.members", "the fleet router"),
     ("supervisor.enabled", "the fleet supervisor"),
@@ -61,24 +62,43 @@ _NOT_PORTED = (
 
 def make_admin_handler(engine):
     """gRPC admin mirror of REST endpoints, JSON bytes in and out:
-    ``/vep.Admin/Quality`` (= ``GET /api/v1/quality``),
-    ``/vep.Admin/RouterState`` (= ``GET /api/v1/router``) and
-    ``/vep.Admin/ProfileCapture``, which answers FAILED_PRECONDITION: the
-    profiler is not ported. Imports ``grpc``."""
+    ``/vep.Admin/ProfileCapture`` (``b'{"ms": 500}'`` -> the bundle
+    manifest, = ``POST /api/v1/profile?ms=N``), ``/vep.Admin/Quality`` (=
+    ``GET /api/v1/quality``) and ``/vep.Admin/RouterState`` (= ``GET
+    /api/v1/router``). Status codes mirror REST: INVALID_ARGUMENT for a bad
+    body or duration (400), FAILED_PRECONDITION for a plane switched off
+    (the 400 of a disabled endpoint), ABORTED for a capture already in
+    flight (409). Imports ``grpc``."""
     import json
 
     import grpc
 
     def profile_capture(request: bytes, context):
-        context.abort(grpc.StatusCode.FAILED_PRECONDITION,
-                      "profiling disabled (the profiler is not ported)")
+        if engine is None or engine.prof is None:
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                          "profiling disabled (engine.prof config)")
+        try:
+            body = json.loads(request) if request else {}
+            ms = int(body.get("ms", 500)) if isinstance(body, dict) else None
+        except (ValueError, TypeError):
+            ms = None
+        if ms is None:
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                          'expected a JSON object body like {"ms": 500}')
+        try:
+            manifest = engine.prof.capture(ms, trigger="manual", context={"via": "grpc"})
+        except ValueError as exc:
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(exc))
+        except RuntimeError as exc:
+            context.abort(grpc.StatusCode.ABORTED, str(exc))
+        return json.dumps(manifest).encode()
 
     def quality(request: bytes, context):
         if engine is None or engine.quality is None:
             context.abort(grpc.StatusCode.FAILED_PRECONDITION,
                           "quality tracking disabled (engine.quality config)")
         out = engine.quality.snapshot()
-        out["canary"] = None
+        out["canary"] = engine.canary.snapshot() if engine.canary is not None else None
         return json.dumps(out).encode()
 
     def router_state(request: bytes, context):
@@ -108,6 +128,19 @@ class Server:
                              "'subprocess' workers (the container runner is not ported)")
         for switch, what in _NOT_PORTED:
             log.info("%s stays off: not ported (%s)", what, switch)
+        # Lineage tracing is process-global (obs.tracer): the engine and
+        # the collector stamp into the same rings.
+        from ..obs import tracer
+
+        tracer.configure(enabled=self.cfg.obs.trace, sample_every=self.cfg.obs.sample_every,
+                         ring=self.cfg.obs.trace_ring)
+        # One decision journal per process, shared with the engine;
+        # engine.journal=False is the process-wide kill switch.
+        self.journal = None
+        if self.cfg.engine.journal:
+            from ..obs.journal import DecisionJournal
+
+            self.journal = DecisionJournal(self.cfg.engine.journal_capacity)
         self.storage = Storage(os.path.join(data_dir, "registry.db"))
         self.bus = open_bus(backend, self.cfg.bus.shm_dir, self.cfg.bus.redis_addr,
                             self.cfg.bus.redis_password, self.cfg.bus.redis_db)
@@ -148,10 +181,15 @@ class Server:
                 # the registry, without changing the caller's Config.
                 engine_cfg = dataclasses.replace(
                     engine_cfg, aot_cache_dir=os.path.join(data_dir, "aot_cache"))
+            if engine_cfg.prof and not engine_cfg.prof_dir:
+                # Capture bundles persist next to the rest of the state.
+                engine_cfg = dataclasses.replace(
+                    engine_cfg, prof_dir=os.path.join(data_dir, "prof"))
             self.engine = InferenceEngine(
                 self.bus, engine_cfg, device=device, annotations=self.annotations,
                 model_resolver=self.process_manager.inference_model_of,
                 annotation_policy_resolver=self.process_manager.annotation_policy_of,
+                journal=self.journal,
             )
             if self.engine.slo is not None:
                 for name, state in sorted(self.engine.slo.snapshot()["slos"].items()):
@@ -202,6 +240,11 @@ class Server:
         self._grpc_server = server
         log.info("gRPC Image service on :%d (admin: /vep.Admin/*), REST on :%d",
                  self.bound_grpc_port, self._rest.bound_port)
+        if self.engine is not None and self.engine.prof is not None:
+            prof = self.engine.prof
+            log.info("profiler ready: bundles under %s (trigger=%s, %d ms, min interval %gs)",
+                     prof.directory, prof.trigger_enabled, prof.trigger_ms,
+                     prof.trigger_min_interval_s)
 
     def wait(self) -> None:
         self._stopped.wait()

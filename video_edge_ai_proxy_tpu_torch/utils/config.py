@@ -105,6 +105,9 @@ class EngineConfig:
     health_stale_after_s: float = 300.0
     # Per-stream SORT-style tracker filling Detection.track_id.
     track: bool = True
+    # Per-frame stage timestamps (publish -> collect -> submit -> drain ->
+    # emit) appended to engine.stage_records, bounded. Off in production.
+    stage_trace: bool = False
     # Overload degradation ladder: normal -> shed stale frames -> cap the
     # batch bucket one size down -> pause admission for half the streams.
     # Driven by drain-queue depth, tick lag and SLO burn; escalates after
@@ -126,6 +129,23 @@ class EngineConfig:
     slo_availability_window_s: float = 5.0
     slo_eval_interval_s: float = 1.0
     slo_ladder: bool = True
+    # Triggered device profiling (obs/prof.py): duration-bounded
+    # torch.profiler captures on demand (/api/v1/profile?ms=N, the gRPC
+    # admin mirror) and, with prof_trigger, once per SLO episode or ladder
+    # escalation, written as bundles (device trace, the overlapping spans
+    # and journal events, an engine snapshot) into a byte-bounded ring.
+    # prof=False disables it; the REST endpoint answers 400.
+    prof: bool = True
+    prof_dir: str = ""                 # "" = <tempdir>/vep_prof (the server
+                                       # uses <data_dir>/prof)
+    # Triggered capture is opt-in: the server forks camera workers
+    # (restarts), and a trace must not overlap a fork (the JAX profiler
+    # segfaulted when one did). Arm it where the engine runs fork-free.
+    prof_trigger: bool = False         # capture on burn/escalation
+    prof_trigger_ms: int = 500         # duration of triggered captures
+    prof_trigger_min_interval_s: float = 60.0  # rate limit between them
+    prof_retention_bytes: int = 256 << 20      # ring bound, oldest evicted
+    prof_max_ms: int = 10_000          # cap on ?ms= (400 above this)
     # Output-quality verdicts from the device frame statistics and the
     # detections; quality_ladder sheds black/frozen streams first.
     quality: bool = True
@@ -141,6 +161,15 @@ class EngineConfig:
     quality_window_s: float = 5.0      # drift scoring window
     quality_drift_threshold: float = 0.35
     quality_ladder: bool = True
+    # Canary integrity loop: a golden trace (replay/recorder.py) replayed
+    # into the live engine at low cadence by an engine-owned publisher;
+    # each completed loop's host result checksums fold and compare against
+    # the golden (0 = adopt the first complete cycle), feeding the
+    # canary_integrity SLO and watchdog. "" = no canary.
+    quality_canary: str = ""           # trace path ("" = off)
+    quality_canary_stream: str = "_canary"
+    quality_canary_fps: float = 2.0
+    quality_canary_golden: int = 0     # committed fold; 0 = record-only
     # Annotation emit policy of the engine's uplink: "all" (every
     # detection of every frame), "keyframe" (GOP heads only), "on_change"
     # (the tracked object set changed, or a confidence moved more than
@@ -150,6 +179,24 @@ class EngineConfig:
     annotation_emit: str = "on_change"
     annotation_min_interval_ms: int = 1000
     annotation_confidence_delta: float = 0.15
+    # Control-plane decision journal (obs/journal.py): a bounded ring of
+    # causally linked events from the ladder, the SLOs, the shed excursion
+    # and the watchdog, served at /api/v1/journal and /api/v1/why. On by
+    # default (recording is off the per-frame path); journal=False leaves
+    # no hook anywhere and /api/v1/journal answers 400.
+    journal: bool = True
+    journal_capacity: int = 4096       # ring slots (events retained)
+
+
+@dataclass
+class ObsConfig:
+    """Frame-lineage tracing (obs/spans.py). Metrics are always on; tracing
+    is opt-in because span dicts allocate."""
+
+    trace: bool = False       # record sampled per-frame lineage spans
+    sample_every: int = 16    # trace 1 in N frames (by packet id, so spans
+                              # join into lineages)
+    trace_ring: int = 1024    # span events buffered per stream
 
 
 @dataclass
@@ -167,6 +214,7 @@ class Config:
     api: ApiConfig = field(default_factory=ApiConfig)
     buffer: BufferConfig = field(default_factory=BufferConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
 
 
 def _merge(dc: Any, data: dict) -> Any:
