@@ -168,11 +168,10 @@ def test_note_compile_records_equal_jax():
              ("yolov8n", (720, 1280), 8, 0.125)]
     ours = PerfTracker(registry=metrics.Registry())
     theirs = JPerfTracker(registry=jmetrics.Registry())
-    for note in notes:
-        ours.note_compile(*note)
-        theirs.note_compile(*note, cost={})
-    keep = ("model", "geometry", "bucket", "programs", "compile_s")
-    assert ours.compiles() == [{k: r[k] for k in keep} for r in theirs._compiles.values()]
+    for i, note in enumerate(notes):
+        ours.note_compile(*note, cost={"flops": 1e9 * (i + 1)})
+        theirs.note_compile(*note, cost={"flops": 1e9 * (i + 1)})
+    assert ours.compiles() == list(theirs._compiles.values())
     fam = ours._m_compile_programs
     assert fam.name == "vep_compile_programs_total"
     assert fam.labels("yolov8n", "1080x1920", "16").value == 2.0

@@ -276,7 +276,9 @@ def test_a_real_capture_of_a_cpu_engine(engine):
     assert "aten::mm" in names
     with open(os.path.join(man["path"], prof.SNAPSHOT)) as f:
         snap = json.load(f)
-    assert snap["rung"] == "normal" and snap["perf"] == {"compiles": []} and "slo" in snap
+    assert snap["rung"] == "normal" and "slo" in snap
+    assert snap["perf"] == {"peak_tflops": 0.0, "fps": 0.0, "compiles": [], "buckets": [],
+                            "h2d": [], "h2d_hidden_pct": None}
     assert p.snapshot()["bundles"] == 1 and p.errors == 0
 
 

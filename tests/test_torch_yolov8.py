@@ -79,7 +79,8 @@ def test_from_flax_extra_key_raises(tiny):
 
 
 @pytest.mark.parametrize("bad", [
-    {"quant": {}},
+    {"intermediates": {}},
+    {"quant": {"stem": {"conv": {"weird": np.zeros((), np.float32)}}}},
     {"params": {"stem": {"conv": {"weird": np.zeros(1, np.float32)}}}},
     {"batch_stats": {"stem": {"bn": {"count": np.zeros(1, np.float32)}}}},
 ])

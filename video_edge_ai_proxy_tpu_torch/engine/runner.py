@@ -37,6 +37,23 @@ the CPU, where the caller asked for it, the step runs eagerly.
 Results are plain dataclasses with the proto's field names; the server's
 gRPC wire converts them to the proto messages.
 
+The detect family's variant axes (``cfg.stem``, ``cfg.quantize``), as in
+the JAX engine: ``stem="s2d"`` serves the space-to-depth stem model behind
+the fused letterbox (a classic model handed in folds its stem losslessly,
+``models/carry.py`` ``fit_state``); ``quantize="int8"`` serves from int8
+weights and per-channel scales held on the device and dequantized inside
+the step (``models/quantize.py`` ``QuantizedModel``), and ``"int8_act"``
+also runs every ConvBN but the stem int8 x int8 against input ranges
+calibrated at warmup on synthetic frames. Each variant is its own
+(model, stem, geometry, bucket) program.
+
+The device accounting: ``perf`` (``obs/perf.py``) counts each program's
+FLOPs when it is built, each batch's device time, padding and MFU against
+the card's peak (resolved from its name at warmup), each placement's H2D
+bytes and time, and the aggregate frames/s the fps objective reads;
+``hbm`` (``obs/hbm.py``, ``cfg.hbm``) keeps the program footprints and the
+pools' bytes, and its pressure verdict feeds the ladder.
+
 Per-stream models: with ``model_resolver`` (device_id -> registry name,
 "" for the default, "none" for inference off) a stream is served by a
 model of its own, built on first use from the port's registry on the
@@ -74,6 +91,7 @@ ROI, the cascade, the fault domain and the mesh paths are later slices.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import logging
 import os
@@ -92,7 +110,9 @@ from ..bus.interface import FrameBus
 from ..device import resolve_device
 from ..models import registry
 from ..obs import registry as obs_registry
-from ..obs.perf import PerfTracker
+from ..models.quantize import calibrate_serving, quantize_model, quantized_nbytes, tree_nbytes
+from ..models.registry import place
+from ..obs.perf import PerfTracker, count_flops, resolve_peak_tflops
 from ..obs.prof import Profiler
 from ..obs.quality import QualityTracker
 from ..obs.slo import SLOEngine, default_slos
@@ -101,7 +121,7 @@ from ..obs.watch import Watchdog
 from ..ops.nms import _top, batched_nms, nms_keep_mask
 from ..ops.preprocess import (
     frame_quality_stats, preprocess_classify, preprocess_clip, preprocess_letterbox,
-    unletterbox_boxes,
+    preprocess_letterbox_fused, unletterbox_boxes,
 )
 from ..proto.annotate import AnnotateRequest, encode as encode_annotation
 from ..proto.annotate import BoundingBox as AnnotationBox
@@ -130,7 +150,8 @@ def build_serving_step(
     model's device ->
 
     - ``"detect"``: frames [N, H, W, 3] uint8 -> dict of ``boxes [N, 100,
-      4]`` (source px, xyxy), ``scores``, ``classes``, ``valid``;
+      4]`` (source px, xyxy), ``scores``, ``classes``, ``valid``; an
+      ``s2d``-stem model takes the fused letterbox's folded plane;
     - ``"classify"`` / ``"video"``: frames [N, H, W, 3], or clips [N,
       clip_len, H, W, 3], uint8 -> dict of ``top_probs [N, 5]`` f32 and
       ``top_ids [N, 5]`` int32 (``lax.top_k``'s order: ties toward the
@@ -148,9 +169,12 @@ def build_serving_step(
     """
     size = spec.input_size
     if spec.kind == "detect":
+        letterbox = (preprocess_letterbox_fused
+                     if getattr(model.cfg, "stem", "classic") == "s2d" else preprocess_letterbox)
+
         def raw(frames_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
             with torch.inference_mode():
-                x, lb = preprocess_letterbox(frames_u8, size, out_dtype=preprocess_dtype)
+                x, lb = letterbox(frames_u8, size, out_dtype=preprocess_dtype)
                 # decode="serving": class reduction in logit space; sigmoid is
                 # monotone, so it is applied to the per-anchor winners only.
                 boxes, max_logit, cls_ids = model(x.permute(0, 3, 1, 2), decode="serving")
@@ -348,31 +372,6 @@ class StreamStatsView:
     device_ms_ema: float = 0.0
 
 
-class _RateWindow:
-    """Frames emitted over the last ``window_s`` seconds: the aggregate
-    frames/s the fps objective samples each tick."""
-
-    def __init__(self, window_s: float = 2.0):
-        self._window_s = window_s
-        self._lock = threading.Lock()
-        self._events: deque = deque()     # (monotonic, frames)
-        self._start = time.monotonic()
-
-    def note(self, frames: int) -> None:
-        now = time.monotonic()
-        with self._lock:
-            self._events.append((now, frames))
-            while self._events and now - self._events[0][0] > self._window_s:
-                self._events.popleft()
-
-    def fps(self) -> float:
-        now = time.monotonic()
-        with self._lock:
-            span = min(self._window_s, now - self._start)
-            n = sum(f for t, f in self._events if now - t <= self._window_s)
-        return n / span if span > 0 else 0.0
-
-
 @dataclass
 class PipelineStats:
     """Engine-wide totals, read through ``InferenceEngine.pipeline_stats``.
@@ -433,6 +432,12 @@ class _ThumbPool:
 
     def __iter__(self):
         return iter(list(self._slots))
+
+    def nbytes(self) -> int:
+        """Device bytes of the pool now (rows stay allocated after their
+        streams go)."""
+        pool = self._pool
+        return int(pool.nbytes) if pool is not None else 0
 
     def pop(self, device_id: str) -> None:
         """Forget a stream; its row is free for reuse (scatter overwrites
@@ -521,6 +526,20 @@ class _PrefetchStage:
         self.stream = None             # the transfer stream (on the card)
         self._q: "queue.Queue[Optional[_Prefetched]]" = queue.Queue(maxsize=self.DEPTH)
         self._thread: Optional[threading.Thread] = None
+        # Placements resolved and not yet handed to a step (id -> tensor):
+        # the device bytes the stage holds (nbytes).
+        self._parked: Dict[int, torch.Tensor] = {}
+        self._parked_lock = threading.Lock()
+
+    def nbytes(self) -> int:
+        """Device bytes of placements resolved and not yet dispatched."""
+        with self._parked_lock:
+            return sum(int(t.nbytes) for t in self._parked.values())
+
+    def unpark(self, pre: "_Prefetched") -> None:
+        """The tick thread took ``pre``'s placement (or gave it up)."""
+        with self._parked_lock:
+            self._parked.pop(id(pre), None)
 
     def place(self, frames: np.ndarray):
         """Host frames -> (device tensor, the copy's CUDA event, copy ms).
@@ -589,6 +608,8 @@ class _PrefetchStage:
             busy = self._busy()
             try:
                 pre.placed, pre.event, pre.transfer_ms = self.place(pre.group.frames)
+                with self._parked_lock:
+                    self._parked[id(pre)] = pre.placed
             except BaseException as exc:   # raised on the tick thread
                 pre.error = exc
             if busy or self._busy():
@@ -615,8 +636,11 @@ class _GraphedStep:
     ``build_serving_step``), runs it ``WARMUP_CALLS`` times on the calling
     stream (the engine's compute stream) over the static inputs, so that
     cuBLAS, cuDNN and the constants of ``ops/preprocess.py`` are set up
-    outside the capture, then captures one call on that stream into the
-    engine's graph pool and hands the capture's seconds to ``on_capture``.
+    outside the capture (the first of them under FlopCounterMode:
+    ``flops``), then captures one call on that stream into the engine's
+    graph pool and hands the capture's seconds to ``on_capture``; the step
+    then also holds ``flops``, the static inputs' and outputs' bytes and
+    ``pool_growth``, the bytes the graph pool reserved during the capture.
     Every call copies its frames (and the previous thumbnails) into the
     static inputs, replays the graph and returns fresh copies of the static
     outputs: the next replay overwrites them while the drain still reads
@@ -656,6 +680,8 @@ class _GraphedStep:
             self.thumbs_in = torch.zeros((frame_shape[0],) + tuple(thumb_hw),
                                          dtype=torch.float32, device=device)
         self.capture_s = 0.0
+        self.flops = 0.0
+        self.pool_growth = 0
         self._graph: Optional["torch.cuda.CUDAGraph"] = None
         self._out: Dict[str, torch.Tensor] = {}
         self._launches: tuple = ()     # (wrapper, launches a replay)
@@ -686,17 +712,20 @@ class _GraphedStep:
 
         step = self._build()
         args = (self.frames_in,) if self.thumbs_in is None else (self.frames_in, self.thumbs_in)
-        for _ in range(self.WARMUP_CALLS):
+        _, self.flops = count_flops(step, *args)
+        for _ in range(self.WARMUP_CALLS - 1):
             step(*args)
         counters = launch_counters()
         before = [w.launches for w in counters]
         graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.current_stream(self.frames_in.device)
+        pool = self._pool()
+        reserved = _pool_bytes({tuple(pool)})
         t0 = time.perf_counter()
         try:
             # thread_local: the transfer and drain threads keep copying
             # and synchronising on their own streams meanwhile.
-            with torch.cuda.graph(graph, pool=self._pool(), stream=stream,
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
                                   capture_error_mode="thread_local"):
                 out = step(*args)
         except BaseException as exc:
@@ -711,8 +740,39 @@ class _GraphedStep:
             for w, b in zip(counters, before):
                 w.launches = b
         self.capture_s = time.perf_counter() - t0
+        self.pool_growth = max(0, _pool_bytes({tuple(pool)}) - reserved)
         self._graph, self._out, self._launches = graph, dict(out), captured
         self._on_capture(self.capture_s)
+
+    @property
+    def input_bytes(self) -> int:
+        return sum(int(t.nbytes) for t in (self.frames_in, self.thumbs_in) if t is not None)
+
+    @property
+    def output_bytes(self) -> int:
+        return sum(int(t.nbytes) for t in self._out.values())
+
+
+def _pool_bytes(pools: set) -> int:
+    """Reserved bytes of the CUDA graph memory pools ``pools`` (handles)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) in pools)
+
+
+def _note_first_call(step: Callable, note: Callable[[float, float], None]) -> Callable:
+    """``step`` whose first call runs under FlopCounterMode and hands its
+    seconds and FLOPs to ``note`` (the CPU's eager program build)."""
+    pending = [note]
+
+    def counted(*args):
+        if not pending:
+            return step(*args)
+        t0 = time.perf_counter()
+        out, flops = count_flops(step, *args)
+        pending.pop()(time.perf_counter() - t0, flops)
+        return out
+
+    return counted
 
 
 def _record_after_first_success(step: Callable, record: Callable[[], None]) -> Callable:
@@ -736,8 +796,10 @@ class InferenceEngine:
     each stream's clip window once it is full.
 
     ``model``: an ``nn.Module`` already on ``device`` (e.g. with loaded
-    weights); None builds the registry model with random weights at
-    ``warmup``. ``device`` defaults to the card and raises without one.
+    weights), fitted at ``warmup`` to the variant ``cfg.stem`` and
+    ``cfg.quantize`` ask for; None builds the registry model with random
+    weights at ``warmup``. ``device`` defaults to the card and raises
+    without one.
 
     Threads: the tick thread (collect, shed, dispatch on the compute
     stream), the transfer thread (``cfg.prefetch``), and the drain thread
@@ -758,7 +820,7 @@ class InferenceEngine:
     On the card every step runs as the replay of the CUDA graph of its
     (model, stem, geometry, bucket) key (``_GraphedStep``), captured on the
     key's first batch or at ``start()`` (``cfg.prewarm`` and the prewarm
-    manifest, ``compile_for``), with the classic stem.
+    manifest, ``compile_for``), under the engine's stem (``cfg.stem``).
 
     ``annotations``: the uplink queue (None: no annotations);
     ``model_resolver`` and ``annotation_policy_resolver``: the per-stream
@@ -767,10 +829,6 @@ class InferenceEngine:
     decision journal to record into (the server's, shared by the process)
     instead of one of the engine's own, with ``cfg.journal`` on.
     """
-
-    # The stem variant of every program: the port serves the classic stem
-    # only (the JAX engine's cfg.stem; ``s2d`` is not ported).
-    _STEM = "classic"
 
     # Per-stream state of a stream absent from the bus this long is dropped;
     # shorter gaps (a producer re-creating its ring) keep it.
@@ -791,9 +849,18 @@ class InferenceEngine:
         self._device = resolve_device(device)
         self._cuda = self._device.type == "cuda"
         self._cfg = cfg or EngineConfig()
-        self._spec = registry.get(self._cfg.model)
+        # The stem of every program (a key axis), and the quantization.
+        self._stem = self._cfg.stem or "classic"
+        if self._stem not in ("classic", "s2d"):
+            raise ValueError(f"engine.stem={self._stem!r} unsupported ('classic' or 's2d')")
+        if self._cfg.quantize not in ("", "int8", "int8_act"):
+            raise ValueError(f"engine.quantize={self._cfg.quantize!r} unsupported (only 'int8' "
+                             "weight-only and 'int8_act' calibrated activation quantization "
+                             "exist)")
         self._dtype = getattr(torch, self._cfg.dtype)
+        self._spec = self._variant_spec(registry.get(self._cfg.model))
         self._model = model
+        self._model_ready = False      # fitted, calibrated, quantized (warmup)
         self._buckets = tuple(sorted(self._cfg.batch_buckets))
         self._bus = bus
         self._annotations = annotations
@@ -820,7 +887,11 @@ class InferenceEngine:
         self._graph_pool = None
         self._graph_pools: list = []
         self._graphs: List[_GraphedStep] = []
-        self.perf = PerfTracker()
+        # The MFU peak is resolved from the card at warmup (0 on the CPU).
+        self.perf = PerfTracker(peak_tflops=self._cfg.peak_tflops)
+        # Int8 residency of each model served quantized: name -> (fp bytes,
+        # int8 bytes), as tree_nbytes and quantized_nbytes count them.
+        self.residency: Dict[str, tuple] = {}
         # Prewarm manifest (engine/aot_cache.py); "" = off. Prewarm
         # progress for prewarm_status(): with the manifest on, the program
         # set is known only once start() has read it.
@@ -859,7 +930,6 @@ class InferenceEngine:
         self._checksum = 0
         self._pipe = PipelineStats()
         self._pipe_lock = threading.Lock()
-        self._rate = _RateWindow()
         # Streams: the compute stream carries the steps and the thumbnail
         # pool, the read-back stream the drain's D2H copies (made by
         # warmup(), on the engine's device); the transfer stage owns the
@@ -877,6 +947,26 @@ class InferenceEngine:
 
                 self.journal = DecisionJournal(self._cfg.journal_capacity)
         self.watchdog = Watchdog(journal=self.journal)
+        # The device-memory plane (cfg.hbm): program footprints noted at
+        # capture, the pools' live bytes, the forecast that feeds the
+        # ladder. None when off: no footprint taps, /api/v1/hbm answers 400.
+        self.hbm = None
+        if self._cfg.hbm:
+            from ..obs.hbm import HbmTracker
+
+            self.hbm = HbmTracker(
+                budget_bytes=self._cfg.hbm_budget_bytes,
+                fast_window_s=self._cfg.hbm_fast_window_s,
+                slow_window_s=self._cfg.hbm_slow_window_s,
+                util_objective=self._cfg.hbm_util_objective,
+                eval_interval_s=self._cfg.hbm_eval_interval_s,
+                pressure_horizon_s=self._cfg.hbm_pressure_horizon_s,
+            )
+            self.hbm.register_pool("thumbs", self._thumbs.nbytes)
+            # The cascade's track-state pool is not ported: 0 bytes.
+            self.hbm.register_pool("track_state", lambda: 0)
+            self.hbm.register_pool("prefetch", self._xfer.nbytes)
+            self.hbm.register_pool("collector_host", self._collector.pool_nbytes)
         # _watch_tick's state (tick thread only): the effective drain
         # depth, the step-cache misses seen and the consecutive-miss streak.
         self._bp_depth = 0
@@ -967,9 +1057,10 @@ class InferenceEngine:
         JAX engine initialises its extras from PRNGKey(0))."""
         entry = self._models.get(name)
         if entry is None:
-            spec = registry.get(name)
+            spec = self._variant_spec(registry.get(name))
             module = spec.init_params(torch.Generator().manual_seed(0), device=self._device,
                                       dtype=self._dtype)
+            module = self._prepare(spec, module)
             if self._cuda:
                 torch.cuda.synchronize(self._device)
             entry = (spec, module)
@@ -1009,13 +1100,96 @@ class InferenceEngine:
             log.info("model '%s' recovered after %d failure(s)", name, bad["failures"])
         return name, spec.clip_len
 
+    def _variant_spec(self, spec):
+        """``spec`` with its build rewritten to the detect-family variant
+        axes of the config (``stem``, ``act_int8`` under ``quantize=
+        "int8_act"``); the spec itself for the classic fp variant and for
+        the other families."""
+        if spec.kind != "detect":
+            return spec
+        overrides = {}
+        if self._stem != "classic":
+            overrides["stem"] = self._stem
+        if self._cfg.quantize == "int8_act":
+            overrides["act_int8"] = True
+        if not overrides:
+            return spec
+
+        def build(dtype, _base=spec.build, _ov=dict(overrides)):
+            m = _base(dtype)
+            return type(m)(dataclasses.replace(m.cfg, **_ov), dtype)
+
+        return dataclasses.replace(spec, build=build)
+
+    def _fit_variant(self, spec, module: torch.nn.Module) -> torch.nn.Module:
+        """A model handed to the engine, as the variant ``spec`` builds:
+        itself when its config already is that variant, else the variant's
+        model on the same device with the weights carried across
+        (``carry.fit_state``: the classic stem folded into the s2d one)."""
+        if spec.kind != "detect" or (
+                getattr(module.cfg, "stem", "classic"), getattr(module.cfg, "act_int8", False)
+        ) == (self._stem, self._cfg.quantize == "int8_act"):
+            return module
+        from ..models.carry import fit_state
+
+        want = spec.build(self._dtype)
+        want.load_state_dict(fit_state(module.state_dict(), want), strict=True)
+        return place(want, self._device, channels_last=True)
+
+    def _prepare(self, spec, module: torch.nn.Module) -> torch.nn.Module:
+        """Calibrate (``int8_act``) and quantize (``int8``, ``int8_act``)."""
+        return self._maybe_quantize(spec, self._maybe_calibrate(spec, module))
+
+    def _maybe_calibrate(self, spec, module: torch.nn.Module) -> torch.nn.Module:
+        """``quantize="int8_act"``: the input ranges of the int8 convs from
+        two synthetic batches of 2 frames at the model's input size (seed
+        0, as the JAX engine's warmup calibrates); the pass runs the fp
+        forward."""
+        if (self._cfg.quantize != "int8_act" or spec.kind != "detect"
+                or not getattr(module.cfg, "act_int8", False)):
+            return module
+        rng = np.random.default_rng(0)
+        s = spec.input_size
+        batches = [torch.from_numpy(rng.integers(0, 256, (2, s, s, 3), np.uint8))
+                   .to(self._device) for _ in range(2)]
+        calibrate_serving(module, spec, batches)
+        log.info("engine activations calibrated for int8 serving (%d synthetic batches at "
+                 "%d^2)", len(batches), s)
+        return module
+
+    def _maybe_quantize(self, spec, module: torch.nn.Module) -> torch.nn.Module:
+        """``quantize`` set: the model served from int8 weights and their
+        scales (``QuantizedModel``); its residency goes to ``residency``."""
+        if not self._cfg.quantize:
+            return module
+        from ..models.quantize import serving_state
+
+        before = tree_nbytes(serving_state(module))
+        module = quantize_model(module)
+        after = quantized_nbytes(module.qt)
+        self.residency[spec.name] = (before, after)
+        log.info("engine params of %s quantized int8 (%s): %.1f MB -> %.1f MB", spec.name,
+                 "weight-only" if self._cfg.quantize == "int8" else
+                 "weights + calibrated activations", before / 1e6, after / 1e6)
+        return module
+
     # -- lifecycle ---------------------------------------------------------
 
     def warmup(self) -> None:
-        """Build the model (random weights unless one was given) and, on
-        the card, the CUDA kernels, so the first tick does not stall."""
-        if self._model is None:
-            self._model = self._spec.init_params(device=self._device, dtype=self._dtype)
+        """Build the model (random weights unless one was given), fitted to
+        the variant, calibrated and quantized as the config asks, resolve
+        the MFU peak and the device-memory budget from the card, and build
+        the CUDA kernels, so the first tick does not stall."""
+        if not self._model_ready:
+            if self._model is None:
+                self._model = self._spec.init_params(device=self._device, dtype=self._dtype)
+            else:
+                self._model = self._fit_variant(self._spec, self._model)
+            self._model = self._prepare(self._spec, self._model)
+            self.perf.set_peak(resolve_peak_tflops(self._cfg.peak_tflops, self._device))
+            if self.hbm is not None and not self._cfg.hbm_budget_bytes and self._cuda:
+                self.hbm.set_budget(torch.cuda.mem_get_info(self._device)[1])
+            self._model_ready = True
         if self._cuda:
             from ..kernels.build import build_all
 
@@ -1121,11 +1295,13 @@ class InferenceEngine:
         """Build the program of one (source geometry, bucket) ahead of its
         first batch: on the card, capture its graph by running it once over
         zero frames. ``model``: a registry model other than the default
-        (a per-stream model, built here if it is not yet). An entry pinned
-        to another stem is skipped with a warning."""
-        if stem is not None and stem != self._STEM:
+        (a per-stream model, built here if it is not yet). ``stem`` pins the
+        stem an entry was written for: an entry of the engine's stem is
+        served, one of another stem skipped with a warning (the engine's
+        weights are fitted to one stem), as in the JAX engine."""
+        if stem is not None and stem != self._stem:
             log.warning("prewarm entry pinned stem=%r but the engine serves stem=%r; "
-                        "skipping %sx%s bucket=%d", stem, self._STEM, src_hw[0], src_hw[1],
+                        "skipping %sx%s bucket=%d", stem, self._stem, src_hw[0], src_hw[1],
                         bucket)
             return
         self.warmup()
@@ -1148,9 +1324,7 @@ class InferenceEngine:
         graphs = [g for g in self._graphs if g.capture_s > 0.0]
         pool_bytes = None
         if self._cuda and self._graph_pools:
-            pools = {tuple(p) for p in self._graph_pools}
-            pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                             if tuple(seg.get("segment_pool_id", ())) in pools)
+            pool_bytes = _pool_bytes({tuple(p) for p in self._graph_pools})
         return {"programs": len(graphs), "capture_s": sum(s.capture_s for s in graphs),
                 "pools": len(self._graph_pools), "pool_bytes": pool_bytes}
 
@@ -1241,8 +1415,7 @@ class InferenceEngine:
 
     def _prof_snapshot(self) -> dict:
         """Engine state frozen into every capture bundle (obs/prof.py): the
-        numbers that were true while the trace ran. ``perf`` holds the
-        compile records; MFU and the programs' FLOPs are not ported."""
+        numbers that were true while the trace ran."""
         snap = {"ticks": self.ticks, "batches": self.pipeline_stats().batches,
                 "perf": self.perf.snapshot()}
         if self.slo is not None:
@@ -1502,7 +1675,8 @@ class InferenceEngine:
         if self.ladder is not None:
             rung = self.ladder.observe(
                 queue_depth=depth, tick_lag_s=self._last_tick_dur_s, tick_budget_s=tick_s,
-                slo_burning=self._slo_burning and self._cfg.slo_ladder)
+                slo_burning=self._slo_burning and self._cfg.slo_ladder,
+                hbm_pressure=self.hbm is not None and self.hbm.pressure())
             self._apply_rung_cap(rung)
         if rung == "normal" and self._shed_seq is not None:
             # The shed excursion closes when the ladder recovers (journaled
@@ -1610,10 +1784,10 @@ class InferenceEngine:
         """Per-tick checks (obs/watch.py), each logged once per episode:
         drain backpressure and a recompile storm (a step-cache miss on 3+
         consecutive ticks: shapes churning faster than the cache warms).
-        Then the SLO samples and the throttled evaluation, and the
-        profiler's trigger poll (one capture per new SLO episode or
-        escalation, rate-limited, on its own thread; idle: compares under
-        a lock)."""
+        Then the SLO samples and the throttled evaluation, the device-memory
+        plane's throttled evaluation, and the profiler's trigger poll (one
+        capture per new SLO episode or escalation, rate-limited, on its own
+        thread; idle: compares under a lock)."""
         self._m_drain_depth.set(self._drain_q.qsize())
         self.watchdog.check("drain_backpressure", self._bp_depth, above=1,
                             detail="device slower than the tick loop (double buffer full)")
@@ -1624,6 +1798,8 @@ class InferenceEngine:
                             detail="step-cache miss on 3+ consecutive ticks (shape churn)")
         if self.slo is not None:
             self._slo_tick(inferred)
+        if self.hbm is not None:
+            self.hbm.evaluate()
         if self.prof is not None:
             rung_idx = self.ladder.rung_index if self.ladder is not None else 0
             self.prof.poll(episodes=self._slo_episodes, rung=rung_idx,
@@ -1637,7 +1813,7 @@ class InferenceEngine:
         now = time.monotonic()
         if inferred:
             if self._cfg.slo_target_fps > 0:
-                good = self._rate.fps() >= self._cfg.slo_target_fps
+                good = self.perf.fps() >= self._cfg.slo_target_fps
                 self.slo.get("aggregate_fps").record(good=float(good), bad=float(not good))
             avail = self.slo.get("stream_availability")
             for device_id in inferred:
@@ -1656,14 +1832,15 @@ class InferenceEngine:
     def _step(self, src_hw: tuple, bucket: int, model: Optional[str] = None) -> Callable:
         """The step of (``model``, default: the engine's; its stem,
         ``src_hw``, ``bucket``): on the card a ``_GraphedStep``, captured
-        at its first call; on the CPU the eager step. A new key records its
-        program in the prewarm manifest after its first call that
-        returns."""
+        at its first call; on the CPU the eager step. The build is noted in
+        ``perf`` with its FLOPs (and, with ``cfg.hbm``, the graph's
+        footprint in ``hbm``). A new key records its program in the prewarm
+        manifest after its first call that returns."""
         src_hw = tuple(int(v) for v in src_hw)
         spec, module = self._model_entry(model)
         name = spec.name
         thumb = self._thumb_side(spec)
-        key = (name, self._STEM, src_hw, bucket)
+        key = (name, self._stem, src_hw, bucket)
         fn = self._steps.get(key)
         if fn is not None:
             self._m_cache_hit.inc()
@@ -1672,20 +1849,32 @@ class InferenceEngine:
         build = functools.partial(build_serving_step, module, spec, quality_thumb=thumb)
         if self._cuda:
             shape = ((bucket,) + ((spec.clip_len,) if spec.clip_len else ()) + src_hw + (3,))
-            fn = _GraphedStep(
+            graphed = _GraphedStep(
                 build, shape, (thumb, thumb) if thumb else None,
                 device=self._device, pool=self._current_graph_pool,
-                on_capture=functools.partial(self.perf.note_compile, name, src_hw, bucket),
+                on_capture=lambda seconds: self._note_graph(name, src_hw, bucket, graphed),
                 on_capture_failed=self._retire_graph_pool)
-            self._graphs.append(fn)
+            self._graphs.append(graphed)
+            fn = graphed
         else:
-            fn = build()
+            fn = _note_first_call(build(), lambda seconds, flops: self.perf.note_compile(
+                name, src_hw, bucket, seconds, cost={"flops": flops}))
         if self._aot_dir:
             fn = _record_after_first_success(fn, functools.partial(
-                aot_cache.record_program, self._aot_dir, model=name, stem=self._STEM,
+                aot_cache.record_program, self._aot_dir, model=name, stem=self._stem,
                 src_hw=src_hw, bucket=bucket))
         self._steps[key] = fn
         return fn
+
+    def _note_graph(self, name: str, src_hw: tuple, bucket: int, graph: _GraphedStep) -> None:
+        """A key's graph was captured: its build and FLOPs into ``perf``,
+        its footprint into ``hbm``."""
+        self.perf.note_compile(name, src_hw, bucket, graph.capture_s,
+                               cost={"flops": graph.flops})
+        if self.hbm is not None:
+            self.hbm.note_program(name, src_hw, bucket, {
+                "argument_bytes": graph.input_bytes, "output_bytes": graph.output_bytes,
+                "temp_bytes": graph.pool_growth}, stem=self._stem)
 
     # -- placement, dispatch ---------------------------------------------------
 
@@ -1723,6 +1912,7 @@ class InferenceEngine:
                     while not pre.ready.wait(timeout=0.1):
                         if self._stop.is_set():
                             raise _Stopping("engine stopping; placement abandoned")
+                    self._xfer.unpark(pre)
                     if pre.error is not None:
                         raise pre.error
                     placed, event = pre.placed, pre.event
@@ -1737,6 +1927,7 @@ class InferenceEngine:
                 for gj in range(gi, len(groups) if fatal else gi + 1):
                     if gj < len(handles) and handles[gj] is not None:
                         handles[gj].ready.wait(timeout=5.0)
+                        self._xfer.unpark(handles[gj])
                     self._collector.release(groups[gj])
                     if tracer.enabled:
                         self._record_dropped(groups[gj], "dispatch_error")
@@ -1749,6 +1940,12 @@ class InferenceEngine:
                 self._pipe.h2d_ms += h2d_ms
                 self._pipe.h2d_overlapped_ms += overlapped_ms
             self._m_batches.inc()
+            spec = self._model_entry(group.model)[0]
+            # The frames (bucket padding included) and, for a model with
+            # quality thumbnails, the int64 slot-index vector of the gather.
+            aux = 8 * group.bucket if self._thumb_side(spec) else 0
+            self.perf.note_h2d(spec.name, group.bucket, int(group.frames.nbytes) + aux,
+                               h2d_ms / 1000.0, hidden_s=overlapped_ms / 1000.0)
             if tracer.enabled:
                 for did, meta in zip(group.device_ids, group.metas):
                     if tracer.sampled(meta.packet):
@@ -1906,7 +2103,7 @@ class InferenceEngine:
                               dur_ms=device_ms, bucket=group.bucket, trace_id=tid)
                 tracer.record(device_id, "emit", meta.packet, trace_id=tid)
         n = len(group.device_ids)
-        self._rate.note(n)
+        self.perf.note_batch(spec.name, group.src_hw, group.bucket, device_ms, n)
         t_emitted = time.time()
         with self._pipe_lock:
             p = self._pipe

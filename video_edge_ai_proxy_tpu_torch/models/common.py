@@ -5,6 +5,11 @@ runs in the module's compute dtype (bf16 for serving), BatchNorm in
 float32 on frozen statistics, the activation back in the compute dtype.
 ``Linear``, ``Conv2d`` and ``Conv3d`` keep their parameters in a
 ``param_dtype`` of their own and cast them at use, as flax layers do.
+
+``Int8Conv2d`` is the int8 activation path of ``ConvBN(act_int8=True)``
+(the JAX ``_Int8Conv``): int8 x int8 products accumulated in int32, as an
+explicit im2col and ``torch._int_mm`` on the card (torch has no int8
+convolution there) and an int32 ``torch.mm`` on the CPU.
 """
 
 from __future__ import annotations
@@ -73,25 +78,146 @@ class Conv3d(_CastConv, nn.Conv3d):
     pass
 
 
+def _pads(padding) -> tuple:
+    """((top, bottom), (left, right)) -> F.pad's (left, right, top, bottom)."""
+    (top, bottom), (left, right) = padding
+    return (left, right, top, bottom)
+
+
+def _mult8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _int_mm_padded(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a`` [m, k] int8 times ``b`` [n, k] int8 transposed -> [m, n] int32
+    through ``torch._int_mm``, zero-padded to its shape rules (m > 16, k
+    and n multiples of 8): the padding adds nothing to any sum."""
+    m, k = a.shape
+    n = b.shape[0]
+    m_pad, k_pad, n_pad = max(m, 17) - m, _mult8(k) - k, _mult8(n) - n
+    if m_pad or k_pad:
+        a = F.pad(a, (0, k_pad, 0, m_pad))
+    if k_pad or n_pad:
+        b = F.pad(b, (0, k_pad, 0, n_pad))
+    return torch._int_mm(a.contiguous(), b.contiguous().t())[:m, :n]
+
+
+def int8_conv2d(xq: torch.Tensor, wq: torch.Tensor, stride: int, padding) -> torch.Tensor:
+    """int8 convolution with int32 accumulation, exact: ``xq`` [B, Ci, H, W]
+    int8, ``wq`` [Co, Ci, kh, kw] int8, ``padding`` ((top, bottom), (left,
+    right)) -> [B, Co, Ho, Wo] int32 (an NHWC-ordered view).
+
+    The im2col is strided views over the zero-padded NHWC plane, copied to
+    [B*Ho*Wo, kh*kw*Ci] rows in (kh, kw, Ci) order, the order of the
+    kernel's rows. On the card the product is ``torch._int_mm``, whose
+    shape rules (more than 16 rows, a reduction and a width that are
+    multiples of 8) are met by zero padding, which adds nothing to the
+    sums; it raises for anything else. On the CPU (only for CPU tensors)
+    the plain version is an int32 ``torch.mm`` of the same operands."""
+    b, ci, h, w = xq.shape
+    co, _, kh, kw = wq.shape
+    xp = F.pad(xq.permute(0, 2, 3, 1), (0, 0) + _pads(padding))
+    ho = (xp.shape[1] - kh) // stride + 1
+    wo = (xp.shape[2] - kw) // stride + 1
+    sb, sh, sw, sc = xp.stride()
+    cols = xp.as_strided((b, ho, wo, kh, kw, ci),
+                         (sb, stride * sh, stride * sw, sh, sw, sc)).reshape(b * ho * wo, -1)
+    wmat = wq.permute(0, 2, 3, 1).reshape(co, -1)
+    if xq.device.type == "cuda":
+        y = _int_mm_padded(cols, wmat)
+    elif xq.device.type == "cpu":
+        y = torch.mm(cols.to(torch.int32), wmat.to(torch.int32).t())
+    else:
+        raise RuntimeError(f"int8_conv2d has no path for {xq.device.type} tensors")
+    return y.reshape(b, ho, wo, co).permute(0, 3, 1, 2)
+
+
+class Int8Conv2d(nn.Conv2d):
+    """The conv of ``ConvBN(act_int8=True)`` (the JAX ``_Int8Conv``): its
+    ``weight`` is kept in float32 (flax's param dtype), so weight trees
+    move between the fp and the int8 activation variants unchanged, and
+    the buffer ``in_absmax`` (flax: ``quant/<scope>/conv/in_absmax``) holds
+    the calibrated max-abs of its input.
+
+    With ``calibrating`` set (``models/quantize.py`` ``calibrate_serving``)
+    it records the running max-abs of its input and runs the fp conv in
+    the compute dtype. Serving, the input quantizes against the static
+    per-tensor scale ``s_in = max(in_absmax, 1e-8) / 127``, the kernel per
+    output channel against ``s_w = max(|w|, 1e-12) / 127`` (round half to
+    even, clip to +-127), the products accumulate in int32
+    (``int8_conv2d``), and the result dequantizes as ``y * (s_in * s_w)``
+    into the compute dtype. Served from a ``QuantizedTree``
+    (``models/quantize.py`` ``QuantizedModel``), ``weight`` is the stored
+    int8 kernel and the non-persistent ``weight_scale`` its per-channel
+    scale, taken as they are: that kernel is the one requantizing its
+    dequantized values would give."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: int, stride: int, padding,
+                 dtype: torch.dtype):
+        super().__init__(c_in, c_out, kernel, stride, padding=0, bias=False,
+                         dtype=torch.float32)
+        self.pad = padding
+        self.compute_dtype = dtype
+        self.calibrating = False
+        self.register_buffer("in_absmax", torch.zeros((), dtype=torch.float32))
+        self.register_buffer("weight_scale", torch.zeros((0,), dtype=torch.float32),
+                             persistent=False)
+
+    def quantized(self, x: torch.Tensor) -> tuple:
+        """(xq, wq, s_in, s_w): the int8 operands and their scales."""
+        s_in = torch.clamp(self.in_absmax, min=1e-8) * (1.0 / 127.0)
+        xq = torch.clamp(torch.round(x.float() / s_in), -127, 127).to(torch.int8)
+        if self.weight.dtype == torch.int8:
+            return xq, self.weight, s_in, self.weight_scale
+        w = self.weight.float()
+        s_w = torch.clamp(w.abs().amax(dim=(1, 2, 3)), min=1e-12) * (1.0 / 127.0)
+        wq = torch.clamp(torch.round(w / s_w[:, None, None, None]), -127, 127).to(torch.int8)
+        return xq, wq, s_in, s_w
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if self.calibrating:
+            self.in_absmax.copy_(torch.maximum(self.in_absmax, x.float().abs().amax()))
+            return F.conv2d(F.pad(x.to(dt), _pads(self.pad)), self.weight.to(dt),
+                            stride=self.stride)
+        xq, wq, s_in, s_w = self.quantized(x)
+        y = int8_conv2d(xq, wq, self.stride[0], self.pad)
+        return (y.float() * (s_in * s_w)[None, :, None, None]).to(dt)
+
+
 class ConvBN(nn.Module):
     """Conv (no bias) -> BatchNorm (eps 1e-3, frozen statistics) -> SiLU.
 
     Padding is explicit symmetric k//2, as in the JAX package (not SAME,
-    which at stride 2 pads (0, 1) on even inputs)."""
+    which at stride 2 pads (0, 1) on even inputs), unless ``padding``
+    ((top, bottom), (left, right)) says otherwise (the ``s2d`` stem's
+    ((1, 0), (1, 0))). ``act_int8`` swaps the conv for ``Int8Conv2d``
+    (serving only)."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int = 3, stride: int = 1,
-                 eps: float = 1e-3, dtype: torch.dtype = torch.bfloat16):
+                 eps: float = 1e-3, dtype: torch.dtype = torch.bfloat16,
+                 padding=None, act_int8: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(c_in, c_out, kernel, stride, padding=kernel // 2,
-                              bias=False, dtype=dtype)
+        pads = padding or ((kernel // 2,) * 2,) * 2
+        self.pad = None
+        if act_int8:
+            self.conv = Int8Conv2d(c_in, c_out, kernel, stride, pads, dtype)
+        elif padding is None:
+            self.conv = nn.Conv2d(c_in, c_out, kernel, stride, padding=kernel // 2,
+                                  bias=False, dtype=dtype)
+        else:
+            self.pad = _pads(padding)
+            self.conv = nn.Conv2d(c_in, c_out, kernel, stride, bias=False, dtype=dtype)
         self.bn = nn.BatchNorm2d(c_out, eps=eps, dtype=torch.float32)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv(x)
+        y = self.conv(x if self.pad is None else F.pad(x, self.pad))
         y = F.batch_norm(y.float(), self.bn.running_mean, self.bn.running_var,
                          self.bn.weight, self.bn.bias, training=False,
                          eps=self.bn.eps)
-        return F.silu(y.to(self.conv.weight.dtype))
+        conv = self.conv
+        return F.silu(y.to(conv.compute_dtype if isinstance(conv, Int8Conv2d)
+                           else conv.weight.dtype))
 
 
 def make_divisible(v: float, divisor: int = 8) -> int:

@@ -3,13 +3,16 @@
 One name -> everything the engine needs: the module, its input geometry,
 which device-side preprocess it takes and what kind of result it gives.
 Registered so far: the detection family the default serving path runs
-(``yolov8n`` and its CPU/CI twin ``tiny_yolov8``) and the transformer
+(``yolov8n`` and its CPU/CI twin ``tiny_yolov8``, and their
+space-to-depth stem variants ``yolov8n_s2d`` and ``tiny_yolov8_s2d``) and
+the transformer
 family (``vit_b16``, ``videomae_b``, ``videomae_b_long`` and the twins
 ``tiny_vit``, ``tiny_videomae``), with the JAX package's geometry.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
@@ -91,6 +94,13 @@ register(ModelSpec(
     description="batched detection, the default serving model",
 ))
 register(ModelSpec(
+    "yolov8n_s2d", lambda dtype: YOLOv8(dataclasses.replace(yolov8n_config(), stem="s2d"), dtype),
+    input_size=640, preprocess="letterbox", kind="detect",
+    description="yolov8n with the space-to-depth stem (a stride-1 2x2 stem on the "
+                "folded 320x320x12 plane); classic weights fold in losslessly "
+                "(models/carry.py s2d_fold_kernel)",
+))
+register(ModelSpec(
     "vit_b16", lambda dtype, param_dtype=None: ViT(ViTConfig(), dtype, param_dtype=param_dtype),
     input_size=224, preprocess="classify", kind="classify",
     description="32-stream frame tagging",
@@ -113,6 +123,12 @@ register(ModelSpec(
     "tiny_yolov8", lambda dtype: YOLOv8(tiny_yolov8_config(), dtype),
     input_size=64, preprocess="letterbox", kind="detect",
     description="CPU/CI twin of yolov8n",
+))
+register(ModelSpec(
+    "tiny_yolov8_s2d",
+    lambda dtype: YOLOv8(dataclasses.replace(tiny_yolov8_config(), stem="s2d"), dtype),
+    input_size=64, preprocess="letterbox", kind="detect",
+    description="CPU/CI twin of yolov8n_s2d",
 ))
 register(ModelSpec(
     "tiny_vit",

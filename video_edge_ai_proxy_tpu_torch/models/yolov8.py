@@ -1,4 +1,4 @@
-"""YOLOv8 detector, classic stem (counterpart of ``video_edge_ai_proxy_tpu/models/yolov8.py``).
+"""YOLOv8 detector (counterpart of ``video_edge_ai_proxy_tpu/models/yolov8.py``).
 
 Anchor-free YOLOv8: CSP backbone with C2f blocks, SPPF, PAN-FPN neck and a
 decoupled DFL head, in NCHW. Submodules are named after the flax scopes
@@ -8,6 +8,12 @@ decoupled DFL head, in NCHW. Submodules are named after the flax scopes
 Precision: the backbone, neck and head ConvBNs run in the model's compute
 dtype (bf16 for serving); the head's 1x1 output convs, the DFL softmax and
 the class reduction run in float32, as in the JAX package.
+
+Variant axes of the config, as in JAX: ``stem="s2d"`` folds 2x2 pixel
+blocks into channels (3 -> 12) and runs a stride-1 2x2 stem conv over
+the half-size plane, the lossless fold of the classic stride-2 3x3 stem
+(``models/carry.py`` ``s2d_fold_kernel``); ``act_int8`` runs every ConvBN
+but the stem through ``common.Int8Conv2d`` (serving only).
 
 Where the JAX package flattens NHWC maps ``[b, h, w, C] -> [b, h*w, C]``,
 this module permutes NCHW to NHWC first, so anchors come out in the same
@@ -25,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.boxes import dist_to_bbox
-from ..ops.preprocess import pad_channels
+from ..ops.preprocess import pad_channels, space_to_depth
 from .common import ConvBN, lecun_normal_, make_divisible, round_depth
 
 
@@ -37,8 +43,15 @@ class YOLOv8Config:
     max_channels: int = 1024
     reg_max: int = 16             # DFL bins
     strides: Sequence[int] = (8, 16, 32)
+    # "classic": stride-2 3x3 stem on [B, 3, S, S]; "s2d": stride-1 2x2
+    # stem, padding ((1, 0), (1, 0)), on the [B, 12, S/2, S/2] plane.
+    stem: str = "classic"
+    # int8 x int8 convs with calibrated input scales in every ConvBN but
+    # the stem (the head's 1x1 output convs stay float32).
+    act_int8: bool = False
     # Zero-pad the input from 3 to this many channels before the stem conv,
-    # whose kernel is [C, pad, 3, 3]; the extra planes are zeros. 0 = off.
+    # whose kernel is [C, pad, 3, 3]; the extra planes are zeros. 0 = off;
+    # no-op under the 12-channel s2d plane when pad <= 12.
     stem_pad_c: int = 0
 
     def ch(self, c: int) -> int:
@@ -58,10 +71,10 @@ def tiny_yolov8_config(num_classes: int = 4) -> YOLOv8Config:
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, c_in: int, features: int, shortcut: bool, dtype):
+    def __init__(self, c_in: int, features: int, shortcut: bool, dtype, q: bool = False):
         super().__init__()
-        self.cv1 = ConvBN(c_in, features, 3, dtype=dtype)
-        self.cv2 = ConvBN(features, features, 3, dtype=dtype)
+        self.cv1 = ConvBN(c_in, features, 3, dtype=dtype, act_int8=q)
+        self.cv2 = ConvBN(features, features, 3, dtype=dtype, act_int8=q)
         self.add = shortcut and c_in == features
 
     def forward(self, x):
@@ -72,15 +85,16 @@ class Bottleneck(nn.Module):
 class C2f(nn.Module):
     """Cross-stage partial block: split, n bottlenecks, dense concat."""
 
-    def __init__(self, c_in: int, features: int, n: int, shortcut: bool, dtype):
+    def __init__(self, c_in: int, features: int, n: int, shortcut: bool, dtype,
+                 q: bool = False):
         super().__init__()
         hidden = features // 2
         self.hidden = hidden
         self.n = n
-        self.cv1 = ConvBN(c_in, 2 * hidden, 1, dtype=dtype)
+        self.cv1 = ConvBN(c_in, 2 * hidden, 1, dtype=dtype, act_int8=q)
         for i in range(n):
-            setattr(self, f"m{i}", Bottleneck(hidden, hidden, shortcut, dtype))
-        self.cv2 = ConvBN((2 + n) * hidden, features, 1, dtype=dtype)
+            setattr(self, f"m{i}", Bottleneck(hidden, hidden, shortcut, dtype, q))
+        self.cv2 = ConvBN((2 + n) * hidden, features, 1, dtype=dtype, act_int8=q)
 
     def forward(self, x):
         h = self.cv1(x)
@@ -94,11 +108,11 @@ class SPPF(nn.Module):
     """Spatial pyramid pooling (fast): 3 chained 5x5 max pools, concat.
     Max pooling pads with -inf, like flax's SAME max_pool."""
 
-    def __init__(self, c_in: int, features: int, dtype):
+    def __init__(self, c_in: int, features: int, dtype, q: bool = False):
         super().__init__()
         hidden = features // 2
-        self.cv1 = ConvBN(c_in, hidden, 1, dtype=dtype)
-        self.cv2 = ConvBN(4 * hidden, features, 1, dtype=dtype)
+        self.cv1 = ConvBN(c_in, hidden, 1, dtype=dtype, act_int8=q)
+        self.cv2 = ConvBN(4 * hidden, features, 1, dtype=dtype, act_int8=q)
 
     def forward(self, x):
         pools = [self.cv1(x)]
@@ -121,13 +135,14 @@ class DetectHead(nn.Module):
         self.cfg = cfg
         c_box = max(16, level_ch[0] // 4, cfg.reg_max * 4)
         c_cls = max(level_ch[0], min(cfg.num_classes, 100))
+        q = cfg.act_int8
         for i, lc in enumerate(level_ch):
-            setattr(self, f"box{i}_cv1", ConvBN(lc, c_box, 3, dtype=dtype))
-            setattr(self, f"box{i}_cv2", ConvBN(c_box, c_box, 3, dtype=dtype))
+            setattr(self, f"box{i}_cv1", ConvBN(lc, c_box, 3, dtype=dtype, act_int8=q))
+            setattr(self, f"box{i}_cv2", ConvBN(c_box, c_box, 3, dtype=dtype, act_int8=q))
             setattr(self, f"box{i}_out", nn.Conv2d(c_box, 4 * cfg.reg_max, 1,
                                                    dtype=torch.float32))
-            setattr(self, f"cls{i}_cv1", ConvBN(lc, c_cls, 3, dtype=dtype))
-            setattr(self, f"cls{i}_cv2", ConvBN(c_cls, c_cls, 3, dtype=dtype))
+            setattr(self, f"cls{i}_cv1", ConvBN(lc, c_cls, 3, dtype=dtype, act_int8=q))
+            setattr(self, f"cls{i}_cv2", ConvBN(c_cls, c_cls, 3, dtype=dtype, act_int8=q))
             setattr(self, f"cls{i}_out", nn.Conv2d(c_cls, cfg.num_classes, 1,
                                                    dtype=torch.float32))
         self.levels = len(level_ch)
@@ -179,24 +194,33 @@ class YOLOv8(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
-        ch, d = cfg.ch, cfg.depth
-        c_in = max(3, cfg.stem_pad_c)
-        self.stem = ConvBN(c_in, ch(64), 3, 2, dtype=dtype)                  # P1
-        self.down2 = ConvBN(ch(64), ch(128), 3, 2, dtype=dtype)              # P2
-        self.c2f_2 = C2f(ch(128), ch(128), d(3), True, dtype)
-        self.down3 = ConvBN(ch(128), ch(256), 3, 2, dtype=dtype)             # P3
-        self.c2f_3 = C2f(ch(256), ch(256), d(6), True, dtype)
-        self.down4 = ConvBN(ch(256), ch(512), 3, 2, dtype=dtype)             # P4
-        self.c2f_4 = C2f(ch(512), ch(512), d(6), True, dtype)
-        self.down5 = ConvBN(ch(512), ch(1024), 3, 2, dtype=dtype)            # P5
-        self.c2f_5 = C2f(ch(1024), ch(1024), d(3), True, dtype)
-        self.sppf = SPPF(ch(1024), ch(1024), dtype)
-        self.neck_up4 = C2f(ch(1024) + ch(512), ch(512), d(3), False, dtype)
-        self.neck_up3 = C2f(ch(512) + ch(256), ch(256), d(3), False, dtype)
-        self.neck_down4 = ConvBN(ch(256), ch(256), 3, 2, dtype=dtype)
-        self.neck_out4 = C2f(ch(256) + ch(512), ch(512), d(3), False, dtype)
-        self.neck_down5 = ConvBN(ch(512), ch(512), 3, 2, dtype=dtype)
-        self.neck_out5 = C2f(ch(512) + ch(1024), ch(1024), d(3), False, dtype)
+        ch, d, q = cfg.ch, cfg.depth, cfg.act_int8
+        if cfg.stem == "s2d":
+            # The lossless fold of the classic stem onto the s2d plane:
+            # classic output pixel p reads input rows 2p-1..2p+1, which lie
+            # in s2d rows p-1 (offset 1) and p (offsets 0, 1); the leading
+            # pad gives row -1. Kept fp under act_int8.
+            self.stem = ConvBN(max(12, cfg.stem_pad_c), ch(64), 2, 1, dtype=dtype,
+                               padding=((1, 0), (1, 0)))                     # P1
+        elif cfg.stem == "classic":
+            self.stem = ConvBN(max(3, cfg.stem_pad_c), ch(64), 3, 2, dtype=dtype)  # P1
+        else:
+            raise ValueError(f"stem={cfg.stem!r} unsupported ('classic' or 's2d')")
+        self.down2 = ConvBN(ch(64), ch(128), 3, 2, dtype=dtype, act_int8=q)  # P2
+        self.c2f_2 = C2f(ch(128), ch(128), d(3), True, dtype, q)
+        self.down3 = ConvBN(ch(128), ch(256), 3, 2, dtype=dtype, act_int8=q)  # P3
+        self.c2f_3 = C2f(ch(256), ch(256), d(6), True, dtype, q)
+        self.down4 = ConvBN(ch(256), ch(512), 3, 2, dtype=dtype, act_int8=q)  # P4
+        self.c2f_4 = C2f(ch(512), ch(512), d(6), True, dtype, q)
+        self.down5 = ConvBN(ch(512), ch(1024), 3, 2, dtype=dtype, act_int8=q)  # P5
+        self.c2f_5 = C2f(ch(1024), ch(1024), d(3), True, dtype, q)
+        self.sppf = SPPF(ch(1024), ch(1024), dtype, q)
+        self.neck_up4 = C2f(ch(1024) + ch(512), ch(512), d(3), False, dtype, q)
+        self.neck_up3 = C2f(ch(512) + ch(256), ch(256), d(3), False, dtype, q)
+        self.neck_down4 = ConvBN(ch(256), ch(256), 3, 2, dtype=dtype, act_int8=q)
+        self.neck_out4 = C2f(ch(256) + ch(512), ch(512), d(3), False, dtype, q)
+        self.neck_down5 = ConvBN(ch(512), ch(512), 3, 2, dtype=dtype, act_int8=q)
+        self.neck_out5 = C2f(ch(512) + ch(1024), ch(1024), d(3), False, dtype, q)
         self.detect = DetectHead(cfg, [ch(256), ch(512), ch(1024)], dtype)
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -216,7 +240,8 @@ class YOLOv8(nn.Module):
                 conv.bias.copy_(bias)
 
     def forward(self, x: torch.Tensor, decode=True):
-        """[B, 3, S, S] normalised RGB -> head output, by ``decode`` mode:
+        """[B, 3, S, S] normalised RGB (the ``s2d`` stem also takes the folded
+        [B, 12, S/2, S/2] plane) -> head output, by ``decode`` mode:
 
         - ``True``: ``(boxes [B, A, 4], scores [B, A, C])``, per-class
           sigmoid probabilities.
@@ -226,7 +251,10 @@ class YOLOv8(nn.Module):
           takes the first maximum.
         """
         c = self.cfg
-        x = pad_channels(x.to(self.dtype), c.stem_pad_c, dim=1)
+        x = x.to(self.dtype)
+        if c.stem == "s2d" and x.shape[1] == 3:
+            x = space_to_depth(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        x = pad_channels(x, c.stem_pad_c, dim=1)
         x = self.down2(self.stem(x))
         x = self.c2f_2(x)
         p3 = self.c2f_3(self.down3(x))

@@ -2,8 +2,8 @@
 
 Counterpart of the serving subset of
 ``video_edge_ai_proxy_tpu/ops/preprocess.py``: the detector's letterbox,
-the classifier's stretch-resize + ImageNet normalisation, and the video
-clip path. Frames cross to the card as
+its fused space-to-depth form for the ``s2d`` stem, the classifier's
+stretch-resize + ImageNet normalisation, and the video clip path. Frames cross to the card as
 uint8 NHWC BGR24 exactly as they sit on the frame bus; the cast, /255,
 resize, BGR->RGB flip and letterbox pad all happen on the card. The
 public functions keep the JAX package's NHWC layout, so the two compare
@@ -66,6 +66,9 @@ def _constant(kind: str, key: tuple, dtype: torch.dtype, device: torch.device) -
     with torch.inference_mode(False):
         if kind == "resize":
             return torch.from_numpy(_resize_matrix(*key)).to(device=device, dtype=dtype)
+        if kind == "fused":
+            return tuple(torch.from_numpy(a).to(device=device, dtype=dtype)
+                         for a in _fused_letterbox_arrays(*key))
         if kind == "inv255":
             values = 1.0 / 255.0
         elif kind == "mean":
@@ -191,6 +194,79 @@ def preprocess_letterbox(
         value=pad_value,
     )
     return x, params
+
+
+@functools.lru_cache(maxsize=64)
+def _letterbox_axis_matrix(src: int, new: int, dst: int, offset: int,
+                           scale: float = 1.0) -> np.ndarray:
+    """[dst, src] matrix of one letterbox axis: the [new, src] resize
+    matrix placed at row ``offset``, zero rows in the padding band, times
+    ``scale``. One product with it resizes and places the image."""
+    m = np.zeros((dst, src), np.float32)
+    m[offset:offset + new] = _resize_matrix(src, new)
+    return m * scale
+
+
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """[N, H, W, C] -> [N, H/2, W/2, 4C]: 2x2 spatial blocks folded into
+    channels, channel slot ``(2a + b) * C + c`` for row offset ``a`` and
+    column offset ``b`` (the layout of the ``s2d`` stem and of
+    ``models/carry.py`` ``s2d_fold_kernel``)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // 2, 2, w // 2, 2, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)
+
+
+def _fused_letterbox_arrays(src_h: int, src_w: int, dst: int, pad_value: float) -> tuple:
+    """The fused letterbox's constants for one (geometry, dst): the row
+    and column letterbox matrices split by output parity ([2, dst/2,
+    src], 1/255 in the row matrix) and the pad band's additive mask in
+    the blocked layout ([dst/2, dst/2, 2, 2])."""
+    params = letterbox_params((src_h, src_w), dst)
+    top = int(round(params.pad_y))
+    left = int(round(params.pad_x))
+    half = dst // 2
+    rh = _letterbox_axis_matrix(src_h, params.new_h, dst, top, 1.0 / 255.0)
+    rw = _letterbox_axis_matrix(src_w, params.new_w, dst, left)
+    inside_r = np.zeros((dst,), np.float32)
+    inside_r[top:top + params.new_h] = 1.0
+    inside_c = np.zeros((dst,), np.float32)
+    inside_c[left:left + params.new_w] = 1.0
+    outside = (1.0 - np.outer(inside_r, inside_c)) * pad_value
+    outside = outside.reshape(half, 2, half, 2).transpose(0, 2, 1, 3)
+    return (np.stack([rh[0::2], rh[1::2]]), np.stack([rw[0::2], rw[1::2]]),
+            np.ascontiguousarray(outside))
+
+
+def preprocess_letterbox_fused(
+    frames_u8: torch.Tensor,
+    dst: int = 640,
+    pad_value: float = 114.0 / 255.0,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> tuple:
+    """[N, H, W, 3] uint8 BGR -> ([N, dst/2, dst/2, 12] letterboxed RGB in
+    [0, 1], folded into the ``space_to_depth`` layout the ``s2d`` stem
+    reads, LetterboxParams).
+
+    The two resize products take the parity-split letterbox matrices, so
+    they write the [n, h, w, a, b, c] blocked layout directly; the source
+    plane is read once (1/255 rides the row matrix); the pad value is an
+    additive mask on the small plane; BGR -> RGB flips the 3-channel
+    groups. The same linear map as ``space_to_depth(preprocess_letterbox
+    (...))`` with other rounding points: equal to a tolerance, not bit for
+    bit."""
+    if dst % 2:
+        raise ValueError(f"preprocess_letterbox_fused needs an even dst, got {dst}")
+    params = letterbox_params(tuple(frames_u8.shape[1:3]), dst)
+    rh2, rw2, outside = _constant(
+        "fused", (int(frames_u8.shape[1]), int(frames_u8.shape[2]), dst, float(pad_value)),
+        out_dtype, frames_u8.device)
+    x = frames_u8.to(out_dtype)
+    y = torch.einsum("ahH,nHWc->nahWc", rh2, x)
+    y = torch.einsum("bwW,nahWc->nhwabc", rw2, y)
+    y = (y + outside[None, :, :, :, :, None]).flip(-1)
+    half = dst // 2
+    return y.reshape(y.shape[0], half, half, 12), params
 
 
 def unletterbox_boxes(boxes_xyxy: torch.Tensor, params: LetterboxParams) -> torch.Tensor:

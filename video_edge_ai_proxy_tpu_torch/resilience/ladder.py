@@ -111,22 +111,25 @@ class DegradationLadder:
         self._m_trans.labels(name).inc()
 
     def observe(self, *, queue_depth: int, tick_lag_s: float, tick_budget_s: float,
-                slo_burning: bool = False) -> str:
-        """Feed one tick's pressure signals; returns the current rung name."""
+                slo_burning: bool = False, hbm_pressure: bool = False) -> str:
+        """Feed one tick's pressure signals; returns the current rung name.
+        ``slo_burning`` (the SLOs' burn verdict) and ``hbm_pressure`` (the
+        device-memory plane's, ``obs/hbm.py``: burning, or an OOM forecast
+        inside its horizon) are ORed with the queue-level signals, under
+        the same hysteresis."""
         now = self._clock()
         pressure = (queue_depth >= self.depth_threshold
                     or tick_lag_s > self.lag_factor * tick_budget_s
-                    or slo_burning)
+                    or slo_burning
+                    or hbm_pressure)
         with self._lock:
-            # The breakdown a transition this tick journals as its
-            # trigger. The port has no HBM tracker: its pressure is
-            # always False, as the JAX ladder's is without one.
+            # The breakdown a transition this tick journals as its trigger.
             self._pressure_detail = {
                 "queue_depth": int(queue_depth),
                 "tick_lag_s": round(float(tick_lag_s), 4),
                 "tick_budget_s": round(float(tick_budget_s), 4),
                 "slo_burning": bool(slo_burning),
-                "hbm_pressure": False,
+                "hbm_pressure": bool(hbm_pressure),
             }
             if pressure:
                 self._calm_since = None

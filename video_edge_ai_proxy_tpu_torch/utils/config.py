@@ -108,6 +108,20 @@ class EngineConfig:
     # Per-frame stage timestamps (publish -> collect -> submit -> drain ->
     # emit) appended to engine.stage_records, bounded. Off in production.
     stage_trace: bool = False
+    # "int8": weight-only int8 serving (models/quantize.py): the device
+    # holds int8 weights and per-channel scales, dequantized inside the
+    # step. "int8_act" (detect family): that, plus int8 x int8 convs in
+    # every ConvBN but the stem against input ranges calibrated at warmup
+    # on synthetic frames. "" = full precision.
+    quantize: str = ""
+    # Detect-family stem: "classic" (stride-2 3x3) or "s2d" (the fused
+    # letterbox + space-to-depth preprocess and a stride-1 2x2 stem;
+    # classic weights fold in losslessly). Every program is keyed by it.
+    stem: str = "classic"
+    # Dense bf16 peak TFLOP/s of the card for the live MFU gauges
+    # (obs/perf.py). 0 = resolve from the card's name at warmup; an
+    # unknown card then raises. On the CPU there is no MFU.
+    peak_tflops: float = 0.0
     # Overload degradation ladder: normal -> shed stale frames -> cap the
     # batch bucket one size down -> pause admission for half the streams.
     # Driven by drain-queue depth, tick lag and SLO burn; escalates after
@@ -118,6 +132,19 @@ class EngineConfig:
     ladder_recover_after_s: float = 2.0
     # Rung shed: frames older than this at dispatch are dropped.
     shed_staleness_ms: float = 500.0
+    # Device-memory plane (obs/hbm.py): program footprints, live pool
+    # ledgers (thumbs, track_state, prefetch, collector_host) and a time-
+    # to-OOM forecast against the budget that feeds the ladder. hbm=False
+    # (default): no tracker, /api/v1/hbm answers 400. hbm_budget_bytes 0 =
+    # the card's total memory (torch.cuda.mem_get_info), the synthetic
+    # 4 GiB on the CPU.
+    hbm: bool = False
+    hbm_budget_bytes: int = 0
+    hbm_fast_window_s: float = 60.0          # fast high-water window
+    hbm_slow_window_s: float = 1800.0        # slow high-water window
+    hbm_util_objective: float = 0.9          # burn = window-peak use over this
+    hbm_eval_interval_s: float = 1.0         # forecast refresh throttle
+    hbm_pressure_horizon_s: float = 120.0    # OOM forecast inside this: pressure
     # Live SLOs: p50 detect latency, aggregate frames/s, stream
     # availability, as multi-window burn rates. No SLO fires before
     # slo_warmup_s of wall time; slo_ladder feeds a sustained burn into the
