@@ -209,9 +209,43 @@ exits non-zero:
    tolerances were measured on, through each engine's graphed program of
    that key; the scores on the 16 1080p frames are printed, not gated
    (there the JAX package's own gate falls below 0.95 for ``s2d``).
+16. ROI serving at full width, hand-stepped engines (the JAX package's
+   ROI tests' tick: collect, ``_roi_transform``, dispatch, drain) on the
+   engine's compute stream: (a) ``tools/roi_smoke.py``'s scene at
+   16x1080p on ``blob_gauge``: 8 streams with a blob of a key of its own
+   moving 48 px a tick along x, 8 static scenes, each in a cell of a 4x4
+   grid, 40 ticks paced to 30 a second, once with ``roi=False`` and once
+   with ``roi=True`` (``roi_min_crop=80``, ``roi_full_interval_ms=500``,
+   roi_smoke's); gated on roi_smoke's own gates: IoU with the analytic
+   box >= 0.9 on average, no misrouted detection (off its stream's blob)
+   and no unrouted canvas detection, the gate engaged (idle plus roi
+   stream-ticks and a canvas served), stream results per device frame
+   >= 2x the roi=False run's, the keep mask launched; (b) ``yolov8n`` bf16
+   at 16x1080p, 12 ticks with roi off and on: phase 11's folds (roi and
+   cascade off) must be 305268384 and 304869744; the canvas program's
+   graph replay bit-identical to its eager step and one keep-mask launch
+   in it (torch.profiler); printed: canvases and crops a tick, occupancy,
+   the canvas replay's ms beside the full 16x1080p step's, the emit's ms a
+   frame with roi on and off;
+17. the temporal cascade at full width, hand-stepped: (a)
+   ``tools/cascade_smoke.py``'s scene at 1080p on ``blob_gauge`` (a track
+   whose blob flickers its blue channel +-15, two static tracks, three
+   churn waves) with ``videomae_b``'s head every 4 ticks, gated on its
+   five: the head at exactly 1/4 cadence, the enter event within 8 ticks
+   of the onset, no event on a static track, the pool's high water at
+   most the peak of concurrent tracks, one enter and one exit on the
+   uplink and one archive segment; and the ``track_state`` pool of
+   ``/api/v1/hbm`` equal to the pool's bytes; printed: the head's ms a
+   dispatch, the pool's bytes, the harvest's ms a frame; (b)
+   ``videomae_b_long``'s head (6272 tokens) on 2 tracks until its first
+   pass: the flash forward among the head's kernels (torch.profiler) and
+   launched, the head's logits within ``VIDEO_SWAP_TOL`` of the same head
+   with the plain attention; (c) the harvest's host ms a frame with the
+   cascade on, ``yolov8n`` at 16x1080p (about 100 tracked detections a
+   frame), printed beside the emit's.
 
 On the card the engine runs every serving step as a graph replay, so
-phases 5, 8, 11, 13 and 15 run graphed; phases 4, 6, 7, 9 and 10 call the eager
+phases 5, 8, 11, 13, 15, 16 and 17 run graphed; phases 4, 6, 7, 9 and 10 call the eager
 step, the model and the trainer directly.
 
 After phase 8 the script reports what outlives its engines (the cuBLAS
@@ -219,13 +253,14 @@ workspace of each stream that ran a matmul, and the preprocessing
 constants of every geometry met so far) and frees it, so that phase 9's
 peak memory counts the training alone.
 
-Phases 5, 8, 9, 11c, 13b, 14 and 15c are the main paths: the kernels' launch
-counts are set to 0 just before each and read just after it, and every
-kernel of that path must have launched (a graph replay adds the launches
-its capture recorded); the keep mask's count in 13b is
-``launches_frame_path``, in 14's first server (zeroed before its engine
-starts) ``launches_server``, in 15c's served batches of each variant
-``launches_variants``. The line before the last is one JSON object describing
+Phases 5, 8, 9, 11c, 13b, 14, 15c, 16a, 16b, 17a and 17b are the main
+paths: the kernels' launch counts are set to 0 just before each and read
+just after it, and every kernel of that path must have launched (a graph
+replay adds the launches its capture recorded); the keep mask's count in
+13b is ``launches_frame_path``, in 14's first server (zeroed before its
+engine starts) ``launches_server``, in 15c's served batches of each
+variant ``launches_variants``, in 16a's ROI run ``launches_roi``, in 17a
+``launches_cascade``, and the flash forward's in 17b ``launches_cascade``. The line before the last is one JSON object describing
 every kernel; the last line is ``{"ok": true, "device": {...}}``. Longer
 output (the profile tables) goes to ``chiprun_out/``.
 """
@@ -3162,6 +3197,607 @@ def variants_phase(dev, card: str, zero_launches, read_launches, kernels, report
 
 
 
+# -- phases 16 and 17: ROI serving and the temporal cascade -------------------------------
+
+# 16a: tools/roi_smoke.py's scenario at 1080p on blob_gauge: 8 streams with a
+# blob in slow motion (a triangle wave along x), one color key each (the
+# gauge has 8, and reports one box per key and canvas), and 8 static
+# scenes (a dark block the gauge does not see). Each stream's block stays
+# in a cell of its own of a 4x4 grid, so a detection routed to the wrong
+# stream has no overlap with that stream's blob. Corners and sizes are
+# multiples of 3, the 1080p -> 640 letterbox's grid. A mover's background
+# has its key's red and a dark green: the letterbox's antialiased resize
+# of a full frame mixes the blob's edge with the background, and on a 114
+# gray one keys 0 and 7 mix into a neighbouring bin (a second box); with
+# the red shared only green moves, which the gauge's bins do not read.
+ROI_TICKS = 40               # hand-stepped ticks a run, paced to 30 a second
+ROI_TICK_S = 1.0 / 30.0
+ROI_BLOB = (180, 135)        # blob w, h in source px
+ROI_SPEED = 48               # a mover's px a tick: its 32^2 thumbnail diff
+                             # (1.4e-4) clears roi_idle_diff 5e-5
+ROI_FULL_MS = 500            # roi_full_interval_ms, roi_smoke.py's
+ROI_MIN_IOU = 0.9            # roi_smoke.py's gates
+ROI_MIN_GAIN = 2.0
+ROI_MIN_MATCHED = 20
+ROI_STATIC_COLOR = (40, 60, 40)   # BGR: green far below the gauge's 0.75
+ROI_MOVER_BG_GREEN = 40           # a mover's background (114, 40, its key's red)
+ROI_DET_TICKS = 12           # 16b: hand-stepped ticks of yolov8n a run
+# Phase 11's folds (lockstep_checksum, serve_lockstep) at 16x1080p: the
+# classic path with roi and cascade off folds to these on the H100.
+ROI_OFF_FOLDS = (305268384, 304869744)
+ROI_DET_MODEL = "yolov8n"    # 16b's detector
+# 17: tools/cascade_smoke.py's scene at 1080p (its 64-px boxes scaled up).
+CASCADE_N = 4
+CASCADE_MODEL = "videomae_b"             # 17a's head (224^2, clip 8)
+CASCADE_LONG_MODEL = "videomae_b_long"   # 17b's head (64 frames, 6272 tokens)
+CASCADE_BOXES = {"camA": (1, (480, 300, 720, 480)), "camB": (2, (120, 660, 360, 840)),
+                 "camC": (4, (1320, 120, 1560, 300))}
+CASCADE_CHURN_BOX = (1320, 660, 1560, 840)
+CASCADE_LONG_STREAMS = 2     # 17b
+CASCADE_HARVEST_TICKS = 4    # 17c: yolov8n ticks with the cascade's harvest on
+
+
+def roi_truth(stream: int, step: int) -> tuple:
+    """16a's (box, key) of ``stream`` at ``step``, inside the stream's cell
+    of a 4x4 grid: streams 0-7 are blobs of key ``stream`` moving along x,
+    8-15 a static block of no key (None)."""
+    w, h = ROI_BLOB
+    cw, ch = FRAME_HW[1] // 4, FRAME_HW[0] // 4
+    cx, cy = cw * (stream % 4), ch * (stream // 4)
+    y0 = cy + 66
+    if stream < 8:
+        span = cw - w - 48
+        phase = (step * ROI_SPEED) % (2 * span)
+        x0 = cx + 24 + (phase if phase < span else 2 * span - phase)
+    else:
+        x0 = cx + 150
+    return (x0, y0, x0 + w, y0 + h), (stream if stream < 8 else None)
+
+
+def box_iou(a, b) -> float:
+    ix0, iy0 = max(a[0], b[0]), max(a[1], b[1])
+    ix1, iy1 = min(a[2], b[2]), min(a[3], b[3])
+    inter = max(0, ix1 - ix0) * max(0, iy1 - iy0)
+    area = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
+    return inter / float(area) if inter else 0.0
+
+
+def hand_engine(engine):
+    """Make ``engine`` hand-steppable, as the JAX package's ROI and cascade
+    tests drive theirs: warm, a drain queue deep enough for the full,
+    canvas and coast groups of one tick, and one subscriber over every
+    stream. Returns the subscriber's queue."""
+    import queue
+
+    engine.warmup()
+    engine._drain_q = queue.Queue(maxsize=8)
+    q = queue.Queue()
+    with engine._sub_lock:
+        engine._subscribers.append((q, None))
+    return q
+
+
+def hand_tick(engine, results_q, on_group=None) -> list:
+    """One engine tick by hand on the engine's compute stream: collect,
+    the ROI transform, dispatch, drain and emit (the cascade's harvest),
+    the cascade tick. ``on_group(group)`` sees each group before dispatch.
+    Returns the results the tick published."""
+    import queue
+
+    import torch
+
+    with engine._compute_stream(), torch.inference_mode():
+        groups = engine._collector.collect()
+        if engine._roi is not None and groups:
+            groups = engine._roi_transform(groups)
+        if on_group is not None:
+            for g in groups:
+                on_group(g)
+        engine._dispatch(groups, time.time(), strict=True)
+        while True:
+            try:
+                inflight = engine._drain_q.get_nowait()
+            except queue.Empty:
+                break
+            try:
+                engine._emit(inflight)
+            finally:
+                engine._collector.release(inflight.group)
+                engine._drain_q.task_done()
+        if engine._cascade is not None:
+            engine._cascade_tick()
+    out = []
+    while not results_q.empty():
+        out.append(results_q.get_nowait())
+    return out
+
+
+def roi_phase(dev, card: str, zero_launches, read_launches, kernels, report,
+              pipeline: dict) -> None:
+    """Phase 16: ROI serving at full width. (a) tools/roi_smoke.py's gauge
+    run at 16x1080p, roi off then on; (b) yolov8n bf16 at 16x1080p with
+    roi on: the canvas program's replay against eager, the keep mask in
+    it by the profiler, the canvas and full steps' replay times, the
+    emit's cost a frame with roi on and off; phase 11's folds with roi
+    off."""
+    import numpy as np
+    import torch
+
+    from video_edge_ai_proxy_tpu_torch.bus.interface import FrameMeta
+    from video_edge_ai_proxy_tpu_torch.bus.memory_bus import MemoryFrameBus
+    from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine, build_serving_step
+    from video_edge_ai_proxy_tpu_torch.ingest.sources import SyntheticSource
+    from video_edge_ai_proxy_tpu_torch.models import registry
+    from video_edge_ai_proxy_tpu_torch.models.blob import blob_color
+    from video_edge_ai_proxy_tpu_torch.replay.checksum import zero_class_prior
+    from video_edge_ai_proxy_tpu_torch.utils.config import EngineConfig
+
+    log(f"phase 16 card: {card}")
+    h, w = FRAME_HW
+
+    # (a) the gauge run, roi off and on.
+    def gauge_run(roi: bool) -> dict:
+        bus = MemoryFrameBus()
+        engine = InferenceEngine(bus, EngineConfig(
+            model="blob_gauge", tick_ms=10, prefetch=False, prof=False, roi=roi,
+            roi_min_crop=80, roi_full_interval_ms=ROI_FULL_MS), device=dev)
+        results_q = hand_engine(engine)
+        frames = []
+        backgrounds = []
+        for s in range(N_STREAMS):
+            bus.create_stream(f"cam{s:02d}", h * w * 3)
+            _, key = roi_truth(s, 0)
+            bg = (114, 114, 114) if key is None else (114, ROI_MOVER_BG_GREEN, blob_color(key)[2])
+            backgrounds.append(bg)
+            frames.append(np.empty((h, w, 3), np.uint8))
+            frames[-1][:] = bg
+        truth: dict = {}
+        results = []
+        prev = [None] * N_STREAMS
+        ts0 = int(time.time() * 1000)
+        zero_launches()
+        t0 = time.perf_counter()
+        for step in range(ROI_TICKS):
+            pace = t0 + step * ROI_TICK_S - time.perf_counter()
+            if pace > 0:
+                time.sleep(pace)
+            ts = ts0 + step
+            for s in range(N_STREAMS):
+                box, key = roi_truth(s, step)
+                if prev[s] is not None and prev[s] != box:
+                    x0, y0, x1, y1 = prev[s]
+                    frames[s][y0:y1, x0:x1] = backgrounds[s]
+                x0, y0, x1, y1 = box
+                frames[s][y0:y1, x0:x1] = ROI_STATIC_COLOR if key is None else blob_color(key)
+                prev[s] = box
+                truth[(f"cam{s:02d}", ts)] = (key, box)
+                bus.publish(f"cam{s:02d}", frames[s], FrameMeta(
+                    width=w, height=h, channels=3, timestamp_ms=ts, is_keyframe=True))
+            results.extend(hand_tick(engine, results_q))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+        snap = engine.perf.snapshot()
+        ious, misrouted, matched, edge = [], 0, 0, 0
+        for r in results:
+            key, box = truth[(r.device_id, r.timestamp)]
+            for d in r.detections:
+                got = (d.box.left, d.box.top, d.box.left + d.box.width, d.box.top + d.box.height)
+                iou = box_iou(got, box)
+                if key is None or iou == 0.0:
+                    # On a static scene, or off its stream's blob: another
+                    # stream's detection.
+                    misrouted += 1
+                elif d.class_id != key:
+                    # On the blob, another key: a full frame's resize mixed
+                    # the edge into a neighbouring bin.
+                    edge += 1
+                else:
+                    matched += 1
+                    ious.append(iou)
+        device_frames = sum(b["frames"] for b in snap["buckets"] if b["model"] == "blob_gauge")
+        p = engine.pipeline_stats()
+        bus.close()
+        del engine
+        return {"roi": roi, "results": len(results), "device_frames": device_frames,
+                "per_device_frame": len(results) / device_frames if device_frames else None,
+                "matched": matched, "misrouted": misrouted, "edge": edge,
+                "iou_mean": float(np.mean(ious)) if ious else None,
+                "iou_min": float(np.min(ious)) if ious else None,
+                "perf_roi": snap.get("roi"), "launches": launches, "wall_s": wall_s,
+                "emit_ms_frame": p.emit_ms / max(p.frames, 1)}
+
+    base = gauge_run(False)
+    packed = gauge_run(True)
+    gain = (packed["per_device_frame"] / base["per_device_frame"]
+            if packed["per_device_frame"] and base["per_device_frame"] else None)
+    roi_stats = packed["perf_roi"] or {}
+    ticks = roi_stats.get("stream_ticks", {})
+    report["nms_keep_mask"]["launches_roi"] = packed["launches"]["nms_keep_mask"]
+    for run in (base, packed):
+        log(f"phase 16a blob_gauge {N_STREAMS}x1080p roi={run['roi']} on {card}: "
+            f"{run['results']} results over {run['device_frames']} device frames "
+            f"({run['per_device_frame']:.3f} a frame), {run['matched']} detections matched, "
+            f"{run['misrouted']} misrouted, {run['edge']} edge bins, IoU mean "
+            f"{run['iou_mean']} min {run['iou_min']}; "
+            f"{ROI_TICKS} ticks in {run['wall_s']:.3f} s; emit {run['emit_ms_frame']:.4f} ms "
+            f"a frame; keep-mask launches {run['launches']['nms_keep_mask']}")
+    log(f"phase 16a ROI plane: {roi_stats}; results per device frame {gain:.3f}x the "
+        f"roi=False run" if gain is not None else f"phase 16a ROI plane: {roi_stats}")
+    if packed["matched"] < ROI_MIN_MATCHED:
+        raise AssertionError(f"phase 16a: only {packed['matched']} matched detections")
+    if packed["misrouted"] or base["misrouted"]:
+        raise AssertionError(f"phase 16a: misrouted detections (roi {packed['misrouted']}, "
+                             f"baseline {base['misrouted']})")
+    if roi_stats.get("unrouted"):
+        raise AssertionError(f"phase 16a: {roi_stats['unrouted']} unrouted canvas detections")
+    if packed["iou_mean"] is None or packed["iou_mean"] < ROI_MIN_IOU:
+        raise AssertionError(f"phase 16a: IoU mean {packed['iou_mean']} < {ROI_MIN_IOU}")
+    if not (ticks.get("idle", 0) + ticks.get("roi", 0)) or not roi_stats.get("canvases"):
+        raise AssertionError(f"phase 16a: the motion gate never engaged: {roi_stats}")
+    if gain is None or gain < ROI_MIN_GAIN:
+        raise AssertionError(f"phase 16a: results per device frame {gain} < {ROI_MIN_GAIN}x "
+                             f"the roi=False run")
+    if packed["launches"]["nms_keep_mask"] <= 0:
+        raise AssertionError("phase 16a: the keep-mask kernel was not launched")
+
+    # (b) yolov8n at 16x1080p, roi on, against roi off.
+    if (pipeline["11a"], pipeline["11b"]) != ROI_OFF_FOLDS:
+        raise AssertionError(f"phase 16b: with roi and cascade off phase 11 folded "
+                             f"{pipeline['11a']}, {pipeline['11b']}, not {ROI_OFF_FOLDS}")
+    log(f"phase 16b roi and cascade off: phase 11 folded {pipeline['11a']} and "
+        f"{pipeline['11b']}, as before ({ROI_OFF_FOLDS})")
+    spec = registry.get(ROI_DET_MODEL)
+    model = spec.init_params(torch.Generator().manual_seed(0), device=dev)
+    model.load_state_dict(zero_class_prior(model.state_dict()))
+    pool = [SyntheticSource.render(h, w, n) for n in range(8)]
+    streams = [f"cam{i:02d}" for i in range(N_STREAMS)]
+    runs = {}
+    canvas_batches: list = []
+    for roi in (False, True):
+        bus = MemoryFrameBus()
+        engine = InferenceEngine(bus, EngineConfig(model=ROI_DET_MODEL, roi=roi, prof=False,
+                                                   prefetch=False),
+                                 device=dev, model=model)
+        results_q = hand_engine(engine)
+        for s in streams:
+            bus.create_stream(s, h * w * 3)
+        per_tick = []
+
+        def keep_canvas(g):
+            if g.crops is not None:
+                canvas_batches.append((g.frames.copy(), len(g.device_ids), len(g.crops)))
+
+        zero_launches()
+        t0 = time.perf_counter()
+        n_res = 0
+        for step in range(ROI_DET_TICKS):
+            ts = int(time.time() * 1000)
+            for i, s in enumerate(streams):
+                bus.publish(s, pool[(step + i) % len(pool)], FrameMeta(
+                    width=w, height=h, channels=3, timestamp_ms=ts, is_keyframe=True))
+            before = dict((engine.perf.snapshot().get("roi") or {}))
+            n_res += len(hand_tick(engine, results_q, keep_canvas if roi else None))
+            after = engine.perf.snapshot().get("roi") or {}
+            per_tick.append((after.get("canvases", 0) - before.get("canvases", 0),
+                             after.get("crops", 0) - before.get("crops", 0)))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        p = engine.pipeline_stats()
+        runs[roi] = {"engine": engine, "bus": bus, "per_tick": per_tick, "results": n_res,
+                     "launches": read_launches(), "wall_s": wall_s,
+                     "emit_ms_frame": p.emit_ms / max(p.frames, 1),
+                     "perf_roi": engine.perf.snapshot().get("roi")}
+    on, off = runs[True], runs[False]
+    log(f"phase 16b {ROI_DET_MODEL} bf16 {N_STREAMS}x1080p, {ROI_DET_TICKS} hand-stepped ticks on "
+        f"{card}: roi off {off['results']} results in {off['wall_s']:.3f} s, roi on "
+        f"{on['results']} in {on['wall_s']:.3f} s; canvases and crops a tick "
+        f"{on['per_tick']}; ROI plane {on['perf_roi']}; the emit "
+        f"{on['emit_ms_frame']:.4f} ms a frame with roi on, {off['emit_ms_frame']:.4f} off; "
+        f"keep-mask launches on {on['launches']['nms_keep_mask']}, off "
+        f"{off['launches']['nms_keep_mask']}")
+    if on["results"] != off["results"] or on["launches"]["nms_keep_mask"] <= 0:
+        raise AssertionError(f"phase 16b: roi on served {on['results']} results "
+                             f"(off {off['results']}), keep-mask launches {on['launches']}")
+    if not canvas_batches:
+        raise AssertionError(f"phase 16b: no canvas batch was served: {on['perf_roi']}")
+    engine = on["engine"]
+    host_canvas, n_canvas, n_crops = canvas_batches[-1]
+    canvas = torch.from_numpy(host_canvas).to(dev)
+    bucket = canvas.shape[0]
+    side = engine._cfg.roi_canvas
+    eager = build_serving_step(engine._model, spec, quality_thumb=THUMB)
+    with engine._compute_stream(), torch.inference_mode():
+        graphed = engine._step((side, side), bucket)
+        full = engine._step(FRAME_HW, N_STREAMS)
+        got = graphed(canvas)
+        want = eager(canvas)
+        torch.cuda.synchronize()
+        for k in ("boxes", "scores", "classes", "valid"):
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError(f"phase 16b: the canvas program's replay differs from "
+                                     f"its eager step in {k}")
+        names = launched_kernels(lambda: graphed(canvas))
+        keep = [n for n in names if "nms_keep_mask" in n]
+        frames16 = torch.from_numpy(np.stack([pool[i % len(pool)] for i in range(N_STREAMS)])
+                                    ).to(dev)
+        canvas_ms = time_events(lambda: graphed(canvas), 20)
+        full_ms = time_events(lambda: full(frames16), 20)
+        canvas_ms2 = time_events(lambda: graphed(canvas), 20)
+    if len(keep) != 1:
+        raise AssertionError(f"phase 16b: the profiler found {keep} in one canvas replay "
+                             f"({len(names)} kernels)")
+    log(f"phase 16b canvas program ({ROI_DET_MODEL}, classic, {side}x{side}, bucket {bucket}: "
+        f"{n_canvas} canvases of {n_crops} crops): replay bit-identical to eager; one replay "
+        f"ran {len(names)} device kernels, the keep mask among them ({keep[0][:60]}); on "
+        f"{card}: canvas replay {canvas_ms:.3f} then {canvas_ms2:.3f} ms against the "
+        f"{N_STREAMS}x1080p full step's {full_ms:.3f} ms (CUDA events, mean of 20)")
+    for run in runs.values():
+        run["bus"].close()
+    del runs, engine, on, off, model, canvas, frames16
+    torch.cuda.empty_cache()
+
+
+def cascade_phase(dev, card: str, zero_launches, read_launches, kernels, report) -> None:
+    """Phase 17: the temporal cascade at full width. (a)
+    tools/cascade_smoke.py's scene at 1080p on blob_gauge with videomae_b's
+    head every 4 ticks and its five gates; (b) videomae_b_long's head
+    (6272 tokens) through the flash forward, against the plain attention;
+    (c) the harvest's host cost on yolov8n's detections at 16x1080p."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from video_edge_ai_proxy_tpu_torch.bus.interface import FrameMeta
+    from video_edge_ai_proxy_tpu_torch.bus.memory_bus import MemoryFrameBus
+    from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine, _build_cascade_head
+    from video_edge_ai_proxy_tpu_torch.ingest.archive import SegmentArchiver
+    from video_edge_ai_proxy_tpu_torch.models import registry
+    from video_edge_ai_proxy_tpu_torch.proto.annotate import decode
+    from video_edge_ai_proxy_tpu_torch.utils.config import EngineConfig
+
+    log(f"phase 17 card: {card}")
+    h, w = FRAME_HW
+
+    class Sink:
+        def __init__(self):
+            self.items = []
+
+        def publish(self, payload):
+            self.items.append(payload)
+
+    def blob_frame(delta, box, key):
+        frame = np.full((h, w, 3), 114, np.uint8)
+        x0, y0, x1, y1 = box
+        frame[y0:y1, x0:x1] = (64 + delta, 255, key * 32 + 16)
+        return frame
+
+    def timed_head(engine, record):
+        real = engine._cascade_head
+
+        def head(pool, slot_idx, time_idx, n_real):
+            out, ms = real(pool, slot_idx, time_idx, n_real)
+            record.append(ms)
+            return out, ms
+        engine._cascade.head = head
+
+    # (a) the scripted scene.
+    n = CASCADE_N
+    sink = Sink()
+    tmp = tempfile.mkdtemp(prefix="vep_cascade_")
+    archiver = SegmentArchiver(tmp)
+    archiver.start()
+    bus = MemoryFrameBus()
+    engine = InferenceEngine(bus, EngineConfig(
+        model="blob_gauge", tick_ms=10, prefetch=False, prof=False, track=True, cascade=True,
+        cascade_model=CASCADE_MODEL, cascade_every_n=n, cascade_track_ttl_ticks=4, hbm=True),
+        device=dev, annotations=sink, archiver=archiver)
+    results_q = hand_engine(engine)
+    sched = engine.cascade
+    head_ms: list = []
+    timed_head(engine, head_ms)
+    clip_len = registry.get(CASCADE_MODEL).clip_len
+    warmup, flicker, recover, churn = clip_len + 2 * n, 4 * n, 6 * n, 3 * (2 + 4 + 2)
+    total = warmup + flicker + recover + churn
+    onset = warmup + 1
+    for name in list(CASCADE_BOXES) + ["camD"]:
+        bus.create_stream(name, h * w * 3)
+    statics = {name: blob_frame(0, box, key) for name, (key, box) in CASCADE_BOXES.items()}
+    flick = {d: blob_frame(d, CASCADE_BOXES["camA"][1], CASCADE_BOXES["camA"][0])
+             for d in (15, -15)}
+    churn_frame = blob_frame(0, CASCADE_CHURN_BOX, 6)
+    zero_launches()
+    t0 = time.perf_counter()
+    last_ts = 0
+    for tick in range(1, total + 1):
+        ts = max(int(time.time() * 1000), last_ts + 1)
+        last_ts = ts
+        meta = FrameMeta(width=w, height=h, channels=3, timestamp_ms=ts, is_keyframe=True)
+        for name in CASCADE_BOXES:
+            frame = statics[name]
+            if name == "camA" and onset <= tick <= warmup + flicker:
+                frame = flick[15 if tick % 2 == 0 else -15]
+            bus.publish(name, frame, meta)
+        if tick > warmup + flicker + recover:
+            if (tick - warmup - flicker - recover - 1) % 8 < 2:   # camD: 2 of every 8
+                bus.publish("camD", churn_frame, meta)
+        hand_tick(engine, results_q)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    report["nms_keep_mask"]["launches_cascade"] = launches["nms_keep_mask"]
+    snap = sched.snapshot()
+    p = engine.pipeline_stats()
+    hbm_status, hbm_body = hbm_route(engine)
+    hbm_track = (hbm_body["pools"]["pools"].get("track_state", {}).get("bytes")
+                 if hbm_status == 200 else hbm_status)
+    pool_bytes = sched.pool_nbytes()
+    deadline = time.monotonic() + 30
+    reqs = [decode(x) for x in sink.items]
+    casc = [r for r in reqs if r.type == "cascade"]
+    enters = [r for r in casc if r.object_type == "anomaly_enter"]
+    exits = [r for r in casc if r.object_type == "anomaly_exit"]
+    while archiver.written < len(enters) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    archiver.stop()
+    written = archiver.written
+    files = sorted(os.path.relpath(os.path.join(d, f), tmp) for d, _, fs in os.walk(tmp)
+                   for f in fs)
+    head_ticks = snap["head_ticks"]
+    gaps = sorted({b - a for a, b in zip(head_ticks, head_ticks[1:])})
+    enter_ticks = [e["tick"] for e in snap["events"] if e["kind"] == "enter"]
+    latency = enter_ticks[0] - onset if enter_ticks else None
+    peak_tracks = 4              # camA, camB, camC and one churn wave of camD
+    events = [(e["stream"], e["kind"], e["tick"], round(e["score"], 4),
+               [round(v, 6) for v in e["features"]]) for e in snap["events"]]
+    log(f"phase 17a cascade on {card}: blob_gauge {len(CASCADE_BOXES) + 1} streams at 1080p, "
+        f"{CASCADE_MODEL} head ({snap['side']}^2, clip {snap['clip_len']}) every {n} ticks; "
+        f"{total} ticks in "
+        f"{wall_s:.3f} s; head ticks {head_ticks[:4]}... gaps {gaps}; onset {onset}, enter at "
+        f"{enter_ticks} (latency {latency} ticks); events {snap['event_counts']}; uplink "
+        f"{len(enters)} enter, {len(exits)} exit from {sorted({r.device_name for r in casc})}; "
+        f"archive {written} segment(s) {files}; slot high water {snap['slot_high_water']} "
+        f"(peak tracks {peak_tracks}); harvested {snap['harvested']} tiles; keep-mask "
+        f"launches {launches['nms_keep_mask']}; events (stream, kind, tick, score, features "
+        f"[diff, var, top]) {events}")
+    log(f"phase 17a on {card}: the head {statistics.median(head_ms):.3f} ms a dispatch "
+        f"(median of {len(head_ms)}, max {max(head_ms):.3f}, the first with its capture; CUDA "
+        f"events, the gather included), the pool {pool_bytes} B; /api/v1/hbm track_state {hbm_track} B; the "
+        f"harvest {p.harvest_ms / max(p.frames, 1):.4f} ms a frame of the emit's "
+        f"{p.emit_ms / max(p.frames, 1):.4f}")
+    if not head_ticks or gaps != [n]:
+        raise AssertionError(f"phase 17a: head cadence not exactly 1/{n}: {head_ticks}")
+    if latency is None or latency > 2 * n:
+        raise AssertionError(f"phase 17a: enter latency {latency} ticks > {2 * n}")
+    if any(r.device_name != "camA" for r in casc):
+        raise AssertionError(f"phase 17a: an event on a static track: "
+                             f"{[(r.device_name, r.object_type) for r in casc]}")
+    if snap["slot_high_water"] > peak_tracks:
+        raise AssertionError(f"phase 17a: slot high water {snap['slot_high_water']} > "
+                             f"{peak_tracks}")
+    if len(enters) != 1 or len(exits) != 1 or written != 1:
+        raise AssertionError(f"phase 17a: uplink enter {len(enters)}, exit {len(exits)}, "
+                             f"archive {written}; expected exactly 1 each")
+    if hbm_track != pool_bytes or not pool_bytes:
+        raise AssertionError(f"phase 17a: /api/v1/hbm track_state {hbm_track} != the pool's "
+                             f"{pool_bytes} B")
+    if launches["nms_keep_mask"] <= 0:
+        raise AssertionError("phase 17a: the keep-mask kernel was not launched")
+    bus.close()
+    del engine, sched
+    torch.cuda.empty_cache()
+
+    # (b) videomae_b_long's head: 64-frame clips, 6272 tokens, the flash
+    # forward inside the head's program.
+    bus = MemoryFrameBus()
+    engine = InferenceEngine(bus, EngineConfig(
+        model="blob_gauge", tick_ms=10, prefetch=False, prof=False, track=True, cascade=True,
+        cascade_model=CASCADE_LONG_MODEL, cascade_every_n=n), device=dev, annotations=Sink())
+    results_q = hand_engine(engine)
+    sched = engine.cascade
+    head_ms = []
+    timed_head(engine, head_ms)
+    names = list(CASCADE_BOXES)[:CASCADE_LONG_STREAMS]
+    for name in names:
+        bus.create_stream(name, h * w * 3)
+    zero_launches()
+    t0 = time.perf_counter()
+    tick = 0
+    while sched.head_dispatches < 1 and tick < 200:
+        tick += 1
+        ts = int(time.time() * 1000)
+        for name in names:
+            frame = flick[15 if tick % 2 == 0 else -15] if name == "camA" else statics[name]
+            bus.publish(name, frame, FrameMeta(width=w, height=h, channels=3, timestamp_ms=ts,
+                                               is_keyframe=True))
+        hand_tick(engine, results_q)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    report["flash_attention_fwd"]["launches_cascade"] = launches["flash_attention_fwd"]
+    if sched.head_dispatches < 1:
+        raise AssertionError(f"phase 17b: no head pass in {tick} ticks: {sched.snapshot()}")
+    pool = sched._pool
+    due = sorted(k for k in sched._tracks if pool.full(k))
+    plan = pool.gather_indices(due, 4)
+    with engine._compute_stream(), torch.inference_mode():
+        host, replay_ms = engine._cascade_head(pool, *plan, len(due))
+        clips = pool.gather(*plan)
+        kernels_seen = launched_kernels(lambda: engine._cascade_head(pool, *plan, len(due)))
+        spec, module = engine._ensure_model(CASCADE_LONG_MODEL)
+        set_attention(module, plain_attention)
+        try:
+            plain = _build_cascade_head(module, engine._cfg.cascade_score_w,
+                                        engine._cfg.cascade_score_b)(clips)
+            torch.cuda.synchronize()
+        finally:
+            set_attention(module, None)
+    flash = [k for k in kernels_seen if "flash_fwd" in k]
+    swap_err = float(np.abs(host["logits"] - plain["logits"].cpu().numpy()).max())
+    log(f"phase 17b {CASCADE_LONG_MODEL} head on {card}: {len(names)} tracks, first head pass at "
+        f"tick {sched.head_ticks[0]} ({tick} ticks in {wall_s:.3f} s), the head "
+        f"{head_ms[0]:.3f} ms at its first pass (capture included), {replay_ms:.3f} ms a "
+        f"replay (CUDA events, the gather included); "
+        f"flash forward launches over the run {launches['flash_attention_fwd']}; one head "
+        f"call ran {len(kernels_seen)} device kernels, flash forward {len(flash)} "
+        f"({flash[0][:60] if flash else None}); logits with the plain attention swapped in: "
+        f"max|d| {swap_err:.4g} (bound VIDEO_SWAP_TOL {VIDEO_SWAP_TOL})")
+    if not flash or launches["flash_attention_fwd"] <= 0:
+        raise AssertionError(f"phase 17b: the flash forward did not run in the head: "
+                             f"{kernels_seen[:20]}, launches {launches}")
+    if not swap_err <= VIDEO_SWAP_TOL:
+        raise AssertionError(f"phase 17b: head logits {swap_err} from the plain attention's, "
+                             f"bound {VIDEO_SWAP_TOL}")
+    bus.close()
+    del engine, sched, pool, clips, module
+    torch.cuda.empty_cache()
+
+    # (c) the harvest's host cost at the main path's load: yolov8n bf16 at
+    # 16x1080p (random weights, about 100 tracked detections a frame), one
+    # one-crop pack a detection on the drain.
+    from video_edge_ai_proxy_tpu_torch.ingest.sources import SyntheticSource
+    from video_edge_ai_proxy_tpu_torch.replay.checksum import zero_class_prior
+
+    spec = registry.get(ROI_DET_MODEL)
+    model = spec.init_params(torch.Generator().manual_seed(0), device=dev)
+    model.load_state_dict(zero_class_prior(model.state_dict()))
+    frames = [SyntheticSource.render(h, w, k) for k in range(4)]
+    runs = {}
+    for cascade in (False, True):
+        bus = MemoryFrameBus()
+        engine = InferenceEngine(bus, EngineConfig(model=ROI_DET_MODEL, prof=False,
+                                                   prefetch=False, cascade=cascade,
+                                                   cascade_model=CASCADE_MODEL),
+                                 device=dev, model=model, annotations=Sink())
+        results_q = hand_engine(engine)
+        streams = [f"cam{i:02d}" for i in range(N_STREAMS)]
+        for s in streams:
+            bus.create_stream(s, h * w * 3)
+        dets = 0
+        for step in range(CASCADE_HARVEST_TICKS):
+            ts = int(time.time() * 1000)
+            for i, s in enumerate(streams):
+                bus.publish(s, frames[(step + i) % len(frames)], FrameMeta(
+                    width=w, height=h, channels=3, timestamp_ms=ts, is_keyframe=True))
+            dets += sum(len(r.detections) for r in hand_tick(engine, results_q))
+        p = engine.pipeline_stats()
+        runs[cascade] = (p, dets, engine.cascade.snapshot() if cascade else None,
+                         engine.cascade.pool_nbytes() if cascade else 0)
+        bus.close()
+        del engine
+    (p_on, dets_on, snap, pool_bytes), (p_off, _, _, _) = runs[True], runs[False]
+    log(f"phase 17c {ROI_DET_MODEL} {N_STREAMS}x1080p with the cascade's harvest on {card}: "
+        f"{CASCADE_HARVEST_TICKS} hand-stepped ticks, {dets_on / max(p_on.frames, 1):.1f} "
+        f"tracked detections a frame, {snap['harvested']} tiles harvested into "
+        f"{len(snap['tracks'])} tracks (pool {pool_bytes} B); the harvest "
+        f"{p_on.harvest_ms / max(p_on.frames, 1):.3f} ms a frame, the emit "
+        f"{p_on.emit_ms / max(p_on.frames, 1):.3f} ms a frame with it and "
+        f"{p_off.emit_ms / max(p_off.frames, 1):.3f} without")
+    del model, runs
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -4055,6 +4691,12 @@ def main() -> int:
     # -- phase 15: the detection step's variants and the device accounting ---------------------
     variants_phase(dev, card, zero_launches, read_launches, kernels, report)
 
+    # -- phase 16: ROI serving ------------------------------------------------------------------
+    roi_phase(dev, card, zero_launches, read_launches, kernels, report, pipeline)
+
+    # -- phase 17: the temporal cascade -----------------------------------------------------------
+    cascade_phase(dev, card, zero_launches, read_launches, kernels, report)
+
     line = {"kernels": []}
     for name, meta in kernels.items():
         r = report[name]
@@ -4067,6 +4709,8 @@ def main() -> int:
             **({"launches_server": r["launches_server"]} if "launches_server" in r else {}),
             **({"launches_variants": r["launches_variants"]}
                if "launches_variants" in r else {}),
+            **({"launches_roi": r["launches_roi"]} if "launches_roi" in r else {}),
+            **({"launches_cascade": r["launches_cascade"]} if "launches_cascade" in r else {}),
             "replaces": meta["replaces"], "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -650,7 +650,9 @@ def test_admin_and_observability_routes(server, stub):
         assert resp.headers["Access-Control-Allow-Origin"] == "*"
     assert rest(server, "/api/v1/journal")[1]["next_seq"] >= 1
     # A plane not ported: only the OPTIONS route matches its path.
-    assert rest_error(server, "/api/v1/cascade") == 405
+    assert rest_error(server, "/api/v1/capacity") == 405
+    # The cascade's route, with the plane off: the disabled-plane 400.
+    assert rest_error(server, "/api/v1/cascade") == 400
 
 
 def test_killed_worker_restarts_and_serves_again(server, stub):

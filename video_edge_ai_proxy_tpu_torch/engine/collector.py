@@ -41,8 +41,13 @@ closed set of shapes.
   decoding the frames between keyframes. A stream that never had interest
   is gated at once. Without ``interest_of`` nothing is gated.
 
-ROI canvases (``CanvasPacker``) and the mesh-sharded layouts are later
-slices.
+- **ROI canvases.** ``CanvasPacker`` shelf-packs many streams' crops onto
+  a few shared square canvases (the engine's ``roi`` path), each crop's
+  provenance a ``CropPlacement``; ``staging_buffer`` hands the engine a
+  pooled (pinned on the card) buffer for the canvas batch, leased like a
+  collected group's.
+
+The mesh-sharded layouts are a later slice.
 """
 
 from __future__ import annotations
@@ -75,6 +80,14 @@ class BatchGroup:
     model: str = ""          # registry model the group runs
     lease: Optional[tuple] = None  # (pool shape, buffer index) under strict
                                    # leasing; Collector.release returns it
+    # The ROI path (the engine's cfg.roi). ``crops``: the frames are packed
+    # shared canvases, one CropPlacement per blitted crop, the provenance
+    # the scatter-back routes canvas detections by. ``coast``: no device
+    # work at all, a list of (device_id, meta, detections) of gated-idle
+    # streams whose tracker-coasted results ride the drain queue, so each
+    # stream's results keep their order. Both None on the classic path.
+    crops: Optional[list] = None
+    coast: Optional[list] = None
 
     @property
     def padded_slots(self) -> int:
@@ -94,6 +107,132 @@ def bucket_for(n: int, buckets: Sequence[int]) -> int:
 def host_empty(shape: tuple) -> np.ndarray:
     """The default batch-buffer allocation: pageable host memory."""
     return np.empty(shape, np.uint8)
+
+
+@dataclass(frozen=True)
+class CropPlacement:
+    """Provenance of one crop blitted onto a shared canvas.
+
+    The placement is an integer affine: the source rect ``src`` decimated
+    by ``scale`` (source px per canvas px, a power of two) and blitted with
+    its top-left corner at ``dst``'s origin, so the inverse
+    (``ops/boxes.py`` ``uncrop_boxes``) is exact:
+    ``src_px = (canvas_px - dst_origin) * scale + src_origin``."""
+
+    device_id: str
+    meta: FrameMeta          # the source frame's meta (timestamps, packet)
+    canvas: int              # slot index within the canvas batch
+    src: tuple               # (x0, y0, x1, y1) source-frame px (ints)
+    dst: tuple               # (x0, y0, x1, y1) canvas px (ints)
+    scale: int               # source px per canvas px (>= 1, power of 2)
+
+    def contains(self, x: float, y: float) -> bool:
+        """Does a canvas point land in this crop's cell? The scatter-back
+        routes each detection by its center; cells never overlap (the
+        packer keeps a gap between them)."""
+        return self.dst[0] <= x < self.dst[2] and self.dst[1] <= y < self.dst[3]
+
+
+class CanvasPacker:
+    """Deterministic shelf packer: many streams' crops -> a few shared
+    ``side`` x ``side`` uint8 canvases, as the JAX package packs them, byte
+    for byte.
+
+    Every canvas has one geometry, so a canvas batch is one more key of the
+    engine's step cache. Order is deterministic (scaled height, then width,
+    then stream id; first-fit shelves), so the same crops give the same
+    canvases. A crop larger than a canvas is decimated by the smallest
+    power-of-two stride that fits (a strided view: the inverse stays
+    exact); a tiny one is inflated to ``min_crop``. ``gap`` background
+    pixels separate cells, so a detection never straddles two streams'
+    crops; the background is 114 gray, the letterbox's pad value."""
+
+    def __init__(self, side: int = 640, gap: int = 8, max_canvases: int = 8,
+                 min_crop: int = 16):
+        self.side = int(side)
+        self.gap = int(gap)
+        self.max_canvases = int(max_canvases)
+        self.min_crop = int(min_crop)
+
+    def _fit_scale(self, w: int, h: int) -> int:
+        scale = 1
+        while (w + scale - 1) // scale > self.side or (h + scale - 1) // scale > self.side:
+            scale *= 2
+        return scale
+
+    def pack(self, requests: Sequence[tuple],
+             alloc: Optional[Callable[[int], np.ndarray]] = None):
+        """``requests``: (device_id, meta, frame [H, W, 3] uint8, roi xyxy).
+
+        Returns (canvases [K, side, side, 3] uint8, placements, overflow):
+        one CropPlacement per packed crop, and the indices of the requests
+        that did not fit within ``max_canvases`` (the engine sends their
+        streams down the full-frame path). ``alloc(K)``, when given,
+        returns the array (of at least K rows) the canvases are drawn in,
+        e.g. a pinned staging buffer; rows past K are left as they are."""
+        side, gap = self.side, self.gap
+        prepared = []   # (sh, sw, scale, rect, request index)
+        overflow: List[int] = []
+        for ri, (_device_id, _meta, frame, roi) in enumerate(requests):
+            fh, fw = frame.shape[0], frame.shape[1]
+            x0 = max(0, min(int(roi[0]), fw - 1))
+            y0 = max(0, min(int(roi[1]), fh - 1))
+            x1 = max(x0 + 1, min(int(round(roi[2])), fw))
+            y1 = max(y0 + 1, min(int(round(roi[3])), fh))
+            # Tiny ROIs inflate to min_crop: the detector needs context.
+            if x1 - x0 < self.min_crop:
+                x1 = min(fw, x0 + self.min_crop)
+                x0 = max(0, x1 - self.min_crop)
+            if y1 - y0 < self.min_crop:
+                y1 = min(fh, y0 + self.min_crop)
+                y0 = max(0, y1 - self.min_crop)
+            scale = self._fit_scale(x1 - x0, y1 - y0)
+            sw = (x1 - x0 + scale - 1) // scale
+            sh = (y1 - y0 + scale - 1) // scale
+            prepared.append((sh, sw, scale, (x0, y0, x1, y1), ri))
+        prepared.sort(key=lambda p: (-p[0], -p[1], requests[p[4]][0], p[4]))
+        slots = []   # per-canvas shelf cursors: [x, y, shelf_h]
+        blits = []   # (canvas, dst, rect, scale, request index)
+        for sh, sw, scale, rect, ri in prepared:
+            placed = False
+            for ci, (x, y, shelf_h) in enumerate(slots):
+                if x + sw > side:                     # next shelf
+                    x, y, shelf_h = 0, y + shelf_h + gap, 0
+                if x + sw <= side and y + sh <= side:
+                    blits.append((ci, (x, y, x + sw, y + sh), rect, scale, ri))
+                    slots[ci] = [x + sw + gap, y, max(shelf_h, sh)]
+                    placed = True
+                    break
+            if not placed:
+                if len(slots) < self.max_canvases:
+                    ci = len(slots)
+                    slots.append([sw + gap, 0, sh])
+                    blits.append((ci, (0, 0, sw, sh), rect, scale, ri))
+                else:
+                    overflow.append(ri)
+        k = len(slots)
+        if alloc is None:
+            canvases = np.full((k, side, side, 3), 114, np.uint8)
+        else:
+            canvases = alloc(k)[:k]
+            canvases.fill(114)
+        placements: List[CropPlacement] = []
+        for ci, dst, rect, scale, ri in blits:
+            device_id, meta, frame, _roi = requests[ri]
+            x0, y0, x1, y1 = rect
+            canvases[ci, dst[1]:dst[3], dst[0]:dst[2]] = frame[y0:y1:scale, x0:x1:scale]
+            placements.append(CropPlacement(device_id=device_id, meta=meta, canvas=ci,
+                                            src=rect, dst=dst, scale=scale))
+        return canvases, placements, overflow
+
+    @staticmethod
+    def area_fraction(placements: Sequence[CropPlacement], n_canvases: int, side: int) -> float:
+        """Crop-pixel share of a canvas batch: the crop-level occupancy
+        ``obs/perf.py`` reports for packed batches."""
+        if not n_canvases:
+            return 0.0
+        used = sum((p.dst[2] - p.dst[0]) * (p.dst[3] - p.dst[1]) for p in placements)
+        return used / float(n_canvases * side * side)
 
 
 class Collector:
@@ -287,6 +426,21 @@ class Collector:
                 idx = len(slot["bufs"]) - 1
             slot["cur"].append(idx)
             return slot["bufs"][idx], idx
+
+    def staging_buffer(self, shape: tuple) -> tuple:
+        """A pooled buffer of ``shape`` for a batch the engine builds itself
+        (the ROI canvases) -> (array, pool index). Every row counts as
+        written. ``lease_staged(group, shape, idx)`` ties it to the group,
+        so it is rewritten only after ``release(group)``."""
+        buf, idx = self._pooled(shape)
+        if idx is not None:
+            with self._pool_lock:
+                self._pool[shape]["fill"][idx] = shape[0]
+        return buf, idx
+
+    def lease_staged(self, group: BatchGroup, shape: tuple, idx) -> None:
+        """Lease a ``staging_buffer`` to the group that carries it."""
+        self._lease(group, shape, idx)
 
     def pool_nbytes(self) -> int:
         """Host bytes held by the pooled batch buffers."""

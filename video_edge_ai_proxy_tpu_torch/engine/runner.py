@@ -85,7 +85,25 @@ times; and the canary loop (``cfg.quality_canary``) replays a golden trace
 through the bus and checks its fold once a loop. All are off the per-frame
 path or one poll a tick: a replay is bit-identical with them on and off.
 
-ROI, the cascade, the fault domain and the mesh paths are later slices.
+ROI serving (``cfg.roi``): each tick ``_roi_transform`` motion-gates every
+detect stream (``_RoiGate``: the previous tick's thumbnail diff energy and
+the stream's tracker): ``full`` rows stay classic frames, ``roi`` rows
+become crops around the predicted track boxes, shelf-packed with other
+streams' crops onto shared canvases (``CanvasPacker``) in a pooled, pinned
+staging buffer and served as one more program key, and ``idle`` rows
+become a coast group with no device work whose tracker-coasted results
+ride the drain queue. The drain routes each canvas detection to its crop by
+center point and maps it back through the crop's exact inverse
+(``_emit_canvas``, ``uncrop_boxes``). The temporal cascade
+(``cfg.cascade``, ``temporal/``): the emit harvests each tracked
+detection's crop into its track's device clip ring, and the tick runs the
+scheduler: the scatter, and every ``cascade_every_n`` ticks the VideoMAE
+head (``_build_cascade_head``, its own ``cascade:<model>`` program key),
+whose enter and exit events go to the metrics, the uplink
+(``type="cascade"``) and, on enter, the archive. Both are off by default
+and leave the classic path as it was.
+
+The fault domain, the capacity plane and the mesh paths are later slices.
 """
 
 from __future__ import annotations
@@ -106,7 +124,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..bus.interface import FrameBus
+from ..bus.interface import FrameBus, FrameMeta
 from ..device import resolve_device
 from ..models import registry
 from ..obs import registry as obs_registry
@@ -118,6 +136,7 @@ from ..obs.quality import QualityTracker
 from ..obs.slo import SLOEngine, default_slos
 from ..obs.spans import trace_id_of, tracer
 from ..obs.watch import Watchdog
+from ..ops.boxes import uncrop_boxes
 from ..ops.nms import _top, batched_nms, nms_keep_mask
 from ..ops.preprocess import (
     frame_quality_stats, preprocess_classify, preprocess_clip, preprocess_letterbox,
@@ -130,7 +149,7 @@ from ..resilience.ladder import RUNGS, DegradationLadder
 from ..utils.config import EngineConfig
 from . import aot_cache
 from .classes import class_name
-from .collector import BatchGroup, Collector, bucket_for, host_empty
+from .collector import BatchGroup, CanvasPacker, Collector, bucket_for, host_empty
 from .tracker import IoUTracker
 
 log = logging.getLogger("vep.torch.engine.runner")
@@ -212,6 +231,39 @@ def build_serving_step(
         return out
 
     return with_stats
+
+
+def _build_cascade_head(model: torch.nn.Module, score_w, score_b: float):
+    """The temporal head's program (the cascade): uint8 clips [B, T, S, S,
+    3] -> ``logits`` [B, classes] (the video model's, float32), ``features``
+    [B, 3] and ``event_score`` [B], as the JAX package's
+    ``_build_cascade_head``. Features per clip: the mean absolute luma
+    difference between consecutive frames (exactly 0 for a pixel-static
+    track), the clip's luma variance (the population variance, as
+    ``jnp.var``) and the head's largest softmax probability; luma is the
+    mean over the three channels, not the weighted luma of the quality
+    statistics. The model takes ``clips / 255`` as they are: no ImageNet
+    normalisation (not the ``preprocess="clip"`` path). The score is
+    ``sigmoid(w . f + b)``; the features, the softmax and the score are
+    float32."""
+    device = next(model.parameters()).device
+    w = torch.tensor((tuple(score_w) + (0.0, 0.0, 0.0))[:3], dtype=torch.float32, device=device)
+    b = float(score_b)
+
+    def head(clips_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with torch.inference_mode():
+            x = clips_u8.to(torch.float32) / 255.0
+            logits = model(x).to(torch.float32)
+            probs = torch.softmax(logits, dim=-1)
+            luma = x.mean(dim=-1)
+            diff_energy = (luma[:, 1:] - luma[:, :-1]).abs().mean(dim=(1, 2, 3))
+            luma_var = luma.var(dim=(1, 2, 3), correction=0)
+            top_prob = probs.amax(dim=-1)
+            feats = torch.stack([diff_energy, luma_var, top_prob], dim=-1)
+            score = torch.sigmoid(feats @ w + b)
+        return {"event_score": score, "features": feats, "logits": logits}
+
+    return head
 
 
 # -- results (the proto messages' field names) ------------------------------
@@ -391,6 +443,7 @@ class PipelineStats:
     # The drain's host time, summed over batches (ms):
     emit_ms: float = 0.0          # the emit loop over a batch's slots
     track_ms: float = 0.0         # of it, the tracker
+    harvest_ms: float = 0.0       # of it, the cascade's harvest (cfg.cascade)
 
 
 # -- device state and the in-flight pipeline -------------------------------------
@@ -683,6 +736,7 @@ class _GraphedStep:
         self.flops = 0.0
         self.pool_growth = 0
         self._graph: Optional["torch.cuda.CUDAGraph"] = None
+        self._step: Optional[Callable] = None
         self._out: Dict[str, torch.Tensor] = {}
         self._launches: tuple = ()     # (wrapper, launches a replay)
 
@@ -741,7 +795,10 @@ class _GraphedStep:
                 w.launches = b
         self.capture_s = time.perf_counter() - t0
         self.pool_growth = max(0, _pool_bytes({tuple(pool)}) - reserved)
-        self._graph, self._out, self._launches = graph, dict(out), captured
+        # The step is kept with its graph: the tensors it made when it was
+        # built (the cascade head's score weights) are read by every replay
+        # at the addresses the capture saw.
+        self._graph, self._out, self._launches, self._step = graph, dict(out), captured, step
         self._on_capture(self.capture_s)
 
     @property
@@ -790,6 +847,63 @@ def _record_after_first_success(step: Callable, record: Callable[[], None]) -> C
     return recorded
 
 
+class _RoiGate:
+    """Per-stream motion-gate state of ROI serving (``cfg.roi``).
+
+    Its inputs are feedback: the previous tick's thumbnail diff energy (the
+    quality statistics, noted on the drain thread in ``_emit``) and the
+    stream's tracker. The verdict per detect stream per tick:
+
+    - ``full``: the refresh is due, or no gating signal yet, or motion with
+      no track to localise it: the classic full frame (the only slots that
+      refresh the quality statistics, so the diff signal never starves);
+    - ``idle``: diff energy below ``roi_idle_diff``: no device work, the
+      tracker coasts one frame and its predicted boxes emit with decayed
+      confidence;
+    - ``roi``: motion with live tracks: crops around the predicted boxes
+      join the shared canvases.
+
+    A dict protocol (``__iter__``, ``__len__``, ``pop``) for the engine's
+    stream GC. All access runs under the engine's ``_state_lock``.
+    """
+
+    def __init__(self, idle_diff: float, full_interval_ms: float):
+        self.idle_diff = float(idle_diff)
+        self.full_interval_s = full_interval_ms / 1000.0
+        self._streams: Dict[str, dict] = {}
+
+    def __bool__(self) -> bool:
+        return bool(self._streams)
+
+    def __iter__(self):
+        return iter(self._streams)
+
+    def __len__(self) -> int:
+        return len(self._streams)
+
+    def pop(self, device_id: str, default=None):
+        return self._streams.pop(device_id, default)
+
+    def state(self, device_id: str) -> dict:
+        return self._streams.setdefault(device_id, {"diff": None, "full_at": 0.0})
+
+    def note_diff(self, device_id: str, diff: float) -> None:
+        self.state(device_id)["diff"] = float(diff)
+
+    def note_full(self, device_id: str, now: float) -> None:
+        self.state(device_id)["full_at"] = now
+
+    def classify(self, device_id: str, tracker, now: float) -> str:
+        st = self.state(device_id)
+        if not st["full_at"] or now - st["full_at"] >= self.full_interval_s:
+            return "full"
+        if st["diff"] is not None and st["diff"] < self.idle_diff:
+            return "idle"
+        if tracker is not None and tracker.live_tracks:
+            return "roi"
+        return "full"
+
+
 class InferenceEngine:
     """Tick loop serving one model over every stream of a frame bus: a
     detector or classifier on each stream's newest frame, a video model on
@@ -827,7 +941,10 @@ class InferenceEngine:
     model and emit-policy overrides (the process manager's
     ``inference_model_of`` and ``annotation_policy_of``); ``journal``: a
     decision journal to record into (the server's, shared by the process)
-    instead of one of the engine's own, with ``cfg.journal`` on.
+    instead of one of the engine's own, with ``cfg.journal`` on;
+    ``archiver``: where the cascade's enter events archive their clips
+    (anything with ``submit(GopSegment)``, e.g. ``ingest/archive.py``
+    ``SegmentArchiver``; None: no archive).
     """
 
     # Per-stream state of a stream absent from the bus this long is dropped;
@@ -845,7 +962,7 @@ class InferenceEngine:
                  annotations=None,
                  model_resolver: Optional[Callable[[str], str]] = None,
                  annotation_policy_resolver: Optional[Callable[[str], str]] = None,
-                 journal=None):
+                 journal=None, archiver=None):
         self._device = resolve_device(device)
         self._cuda = self._device.type == "cuda"
         self._cfg = cfg or EngineConfig()
@@ -864,6 +981,7 @@ class InferenceEngine:
         self._buckets = tuple(sorted(self._cfg.batch_buckets))
         self._bus = bus
         self._annotations = annotations
+        self._archiver = archiver
         self._model_resolver = model_resolver
         self._ann_policy_resolver = annotation_policy_resolver
         # Per-stream extra models, name -> (spec, module), built on first
@@ -889,6 +1007,33 @@ class InferenceEngine:
         self._graphs: List[_GraphedStep] = []
         # The MFU peak is resolved from the card at warmup (0 on the CPU).
         self.perf = PerfTracker(peak_tflops=self._cfg.peak_tflops)
+        # ROI serving (cfg.roi): the motion gate and the shelf packer (at
+        # most one canvas per slot of the largest bucket), and the last ROI
+        # mode journaled per stream. roi=False leaves both None: every batch
+        # takes the classic path.
+        self._roi: Optional[_RoiGate] = None
+        self._packer: Optional[CanvasPacker] = None
+        self._roi_mode: Dict[str, str] = {}
+        if self._cfg.roi:
+            self._roi = _RoiGate(self._cfg.roi_idle_diff, self._cfg.roi_full_interval_ms)
+            self._packer = CanvasPacker(
+                side=self._cfg.roi_canvas, gap=self._cfg.roi_gap,
+                max_canvases=min(self._cfg.roi_max_canvases, max(self._buckets)),
+                min_crop=self._cfg.roi_min_crop)
+        # The temporal cascade (cfg.cascade): track-keyed device clip rings
+        # and the head every cascade_every_n ticks. cascade=False leaves it
+        # None: no tap anywhere.
+        self._cascade = None
+        if self._cfg.cascade:
+            from ..temporal import CascadeScheduler
+
+            self._cascade = CascadeScheduler(
+                model=self._cfg.cascade_model, every_n=self._cfg.cascade_every_n,
+                crop=self._cfg.cascade_crop, clip_len=self._cfg.cascade_clip_len,
+                threshold=self._cfg.cascade_threshold, enter_n=self._cfg.cascade_enter_n,
+                exit_n=self._cfg.cascade_exit_n, ttl_ticks=self._cfg.cascade_track_ttl_ticks,
+                perf=self.perf, device=self._device)
+            self._cascade.head = self._cascade_head
         # Int8 residency of each model served quantized: name -> (fp bytes,
         # int8 bytes), as tree_nbytes and quantized_nbytes count them.
         self.residency: Dict[str, tuple] = {}
@@ -920,6 +1065,7 @@ class InferenceEngine:
         self._ann_state: Dict[str, dict] = {}
         self._ann_policy_warned: set = set()   # (device_id, unknown policy)
         self.annotations_suppressed = 0
+        self._inferred: List[str] = []               # the last tick's inferred streams
         self._known: set = set()                     # streams seen on the bus
         self._absent: Dict[str, float] = {}          # device_id -> absent since
         self.ticks = 0
@@ -963,8 +1109,9 @@ class InferenceEngine:
                 pressure_horizon_s=self._cfg.hbm_pressure_horizon_s,
             )
             self.hbm.register_pool("thumbs", self._thumbs.nbytes)
-            # The cascade's track-state pool is not ported: 0 bytes.
-            self.hbm.register_pool("track_state", lambda: 0)
+            self.hbm.register_pool(
+                "track_state",
+                lambda: self._cascade.pool_nbytes() if self._cascade is not None else 0)
             self.hbm.register_pool("prefetch", self._xfer.nbytes)
             self.hbm.register_pool("collector_host", self._collector.pool_nbytes)
         # _watch_tick's state (tick thread only): the effective drain
@@ -1037,6 +1184,12 @@ class InferenceEngine:
             "Serving-step cache misses (each captures a CUDA graph on the card)").labels()
         self._m_cache_hit = obs_registry.counter(
             "vep_step_cache_hits_total", "Serving-step cache hits").labels()
+
+    @property
+    def cascade(self):
+        """The cascade scheduler, or None with ``cfg.cascade`` off
+        (``/api/v1/cascade`` answers 400 then)."""
+        return self._cascade
 
     # -- models ---------------------------------------------------------------
 
@@ -1678,6 +1831,10 @@ class InferenceEngine:
                 slo_burning=self._slo_burning and self._cfg.slo_ladder,
                 hbm_pressure=self.hbm is not None and self.hbm.pressure())
             self._apply_rung_cap(rung)
+        if self._cascade is not None:
+            # The head's cadence stretches while the ladder is off normal;
+            # the streams of the last tick are those whose cadence moves.
+            self._apply_cascade_stretch(rung, self._inferred)
         if rung == "normal" and self._shed_seq is not None:
             # The shed excursion closes when the ladder recovers (journaled
             # on the edge, never per tick).
@@ -1704,8 +1861,15 @@ class InferenceEngine:
         t_collect = time.time()
         if rung != "normal" and groups:
             groups = self._shed_stale_groups(groups)
+        if self._roi is not None and groups:
+            groups = self._roi_transform(groups)
         self._dispatch(groups, t_collect)
+        if self._cascade is not None:
+            # A tap: the scatter of the harvested tiles, the head on cadence
+            # ticks, the events. The detect path never branches on it.
+            self._cascade_tick()
         self._forget_absent(present)
+        self._inferred = inferred
         return inferred
 
     def _apply_rung_cap(self, rung: str) -> None:
@@ -1756,11 +1920,336 @@ class InferenceEngine:
         self._shed_seq = None
         self._shed_excursion_frames = 0
 
+    def _apply_cascade_stretch(self, rung: str, streams: Sequence[str]) -> None:
+        """While the ladder is off normal the temporal head runs every
+        ``every_n * cascade_stretch_factor`` ticks: head work sheds before
+        streams do. Journaled on the edge only, with an event per stream,
+        so ``/api/v1/why?stream=S`` leads from a stream's cadence back to
+        the ladder's transition."""
+        factor = self._cfg.cascade_stretch_factor if rung != "normal" else 1
+        if not self._cascade.set_stretch(factor):
+            return
+        action = "cascade_stretch" if factor > 1 else "cascade_unstretch"
+        if self.journal is not None:
+            cause = self.ladder.last_transition_seq if self.ladder is not None else None
+            trigger = {"rung": rung, "factor": factor, "every_n": self._cascade.every_n}
+            self.journal.record("engine", action, subject=("cascade", "head"), trigger=trigger,
+                                cause=cause)
+            for sid in sorted(set(streams or [])):
+                self.journal.record("engine", action, subject=("stream", str(sid)),
+                                    trigger=dict(trigger), cause=cause)
+        log.info("cascade cadence %s: every_n %d x%d (rung %s)",
+                 "stretched" if factor > 1 else "restored", self._cascade.every_n, factor, rung)
+
+    # -- ROI serving (cfg.roi) ----------------------------------------------------
+
+    def _roi_transform(self, groups: List[BatchGroup]) -> List[BatchGroup]:
+        """Motion-gate each detect group's rows and rewrite the tick's work:
+        ``full`` rows stay classic frames (compacted in place in their
+        pooled buffer, as ``shed_stale`` does; the lease stays with them),
+        ``roi`` rows become crops shelf-packed onto shared canvases (one
+        canvas group a tick, drawn in a pooled staging buffer with a lease
+        of its own, pinned on the card), ``idle`` rows a coast group with
+        no device work.
+
+        Order matters twice: the crops are copied out of the pooled buffer
+        before the full rows compact (compaction moves rows within it), and
+        this runs on the tick thread before ``_dispatch`` hands any group
+        to the transfer stage, so nothing reads a buffer after its lease is
+        returned. The verdicts are taken under ``_state_lock``: the drain
+        thread feeds the gate and the trackers. Groups that are not
+        full-frame detect batches pass through."""
+        out: List[BatchGroup] = []
+        for group in groups:
+            spec, module = self._model_entry(group.model)
+            if (spec.kind != "detect" or group.frames.ndim != 4
+                    or group.crops is not None or group.coast is not None):
+                out.append(group)
+                continue
+            now = time.monotonic()
+            full_rows: List[int] = []
+            coast: List[tuple] = []
+            reqs: List[tuple] = []    # CanvasPacker requests
+            req_row: List[int] = []   # request index -> group row
+            edges: List[tuple] = []   # ROI mode transitions, journaled below
+            with self._state_lock:
+                for i, device_id in enumerate(group.device_ids):
+                    entry = self._trackers.get(device_id)
+                    tracker = entry[1] if entry is not None and entry[0] == spec.name else None
+                    verdict = self._roi.classify(device_id, tracker, now)
+                    if self.journal is not None and self._roi_mode.get(device_id) != verdict:
+                        edges.append((device_id, self._roi_mode.get(device_id), verdict))
+                        self._roi_mode[device_id] = verdict
+                    if verdict == "idle":
+                        coast.append((device_id, group.metas[i],
+                                      self._coasted_detections(tracker, module)))
+                        continue
+                    rects = self._track_rois(tracker) if verdict == "roi" else []
+                    if rects:
+                        for rect in rects:
+                            reqs.append((device_id, group.metas[i], group.frames[i], rect))
+                            req_row.append(i)
+                    else:
+                        full_rows.append(i)
+            for device_id, prev, verdict in edges:
+                self.journal.record("engine", "roi_mode", subject=("stream", str(device_id)),
+                                    trigger={"mode": verdict, "prev": prev or "none"})
+            if not coast and not reqs:
+                # Everything full: the group passes untouched, its verdicts
+                # counted (streams primed together refresh together).
+                self.perf.note_roi_gate(0, 0, len(group.device_ids))
+                out.append(group)
+                continue
+            placements: list = []
+            staged: dict = {}
+            side = self._packer.side
+            if reqs:
+                def alloc(k: int) -> np.ndarray:
+                    shape = (bucket_for(k, self._buckets), side, side, 3)
+                    staged["shape"] = shape
+                    staged["buf"], staged["idx"] = self._collector.staging_buffer(shape)
+                    return staged["buf"]
+
+                _, placements, overflow = self._packer.pack(reqs, alloc=alloc)
+                if overflow:
+                    # Crops that did not fit send their streams down the
+                    # full-frame path, and all of a spilled stream's
+                    # placements leave the routing table: a stream never
+                    # emits twice in a tick (its placed crops' detections
+                    # drop as unrouted, counted).
+                    spill = {reqs[ri][0] for ri in overflow}
+                    placements = [p for p in placements if p.device_id not in spill]
+                    spill_rows = {req_row[ri] for ri in range(len(reqs)) if reqs[ri][0] in spill}
+                    full_rows = sorted(set(full_rows) | spill_rows)
+            self.perf.note_roi_gate(len(coast), len({p.device_id for p in placements}),
+                                    len(full_rows))
+            if placements:
+                n_used = 1 + max(p.canvas for p in placements)
+                metas = []
+                for ci in range(n_used):
+                    # A canvas's own stamp is its oldest crop's; each
+                    # stream's latency uses its crop's meta at the emit.
+                    pts = [p.meta.timestamp_ms or 0 for p in placements if p.canvas == ci]
+                    metas.append(FrameMeta(width=side, height=side, channels=3,
+                                           timestamp_ms=min(pts) if pts else 0))
+                bucket = bucket_for(n_used, self._buckets)
+                view = staged["buf"][:bucket]
+                if bucket != n_used:
+                    view[n_used:] = 0
+                cgroup = BatchGroup(src_hw=(side, side),
+                                    device_ids=[f"_canvas{ci}" for ci in range(n_used)],
+                                    frames=view, metas=metas, bucket=bucket, model=group.model,
+                                    crops=placements)
+                self._collector.lease_staged(cgroup, staged["shape"], staged["idx"])
+                out.append(cgroup)
+                self.perf.note_roi_pack(len(placements), n_used,
+                                        CanvasPacker.area_fraction(placements, n_used, side))
+            if coast:
+                out.append(BatchGroup(
+                    src_hw=group.src_hw, device_ids=[c[0] for c in coast],
+                    frames=np.empty((0,) + group.frames.shape[1:], group.frames.dtype),
+                    metas=[c[1] for c in coast], bucket=0, model=group.model, coast=coast))
+            if full_rows:
+                for new_i, old_i in enumerate(full_rows):
+                    if new_i != old_i:
+                        group.frames[new_i] = group.frames[old_i]
+                group.device_ids = [group.device_ids[i] for i in full_rows]
+                group.metas = [group.metas[i] for i in full_rows]
+                n = len(full_rows)
+                bucket = bucket_for(n, self._buckets)
+                view = group.frames[:bucket]
+                if bucket != n:
+                    view[n:] = 0
+                group.frames = view
+                group.bucket = bucket
+                out.append(group)
+            else:
+                # No full row: the pooled buffer goes back now (the canvases
+                # and the coast group hold copies).
+                self._collector.release(group)
+        return out
+
+    def _coasted_detections(self, tracker, module) -> List[Detection]:
+        """A gated-idle stream's results: its tracker advanced one frame
+        with no detections (misses age, so stale tracks still expire while
+        it is gated) and the surviving predicted boxes, their confidence
+        decayed geometrically. The caller holds ``_state_lock``."""
+        if tracker is None:
+            return []
+        tracker.update([], [])
+        decay = self._cfg.roi_coast_decay
+        floor = self._cfg.roi_coast_floor
+        out: List[Detection] = []
+        for t in tracker.tracks():
+            conf = t["confidence"] * decay ** max(t["misses"], 1)
+            if conf < floor:
+                continue
+            x1, y1, x2, y2 = (int(round(v)) for v in t["box"])
+            out.append(Detection(
+                box=BoundingBox(left=x1, top=y1, width=x2 - x1, height=y2 - y1),
+                confidence=float(conf), class_id=t["class_id"],
+                class_name=class_name(t["class_id"], module.cfg.num_classes),
+                track_id=str(t["track_id"])))
+        return out
+
+    def _track_rois(self, tracker) -> List[tuple]:
+        """A tracked stream's crop rectangles: the predicted track boxes
+        inflated by ``roi_margin`` (context for the detector, slack for the
+        motion since the prediction), overlapping ones merged into their
+        hull: one object never lands in two crops of one stream. The caller
+        holds ``_state_lock``."""
+        if tracker is None:
+            return []
+        margin = self._cfg.roi_margin
+        rects: List[list] = []
+        for t in tracker.tracks():
+            x1, y1, x2, y2 = t["box"]
+            mw = (x2 - x1) * margin
+            mh = (y2 - y1) * margin
+            rects.append([x1 - mw, y1 - mh, x2 + mw, y2 + mh])
+        merged = True
+        while merged:
+            merged = False
+            folded: List[list] = []
+            for r in rects:
+                for o in folded:
+                    if r[0] < o[2] and o[0] < r[2] and r[1] < o[3] and o[1] < r[3]:
+                        o[0] = min(o[0], r[0])
+                        o[1] = min(o[1], r[1])
+                        o[2] = max(o[2], r[2])
+                        o[3] = max(o[3], r[3])
+                        merged = True
+                        break
+                else:
+                    folded.append(list(r))
+            rects = folded
+        return [tuple(r) for r in rects]
+
+    # -- the temporal cascade (cfg.cascade) ------------------------------------------
+
+    def _cascade_head(self, pool, slot_idx: np.ndarray, time_idx: np.ndarray,
+                      n_real: int) -> tuple:
+        """The scheduler's head: the time-ordered clip gather from the state
+        pool (eager, on the device), then the head's program of its bucket,
+        ``cascade:<model>`` in the step cache (on the card a CUDA graph
+        whose static input the gathered clips are copied into). Returns
+        (host outputs, device ms). The pool never goes to the host; the two
+        int32 index vectors are the H2D aux bytes."""
+        name = self._cfg.cascade_model
+        spec, module = self._ensure_model(name)
+        bucket = int(slot_idx.shape[0])
+        side = pool.side
+        label = f"cascade:{name}"
+        key = (label, self._stem, (side, side), bucket)
+        fn = self._steps.get(key)
+        if fn is None:
+            self._m_cache_miss.inc()
+            build = functools.partial(_build_cascade_head, module, self._cfg.cascade_score_w,
+                                      self._cfg.cascade_score_b)
+            if self._cuda:
+                graphed = _GraphedStep(
+                    build, (bucket, pool.clip_len, side, side, 3), None, device=self._device,
+                    pool=self._current_graph_pool,
+                    on_capture=lambda seconds: self._note_graph(label, (side, side), bucket,
+                                                                graphed),
+                    on_capture_failed=self._retire_graph_pool)
+                self._graphs.append(graphed)
+                fn = graphed
+            else:
+                fn = _note_first_call(build(), lambda seconds, flops: self.perf.note_compile(
+                    label, (side, side), bucket, seconds, cost={"flops": flops}))
+            self._steps[key] = fn
+        else:
+            self._m_cache_hit.inc()
+        t0 = time.perf_counter()
+        start = done = None
+        if self._cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        outputs = fn(pool.gather(slot_idx, time_idx))
+        if self._cuda:
+            done = torch.cuda.Event(enable_timing=True)
+            done.record()
+        host = {k: v.cpu().numpy() for k, v in outputs.items()}
+        device_ms = (start.elapsed_time(done) if self._cuda
+                     else (time.perf_counter() - t0) * 1000.0)
+        self.perf.note_h2d(f"cascade/{name}", bucket, int(slot_idx.nbytes + time_idx.nbytes), 0.0)
+        # A head pass emits no frames: it stays out of the fps window.
+        self.perf.note_batch(f"cascade/{name}", (side, side), bucket, device_ms, n_real,
+                             streams=0)
+        return host, device_ms
+
+    def _cascade_tick(self) -> None:
+        """One scheduler tick and its outcome: the ``temporal`` lineage span
+        of each sampled track the head read, and each event out to the
+        metrics, the uplink and the archive. Never raises: the detect path
+        must not feel a cascade failure."""
+        try:
+            res = self._cascade.tick()
+        except Exception:
+            log.exception("cascade tick failed; continuing")
+            return
+        if tracer.enabled and res.head_ms is not None:
+            t_now = time.time()
+            for stream, meta in res.head_tracks:
+                if meta is None or not tracer.sampled(meta.packet):
+                    continue
+                tracer.record(stream, "temporal", meta.packet, ts=t_now, dur_ms=res.head_ms,
+                              trace_id=trace_id_of(meta, stream))
+        for ev in res.events:
+            self._cascade_emit_event(ev)
+
+    def _cascade_emit_event(self, ev: dict) -> None:
+        """One cascade event out three ways, each failing on its own: the
+        ``vep_cascade_events_total`` metric (and the journal), an
+        AnnotateRequest of ``type="cascade"`` on the uplink queue, and on
+        "enter" the track's recent tiles to the archive as a clip
+        segment."""
+        kind = ev["kind"]
+        self.perf.note_cascade_event(kind)
+        meta = ev.get("meta")
+        now_ms = int(time.time() * 1000)
+        ts = meta.timestamp_ms if meta is not None and meta.timestamp_ms else now_ms
+        if self.journal is not None:
+            # The hysteresis already edge-triggers: one decision an event.
+            self.journal.record("engine", f"cascade_{kind}", subject=("stream", str(ev["stream"])),
+                                trigger={"track": str(ev["track_id"]),
+                                         "score": round(float(ev["score"]), 4),
+                                         "tick": int(ev["tick"])})
+        log.info("cascade %s stream=%s track=%s score=%.3f tick=%d", kind, ev["stream"],
+                 ev["track_id"], ev["score"], ev["tick"])
+        if self._annotations is not None:
+            try:
+                req = AnnotateRequest(
+                    device_name=ev["stream"], type="cascade", start_timestamp=ts,
+                    object_type=f"anomaly_{kind}", object_tracking_id=str(ev["track_id"]),
+                    confidence=float(ev["score"]), ml_model="temporal.cascade",
+                    ml_model_version=self._cfg.cascade_model,
+                    width=meta.width if meta is not None else 0,
+                    height=meta.height if meta is not None else 0)
+                self._annotations.publish(encode_annotation(req))
+            except Exception:
+                log.exception("cascade uplink publish failed")
+        history = ev.get("history")
+        if kind == "enter" and self._archiver is not None and history:
+            try:
+                from ..ingest.archive import GopSegment
+
+                fps = max(1.0, 1000.0 / max(self._cfg.tick_ms, 1))
+                dur_ms = int(len(history) * 1000.0 / fps)
+                self._archiver.submit(GopSegment(device_id=f"cascade_{ev['stream']}",
+                                                 start_ts_ms=ts - dur_ms, end_ts_ms=ts, fps=fps,
+                                                 frames=list(history)))
+            except Exception:
+                log.exception("cascade archive trigger failed")
+
     def _forget_absent(self, present: Sequence[str]) -> None:
         """Drop the collector's cursor, geometry and clip window and the
-        tracker, thumbnail and quality state of streams gone from the bus
-        longer than the grace period (a producer re-creating its ring must
-        not reset its stream's track ids)."""
+        tracker, thumbnail, quality, ROI gate and cascade state of streams
+        gone from the bus longer than the grace period (a producer
+        re-creating its ring must not reset its stream's track ids). A
+        stream's cascade tracks go without events: their rows free, their
+        machines clear."""
         now = time.monotonic()
         present = set(present)
         self._known |= present
@@ -1777,6 +2266,12 @@ class InferenceEngine:
                 self._thumbs.pop(d)
                 if self.quality is not None:
                     self.quality.forget(d)
+                if self._roi is not None:
+                    # The gate restarts with the stream: its first frame is full.
+                    self._roi.pop(d, None)
+                    self._roi_mode.pop(d, None)
+                if self._cascade is not None:
+                    self._cascade.pop(d, None)
             self._known.discard(d)
             del self._absent[d]
 
@@ -1889,9 +2384,19 @@ class InferenceEngine:
         failing key does not starve the keys that sort after it. When the
         engine stops (or ``strict``, or on a ``BaseException``) every group
         not yet handed to the drain thread returns its lease and the error
-        is raised."""
+        is raised. A coast group (the ROI path's gated-idle streams) has no
+        device work: it goes straight to the drain queue, behind the batches
+        dispatched before it, so each stream's results keep their order."""
         if t_collect is None:
             t_collect = time.time()
+        if self._roi is not None and groups:
+            rest = []
+            for g in groups:
+                if g.coast is not None:
+                    self._enqueue_drain(_Inflight(g, {}, t_collect, time.time()))
+                else:
+                    rest.append(g)
+            groups = rest
         handles: List[Optional[_Prefetched]] = []
 
         def top_up(upto: int) -> None:
@@ -1942,8 +2447,9 @@ class InferenceEngine:
             self._m_batches.inc()
             spec = self._model_entry(group.model)[0]
             # The frames (bucket padding included) and, for a model with
-            # quality thumbnails, the int64 slot-index vector of the gather.
-            aux = 8 * group.bucket if self._thumb_side(spec) else 0
+            # quality thumbnails, the int64 slot-index vector of the gather
+            # (a canvas batch gathers none).
+            aux = 8 * group.bucket if self._thumb_side(spec) and group.crops is None else 0
             self.perf.note_h2d(spec.name, group.bucket, int(group.frames.nbytes) + aux,
                                h2d_ms / 1000.0, hidden_s=overlapped_ms / 1000.0)
             if tracer.enabled:
@@ -1974,11 +2480,18 @@ class InferenceEngine:
             placed.record_stream(stream)
             start = torch.cuda.Event(enable_timing=True)
             start.record(stream)
-        if self._thumb_side(self._model_entry(group.model)[0]):
+        if self._thumb_side(self._model_entry(group.model)[0]) and group.crops is None:
             outputs = dict(step(placed, self._thumbs.gather(group.device_ids, group.bucket)))
             self._thumbs.scatter(group.device_ids, outputs.pop("quality_thumbs"))
         else:
             outputs = dict(step(placed))
+            if group.crops is not None:
+                # A canvas batch runs the same program, quality statistics
+                # included; they mean nothing per stream (and its synthetic
+                # _canvas<i> ids must not take thumbnail rows): dropped
+                # before the read-back.
+                outputs.pop("quality_stats", None)
+                outputs.pop("quality_thumbs", None)
         if self._cuda:
             done = torch.cuda.Event(enable_timing=True)
             done.record(stream)
@@ -2044,6 +2557,10 @@ class InferenceEngine:
 
     def _emit(self, inflight: _Inflight) -> None:
         group = inflight.group
+        spec, module = self._model_entry(group.model)
+        if group.coast is not None:
+            self._emit_coast(inflight, spec)
+            return
         t_drain0 = time.time()
         host = self._read_back(inflight)
         t_drained = time.time()
@@ -2051,14 +2568,33 @@ class InferenceEngine:
             device_ms = inflight.start.elapsed_time(inflight.done)
         else:
             device_ms = (t_drained - inflight.t_submit) * 1000.0
+        if group.crops is not None:
+            # A canvas batch: the fps window counts the streams it served,
+            # its occupancy is the crop-pixel share.
+            self.perf.note_batch(
+                spec.name, group.src_hw, group.bucket, device_ms, len(group.device_ids),
+                streams=len({p.device_id for p in group.crops}),
+                area_frac=CanvasPacker.area_fraction(group.crops, len(group.device_ids),
+                                                     group.src_hw[0]))
+            self._emit_canvas(inflight, host, spec, module, device_ms, t_drained)
+            return
         now_ms = int(t_drained * 1000)
-        spec, module = self._model_entry(group.model)
         kind = spec.kind
         num_classes = module.cfg.num_classes
         slo_latency = (self.slo.get("detect_latency_p50")
                        if self.slo is not None and kind == "detect" else None)
+        if self._roi is not None and kind == "detect" and group.frames.ndim == 4:
+            # A full-frame detect batch while ROI serving is on: stamp the
+            # refresh cadence (the gate's feedback) and count the streams
+            # toward the equivalent-fps window.
+            now_mono = time.monotonic()
+            with self._state_lock:
+                for device_id in group.device_ids:
+                    self._roi.note_full(device_id, now_mono)
+            self.perf.note_roi_emit(len(group.device_ids))
         capture_sum = 0.0
         track_s = 0.0
+        harvest_s = 0.0
         for i, (device_id, meta) in enumerate(zip(group.device_ids, group.metas)):
             detections = to_detections(host, i, kind, num_classes)
             if self._cfg.track and kind == "detect":
@@ -2067,6 +2603,16 @@ class InferenceEngine:
                 t_track = time.perf_counter()
                 self._assign_tracks(device_id, spec.name, detections)
                 track_s += time.perf_counter() - t_track
+                if self._cascade is not None and group.frames.ndim == 4:
+                    # The cascade's harvest: each tracked detection's crop
+                    # from the leased host frame (valid until this emit
+                    # returns) into its track's tile.
+                    t_harvest = time.perf_counter()
+                    try:
+                        self._cascade.harvest(device_id, group.frames[i], detections, meta)
+                    except Exception:
+                        log.exception("cascade harvest failed; continuing")
+                    harvest_s += time.perf_counter() - t_harvest
             if self.quality is not None:
                 self._observe_quality(host, i, device_id, meta, detections)
             latency = max(0.0, now_ms - meta.timestamp_ms) if meta.timestamp_ms else 0.0
@@ -2104,6 +2650,11 @@ class InferenceEngine:
                 tracer.record(device_id, "emit", meta.packet, trace_id=tid)
         n = len(group.device_ids)
         self.perf.note_batch(spec.name, group.src_hw, group.bucket, device_ms, n)
+        self._note_results(inflight, n, capture_sum, t_drained, device_ms, track_s, harvest_s)
+
+    def _note_results(self, inflight: _Inflight, n: int, capture_sum: float, t_drained: float,
+                      device_ms: float, track_s: float = 0.0, harvest_s: float = 0.0) -> None:
+        """Fold one emitted batch's ``n`` results into the pipeline totals."""
         t_emitted = time.time()
         with self._pipe_lock:
             p = self._pipe
@@ -2115,6 +2666,108 @@ class InferenceEngine:
             p.drained_to_emitted_ms += n * (t_emitted - t_drained) * 1000.0
             p.emit_ms += (t_emitted - t_drained) * 1000.0
             p.track_ms += track_s * 1000.0
+            p.harvest_ms += harvest_s * 1000.0
+
+    def _emit_coast(self, inflight: _Inflight, spec) -> None:
+        """Emit a coast group (gated-idle streams): its detections were
+        made at gate time on the tick thread (the tracker coasted); they go
+        out with the per-stream semantics of a full frame's, and no device
+        time."""
+        group = inflight.group
+        t_drained = time.time()
+        now_ms = int(t_drained * 1000)
+        capture_sum = 0.0
+        for device_id, meta, detections in group.coast:
+            capture_sum += self._emit_stream_result(inflight, device_id, meta, detections, spec,
+                                                    now_ms, 0.0, coasted=True)
+        self.perf.note_roi_emit(len(group.coast))
+        self._note_results(inflight, len(group.coast), capture_sum, t_drained, 0.0)
+
+    def _emit_canvas(self, inflight: _Inflight, host: Dict[str, np.ndarray], spec, module,
+                     device_ms: float, t_drained: float) -> None:
+        """The scatter-back of a canvas batch: each canvas detection goes to
+        the crop whose cell holds its center (cells never overlap: the
+        packer keeps a gap), through that crop's exact inverse
+        (``uncrop_boxes``), clipped to the crop's source rect, and is
+        emitted with that crop's stream. A detection whose center lands in
+        no cell (a background artifact, or the cell of a stream that
+        spilled to the full-frame path) is counted and dropped: it never
+        reaches the wrong stream."""
+        group = inflight.group
+        now_ms = int(t_drained * 1000)
+        by_canvas: Dict[int, list] = {}
+        results: Dict[str, tuple] = {}   # device_id -> (meta, [Detection])
+        for p in group.crops:
+            by_canvas.setdefault(p.canvas, []).append(p)
+            results.setdefault(p.device_id, (p.meta, []))
+        num_classes = module.cfg.num_classes
+        for ci in range(len(group.device_ids)):
+            cells = by_canvas.get(ci)
+            if not cells:
+                continue
+            for j in np.nonzero(host["valid"][ci])[0]:
+                bx = [float(v) for v in host["boxes"][ci, j]]
+                cx = (bx[0] + bx[2]) / 2.0
+                cy = (bx[1] + bx[3]) / 2.0
+                cell = next((p for p in cells if p.contains(cx, cy)), None)
+                if cell is None:
+                    self.perf.note_roi_unrouted()
+                    continue
+                box = uncrop_boxes(np.asarray(bx, np.float32), scale=cell.scale,
+                                   dst_origin=cell.dst[:2], src_origin=cell.src[:2])
+                x1 = max(cell.src[0], min(float(box[0]), cell.src[2]))
+                y1 = max(cell.src[1], min(float(box[1]), cell.src[3]))
+                x2 = max(cell.src[0], min(float(box[2]), cell.src[2]))
+                y2 = max(cell.src[1], min(float(box[3]), cell.src[3]))
+                ix1, iy1, ix2, iy2 = (int(round(v)) for v in (x1, y1, x2, y2))
+                cid = int(host["classes"][ci, j])
+                results[cell.device_id][1].append(Detection(
+                    box=BoundingBox(left=ix1, top=iy1, width=ix2 - ix1, height=iy2 - iy1),
+                    confidence=float(host["scores"][ci, j]), class_id=cid,
+                    class_name=class_name(cid, num_classes)))
+        capture_sum = 0.0
+        for device_id, (meta, detections) in results.items():
+            capture_sum += self._emit_stream_result(inflight, device_id, meta, detections, spec,
+                                                    now_ms, device_ms)
+        self.perf.note_roi_emit(len(results))
+        self._note_results(inflight, len(results), capture_sum, t_drained, device_ms)
+
+    def _emit_stream_result(self, inflight: _Inflight, device_id: str, meta, detections,
+                            spec, now_ms: int, device_ms: float, coasted: bool = False) -> float:
+        """The ROI path's twin of the classic emit's per-slot tail: the
+        tracker, the quality plane (detections only: a canvas slot carries
+        no per-stream frame statistics), the result, the annotations, the
+        stats and the SLO sample. Coasted results skip the tracker (the gate
+        advanced it; the detections are its tracks) and the device time.
+        Returns the frame's capture -> collect ms (0 without a stamp)."""
+        group = inflight.group
+        if self._cfg.track and spec.kind == "detect" and not coasted:
+            self._assign_tracks(device_id, spec.name, detections)
+        if self.quality is not None:
+            self.quality.observe(device_id, classes=[d.class_id for d in detections],
+                                 scores=[d.confidence for d in detections])
+        latency = max(0.0, now_ms - meta.timestamp_ms) if meta.timestamp_ms else 0.0
+        self._publish(InferenceResult(
+            device_id=device_id, timestamp=meta.timestamp_ms, model=spec.name,
+            detections=detections, latency_ms=latency, batch_size=group.bucket,
+            frame_packet=meta.packet, trace_id=meta.trace_id, parent_span=meta.parent_span,
+        ))
+        self._annotate(device_id, meta, detections, spec)
+        st = self._stats.setdefault(device_id, StreamStats())
+        st.frames += 1
+        st.note_latency(latency)
+        st.last_batch = group.bucket
+        if not coasted:
+            st.note_device(device_ms, group.padded_slots)
+        st.last_emit_mono = time.monotonic()
+        if self.slo is not None and spec.kind == "detect" and meta.timestamp_ms:
+            ok = latency <= self._cfg.slo_latency_ms
+            self.slo.get("detect_latency_p50").record(good=float(ok), bad=float(not ok))
+        self._m_frames.labels(device_id).inc()
+        self._m_latency.labels(device_id).observe(latency)
+        if meta.timestamp_ms:
+            return inflight.t_collect * 1000.0 - meta.timestamp_ms
+        return 0.0
 
     def _assign_tracks(self, device_id: str, model: str, detections: List[Detection]) -> None:
         """Per-stream SORT-style association (engine/tracker.py) filling
@@ -2146,6 +2799,12 @@ class InferenceEngine:
         if qs is not None:
             kwargs = {"luma_mean": float(qs[i, 0]), "luma_var": float(qs[i, 1]),
                       "diff_energy": float(qs[i, 2])}
+            if self._roi is not None:
+                # The ROI gate's feedback: the next tick classifies the
+                # stream on the diff energy just read (only full frames
+                # carry it, so the refresh cadence keeps it alive).
+                with self._state_lock:
+                    self._roi.note_diff(device_id, float(qs[i, 2]))
         self.quality.observe(device_id, classes=[d.class_id for d in detections],
                              scores=[d.confidence for d in detections], **kwargs)
         if (self.canary is not None and device_id == self.canary.stream

@@ -1,7 +1,7 @@
 """Weights carried across from the JAX package.
 
 ``from_flax(variables)`` turns a flax ``{"params", "batch_stats"}`` tree of
-the JAX package's YOLOv8, ViT or VideoMAE (leaves as numpy arrays; the
+the JAX package's YOLOv8, ViT, VideoMAE or blob gauge (leaves as numpy arrays; the
 transformers' ``nn.Partitioned`` boxes unboxed by the caller) into this
 port's ``state_dict``. The port's submodules carry the flax scope names,
 so the mapping is mechanical, by the leaf and the module that holds it:
@@ -15,7 +15,8 @@ so the mapping is mechanical, by the leaf and the module that holds it:
 - BatchNorm/LayerNorm ``scale|bias`` -> ``weight|bias`` (``bn``, ``ln1``,
   ``ln2``, ``ln_final``); other ``bias`` leaves carry over
 - ``batch_stats <scope>/bn/mean|var`` -> ``<scope>.bn.running_mean|running_var``
-- top-level ``pos_embed``, ``cls_token`` and ``dec_pos`` carry over unchanged
+- top-level ``pos_embed``, ``cls_token``, ``dec_pos`` and the blob gauge's
+  dummy ``bias`` carry over unchanged
 - ``quant <scope>/conv/in_absmax`` (the int8 activation path's calibrated
   input range) -> ``<scope>.conv.in_absmax``
 
@@ -53,7 +54,7 @@ from ..replay.checksum import zero_class_prior  # noqa: F401  (re-exported)
 _CONVS = {"conv", "patch_embed", "proj"}
 _DENSES = {"qkv", "out", "fc1", "fc2", "head", "classifier", "dec_embed", "dec_pred"}
 _NORMS = {"bn", "ln1", "ln2", "ln_final"}
-_TOKENS = {"pos_embed", "cls_token", "dec_pos"}
+_TOKENS = {"pos_embed", "cls_token", "dec_pos", "bias"}
 _STAT_LEAVES = {
     ("bn", "mean"): "bn.running_mean",
     ("bn", "var"): "bn.running_var",

@@ -7,7 +7,9 @@ Registered so far: the detection family the default serving path runs
 space-to-depth stem variants ``yolov8n_s2d`` and ``tiny_yolov8_s2d``) and
 the transformer
 family (``vit_b16``, ``videomae_b``, ``videomae_b_long`` and the twins
-``tiny_vit``, ``tiny_videomae``), with the JAX package's geometry.
+``tiny_vit``, ``tiny_videomae``), with the JAX package's geometry, and the
+ROI path's measurement gauges ``blob_gauge`` and ``tiny_blob_gauge``
+(``models/blob.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from .blob import BlobGauge, BlobGaugeConfig
 from .videomae import VideoMAE, VideoMAEConfig, tiny_videomae_config
 from .vit import ViT, ViTConfig, tiny_vit_config
 from .yolov8 import YOLOv8, tiny_yolov8_config, yolov8n_config
@@ -118,6 +121,18 @@ register(ModelSpec(
     input_size=224, preprocess="clip", kind="video", clip_len=64,
     description="long-context clips: 64 frames -> 6272 tokens, attention "
                 "goes to the flash-attention kernel",
+))
+register(ModelSpec(
+    "blob_gauge", lambda dtype: BlobGauge(BlobGaugeConfig(), dtype),
+    input_size=640, preprocess="letterbox", kind="detect",
+    description="detect-identity measurement gauge (models/blob.py): exact pixel "
+                "bboxes of color-keyed synthetic blobs, served to check that "
+                "pack -> detect -> scatter-back preserves geometry",
+))
+register(ModelSpec(
+    "tiny_blob_gauge", lambda dtype: BlobGauge(BlobGaugeConfig(), dtype),
+    input_size=64, preprocess="letterbox", kind="detect",
+    description="CPU/CI twin of blob_gauge",
 ))
 register(ModelSpec(
     "tiny_yolov8", lambda dtype: YOLOv8(tiny_yolov8_config(), dtype),

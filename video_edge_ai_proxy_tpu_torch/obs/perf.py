@@ -9,8 +9,12 @@ program's build (on the card the CUDA graph capture) with its FLOPs,
 ``note_batch`` each drained batch's device time and occupancy,
 ``note_h2d`` each placement's bytes and copy time. The families and
 labels are the JAX package's (``vep_compile_*``, ``vep_perf_*``,
-``vep_h2d_*``); ``snapshot`` is the JAX snapshot's shape. The ROI,
-cascade and mesh-shard notes come with their planes.
+``vep_h2d_*``); ``snapshot`` is the JAX snapshot's shape. The ROI path's
+notes (``note_roi_*``, ``vep_roi_*``; a canvas batch's ``note_batch``
+counts the streams it served and its crop-pixel occupancy) and the
+cascade's (``note_cascade_*``, ``vep_cascade_*``) add the snapshot's
+``roi`` and ``cascade`` sections once their planes serve. The mesh-shard
+notes come with the multi-card slice.
 
 Where the numbers come from on the card:
 
@@ -256,6 +260,48 @@ class PerfTracker:
             "vep_h2d_hidden_seconds",
             "Share of the H2D copy seconds spent while a dispatched batch "
             "was in flight (prefetch stage)", ("model", "bucket"))
+        # The ROI path (engine cfg.roi): the gate's verdicts a tick, the
+        # packer's output, scatter-back routing failures, and the rate of
+        # per-stream results served through the plane (coasted, packed or
+        # full): what the fleet would have cost in full frames.
+        self._m_roi_states = reg.counter(
+            "vep_roi_stream_states_total", "Motion-gate verdicts per detect stream per tick",
+            ("state",))
+        self._m_roi_crops = reg.counter(
+            "vep_roi_crops_total", "Crops packed onto shared canvases").labels()
+        self._m_roi_canvases = reg.counter(
+            "vep_roi_canvases_total", "Shared canvases dispatched").labels()
+        self._m_roi_occupancy = reg.gauge(
+            "vep_roi_canvas_occupancy_pct",
+            "Crop-pixel share of the packed canvas plane, last batch").labels()
+        self._m_roi_unrouted = reg.counter(
+            "vep_roi_unrouted_total",
+            "Canvas detections that landed outside every crop cell (dropped in "
+            "scatter-back)").labels()
+        self._m_roi_fps = reg.gauge(
+            "vep_roi_equivalent_fps",
+            "Per-stream results served through the ROI plane per second "
+            "(full-frame-equivalent fps, sliding window)").labels()
+        self._roi_fps = _RateWindow(window_s=fps_window_s)
+        self._roi = {"idle": 0, "roi": 0, "full": 0, "crops": 0, "canvases": 0,
+                     "unrouted": 0, "area_frac": None}
+        # The temporal cascade (engine cfg.cascade): detect every tick, the
+        # head every N; the cadence gauge is head batches over ticks.
+        self._m_cascade_ticks = reg.counter(
+            "vep_cascade_ticks_total", "Engine ticks observed by the cascade scheduler").labels()
+        self._m_cascade_head = reg.counter(
+            "vep_cascade_head_batches_total",
+            "Temporal-head batches dispatched (cadence ticks with due tracks)").labels()
+        self._m_cascade_events = reg.counter(
+            "vep_cascade_events_total", "Track event transitions fired by the hysteresis machine",
+            ("kind",))
+        self._m_cascade_tracks = reg.gauge(
+            "vep_cascade_tracks", "Track slots live in the device-resident state pool").labels()
+        self._m_cascade_cadence = reg.gauge(
+            "vep_cascade_head_cadence",
+            "Cascade ticks per temporal-head batch (target: cascade_every_n)").labels()
+        self._cascade = {"ticks": 0, "head_batches": 0, "head_slots": 0, "events": {},
+                         "tracks": 0, "high_water": 0}
 
     def set_peak(self, peak_tflops: float) -> None:
         """Install the peak resolved at warmup (``resolve_peak_tflops``)."""
@@ -303,9 +349,17 @@ class PerfTracker:
     # -- per batch ----------------------------------------------------------------
 
     def note_batch(self, model: str, src_hw: Tuple[int, int], bucket: int,
-                   device_ms: float, frames: int) -> None:
+                   device_ms: float, frames: int, *, streams: Optional[int] = None,
+                   area_frac: Optional[float] = None) -> None:
         """Record one drained batch: ``frames`` real frames in a
-        ``bucket``-slot program that ran for ``device_ms``."""
+        ``bucket``-slot program that ran for ``device_ms``.
+
+        A packed canvas batch (the ROI path): ``frames`` is its canvas
+        count, ``streams`` the source streams whose crops rode it (the fps
+        window counts results, not canvases; 0 for a program that emits
+        none, the cascade head) and ``area_frac`` the crop-pixel share of
+        the canvases, which the occupancy gauge then reports: a half-empty
+        canvas is not one fully occupied slot."""
         key = (model, self._geometry(src_hw), bucket)
         cell = self._cells.get(key)
         if cell is None:
@@ -315,7 +369,10 @@ class PerfTracker:
         if padded > 0:
             cell.padded.inc(padded)
         cell.slots.inc(bucket)
-        cell.occupancy.set(100.0 * frames / bucket if bucket else 0.0)
+        if area_frac is not None:
+            cell.occupancy.set(100.0 * area_frac)
+        else:
+            cell.occupancy.set(100.0 * frames / bucket if bucket else 0.0)
         if cell.ema_init:
             cell.ema_ms = 0.9 * cell.ema_ms + 0.1 * device_ms
         else:
@@ -333,7 +390,7 @@ class PerfTracker:
             cell.mfu.set(util)
             cell.tflops.set(flops / (cell.ema_ms * 1e-3) / 1e12)
         now = self._clock()
-        self._fps.add(frames, now)
+        self._fps.add(streams if streams is not None else frames, now)
         self._m_fps.set(self._fps.rate(now))
 
     def note_h2d(self, model: str, bucket: int, nbytes: int, seconds: float, *,
@@ -354,6 +411,84 @@ class PerfTracker:
         cell.seconds += float(seconds)
         cell.batches += 1
         cell.slots += int(bucket)
+
+    # -- the ROI path (engine cfg.roi) -------------------------------------------
+
+    def note_roi_gate(self, idle: int, roi: int, full: int) -> None:
+        """One tick's motion-gate split over detect streams."""
+        if idle:
+            self._m_roi_states.labels("idle").inc(idle)
+        if roi:
+            self._m_roi_states.labels("roi").inc(roi)
+        if full:
+            self._m_roi_states.labels("full").inc(full)
+        with self._lock:
+            self._roi["idle"] += idle
+            self._roi["roi"] += roi
+            self._roi["full"] += full
+
+    def note_roi_pack(self, crops: int, canvases: int, area_frac: float) -> None:
+        """One packed canvas batch leaving the packer."""
+        self._m_roi_crops.inc(crops)
+        self._m_roi_canvases.inc(canvases)
+        self._m_roi_occupancy.set(100.0 * area_frac)
+        with self._lock:
+            self._roi["crops"] += crops
+            self._roi["canvases"] += canvases
+            self._roi["area_frac"] = area_frac
+
+    def note_roi_emit(self, streams: int) -> None:
+        """Per-stream results served through the ROI plane (coasted, packed,
+        or full frames while it gates): the full-frame-equivalent fps."""
+        now = self._clock()
+        self._roi_fps.add(streams, now)
+        self._m_roi_fps.set(self._roi_fps.rate(now))
+
+    def note_roi_unrouted(self, n: int = 1) -> None:
+        self._m_roi_unrouted.inc(n)
+        with self._lock:
+            self._roi["unrouted"] += n
+
+    def roi_equivalent_fps(self) -> float:
+        return self._roi_fps.rate(self._clock())
+
+    # -- the temporal cascade (engine cfg.cascade) -----------------------------
+
+    def note_cascade_tick(self) -> None:
+        """One engine tick seen by the cascade scheduler (head tick or not)."""
+        self._m_cascade_ticks.inc()
+        with self._lock:
+            self._cascade["ticks"] += 1
+            self._set_cascade_cadence_locked()
+
+    def note_cascade_head(self, slots: int) -> None:
+        """One temporal-head batch with ``slots`` live track slots (its
+        device time and H2D ride ``note_batch``/``note_h2d`` under the
+        ``cascade/<model>`` key)."""
+        self._m_cascade_head.inc()
+        with self._lock:
+            self._cascade["head_batches"] += 1
+            self._cascade["head_slots"] += int(slots)
+            self._set_cascade_cadence_locked()
+
+    def note_cascade_event(self, kind: str) -> None:
+        """One hysteresis transition ("enter"/"exit") of a track."""
+        self._m_cascade_events.labels(kind).inc()
+        with self._lock:
+            ev = self._cascade["events"]
+            ev[kind] = ev.get(kind, 0) + 1
+
+    def note_cascade_slots(self, in_use: int, high_water: int) -> None:
+        """The state pool's occupancy after a cascade tick."""
+        self._m_cascade_tracks.set(float(in_use))
+        with self._lock:
+            self._cascade["tracks"] = int(in_use)
+            self._cascade["high_water"] = max(self._cascade["high_water"], int(high_water))
+
+    def _set_cascade_cadence_locked(self) -> None:
+        c = self._cascade
+        if c["head_batches"]:
+            self._m_cascade_cadence.set(c["ticks"] / c["head_batches"])
 
     def _make_h2d_cell(self, key: Tuple[str, int]) -> _H2DCell:
         model, bucket = key
@@ -417,7 +552,10 @@ class PerfTracker:
                     "mbps": (round(cell.bytes / 1e6 / cell.seconds, 1)
                              if cell.seconds > 0 else None),
                 })
-        return {
+            roi = dict(self._roi)
+            casc = dict(self._cascade)
+            casc["events"] = dict(casc["events"])
+        out = {
             "peak_tflops": self.peak_tflops,
             "fps": round(self.fps(), 1),
             "compiles": sorted(compiles, key=lambda r: (r["model"], r["geometry"],
@@ -427,3 +565,30 @@ class PerfTracker:
             "h2d_hidden_pct": (round(100.0 * h2d_hidden / h2d_seconds, 1)
                                if h2d_seconds > 0 else None),
         }
+        gated = roi["idle"] + roi["roi"] + roi["full"]
+        if gated or roi["canvases"]:
+            out["roi"] = {
+                "stream_ticks": {"idle": roi["idle"], "roi": roi["roi"], "full": roi["full"]},
+                "gated_stream_pct": (round(100.0 * (roi["idle"] + roi["roi"]) / gated, 1)
+                                     if gated else 0.0),
+                "crops": roi["crops"],
+                "canvases": roi["canvases"],
+                "crops_per_canvas": (round(roi["crops"] / roi["canvases"], 2)
+                                     if roi["canvases"] else None),
+                "canvas_occupancy_pct": (round(100.0 * roi["area_frac"], 1)
+                                         if roi["area_frac"] is not None else None),
+                "unrouted": roi["unrouted"],
+                "equivalent_fps": round(self.roi_equivalent_fps(), 1),
+            }
+        if casc["ticks"] or casc["head_batches"]:
+            heads = casc["head_batches"]
+            out["cascade"] = {
+                "ticks": casc["ticks"],
+                "head_batches": heads,
+                "head_cadence": round(casc["ticks"] / heads, 2) if heads else None,
+                "slots_per_head": round(casc["head_slots"] / heads, 2) if heads else None,
+                "events": casc["events"],
+                "tracks": casc["tracks"],
+                "slot_high_water": casc["high_water"],
+            }
+        return out

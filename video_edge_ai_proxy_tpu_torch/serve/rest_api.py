@@ -16,6 +16,8 @@ Routes of the planes the port has, with the JAX server's payloads:
     GET    /api/v1/router             degradation-ladder rung
     GET    /api/v1/hbm                device-memory plane (program
                                       footprints, pools, forecast)
+    GET    /api/v1/cascade            temporal cascade (cadence, tracks,
+                                      events, the state pool)
     GET    /api/v1/journal            decision journal (?actor= ?action=
                                       ?subject=kind[:id] ?since=seq ?limit=n)
     GET    /api/v1/why                causal chain (?stream=S, ?member=M or
@@ -33,7 +35,7 @@ Routes of the planes the port has, with the JAX server's payloads:
 CORS is wide open like the reference; errors use its JSON envelope
 (``{"code", "message"}``). A plane that is switched off answers 400, a
 capture out of (0, ``prof_max_ms``] answers 400 and a second capture in
-flight 409. The routes of planes not ported (cascade, capacity,
+flight 409. The routes of planes not ported (capacity,
 faults, fleet, router attach/detach, supervisor, rtspscan, the portal)
 are absent. Served on a thread of its own with its own event
 loop. Imports ``aiohttp``: only ``Server.start`` imports this module.
@@ -204,7 +206,21 @@ def build_app(pm: ProcessManager, settings: SettingsManager, engine=None,
             # The same snapshot /api/v1/hbm serves.
             "hbm": engine.hbm.snapshot()
             if engine is not None and engine.hbm is not None else None,
+            # The same snapshot /api/v1/cascade serves.
+            "cascade": engine.cascade.snapshot()
+            if engine is not None and engine.cascade is not None else None,
         }
+        return web.json_response(out)
+
+    async def cascade(_request: web.Request) -> web.Response:
+        """The temporal cascade (temporal/scheduler.py): the head's cadence,
+        each track's score and state, the pool's occupancy, recent events;
+        400 when it is off (engine.cascade config)."""
+        if engine is None:
+            return _error(400, "engine not running")
+        if engine.cascade is None:
+            return _error(400, "cascade disabled (engine.cascade config)")
+        out = await asyncio.to_thread(engine.cascade.snapshot)
         return web.json_response(out)
 
     async def hbm(_request: web.Request) -> web.Response:
@@ -446,6 +462,7 @@ def build_app(pm: ProcessManager, settings: SettingsManager, engine=None,
     app.router.add_get("/api/v1/quality", quality)
     app.router.add_get("/api/v1/router", router_state)
     app.router.add_get("/api/v1/hbm", hbm)
+    app.router.add_get("/api/v1/cascade", cascade)
     app.router.add_get("/api/v1/journal", journal)
     app.router.add_get("/api/v1/why", why)
     app.router.add_get("/api/v1/trace", trace)

@@ -18,7 +18,9 @@ process manager's registry records. The process's decision journal
 (``engine.journal``) is built here and shared with the engine; the lineage
 tracer is process-global and configured from ``obs`` (``trace``,
 ``sample_every``, ``trace_ring``); the profiler's bundles go under
-``<data_dir>/prof`` unless ``engine.prof_dir`` says otherwise.
+``<data_dir>/prof`` unless ``engine.prof_dir`` says otherwise; with
+``engine.cascade`` on, the cascade's enter events archive their clips
+under ``<data_dir>/cascade_clips`` (``ingest/archive.py``).
 
 ``Server.__init__`` and every plane but the wire import neither ``grpc``,
 ``google.protobuf`` nor ``aiohttp`` (nor ``yaml``, unless ``load_config``
@@ -172,6 +174,7 @@ class Server:
             unacked_limit=ann.unacked_limit,
         )
         self.engine = None
+        self._cascade_archiver = None
         if enable_engine:
             from ..engine.runner import InferenceEngine
 
@@ -185,11 +188,16 @@ class Server:
                 # Capture bundles persist next to the rest of the state.
                 engine_cfg = dataclasses.replace(
                     engine_cfg, prof_dir=os.path.join(data_dir, "prof"))
+            if engine_cfg.cascade:
+                # The enter events' clips, next to the rest of the state.
+                from ..ingest.archive import SegmentArchiver
+
+                self._cascade_archiver = SegmentArchiver(os.path.join(data_dir, "cascade_clips"))
             self.engine = InferenceEngine(
                 self.bus, engine_cfg, device=device, annotations=self.annotations,
                 model_resolver=self.process_manager.inference_model_of,
                 annotation_policy_resolver=self.process_manager.annotation_policy_of,
-                journal=self.journal,
+                journal=self.journal, archiver=self._cascade_archiver,
             )
             if self.engine.slo is not None:
                 for name, state in sorted(self.engine.slo.snapshot()["slos"].items()):
@@ -219,6 +227,8 @@ class Server:
             log.info("resumed %d cameras from registry", resumed)
         self.cron.start()
         self.annotations.start()
+        if self._cascade_archiver is not None:
+            self._cascade_archiver.start()
         # REST binds before the engine prewarms: the server answers during
         # the compile ramp (prewarm incomplete in /api/v1/stats).
         self._rest = RestServer(self.process_manager, self.settings, port=self._rest_port,
@@ -257,6 +267,8 @@ class Server:
             self._rest.stop()
         if self.engine is not None:
             self.engine.stop()
+        if self._cascade_archiver is not None:
+            self._cascade_archiver.stop()
         self.annotations.stop()
         self.cron.stop()
         # The registry stays: cameras resume on the next boot. Adoption

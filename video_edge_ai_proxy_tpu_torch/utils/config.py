@@ -188,6 +188,35 @@ class EngineConfig:
     quality_window_s: float = 5.0      # drift scoring window
     quality_drift_threshold: float = 0.35
     quality_ladder: bool = True
+    # ROI serving: each tick, detect streams are motion-gated from the
+    # previous tick's thumbnail diff energy (the quality statistics) and
+    # their tracker: "idle" streams (no motion) skip device work and emit
+    # tracker-coasted results; "roi" streams (motion, live tracks) send
+    # crops around their predicted track boxes, shelf-packed with other
+    # streams' crops onto a few shared roi_canvas-square canvases
+    # (engine/collector.py CanvasPacker), one more program of the step
+    # cache; "full" streams (refresh due, no diff signal yet, or motion
+    # with nothing tracked) run the classic full frame. Detections scatter
+    # back through each crop's exact inverse (ops/boxes.py uncrop_boxes).
+    # roi=False (default) is the kill switch: the classic path unchanged.
+    roi: bool = False
+    roi_canvas: int = 640              # shared canvas side (geometry)
+    roi_gap: int = 8                   # background px between packed crops
+    roi_max_canvases: int = 8          # per tick; overflow crops go full
+    roi_margin: float = 0.25           # track-box inflation for crops
+    roi_min_crop: int = 32             # minimum crop side before packing
+    # Diff energy (inter-frame MSE of [0, 1] luma thumbnails) below this is
+    # motionless: "no scene change worth a full frame".
+    roi_idle_diff: float = 5e-5
+    # Full-frame refresh cadence per stream: catches objects outside every
+    # tracked ROI and refreshes the diff signal (only full frames carry
+    # quality statistics).
+    roi_full_interval_ms: int = 1000
+    # A coasted detection's confidence decays by this per missed frame; below
+    # roi_coast_floor it is not emitted (the track still expires through
+    # IoUTracker.max_misses).
+    roi_coast_decay: float = 0.9
+    roi_coast_floor: float = 0.1
     # Canary integrity loop: a golden trace (replay/recorder.py) replayed
     # into the live engine at low cadence by an engine-owned publisher;
     # each completed loop's host result checksums fold and compare against
@@ -197,6 +226,29 @@ class EngineConfig:
     quality_canary_stream: str = "_canary"
     quality_canary_fps: float = 2.0
     quality_canary_golden: int = 0     # committed fold; 0 = record-only
+    # The temporal cascade (temporal/): the detect step runs every tick
+    # unchanged; tracked detections' crops accumulate in a device-resident
+    # clip ring per track, and the temporal head (cascade_model and a
+    # logistic anomaly score over pooled clip features) runs every
+    # cascade_every_n ticks as its own program. Needs track=True.
+    # cascade=False (default) is the kill switch: no scheduler, no pool.
+    cascade: bool = False
+    cascade_every_n: int = 4           # temporal-head cadence (ticks)
+    cascade_model: str = "videomae_b"  # registry video model of the head
+    cascade_crop: int = 0              # track tile side; 0 = model input
+    cascade_clip_len: int = 0          # ring depth; 0 = model clip_len
+    # Event hysteresis (temporal/events.py): score >= threshold on enter_n
+    # consecutive head passes fires "enter"; below it on exit_n, "exit".
+    cascade_threshold: float = 0.5
+    cascade_enter_n: int = 2
+    cascade_exit_n: int = 2
+    # score = sigmoid(w . f + b) over [temporal diff energy, clip luma
+    # variance, max head softmax probability]; a pixel-static clip scores
+    # sigmoid(b) ~ 0.018. The logits ride the event payload.
+    cascade_score_w: tuple = (2000.0, 0.0, 0.0)
+    cascade_score_b: float = -4.0
+    # Ticks without a harvested detection before a track's slot frees.
+    cascade_track_ttl_ticks: int = 60
     # Annotation emit policy of the engine's uplink: "all" (every
     # detection of every frame), "keyframe" (GOP heads only), "on_change"
     # (the tracked object set changed, or a confidence moved more than
@@ -213,6 +265,9 @@ class EngineConfig:
     # no hook anywhere and /api/v1/journal answers 400.
     journal: bool = True
     journal_capacity: int = 4096       # ring slots (events retained)
+    # The cascade's cadence under pressure: while the ladder is off
+    # "normal" the head runs every cascade_every_n * this ticks (1 = off).
+    cascade_stretch_factor: int = 2
 
 
 @dataclass
