@@ -243,9 +243,31 @@ exits non-zero:
    with the plain attention; (c) the harvest's host ms a frame with the
    cascade on, ``yolov8n`` at 16x1080p (about 100 tracked detections a
    frame), printed beside the emit's.
+18. the other model families at full width, with seeded random weights:
+   (a) ``yolov8s`` bf16 on 16x1080x1920 uint8 with ``quality_thumb=32``:
+   shapes and finiteness, the same detections with the plain keep mask
+   swapped in, the engine's graph replay bit-identical to the eager step
+   on two inputs with one keep-mask launch a replay, float32 card vs CPU
+   on two frames within phase 4's bars (TF32 off); ``resnet50``'s embed
+   step on the same frames: [16, 2048] finite float32 embeddings, the
+   replay bit-identical to eager, float32 card vs CPU within
+   ``F32_EMBED_REL_TOL`` of the largest entry; ``mobilenet_v2`` at 1
+   stream and at 16: the replay bit-identical to eager, float32 top-5 ids
+   equal card vs CPU; printed: each replay's ms (CUDA events, median of
+   20) and each model's peak memory (the stopped engines of earlier phases
+   released first); (b) in a process of its own (``chip_smoke.py
+   --fleet``: this process's allocator keeps the earlier phases' freed
+   blocks reserved), the mixed fleet of BASELINE.md (6 ``yolov8n``, 5
+   ``resnet50`` and 5 ``vit_b16`` streams) in one ``InferenceEngine`` with
+   per-stream models on the memory bus, 1080p at 30 fps for 10 s as 11c
+   publishes, every key prewarmed: gated on every
+   stream served, each result's model its stream's, 2048-wide embeddings
+   on the ``resnet50`` results, no logged tick or drain failure, and
+   keep-mask launches equal to ``yolov8n``'s batches; printed: frames/s
+   and p50/p95 latency per model.
 
 On the card the engine runs every serving step as a graph replay, so
-phases 5, 8, 11, 13, 15, 16 and 17 run graphed; phases 4, 6, 7, 9 and 10 call the eager
+phases 5, 8, 11, 13, 15, 16, 17 and 18 run graphed; phases 4, 6, 7, 9 and 10 call the eager
 step, the model and the trainer directly.
 
 After phase 8 the script reports what outlives its engines (the cuBLAS
@@ -253,14 +275,16 @@ workspace of each stream that ran a matmul, and the preprocessing
 constants of every geometry met so far) and frees it, so that phase 9's
 peak memory counts the training alone.
 
-Phases 5, 8, 9, 11c, 13b, 14, 15c, 16a, 16b, 17a and 17b are the main
+Phases 5, 8, 9, 11c, 13b, 14, 15c, 16a, 16b, 17a, 17b and 18b are the main
 paths: the kernels' launch counts are set to 0 just before each and read
 just after it, and every kernel of that path must have launched (a graph
 replay adds the launches its capture recorded); the keep mask's count in
 13b is ``launches_frame_path``, in 14's first server (zeroed before its
 engine starts) ``launches_server``, in 15c's served batches of each
 variant ``launches_variants``, in 16a's ROI run ``launches_roi``, in 17a
-``launches_cascade``, and the flash forward's in 17b ``launches_cascade``. The line before the last is one JSON object describing
+``launches_cascade``, in 18b ``launches_fleet``, and the flash forward's in
+17b ``launches_cascade``; the keep mask's line also carries
+``replay_ms_yolov8s`` (18a). The line before the last is one JSON object describing
 every kernel; the last line is ``{"ok": true, "device": {...}}``. Longer
 output (the profile tables) goes to ``chiprun_out/``.
 """
@@ -3798,6 +3822,379 @@ def cascade_phase(dev, card: str, zero_launches, read_launches, kernels, report)
     torch.cuda.empty_cache()
 
 
+# -- phase 18: the other model families --------------------------------------------------
+
+# float32 on the card against float32 on the CPU (TF32 off), the pooled
+# 2048-wide ResNet-50 embedding: each entry's difference relative to the
+# largest |entry|, as F32_GRAD_REL_TOL is: another convolution order through
+# 53 convs gives about 1e-6 of it; 1e-4 is far above that noise.
+F32_EMBED_REL_TOL = 1e-4
+FLEET = (("yolov8n", 6), ("resnet50", 5), ("vit_b16", 5))   # BASELINE.md's mixed fleet
+FLEET_EMBED_WIDTH = 2048     # 18b: resnet50's pooled feature
+FLEET_RUN_S = 10.0           # 18b: paced at 30 fps for this long
+FLEET_BUCKETS = (1, 2, 4, 8)  # 18b: every bucket a model of at most 6 streams can take
+FLEET_CHILD_TIMEOUT_S = 600  # 18b runs in a process of its own (families_phase)
+
+
+def replay_against_eager(tag: str, engine, eager, inputs: list, src_hw: tuple) -> tuple:
+    """Phase 18a: the engine's graphed step of ``inputs[0]``'s key against
+    ``eager`` on each input, bit for bit (two distinct inputs must differ);
+    (the graphed step, replay median ms by CUDA events)."""
+    import torch
+
+    with torch.inference_mode():
+        want = [eager(*x) for x in inputs]
+        with engine._compute_stream():
+            step = engine._step(src_hw, inputs[0][0].shape[0])
+            step(*inputs[-1])                  # warmup, capture, replay
+            got = [step(*x) for x in inputs]
+            torch.cuda.synchronize()
+            for i, (g, w) in enumerate(zip(got, want)):
+                for k in w:
+                    if g[k].dtype != w[k].dtype or not torch.equal(g[k], w[k]):
+                        raise AssertionError(f"phase 18a {tag}: input {i}: the graphed {k} "
+                                             f"differs from eager")
+            if all(torch.equal(got[0][k], got[1][k]) for k in got[0]):
+                raise AssertionError(f"phase 18a {tag}: two distinct inputs gave the same "
+                                     f"outputs")
+            _, replay_ms = median_call_ms(lambda: step(*inputs[0]))
+    return step, replay_ms
+
+
+def release_engines(dev, tag: str) -> None:
+    """Collect what only reference cycles keep alive, release the device
+    state of the stopped engines and graphed steps of earlier phases that
+    stay alive (their graphs, graph pools, models and buffers), the cuBLAS
+    workspaces and the preprocessing constants (as after phase 8), and
+    print what the allocator still reserves."""
+    import gc
+
+    import torch
+
+    from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine, _GraphedStep
+    from video_edge_ai_proxy_tpu_torch.ops import preprocess as preprocess_mod
+
+    gc.collect()
+    before = torch.cuda.memory_reserved(dev)
+    released = 0
+    for obj in gc.get_objects():
+        if isinstance(obj, (InferenceEngine, _GraphedStep)) and obj.__dict__ and \
+                getattr(obj, "_thread", None) is None and getattr(obj, "_drain_thread", None) is None:
+            obj.__dict__.clear()
+            released += 1
+    obj = None
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    preprocess_mod._constant.cache_clear()
+    torch.cuda.empty_cache()
+    states: dict = {}
+    for seg in torch.cuda.memory_snapshot():
+        for blk in seg["blocks"]:
+            states[blk["state"]] = states.get(blk["state"], 0) + blk["size"]
+    log(f"phase {tag} before: {released} stopped engines and graphed steps of earlier phases "
+        f"released; {torch.cuda.memory_allocated(dev) / 2 ** 20:.1f} MiB allocated, "
+        f"{torch.cuda.memory_reserved(dev) / 2 ** 20:.1f} MiB reserved ({before / 2 ** 20:.1f} "
+        f"before); reserved blocks by state (MiB) "
+        + ", ".join(f"{k} {v / 2 ** 20:.1f}" for k, v in sorted(states.items())))
+
+
+def families_phase(dev, card: str, zero_launches, read_launches, kernels, report) -> None:
+    """Phase 18: (a) yolov8s, resnet50's embed step and mobilenet_v2 at full
+    width against their plain keep mask, the CPU in float32 and eager; (b)
+    the mixed fleet of yolov8n, resnet50 and vit_b16 streams in one engine,
+    in a process of its own: after phases 11-17 this one's allocator keeps
+    tens of GiB of freed blocks reserved (on the H100, 565 of 577 segments
+    of the default pool without an allocated block), which
+    ``empty_cache`` does not return and a new engine's streams cannot
+    reuse."""
+    release_engines(dev, "18a")
+    model_families_phase(dev, card, zero_launches, read_launches, report)
+    release_engines(dev, "18b")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--fleet"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=FLEET_CHILD_TIMEOUT_S)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"phase 18b exited {proc.returncode}: {proc.stderr[-3000:]}")
+    report["nms_keep_mask"].update(json.loads(lines[-1]))
+
+
+def fleet_main() -> int:
+    """``chip_smoke.py --fleet``: phase 18b alone, as ``families_phase``
+    runs it in a process of its own (the kernels as phase 2 built them);
+    the keep mask's report entries are its last line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, ROOT)
+    from video_edge_ai_proxy_tpu_torch.device import resolve_device
+    from video_edge_ai_proxy_tpu_torch.kernels import build
+    from video_edge_ai_proxy_tpu_torch.kernels.nms import nms_keep_mask_cuda
+
+    build.build_all()
+
+    def zero_launches():
+        nms_keep_mask_cuda.launches = 0
+
+    def read_launches():
+        return {"nms_keep_mask": nms_keep_mask_cuda.launches}
+
+    report: dict = {"nms_keep_mask": {}}
+    mixed_fleet_phase(resolve_device("cuda"), card_line(), zero_launches, read_launches, report)
+    print(json.dumps(report["nms_keep_mask"]), flush=True)
+    return 0
+
+
+def model_families_phase(dev, card: str, zero_launches, read_launches, report) -> None:
+    """Phase 18a: each new model at full width."""
+    import torch
+
+    from video_edge_ai_proxy_tpu_torch.bus.memory_bus import MemoryFrameBus
+    from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine, build_serving_step
+    from video_edge_ai_proxy_tpu_torch.models import registry
+    from video_edge_ai_proxy_tpu_torch.models.carry import zero_class_prior
+    from video_edge_ai_proxy_tpu_torch.ops.nms import nms_keep_mask_reference
+    from video_edge_ai_proxy_tpu_torch.ops.preprocess import (
+        frame_quality_stats, preprocess_classify, preprocess_letterbox,
+    )
+    from video_edge_ai_proxy_tpu_torch.utils.config import EngineConfig
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    frames = [torch.randint(0, 256, (N_STREAMS,) + FRAME_HW + (3,), generator=gen,
+                            dtype=torch.uint8, device=dev) for _ in range(2)]
+    thumbs = [torch.rand((N_STREAMS, THUMB, THUMB), generator=gen, device=dev) for _ in range(2)]
+    inputs = list(zip(frames, thumbs))
+
+    def no_tf32():
+        return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                          allow_tf32=False)
+
+    def engine_for(name, model):
+        engine = InferenceEngine(MemoryFrameBus(), EngineConfig(model=name), device=dev,
+                                 model=model)
+        engine.warmup()
+        return engine
+
+    def f32_pair(spec):
+        return (spec.init_params(torch.Generator().manual_seed(0), device=dev,
+                                 dtype=torch.float32),
+                spec.init_params(torch.Generator().manual_seed(0), device="cpu",
+                                 dtype=torch.float32))
+
+    # (a) yolov8s
+    spec = registry.get("yolov8s")
+    model = spec.init_params(torch.Generator().manual_seed(0), device=dev)
+    model.load_state_dict(zero_class_prior(model.state_dict()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eager = build_serving_step(model, spec, quality_thumb=THUMB)
+    out = eager(*inputs[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    want_shapes = {"boxes": (16, 100, 4), "scores": (16, 100), "classes": (16, 100),
+                   "valid": (16, 100), "quality_stats": (16, 3),
+                   "quality_thumbs": (16, THUMB, THUMB)}
+    if shapes != want_shapes:
+        raise AssertionError(f"phase 18a yolov8s output shapes {shapes} != {want_shapes}")
+    for key in ("boxes", "scores", "quality_stats", "quality_thumbs"):
+        if not bool(torch.isfinite(out[key]).all()):
+            raise AssertionError(f"phase 18a yolov8s: non-finite {key}")
+    n_valid = int(out["valid"].sum())
+    if n_valid <= 0:
+        raise AssertionError("phase 18a yolov8s: no detections")
+    ref = build_serving_step(model, spec, quality_thumb=THUMB,
+                             keep_mask=nms_keep_mask_reference)(*inputs[0])
+    for key in ("boxes", "scores", "classes", "valid"):
+        if not torch.equal(out[key], ref[key]):
+            raise AssertionError(f"phase 18a yolov8s: the plain keep mask gives another {key}")
+    engine = engine_for("yolov8s", model)
+    step, replay_ms = replay_against_eager("yolov8s", engine, eager, inputs, FRAME_HW)
+    with torch.inference_mode(), engine._compute_stream():
+        zero_launches()
+        step(*inputs[0])
+        torch.cuda.synchronize()
+        per_replay = read_launches()["nms_keep_mask"]
+    if per_replay != 1:
+        raise AssertionError(f"phase 18a yolov8s: {per_replay} keep-mask launches a replay")
+    m32, m32_cpu = f32_pair(spec)
+    two = frames[0][:2]
+    with torch.inference_mode(), no_tf32():
+        x_gpu, _ = preprocess_letterbox(two, 640, out_dtype=torch.float32)
+        x_cpu, _ = preprocess_letterbox(two.cpu(), 640, out_dtype=torch.float32)
+        pre_err = float((x_gpu.cpu() - x_cpu).abs().max())
+        head_gpu = m32(x_gpu.permute(0, 3, 1, 2), decode=False)
+        head_cpu = m32_cpu(x_cpu.permute(0, 3, 1, 2), decode=False)
+        logit_err = max(float((g.cpu() - c).abs().max())
+                        for lg, lc in zip(head_gpu, head_cpu) for g, c in zip(lg, lc))
+        b_gpu, _ = m32(x_gpu.permute(0, 3, 1, 2), decode=True)
+        b_cpu, _ = m32_cpu(x_cpu.permute(0, 3, 1, 2), decode=True)
+        s_gpu, _ = frame_quality_stats(two, torch.zeros((2, THUMB, THUMB), device=dev),
+                                       (THUMB, THUMB))
+        s_cpu, _ = frame_quality_stats(two.cpu(), torch.zeros((2, THUMB, THUMB)),
+                                       (THUMB, THUMB))
+    box_err = float((b_gpu.cpu() - b_cpu).abs().max())
+    stat_err = float((s_gpu.cpu() - s_cpu).abs().max())
+    log(f"phase 18a yolov8s bf16 640, {N_STREAMS}x1080x1920 uint8: shapes ok, finite, "
+        f"{n_valid} detections, the plain keep mask gives the same; graph replay = eager on "
+        f"2 inputs, {replay_ms:.3f} ms a replay (median of 20, CUDA events) on {card}, "
+        f"{per_replay} keep-mask launch a replay; peak memory {peak:.1f} MiB (eager); f32 "
+        f"card vs CPU (2 frames, TF32 off): preprocess {pre_err:.3g}, head logits "
+        f"{logit_err:.3g}, boxes {box_err:.3g} px, quality stats {stat_err:.3g}")
+    if not (pre_err <= 1e-4 and logit_err <= F32_LOGIT_TOL and box_err <= 1e-2
+            and stat_err <= 1e-4):
+        raise AssertionError("phase 18a yolov8s: float32 on the card disagrees with the CPU")
+    report["nms_keep_mask"]["replay_ms_yolov8s"] = replay_ms
+    del engine, step, eager, model, m32, m32_cpu, out, ref
+    torch.cuda.empty_cache()
+
+    # (a) resnet50's embed step
+    spec = registry.get("resnet50")
+    model = spec.init_params(torch.Generator().manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eager = build_serving_step(model, spec, quality_thumb=THUMB)
+    out = eager(*inputs[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    emb = out["embedding"]
+    if tuple(emb.shape) != (N_STREAMS, 2048) or emb.dtype != torch.float32 \
+            or not bool(torch.isfinite(emb).all()):
+        raise AssertionError(f"phase 18a resnet50: embedding {tuple(emb.shape)} {emb.dtype}")
+    engine = engine_for("resnet50", model)
+    _, replay_ms = replay_against_eager("resnet50", engine, eager, inputs, FRAME_HW)
+    m32, m32_cpu = f32_pair(spec)
+    with torch.inference_mode(), no_tf32():
+        e_gpu = m32(preprocess_classify(two, (224, 224), out_dtype=torch.float32),
+                    features_only=True).cpu()
+        e_cpu = m32_cpu(preprocess_classify(two.cpu(), (224, 224), out_dtype=torch.float32),
+                        features_only=True)
+    emb_rel = float((e_gpu - e_cpu).abs().max() / e_cpu.abs().max())
+    log(f"phase 18a resnet50 embed bf16 224, {N_STREAMS}x1080x1920 uint8: embeddings "
+        f"[{N_STREAMS}, 2048] float32, finite (|mean| {float(emb.abs().mean()):.4g}); graph "
+        f"replay = eager on 2 inputs, {replay_ms:.3f} ms a replay on {card}; peak memory "
+        f"{peak:.1f} MiB (eager); f32 card vs CPU (2 frames, TF32 off): largest difference "
+        f"{emb_rel:.3g} of the largest |entry| (tolerance {F32_EMBED_REL_TOL})")
+    if not emb_rel <= F32_EMBED_REL_TOL:
+        raise AssertionError("phase 18a resnet50: float32 on the card disagrees with the CPU")
+    del engine, eager, model, m32, m32_cpu, out, emb
+    torch.cuda.empty_cache()
+
+    # (a) mobilenet_v2 classify at 1 stream and at 16
+    spec = registry.get("mobilenet_v2")
+    model = spec.init_params(torch.Generator().manual_seed(0), device=dev)
+    m32, m32_cpu = f32_pair(spec)
+    engine = engine_for("mobilenet_v2", model)
+    eager = build_serving_step(model, spec, quality_thumb=THUMB)
+    notes = []
+    for n in (1, N_STREAMS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        sub = [(f[:n], t[:n]) for f, t in inputs]
+        _, replay_ms = replay_against_eager(f"mobilenet_v2 x{n}", engine, eager, sub, FRAME_HW)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        with torch.inference_mode(), no_tf32():
+            got = build_serving_step(m32, spec, preprocess_dtype=torch.float32)(frames[0][:n])
+            want = build_serving_step(m32_cpu, spec, preprocess_dtype=torch.float32)(
+                frames[0][:n].cpu())
+        if not torch.equal(got["top_ids"].cpu(), want["top_ids"]):
+            raise AssertionError(f"phase 18a mobilenet_v2 x{n}: f32 top-5 ids on the card "
+                                 f"{got['top_ids'].tolist()} != the CPU's "
+                                 f"{want['top_ids'].tolist()}")
+        p_err = float((got["top_probs"].cpu() - want["top_probs"]).abs().max())
+        notes.append(f"{n} stream(s): replay = eager, {replay_ms:.3f} ms a replay, peak "
+                     f"{peak:.1f} MiB; f32 top-5 ids equal card vs CPU (probabilities "
+                     f"{p_err:.3g} apart)")
+    log(f"phase 18a mobilenet_v2 classify bf16 224 on {card}: " + "; ".join(notes))
+    del engine, eager, model, m32, m32_cpu, frames, thumbs, inputs
+    torch.cuda.empty_cache()
+
+
+def mixed_fleet_phase(dev, card: str, zero_launches, read_launches, report) -> None:
+    """Phase 18b: one engine serving ``FLEET``'s streams, each on its model
+    (the first, a detector, the engine's default)."""
+    import torch
+
+    from video_edge_ai_proxy_tpu_torch.bus.memory_bus import MemoryFrameBus
+    from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine
+    from video_edge_ai_proxy_tpu_torch.ingest.sources import SyntheticSource
+    from video_edge_ai_proxy_tpu_torch.models import registry
+    from video_edge_ai_proxy_tpu_torch.models.carry import zero_class_prior
+    from video_edge_ai_proxy_tpu_torch.obs import registry as obs_registry
+    from video_edge_ai_proxy_tpu_torch.utils.config import EngineConfig
+
+    default = FLEET[0][0]
+    streams = {f"{name}-{i}": name for name, n in FLEET for i in range(n)}
+    bus = MemoryFrameBus()
+    for s in streams:
+        bus.create_stream(s, FRAME_HW[0] * FRAME_HW[1] * 3)
+    det = registry.get(default).init_params(torch.Generator().manual_seed(0), device=dev)
+    det.load_state_dict(zero_class_prior(det.state_dict()))
+    cfg = EngineConfig(model=default, prewarm=[[FRAME_HW[0], FRAME_HW[1], b, m]
+                                               for m, _ in FLEET for b in FLEET_BUCKETS])
+    engine = InferenceEngine(bus, cfg, device=dev, model=det,
+                             model_resolver=lambda d: "" if streams.get(d) == default
+                             else streams.get(d, ""))
+    results = engine.subscribe()
+    got: dict = {}
+
+    def consume():
+        for r in results:
+            got.setdefault(r.device_id, []).append(r)
+
+    reader = threading.Thread(target=consume, daemon=True)
+    reader.start()
+    pool = [SyntheticSource.render(FRAME_HW[0], FRAME_HW[1], n) for n in range(PACED_POOL)]
+    device_ms = {f.name: f for f in obs_registry.families()}["vep_device_batch_ms"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    with LogCounter() as logged:
+        t0 = time.perf_counter()
+        engine.start()
+        start_s = time.perf_counter() - t0
+        batches0 = device_ms.labels(default).count
+        zero_launches()
+        try:
+            published, wall_s, _ = paced_publish(bus, list(streams), pool, FLEET_RUN_S)
+        finally:
+            engine.stop()
+        launches = read_launches()
+        batches = device_ms.labels(default).count - batches0
+    reader.join(10)
+    if reader.is_alive():
+        raise AssertionError("phase 18b: the subscriber did not end")
+    failures = {m: logged.count(m) for m in FAILURE_MESSAGES}
+    missing = [s for s in streams if not got.get(s)]
+    misrouted = [(s, r.model) for s, rs in got.items() for r in rs if r.model != streams[s]]
+    bad_emb = [s for s, rs in got.items() if registry.get(streams[s]).kind == "embed"
+               for r in rs if not (len(r.detections) == 1
+                                   and len(r.detections[0].embedding) == FLEET_EMBED_WIDTH)]
+    by_model = {}
+    for s, rs in got.items():
+        by_model.setdefault(streams[s], []).extend(r.latency_ms for r in rs)
+    log(f"phase 18b mixed fleet on {card}: {', '.join(f'{n} {m}' for m, n in FLEET)} streams "
+        f"at {FRAME_HW[1]}x{FRAME_HW[0]}, {PACED_FPS:g} fps for {wall_s:.3f} s ({published} frames published; "
+        f"start with {len(cfg.prewarm)} programs prewarmed {start_s:.2f} s): " + "; ".join(
+            f"{m} {len(lat)} results ({len(lat) / wall_s:.2f} frames/s), latency p50 "
+            f"{pct(lat, 50):.3f} ms, p95 {pct(lat, 95):.3f} ms" for m, lat in by_model.items())
+        + f"; keep-mask launches {launches['nms_keep_mask']} for {batches} {default} batches; "
+        f"{len(misrouted)} misrouted; peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 20:.1f} MiB; logged failures {failures} "
+        f"({logged.summary()})")
+    if missing or misrouted or bad_emb or any(failures.values()):
+        raise AssertionError(f"phase 18b: streams without results {missing}, misrouted "
+                             f"{misrouted[:5]}, embed streams without a {FLEET_EMBED_WIDTH}-wide "
+                             f"embedding {sorted(set(bad_emb))}, failures {failures}")
+    if launches["nms_keep_mask"] != batches or batches <= 0:
+        raise AssertionError(f"phase 18b: {launches['nms_keep_mask']} keep-mask launches for "
+                             f"{batches} {default} batches")
+    report["nms_keep_mask"]["launches_fleet"] = launches["nms_keep_mask"]
+    del engine, det
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -4697,6 +5094,9 @@ def main() -> int:
     # -- phase 17: the temporal cascade -----------------------------------------------------------
     cascade_phase(dev, card, zero_launches, read_launches, kernels, report)
 
+    # -- phase 18: the other model families -------------------------------------------------------
+    families_phase(dev, card, zero_launches, read_launches, kernels, report)
+
     line = {"kernels": []}
     for name, meta in kernels.items():
         r = report[name]
@@ -4711,6 +5111,8 @@ def main() -> int:
                if "launches_variants" in r else {}),
             **({"launches_roi": r["launches_roi"]} if "launches_roi" in r else {}),
             **({"launches_cascade": r["launches_cascade"]} if "launches_cascade" in r else {}),
+            **({"launches_fleet": r["launches_fleet"]} if "launches_fleet" in r else {}),
+            **({"replay_ms_yolov8s": r["replay_ms_yolov8s"]} if "replay_ms_yolov8s" in r else {}),
             "replaces": meta["replaces"], "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -4724,4 +5126,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(fleet_main() if sys.argv[1:] == ["--fleet"] else main())

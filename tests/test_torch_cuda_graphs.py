@@ -188,3 +188,64 @@ def test_engine_serves_through_one_graph_per_key(card, detector):
     assert stats["programs"] == 1 and stats["capture_s"] > 0.0 and stats["pool_bytes"] > 0
     assert [r["programs"] for r in eng.perf.compiles()] == [1]
     assert eng.prewarm_status()["complete"]
+
+
+@pytest.mark.parametrize("name,thumb", [("tiny_resnet", THUMB), ("tiny_mobilenet_v2", THUMB),
+                                        ("yolov8s", THUMB), ("resnet50", 0)])
+def test_model_families_graphed_equal_eager(card, name, thumb):
+    """The other families' steps (embed, classify, the small detector) in
+    bf16: the graph replay equals eager bit for bit; yolov8s's step with
+    the plain keep mask gives the same detections, and one keep-mask
+    launch a replay."""
+    from video_edge_ai_proxy_tpu_torch.kernels import launch_counters
+    from video_edge_ai_proxy_tpu_torch.kernels.nms import nms_keep_mask_cuda
+    from video_edge_ai_proxy_tpu_torch.ops.nms import nms_keep_mask_reference
+
+    spec = registry.get(name)
+    model = spec.init_params(torch.Generator().manual_seed(0), device=card)
+    if spec.kind == "detect":
+        model.load_state_dict(zero_class_prior(model.state_dict()))
+    shape = (4, 270, 480, 3)
+    eager = build_serving_step(model, spec, quality_thumb=thumb)
+    step, stream, _ = _graphed(card, model, spec, shape, thumb)
+    inputs = [_inputs(card, shape, seed, thumb) for seed in range(2)]
+    with torch.inference_mode():
+        want = [eager(*x) for x in inputs]
+        with torch.cuda.stream(stream):
+            got = [step(*x) for x in inputs]
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            _assert_equal(g, w)
+        if spec.kind == "embed":
+            assert tuple(got[0]["embedding"].shape) == (4, model.features)
+        if spec.kind == "detect":
+            plain = build_serving_step(model, spec, quality_thumb=thumb,
+                                       keep_mask=nms_keep_mask_reference)(*inputs[0])
+            for k in ("boxes", "scores", "classes", "valid"):
+                assert torch.equal(plain[k], want[0][k]), k
+            assert int(want[0]["valid"].sum()) > 0
+            before = nms_keep_mask_cuda.launches
+            with torch.cuda.stream(stream):
+                step(*inputs[0])
+            torch.cuda.synchronize()
+            assert nms_keep_mask_cuda.launches - before == 1
+    assert nms_keep_mask_cuda in launch_counters()
+
+
+@pytest.mark.parametrize("name", ["tiny_resnet", "tiny_mobilenet_v2", "mobilenet_v2"])
+def test_model_families_f32_on_the_card_match_the_cpu(card, name):
+    """float32 with TF32 off, the card against the CPU on the same seeded
+    weights and frames: embeddings within 1e-4 of their largest entry,
+    classifier top-5 ids equal."""
+    spec = registry.get(name)
+    models = [spec.init_params(torch.Generator().manual_seed(0), device=d, dtype=torch.float32)
+              for d in (card, "cpu")]
+    frames = _inputs(card, (2, 270, 480, 3), 5)[0]
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        got, want = (build_serving_step(m, spec, preprocess_dtype=torch.float32)(f)
+                     for m, f in zip(models, (frames, frames.cpu())))
+    if spec.kind == "embed":
+        err = (got["embedding"].cpu() - want["embedding"]).abs().max()
+        assert float(err / want["embedding"].abs().max()) <= 1e-4
+    else:
+        assert torch.equal(got["top_ids"].cpu(), want["top_ids"])

@@ -165,7 +165,10 @@ def jax_server(tmp_path_factory, variables):
     same weights (a checkpoint of ``variables``); its uplink fails fast. The
     JAX registry builds ``tiny_yolov8`` in bfloat16 and its engine has no
     dtype switch, so for this module its entry builds the float32 model, as
-    the port's server runs it."""
+    the port's server runs it. Its engine compiles the program of the twin
+    camera's geometry here, as the port's fixture warms its engine: an XLA
+    compile inside a timed request would outlast the worker heartbeat's
+    freshness on a loaded machine."""
     import dataclasses
     import shutil
 
@@ -190,6 +193,7 @@ def jax_server(tmp_path_factory, variables):
     cfg.engine.checkpoint_path = str(data / "tiny_yolov8.msgpack")
     srv = JaxServer(cfg, data_dir=str(data), grpc_port=0, rest_port=0, enable_engine=True)
     srv.start()
+    srv.engine.compile_for(TWIN_HW, 1)
     yield srv
     srv.stop()
     patch.undo()
@@ -248,6 +252,16 @@ def test_rest_process_crud_and_log_follow(server):
 
 
 TWIN = {"name": "twin", "rtsp_endpoint": synth_url(1, w=64, h=48), "annotation_policy": "keyframe"}
+TWIN_HW = (48, 64)
+# A one-frame worker writes its heartbeat once, after its frame; the
+# servers report it for 5 s (STATUS_FRESH_MS), so the answers that carry it
+# are taken as soon as it shows.
+HEARTBEAT_WAIT_S = 60.0
+RESULT_WAIT_S = 60.0
+# The families the engine, the process manager and the uplink register.
+ENGINE_FAMILY_PREFIXES = ("vep_engine_", "vep_stream_", "vep_device_batch", "vep_batch_",
+                          "vep_frames_late", "vep_step_cache_", "vep_drain_", "vep_subscriber_",
+                          "vep_worker", "vep_annotation", "vep_ladder_", "vep_model_")
 
 
 @pytest.fixture(scope="module")
@@ -264,12 +278,13 @@ def twins(server, jax_server):
         channel = grpc.insecure_channel(f"127.0.0.1:{srv.bound_grpc_port}")
         stub = mod_grpc.ImageStub(channel)
         n_subs = len(srv.engine._subscribers)
-        call = stub.Inference(mod.InferenceRequest(device_ids=["twin"]), timeout=60)
+        call = stub.Inference(mod.InferenceRequest(device_ids=["twin"]), timeout=RESULT_WAIT_S)
         results: list = []
         reader = threading.Thread(target=lambda: results.extend(itertools.islice(call, 1)),
                                   daemon=True)
         reader.start()
-        assert wait_for(lambda: len(srv.engine._subscribers) > n_subs), tag
+        assert wait_for(lambda: len(srv.engine._subscribers) > n_subs), \
+            f"{tag}: the Inference subscription did not reach the engine"
         got = out[tag] = {
             "POST settings": rest(srv, "/api/v1/settings", {"edge_key": "k", "edge_secret": "s"}),
             "POST process": rest(srv, "/api/v1/process", TWIN),
@@ -281,11 +296,23 @@ def twins(server, jax_server):
             "logs bad cursor": rest_error(srv, "/api/v1/process/twin/logs?since=x"),
             "GET process of none": rest_error(srv, "/api/v1/process/ghost"),
         }
-        reader.join(timeout=60)
+        seen: dict = {}
+
+        def heartbeat_shows_the_frame():
+            seen["GET process"] = rest(srv, "/api/v1/process/twin")
+            return (seen["GET process"][1].get("heartbeat") or {}).get("published") == 1
+
+        assert wait_for(heartbeat_shows_the_frame, timeout=HEARTBEAT_WAIT_S), \
+            f"{tag}: no fresh worker heartbeat with published == 1 within {HEARTBEAT_WAIT_S} s"
+        got.update({
+            "GET process": seen["GET process"],
+            "GET processlist": rest(srv, "/api/v1/processlist"),
+            "ListStreams": [s for s in stub.ListStreams(mod.ListStreamRequest())
+                            if s.name == "twin"],
+        })
+        reader.join(timeout=RESULT_WAIT_S)
         call.cancel()
-        assert results, f"{tag}: no Inference result for the one frame"
-        assert wait_for(lambda: (rest(srv, "/api/v1/process/twin")[1].get("heartbeat") or {})
-                        .get("published") == 1), tag
+        assert results, f"{tag}: no Inference result for the one frame within {RESULT_WAIT_S} s"
         with pytest.raises(grpc.RpcError) as err:
             next(iter(stub.Inference(mod.InferenceRequest(model="yolov8m_typo"), timeout=10)))
         def ask():
@@ -298,12 +325,8 @@ def twins(server, jax_server):
                 device_name="twin", type="parked", start_timestamp=ts, confidence=0.5)),
             "Inference unknown model": err.value.code(),
             "result": results[0],
-            "GET process": rest(srv, "/api/v1/process/twin"),
-            "GET processlist": rest(srv, "/api/v1/processlist"),
             "GET settings": rest(srv, "/api/v1/settings"),
             "GET logs": rest(srv, "/api/v1/process/twin/logs?since=0"),
-            "ListStreams": [s for s in stub.ListStreams(mod.ListStreamRequest())
-                            if s.name == "twin"],
         })
         channel.close()
     return out
@@ -624,7 +647,14 @@ def test_grpc_inference_and_model_filter(server, stub):
 
 
 def test_admin_and_observability_routes(server, stub):
-    _, channel = stub
+    stub, channel = stub
+    # The queue's count comes from this test's own event, not from an
+    # earlier test of the module (a worker of a distributed run may run
+    # this one first).
+    if not server.settings.edge_credentials()[0]:
+        server.settings.overwrite("k", "s")
+    stub.Annotate(pb.AnnotateRequest(device_name="admin", type="admin_check",
+                                     start_timestamp=int(time.time() * 1000), confidence=0.5))
     assert json.loads(channel.unary_unary("/vep.Admin/RouterState")(b""))["rung"] in (
         "normal", "shed", "bucket_downshift", "admission_pause")
     quality = json.loads(channel.unary_unary("/vep.Admin/Quality")(b""))
@@ -747,3 +777,37 @@ def test_without_the_wire_packages_the_planes_build_and_start_raises(tmp_path, s
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert lines[-2] == "ImportError grpc" and lines[-1] == "[]"
+
+
+def _families(text: bytes) -> set:
+    return {line.split()[2] for line in text.decode().splitlines()
+            if line.startswith("# TYPE ")}
+
+
+def test_engine_metric_families_and_drops_equal_jax(server, jax_server):
+    """The /metrics families of both servers' engines and control planes
+    (the process-wide registries also hold what other tests of a worker
+    registered, so the comparison keeps to the families the JAX server
+    exports for its engine, workers and uplink), and the slow-subscriber
+    drops in /api/v1/stats and /metrics."""
+    answers = []
+    for srv in (server, jax_server):
+        text = rest(srv, "/metrics")[1]
+        stats = rest(srv, "/api/v1/stats")[1]["engine"]
+        answers.append((_families(text), stats, text))
+    (mine, port_stats, port_text), (theirs, jax_stats, _) = answers
+    shared = {f for f in theirs if f.startswith(ENGINE_FAMILY_PREFIXES)}
+    # A labelled family shows once it has a child (a stream, a model).
+    assert {"vep_engine_ticks_total", "vep_batch_occupancy_pct",
+            "vep_subscriber_dropped_total"} <= shared
+    assert shared - mine == set()
+    from video_edge_ai_proxy_tpu_torch.obs import registry as obs_registry
+
+    assert {"vep_engine_ticks_total", "vep_device_batch_ms", "vep_batch_occupancy_pct",
+            "vep_frames_late_total", "vep_stream_subscriber_dropped_total"} <= \
+        {f.name for f in obs_registry.families()}
+    assert port_stats["subscriber_drops"] == server.engine.subscriber_drops
+    assert isinstance(jax_stats["subscriber_drops"], int)
+    assert f"vep_subscriber_dropped_total {server.engine.subscriber_drops}".encode() in \
+        port_text or f"vep_subscriber_dropped_total {float(server.engine.subscriber_drops)}" \
+        .encode() in port_text

@@ -5,10 +5,13 @@ device program of a model: uint8 frames (or clips) in, postprocessed
 results out. Detectors: letterbox -> YOLOv8 ``decode="serving"`` ->
 sigmoid of the per-anchor max logit -> batched NMS through the CUDA
 keep-mask kernel -> unletterbox. Classifiers and video models: stretch
-resize + ImageNet normalisation -> ViT / VideoMAE (long clips through the
-CUDA flash-attention kernel) -> float32 softmax -> top-5. Frame models
-add the frame-quality statistics. It runs eagerly; ``chip_smoke.py``
-times it.
+resize + ImageNet normalisation -> MobileNetV2 / ViT / VideoMAE (long
+clips through the CUDA flash-attention kernel) -> float32 softmax ->
+top-5. Embedders: the same resize and normalisation -> ResNet's pooled
+float32 features (``features_only``), one re-ID vector a frame, carried
+as a box-less detection's ``embedding`` (the annotation's
+``object_signature``). Frame models add the frame-quality statistics. It
+runs eagerly; ``chip_smoke.py`` times it.
 
 The engine compiles it once per (model, stem, geometry, bucket), the JAX
 engine's step-cache key: on the card ``_GraphedStep`` captures it into
@@ -171,6 +174,8 @@ def build_serving_step(
     - ``"detect"``: frames [N, H, W, 3] uint8 -> dict of ``boxes [N, 100,
       4]`` (source px, xyxy), ``scores``, ``classes``, ``valid``; an
       ``s2d``-stem model takes the fused letterbox's folded plane;
+    - ``"embed"``: frames [N, H, W, 3] uint8 -> dict of ``embedding [N,
+      F]`` f32, the model's pooled features (``features_only=True``);
     - ``"classify"`` / ``"video"``: frames [N, H, W, 3], or clips [N,
       clip_len, H, W, 3], uint8 -> dict of ``top_probs [N, 5]`` f32 and
       ``top_ids [N, 5]`` int32 (``lax.top_k``'s order: ties toward the
@@ -201,6 +206,11 @@ def build_serving_step(
                                              keep_mask=keep_mask)
                 b = unletterbox_boxes(b, lb)
             return {"boxes": b, "scores": s, "classes": c, "valid": valid}
+    elif spec.kind == "embed":
+        def raw(frames_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+            with torch.inference_mode():
+                x = preprocess_classify(frames_u8, (size, size), out_dtype=preprocess_dtype)
+                return {"embedding": model(x, features_only=True)}
     elif spec.kind in ("classify", "video"):
         pre = preprocess_clip if spec.clip_len else preprocess_classify
 
@@ -283,6 +293,7 @@ class Detection:
     confidence: float = 0.0
     class_id: int = 0
     class_name: str = ""
+    embedding: List[float] = field(default_factory=list)   # re-ID features (embed models)
     track_id: str = ""            # per-stream tracker id (cfg.track)
 
 
@@ -303,9 +314,13 @@ def to_detections(host: Dict[str, np.ndarray], i: int, kind: str,
                   num_classes: int) -> List[Detection]:
     """Row ``i`` of a host-side step output -> wire detections. Detectors:
     int pixel boxes (left/top/width/height), confidence, class id and
-    name. Classifiers and video models: one box-less detection per top-5
-    entry."""
+    name. Embedders: one box-less detection with the feature vector,
+    confidence 1 and class id -1. Classifiers and video models: one
+    box-less detection per top-5 entry."""
     out: List[Detection] = []
+    if kind == "embed":
+        return [Detection(confidence=1.0, class_id=-1,
+                          embedding=[float(v) for v in host["embedding"][i]])]
     if kind != "detect":
         for p, cid in zip(host["top_probs"][i], host["top_ids"][i]):
             out.append(Detection(confidence=float(p), class_id=int(cid),
@@ -1065,6 +1080,9 @@ class InferenceEngine:
         self._ann_state: Dict[str, dict] = {}
         self._ann_policy_warned: set = set()   # (device_id, unknown policy)
         self.annotations_suppressed = 0
+        # Results a full subscriber queue dropped (``_publish``).
+        self.subscriber_drops = 0
+        self.subscriber_drops_by_stream: Dict[str, int] = {}
         self._inferred: List[str] = []               # the last tick's inferred streams
         self._known: set = set()                     # streams seen on the bus
         self._absent: Dict[str, float] = {}          # device_id -> absent since
@@ -1167,12 +1185,24 @@ class InferenceEngine:
         # The canary integrity loop (cfg.quality_canary), armed by start().
         self.canary = None
         self._canary_thread: Optional[threading.Thread] = None
+        self._m_ticks = obs_registry.counter(
+            "vep_engine_ticks_total", "Engine ticks completed").labels()
         self._m_batches = obs_registry.counter(
             "vep_engine_batches_total", "Device batches dispatched").labels()
         self._m_frames = obs_registry.counter(
             "vep_stream_frames_total", "Inference results per stream", ("stream",))
         self._m_latency = obs_registry.histogram(
             "vep_stream_latency_ms", "Capture to result latency per stream (ms)", ("stream",))
+        self._m_device = obs_registry.histogram(
+            "vep_device_batch_ms", "Batch submit to host fetch complete (ms)", ("model",))
+        self._m_occupancy = obs_registry.histogram(
+            "vep_batch_occupancy_pct", "Real frames per padded batch slot (percent)").labels()
+        self._m_sub_drops = obs_registry.counter(
+            "vep_stream_subscriber_dropped_total",
+            "Results dropped on slow subscribers per stream", ("stream",))
+        self._m_late = obs_registry.counter(
+            "vep_frames_late_total", "Results slower end-to-end than engine.obs_late_ms",
+            ("stream",))
         self._m_shed = obs_registry.counter(
             "vep_ladder_shed_frames_total",
             "Frames shed by the degradation ladder (stale at dispatch)").labels()
@@ -1795,6 +1825,7 @@ class InferenceEngine:
                 else:
                     log.exception("engine tick failed; continuing")
             self.ticks += 1
+            self._m_ticks.inc()
             self.last_tick_monotonic = time.monotonic()
             # The ladder's staleness signal: the work phase, not the
             # assembly window that absorbs the rest of the budget.
@@ -2445,6 +2476,7 @@ class InferenceEngine:
                 self._pipe.h2d_ms += h2d_ms
                 self._pipe.h2d_overlapped_ms += overlapped_ms
             self._m_batches.inc()
+            self._m_occupancy.observe(100.0 * len(group.device_ids) / group.bucket)
             spec = self._model_entry(group.model)[0]
             # The frames (bucket padding included) and, for a model with
             # quality thumbnails, the int64 slot-index vector of the gather
@@ -2564,6 +2596,9 @@ class InferenceEngine:
         t_drain0 = time.time()
         host = self._read_back(inflight)
         t_drained = time.time()
+        # vep_device_batch_ms is the JAX engine's device time: submit ->
+        # host fetch complete; device_ms is the step's own span on the card.
+        self._m_device.labels(spec.name).observe((t_drained - inflight.t_submit) * 1000.0)
         if self._cuda:
             device_ms = inflight.start.elapsed_time(inflight.done)
         else:
@@ -2637,6 +2672,8 @@ class InferenceEngine:
                 slo_latency.record(good=float(ok), bad=float(not ok))
             self._m_frames.labels(device_id).inc()
             self._m_latency.labels(device_id).observe(latency)
+            if latency > self._cfg.obs_late_ms:
+                self._m_late.labels(device_id).inc()
             if self._cfg.stage_trace:
                 self.stage_records.append({
                     "device_id": device_id, "ts_pub_ms": meta.timestamp_ms,
@@ -2765,6 +2802,8 @@ class InferenceEngine:
             self.slo.get("detect_latency_p50").record(good=float(ok), bad=float(not ok))
         self._m_frames.labels(device_id).inc()
         self._m_latency.labels(device_id).observe(latency)
+        if latency > self._cfg.obs_late_ms:
+            self._m_late.labels(device_id).inc()
         if meta.timestamp_ms:
             return inflight.t_collect * 1000.0 - meta.timestamp_ms
         return 0.0
@@ -2820,7 +2859,8 @@ class InferenceEngine:
         if self._annotations is None:
             return
         spec = spec or self._spec
-        eligible = [d for d in detections if d.confidence > 0.0 and d.class_id >= 0]
+        eligible = [d for d in detections
+                    if d.confidence > 0.0 and (d.class_id >= 0 or d.embedding)]
         if not self._should_annotate(device_id, meta, eligible):
             self.annotations_suppressed += len(eligible)
             return
@@ -2837,6 +2877,8 @@ class InferenceEngine:
                 object_bouding_box=(AnnotationBox(top=det.box.top, left=det.box.left,
                                                   width=det.box.width, height=det.box.height)
                                     if detect else None),
+                # Re-ID features ride the proto's object_signature.
+                object_signature=list(det.embedding),
                 ml_model=spec.name,
                 ml_model_version="0",
                 width=meta.width,
@@ -2917,4 +2959,9 @@ class InferenceEngine:
             try:
                 q.put_nowait(result)
             except queue.Full:
-                pass    # a slow subscriber loses results, never the engine
+                # A slow subscriber loses results, never the engine; the
+                # drops are counted (the drain thread is the only writer).
+                self.subscriber_drops += 1
+                self.subscriber_drops_by_stream[result.device_id] = (
+                    self.subscriber_drops_by_stream.get(result.device_id, 0) + 1)
+                self._m_sub_drops.labels(result.device_id).inc()

@@ -1,14 +1,15 @@
 """Weights carried across from the JAX package.
 
 ``from_flax(variables)`` turns a flax ``{"params", "batch_stats"}`` tree of
-the JAX package's YOLOv8, ViT, VideoMAE or blob gauge (leaves as numpy arrays; the
-transformers' ``nn.Partitioned`` boxes unboxed by the caller) into this
-port's ``state_dict``. The port's submodules carry the flax scope names,
-so the mapping is mechanical, by the leaf and the module that holds it:
+the JAX package's YOLOv8, ResNet, MobileNetV2, ViT, VideoMAE or blob gauge
+(leaves as numpy arrays; the transformers' ``nn.Partitioned`` boxes
+unboxed by the caller) into this port's ``state_dict``. The port's
+submodules carry the flax scope names, so the mapping is mechanical, by
+the leaf and the module that holds it:
 
 - conv ``kernel`` -> ``weight``: HWIO -> OIHW (``conv``, ``*_out``,
-  ``patch_embed``), or [ts, p, p, C, D] -> [D, C, ts, p, p] for the
-  tubelet Conv3d (``proj``)
+  ``patch_embed``; a depthwise kernel [k, k, 1, C] -> [C, 1, k, k]), or
+  [ts, p, p, C, D] -> [D, C, ts, p, p] for the tubelet Conv3d (``proj``)
 - Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in] (``qkv``,
   ``out``, ``fc1``, ``fc2``, ``head``, ``classifier``, and the VideoMAE
   decoder's ``dec_embed``, ``dec_pred``)

@@ -185,30 +185,48 @@ class Int8Conv2d(nn.Conv2d):
         return (y.float() * (s_in * s_w)[None, :, None, None]).to(dt)
 
 
+# The convnets' activations by the JAX package's names (``ACT``), applied
+# in the compute dtype.
+ACT = {
+    "silu": F.silu,
+    "relu": F.relu,
+    "relu6": F.relu6,
+    "identity": lambda x: x,
+}
+
+
 class ConvBN(nn.Module):
-    """Conv (no bias) -> BatchNorm (eps 1e-3, frozen statistics) -> SiLU.
+    """Conv (no bias) -> BatchNorm (frozen statistics) -> activation.
 
     Padding is explicit symmetric k//2, as in the JAX package (not SAME,
     which at stride 2 pads (0, 1) on even inputs), unless ``padding``
     ((top, bottom), (left, right)) says otherwise (the ``s2d`` stem's
-    ((1, 0), (1, 0))). ``act_int8`` swaps the conv for ``Int8Conv2d``
+    ((1, 0), (1, 0))). ``act`` is one of ``ACT`` (SiLU, the YOLO family's,
+    by default; the ResNets take ReLU, MobileNetV2 ReLU6), ``eps`` the
+    BatchNorm epsilon (1e-3, ultralytics'; torchvision's convnets train
+    with 1e-5), ``groups`` the conv's feature groups (MobileNetV2's
+    depthwise convs). ``act_int8`` swaps the conv for ``Int8Conv2d``
     (serving only)."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int = 3, stride: int = 1,
                  eps: float = 1e-3, dtype: torch.dtype = torch.bfloat16,
-                 padding=None, act_int8: bool = False):
+                 padding=None, act_int8: bool = False, groups: int = 1, act: str = "silu"):
         super().__init__()
         pads = padding or ((kernel // 2,) * 2,) * 2
         self.pad = None
         if act_int8:
+            if groups != 1:
+                raise NotImplementedError("act_int8 with grouped convs")
             self.conv = Int8Conv2d(c_in, c_out, kernel, stride, pads, dtype)
         elif padding is None:
             self.conv = nn.Conv2d(c_in, c_out, kernel, stride, padding=kernel // 2,
-                                  bias=False, dtype=dtype)
+                                  groups=groups, bias=False, dtype=dtype)
         else:
             self.pad = _pads(padding)
-            self.conv = nn.Conv2d(c_in, c_out, kernel, stride, bias=False, dtype=dtype)
+            self.conv = nn.Conv2d(c_in, c_out, kernel, stride, groups=groups, bias=False,
+                                  dtype=dtype)
         self.bn = nn.BatchNorm2d(c_out, eps=eps, dtype=torch.float32)
+        self.act = ACT[act]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv(x if self.pad is None else F.pad(x, self.pad))
@@ -216,8 +234,28 @@ class ConvBN(nn.Module):
                          self.bn.weight, self.bn.bias, training=False,
                          eps=self.bn.eps)
         conv = self.conv
-        return F.silu(y.to(conv.compute_dtype if isinstance(conv, Int8Conv2d)
-                           else conv.weight.dtype))
+        return self.act(y.to(conv.compute_dtype if isinstance(conv, Int8Conv2d)
+                             else conv.weight.dtype))
+
+
+def init_convnet_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """flax's init of a convnet, from ``generator`` (a CPU generator, on a
+    model still on the CPU): lecun-normal conv and Dense kernels, zero
+    biases, unit BatchNorm."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                w = torch.empty(m.weight.shape, dtype=torch.float32)
+                m.weight.copy_(lecun_normal_(w, generator))
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+
+
+def adaptive_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """Global average pool [N, C, H, W] -> [N, C] in float32."""
+    return x.float().mean(dim=(2, 3))
 
 
 def make_divisible(v: float, divisor: int = 8) -> int:

@@ -2,14 +2,15 @@
 
 One name -> everything the engine needs: the module, its input geometry,
 which device-side preprocess it takes and what kind of result it gives.
-Registered so far: the detection family the default serving path runs
-(``yolov8n`` and its CPU/CI twin ``tiny_yolov8``, and their
-space-to-depth stem variants ``yolov8n_s2d`` and ``tiny_yolov8_s2d``) and
-the transformer
-family (``vit_b16``, ``videomae_b``, ``videomae_b_long`` and the twins
-``tiny_vit``, ``tiny_videomae``), with the JAX package's geometry, and the
-ROI path's measurement gauges ``blob_gauge`` and ``tiny_blob_gauge``
-(``models/blob.py``).
+Registered, with the JAX package's geometry: the detection family
+(``yolov8n``, the default serving model, ``yolov8s``, the CPU/CI twin
+``tiny_yolov8``, and the space-to-depth stem variants ``yolov8n_s2d`` and
+``tiny_yolov8_s2d``), the convnet classifier ``mobilenet_v2`` and the
+re-ID embedder ``resnet50`` (kind ``embed``) with their twins
+``tiny_mobilenet_v2`` and ``tiny_resnet``, the transformer family
+(``vit_b16``, ``videomae_b``, ``videomae_b_long`` and the twins
+``tiny_vit``, ``tiny_videomae``), and the ROI path's measurement gauges
+``blob_gauge`` and ``tiny_blob_gauge`` (``models/blob.py``).
 """
 
 from __future__ import annotations
@@ -23,9 +24,11 @@ from torch import nn
 
 from ..device import resolve_device
 from .blob import BlobGauge, BlobGaugeConfig
+from .mobilenet_v2 import MobileNetV2, MobileNetV2Config, tiny_mobilenet_v2_config
+from .resnet import ResNet, ResNetConfig, tiny_resnet_config
 from .videomae import VideoMAE, VideoMAEConfig, tiny_videomae_config
 from .vit import ViT, ViTConfig, tiny_vit_config
-from .yolov8 import YOLOv8, tiny_yolov8_config, yolov8n_config
+from .yolov8 import YOLOv8, tiny_yolov8_config, yolov8n_config, yolov8s_config
 
 
 @dataclass(frozen=True)
@@ -36,7 +39,7 @@ class ModelSpec:
     build: Callable[..., nn.Module]
     input_size: int                             # square side the model consumes
     preprocess: str                             # "classify" | "letterbox" | "clip"
-    kind: str                                   # "classify" | "detect" | "video"
+    kind: str                                   # "classify" | "detect" | "embed" | "video"
     clip_len: int = 0                           # >0 for video models
     description: str = ""
 
@@ -54,13 +57,13 @@ class ModelSpec:
             generator = torch.Generator().manual_seed(0)
         if param_dtype is None:
             model = self.build(dtype)
-        elif self.kind == "detect":
-            raise NotImplementedError("param_dtype: the detection family keeps one dtype "
-                                      "(detection training is not ported yet)")
+        elif self.kind in ("detect", "embed"):
+            raise NotImplementedError("param_dtype: the convnets keep one dtype "
+                                      "(their training is not ported yet)")
         else:
             model = self.build(dtype, param_dtype)
         model.init_weights(generator)
-        return place(model, dev, channels_last=self.kind == "detect")
+        return place(model, dev, channels_last=getattr(model, "channels_last", False))
 
 
 def place(model: nn.Module, device: torch.device, channels_last: bool = False) -> nn.Module:
@@ -71,6 +74,14 @@ def place(model: nn.Module, device: torch.device, channels_last: bool = False) -
     if channels_last and device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     return model
+
+
+def _convnet(cls, cfg, dtype: torch.dtype, param_dtype: Optional[torch.dtype]) -> nn.Module:
+    """A convnet classifier of one dtype: its training is not ported yet."""
+    if param_dtype is not None:
+        raise NotImplementedError("param_dtype: the convnets keep one dtype "
+                                  "(their training is not ported yet)")
+    return cls(cfg, dtype)
 
 
 _REGISTRY: Dict[str, ModelSpec] = {}
@@ -102,6 +113,22 @@ register(ModelSpec(
     description="yolov8n with the space-to-depth stem (a stride-1 2x2 stem on the "
                 "folded 320x320x12 plane); classic weights fold in losslessly "
                 "(models/carry.py s2d_fold_kernel)",
+))
+register(ModelSpec(
+    "yolov8s", lambda dtype: YOLOv8(yolov8s_config(), dtype),
+    input_size=640, preprocess="letterbox", kind="detect",
+    description="small-variant detection",
+))
+register(ModelSpec(
+    "mobilenet_v2", lambda dtype, param_dtype=None: _convnet(MobileNetV2, MobileNetV2Config(),
+                                                             dtype, param_dtype),
+    input_size=224, preprocess="classify", kind="classify",
+    description="single-stream frame classification",
+))
+register(ModelSpec(
+    "resnet50", lambda dtype: ResNet(ResNetConfig(), dtype),
+    input_size=224, preprocess="classify", kind="embed",
+    description="16-stream re-ID feature extraction (2048-wide embeddings)",
 ))
 register(ModelSpec(
     "vit_b16", lambda dtype, param_dtype=None: ViT(ViTConfig(), dtype, param_dtype=param_dtype),
@@ -144,6 +171,18 @@ register(ModelSpec(
     lambda dtype: YOLOv8(dataclasses.replace(tiny_yolov8_config(), stem="s2d"), dtype),
     input_size=64, preprocess="letterbox", kind="detect",
     description="CPU/CI twin of yolov8n_s2d",
+))
+register(ModelSpec(
+    "tiny_mobilenet_v2",
+    lambda dtype, param_dtype=None: _convnet(MobileNetV2, tiny_mobilenet_v2_config(), dtype,
+                                             param_dtype),
+    input_size=32, preprocess="classify", kind="classify",
+    description="CPU/CI twin of mobilenet_v2",
+))
+register(ModelSpec(
+    "tiny_resnet", lambda dtype: ResNet(tiny_resnet_config(), dtype),
+    input_size=32, preprocess="classify", kind="embed",
+    description="CPU/CI twin of resnet50",
 ))
 register(ModelSpec(
     "tiny_vit",

@@ -32,7 +32,7 @@ from torch import nn
 
 from ..ops.boxes import dist_to_bbox
 from ..ops.preprocess import pad_channels, space_to_depth
-from .common import ConvBN, lecun_normal_, make_divisible, round_depth
+from .common import ConvBN, init_convnet_weights, make_divisible, round_depth
 
 
 @dataclass(frozen=True)
@@ -63,6 +63,11 @@ class YOLOv8Config:
 
 def yolov8n_config(num_classes: int = 80) -> YOLOv8Config:
     return YOLOv8Config(num_classes=num_classes, stem_pad_c=8)
+
+
+def yolov8s_config(num_classes: int = 80) -> YOLOv8Config:
+    return YOLOv8Config(num_classes=num_classes, depth_mult=0.33, width_mult=0.5,
+                        stem_pad_c=8)
 
 
 def tiny_yolov8_config(num_classes: int = 4) -> YOLOv8Config:
@@ -190,6 +195,9 @@ def decode_level(box_logits: torch.Tensor, stride: int, reg_max: int) -> torch.T
 
 
 class YOLOv8(nn.Module):
+    # Its conv weights take channels_last on the card (registry.place).
+    channels_last = True
+
     def __init__(self, cfg: YOLOv8Config, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.cfg = cfg
@@ -227,15 +235,8 @@ class YOLOv8(nn.Module):
         """Random init from ``generator`` (a CPU generator, on a model that
         is still on the CPU): flax's schemes -- lecun-normal conv kernels,
         unit BatchNorm, and the head's two bias priors."""
+        init_convnet_weights(self, generator)
         with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, nn.Conv2d):
-                    w = torch.empty(m.weight.shape, dtype=torch.float32)
-                    m.weight.copy_(lecun_normal_(w, generator))
-                    if m.bias is not None:
-                        m.bias.zero_()
-                elif isinstance(m, nn.BatchNorm2d):
-                    m.reset_parameters()
             for conv, bias in self.detect.prior_biases():
                 conv.bias.copy_(bias)
 

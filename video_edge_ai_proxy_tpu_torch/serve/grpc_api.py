@@ -225,6 +225,7 @@ def result_to_proto(result, boxed: bool) -> pb.InferenceResult:
                 confidence=d.confidence,
                 class_id=d.class_id,
                 class_name=d.class_name,
+                embedding=d.embedding,
                 track_id=d.track_id,
             )
             for d in result.detections

@@ -177,6 +177,7 @@ def build_app(pm: ProcessManager, settings: SettingsManager, engine=None,
                 "model": engine._spec.name,
                 "ticks": engine.ticks,
                 "batches": engine.pipeline_stats().batches,
+                "subscriber_drops": engine.subscriber_drops,
                 "streams": {did: dataclasses.asdict(st) for did, st in engine.stats().items()},
                 "prewarm": engine.prewarm_status(),
                 "annotations_suppressed": engine.annotations_suppressed,
@@ -390,6 +391,10 @@ def build_app(pm: ProcessManager, settings: SettingsManager, engine=None,
             if p.state:
                 streaks.labels(p.name).set(p.state.failing_streak)
         if engine is not None:
+            obs_registry.counter(
+                "vep_subscriber_dropped_total",
+                "Inference results dropped on slow subscribers",
+            ).labels().set(engine.subscriber_drops)
             disabled = obs_registry.gauge(
                 "vep_model_disabled",
                 "Per-stream models tripped by the failure breaker (value 1 while disabled)",

@@ -108,6 +108,9 @@ class EngineConfig:
     # Per-frame stage timestamps (publish -> collect -> submit -> drain ->
     # emit) appended to engine.stage_records, bounded. Off in production.
     stage_trace: bool = False
+    # End-to-end latency (capture -> result emit) above this increments
+    # vep_frames_late_total for the stream.
+    obs_late_ms: float = 1000.0
     # "int8": weight-only int8 serving (models/quantize.py): the device
     # holds int8 weights and per-channel scales, dequantized inside the
     # step. "int8_act" (detect family): that, plus int8 x int8 convs in
