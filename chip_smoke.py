@@ -265,9 +265,35 @@ exits non-zero:
    on the ``resnet50`` results, no logged tick or drain failure, and
    keep-mask launches equal to ``yolov8n``'s batches; printed: frames/s
    and p50/p95 latency per model.
+19. the chaos soak of that fleet, in a process of its own
+   (``chip_smoke.py --soak``): (a) ``lockstep_checksum`` twice over a
+   recorded trace of 16 1080p streams, 8 frames each: the folds
+   bit-identical; then ``run_fleet_soak`` of the 6 ``yolov8n`` + 5
+   ``resnet50`` + 5 ``vit_b16`` ``fleetNN`` cameras at 1920x1080, bf16,
+   on the memory bus, ``tick_ms=10``, looping a recorded 60-frame trace,
+   20 s each: (b) the acceptance churn (``FaultPlan.default_churn``), (c)
+   ``uplink_down``, ``bus_flap`` and ``device_stall``, (d)
+   ``black_frame``, ``frozen_frame`` and ``score_drift``. Gated in each:
+   0 misrouted results, every camera with results (and the canary in d),
+   the uplink conserved and drained, subscriber drops within duration x
+   streams x 30, the step cache stable, keep-mask launches equal to
+   ``yolov8n``'s batches, no logged tick or drain failure; in (b) the
+   killed camera suppressing while down; in (c) the breaker opened and
+   closed; in (d) each quality fault detected within 5 s, no false
+   positive, a canary episode, and detections on every ``yolov8n``
+   stream outside the black one. Printed: per-family p50/p95/p99,
+   results/s, bucket fill, each camera's published frames/s beside the 30
+   offered, the ladder and the breaker;
+20. the wire run, in a process of its own (``chip_smoke.py --e2e``):
+   ``run_e2e`` of ``yolov8n`` at 1920x1080, a ``Server`` with one
+   ``replay://`` worker at 30 fps on the shm bus and the gRPC
+   ``Inference`` stream to a client thread, 20 s after a 15 s warmup:
+   gated on results measured, keep-mask launches equal to the batches and
+   no logged failure; printed: publish -> client-receive p50/p90/p95/p99
+   beside the 40 ms limit, and the stage legs.
 
 On the card the engine runs every serving step as a graph replay, so
-phases 5, 8, 11, 13, 15, 16, 17 and 18 run graphed; phases 4, 6, 7, 9 and 10 call the eager
+phases 5, 8, 11, 13, 15-20 run graphed; phases 4, 6, 7, 9 and 10 call the eager
 step, the model and the trainer directly.
 
 After phase 8 the script reports what outlives its engines (the cuBLAS
@@ -275,15 +301,16 @@ workspace of each stream that ran a matmul, and the preprocessing
 constants of every geometry met so far) and frees it, so that phase 9's
 peak memory counts the training alone.
 
-Phases 5, 8, 9, 11c, 13b, 14, 15c, 16a, 16b, 17a, 17b and 18b are the main
-paths: the kernels' launch counts are set to 0 just before each and read
+Phases 5, 8, 9, 11c, 13b, 14, 15c, 16a, 16b, 17a, 17b, 18b, 19b-d and 20
+are the main paths: the kernels' launch counts are set to 0 just before each and read
 just after it, and every kernel of that path must have launched (a graph
 replay adds the launches its capture recorded); the keep mask's count in
 13b is ``launches_frame_path``, in 14's first server (zeroed before its
 engine starts) ``launches_server``, in 15c's served batches of each
 variant ``launches_variants``, in 16a's ROI run ``launches_roi``, in 17a
-``launches_cascade``, in 18b ``launches_fleet``, and the flash forward's in
-17b ``launches_cascade``; the keep mask's line also carries
+``launches_cascade``, in 18b ``launches_fleet``, in 19b-d ``launches_soak``
+(counted from each soak engine's ``start()``, after its prewarm), in 20
+``launches_e2e``, and the flash forward's in 17b ``launches_cascade``; the keep mask's line also carries
 ``replay_ms_yolov8s`` (18a). The line before the last is one JSON object describing
 every kernel; the last line is ``{"ok": true, "device": {...}}``. Longer
 output (the profile tables) goes to ``chiprun_out/``.
@@ -3286,6 +3313,40 @@ def box_iou(a, b) -> float:
     return inter / float(area) if inter else 0.0
 
 
+class TickClock:
+    """16a's engine clock: ``monotonic`` advances ``ROI_TICK_S`` a tick, the
+    scene's cadence, whatever a hand-stepped tick takes on the host. The ROI
+    gate refreshes a stream's full frame every ``roi_full_interval_ms`` of
+    this clock and reads motion from the difference of two full frames; on
+    the host's clock the refresh fell every 6-9 ticks, in step with the
+    movers' 10.5-tick bounce, and the gate saw a mover at rest and coasted
+    it (misrouted detections in some runs on the card; the same scene with
+    the clock stepped 60 or 75-95 ms a tick misroutes on the CPU, 33.3 ms
+    does not). While entered it stands in
+    for the engine module's ``time``; the rest of ``time`` is the real one."""
+
+    def __init__(self):
+        self.now = time.monotonic()
+
+    def __enter__(self):
+        import types
+
+        from video_edge_ai_proxy_tpu_torch.engine import runner
+
+        self._runner, self._real = runner, runner.time
+        clock = types.SimpleNamespace(
+            **{n: getattr(time, n) for n in dir(time) if not n.startswith("_")})
+        clock.monotonic = lambda: self.now
+        runner.time = clock
+        return self
+
+    def __exit__(self, *exc):
+        self._runner.time = self._real
+
+    def tick(self) -> None:
+        self.now += ROI_TICK_S
+
+
 def hand_engine(engine):
     """Make ``engine`` hand-steppable, as the JAX package's ROI and cascade
     tests drive theirs: warm, a drain queue deep enough for the full,
@@ -3381,23 +3442,26 @@ def roi_phase(dev, card: str, zero_launches, read_launches, kernels, report,
         ts0 = int(time.time() * 1000)
         zero_launches()
         t0 = time.perf_counter()
-        for step in range(ROI_TICKS):
-            pace = t0 + step * ROI_TICK_S - time.perf_counter()
-            if pace > 0:
-                time.sleep(pace)
-            ts = ts0 + step
-            for s in range(N_STREAMS):
-                box, key = roi_truth(s, step)
-                if prev[s] is not None and prev[s] != box:
-                    x0, y0, x1, y1 = prev[s]
-                    frames[s][y0:y1, x0:x1] = backgrounds[s]
-                x0, y0, x1, y1 = box
-                frames[s][y0:y1, x0:x1] = ROI_STATIC_COLOR if key is None else blob_color(key)
-                prev[s] = box
-                truth[(f"cam{s:02d}", ts)] = (key, box)
-                bus.publish(f"cam{s:02d}", frames[s], FrameMeta(
-                    width=w, height=h, channels=3, timestamp_ms=ts, is_keyframe=True))
-            results.extend(hand_tick(engine, results_q))
+        with TickClock() as clock:
+            for step in range(ROI_TICKS):
+                pace = t0 + step * ROI_TICK_S - time.perf_counter()
+                if pace > 0:
+                    time.sleep(pace)
+                ts = ts0 + step
+                for s in range(N_STREAMS):
+                    box, key = roi_truth(s, step)
+                    if prev[s] is not None and prev[s] != box:
+                        x0, y0, x1, y1 = prev[s]
+                        frames[s][y0:y1, x0:x1] = backgrounds[s]
+                    x0, y0, x1, y1 = box
+                    frames[s][y0:y1, x0:x1] = (ROI_STATIC_COLOR if key is None
+                                               else blob_color(key))
+                    prev[s] = box
+                    truth[(f"cam{s:02d}", ts)] = (key, box)
+                    bus.publish(f"cam{s:02d}", frames[s], FrameMeta(
+                        width=w, height=h, channels=3, timestamp_ms=ts, is_keyframe=True))
+                results.extend(hand_tick(engine, results_q))
+                clock.tick()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = read_launches()
@@ -3861,6 +3925,96 @@ def replay_against_eager(tag: str, engine, eager, inputs: list, src_hw: tuple) -
     return step, replay_ms
 
 
+WALK_FRAMES = ("referrers", "root_paths", "release_engines")   # the walk's own frames
+
+
+def _describe(obj) -> str:
+    import inspect
+
+    name = type(obj).__name__
+    if inspect.isfunction(obj) or inspect.ismethod(obj) or isinstance(obj, type):
+        name += f"({getattr(obj, '__qualname__', '?')})"
+    elif inspect.ismodule(obj):
+        name += f"({obj.__name__})"
+    elif inspect.isframe(obj) or inspect.isgenerator(obj):
+        code = obj.f_code if inspect.isframe(obj) else obj.gi_code
+        name += f"({code.co_name})"
+    return name
+
+
+def _walk_frame(r) -> bool:
+    import inspect
+
+    return inspect.isframe(r) and r.f_code.co_name in WALK_FRAMES
+
+
+def referrers(obj, skip, depth: int = 2, _seen: tuple = ()) -> list:
+    """What keeps ``obj`` alive: each referrer's type (a function, a frame
+    or a generator by its name), and for a dict, list, tuple, cell or bound
+    method what holds that in turn, ``depth`` levels up; ``skip``, the
+    walk's own frames and lists left out."""
+    import gc
+
+    refs = gc.get_referrers(obj)
+    seen = _seen + (id(skip), id(refs))
+    out = []
+    for r in refs:
+        if id(r) in seen or _walk_frame(r):
+            continue
+        name = _describe(r)
+        if depth > 1 and (isinstance(r, (dict, list, tuple))
+                          or type(r).__name__ in ("cell", "method")):
+            name += f"<-[{', '.join(referrers(r, skip, depth - 1, seen)[:4])}]"
+        out.append(name)
+    del refs
+    return out[:8]
+
+
+def root_paths(obj, skip, max_depth: int = 12, max_nodes: int = 400) -> list:
+    """Chains of referrers from ``obj`` up to what roots it, breadth first:
+    a module, a class, a frame of running code, or an object no tracked
+    container refers to (held from C). ``skip`` and the walk's own frames
+    and containers are left out; at most three chains, each as the
+    referrers' types, ``obj`` first."""
+    import gc
+    import inspect
+    import sys
+
+    running = set()
+    for f in sys._current_frames().values():
+        while f is not None:
+            running.add(id(f))
+            f = f.f_back
+    parent = {id(obj): None}
+    keep = {id(obj): obj}
+    depth = {id(obj): 0}
+    queue = [obj]
+    own = {id(parent), id(keep), id(depth), id(queue), id(skip), id(running)}
+    found = []
+    while queue and len(found) < 3 and len(parent) < max_nodes:
+        cur = queue.pop(0)
+        refs = gc.get_referrers(cur)
+        own.add(id(refs))
+        live = [r for r in refs if id(r) not in own and not _walk_frame(r)]
+        if cur is not obj and (not live or inspect.ismodule(cur) or isinstance(cur, type)
+                               or id(cur) in running):
+            chain, k = [], id(cur)
+            while k is not None:
+                chain.append(_describe(keep[k]))
+                k = parent[k]
+            found.append(list(reversed(chain)))
+            continue
+        if depth[id(cur)] < max_depth:
+            for r in live:
+                if id(r) not in parent:
+                    parent[id(r)] = id(cur)
+                    keep[id(r)] = r
+                    depth[id(r)] = depth[id(cur)] + 1
+                    queue.append(r)
+        del refs, live
+    return found
+
+
 def release_engines(dev, tag: str) -> None:
     """Collect what only reference cycles keep alive, release the device
     state of the stopped engines and graphed steps of earlier phases that
@@ -3877,12 +4031,25 @@ def release_engines(dev, tag: str) -> None:
     gc.collect()
     before = torch.cuda.memory_reserved(dev)
     released = 0
-    for obj in gc.get_objects():
-        if isinstance(obj, (InferenceEngine, _GraphedStep)) and obj.__dict__ and \
-                getattr(obj, "_thread", None) is None and getattr(obj, "_drain_thread", None) is None:
-            obj.__dict__.clear()
-            released += 1
-    obj = None
+    objects = gc.get_objects()
+    stopped = [obj for obj in objects
+               if isinstance(obj, (InferenceEngine, _GraphedStep)) and obj.__dict__
+               and getattr(obj, "_thread", None) is None
+               and getattr(obj, "_drain_thread", None) is None]
+    del objects
+    walked = set()
+    for i in range(len(stopped)):
+        obj = stopped[i]
+        if isinstance(obj, InferenceEngine):
+            # The walk to the roots (a few seconds) once a model.
+            roots = root_paths(obj, stopped) if obj._spec.name not in walked else "as above"
+            walked.add(obj._spec.name)
+            log(f"phase {tag} before: stopped engine {i} ({obj._spec.name}) held by "
+                f"{referrers(obj, stopped)}; rooted by {roots}")
+    for obj in stopped:
+        obj.__dict__.clear()
+        released += 1
+    obj = stopped = None
     gc.collect()
     torch.cuda.synchronize()
     torch._C._cuda_clearCublasWorkspaces()
@@ -3911,14 +4078,7 @@ def families_phase(dev, card: str, zero_launches, read_launches, kernels, report
     release_engines(dev, "18a")
     model_families_phase(dev, card, zero_launches, read_launches, report)
     release_engines(dev, "18b")
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--fleet"], cwd=ROOT,
-                          capture_output=True, text=True, timeout=FLEET_CHILD_TIMEOUT_S)
-    lines = proc.stdout.splitlines()
-    for line in lines[:-1]:
-        log(line)
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"phase 18b exited {proc.returncode}: {proc.stderr[-3000:]}")
-    report["nms_keep_mask"].update(json.loads(lines[-1]))
+    report["nms_keep_mask"].update(run_child("--fleet", "18b", FLEET_CHILD_TIMEOUT_S))
 
 
 def fleet_main() -> int:
@@ -4193,6 +4353,286 @@ def mixed_fleet_phase(dev, card: str, zero_launches, read_launches, report) -> N
     report["nms_keep_mask"]["launches_fleet"] = launches["nms_keep_mask"]
     del engine, det
     torch.cuda.empty_cache()
+
+
+SOAK_S = 20.0                # 19b-d: each soak's measured window
+SOAK_TRACE_FRAMES = 60       # 19: the recorded trace the cameras loop (2 s at 30 fps)
+SOAK_LOCKSTEP_FRAMES = 8     # 19a: frames a stream in the determinism trace (11a's depth)
+SOAK_QUALITY_BOUND_S = 5.0   # 19d: the soak tools' detection-latency bound
+SOAK_CHILD_TIMEOUT_S = 600   # 19 runs in a process of its own
+E2E_MODEL = "yolov8n"        # 20: the default EngineConfig's model
+E2E_S = 20.0                 # 20: the measured window after the warmup
+E2E_WARMUP_S = 15.0          # 20: the worker's boot and the engine's first batches
+E2E_LATENCY_LIMIT_MS = 40.0  # PERF.md section 2's p50 limit, printed beside the run
+E2E_CHILD_TIMEOUT_S = 300    # 20 runs in a process of its own
+
+
+def run_child(flag: str, tag: str, timeout_s: float) -> dict:
+    """``chip_smoke.py <flag>`` in a process of its own: its lines logged
+    here, its last line (a JSON object) returned; a non-zero exit raises."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout_s)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"phase {tag} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+class LaunchesAfterStart:
+    """While entered, every ``InferenceEngine.start()`` zeroes the kernels'
+    launch counts and takes the detector's batch count as its base when it
+    returns: the prewarm's eager warmup calls launch the keep mask but are
+    no batch of the main path. ``launches``/``batches`` read what the
+    engines ran since."""
+
+    def __init__(self, zero_launches, read_launches, model: str):
+        from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine
+
+        self._cls = InferenceEngine
+        self._zero, self._read = zero_launches, read_launches
+        self._model = model
+        self._base = 0
+
+    def _count(self) -> int:
+        from video_edge_ai_proxy_tpu_torch.obs import registry as obs_registry
+
+        hist = {f.name: f for f in obs_registry.families()}["vep_device_batch_ms"]
+        return hist.labels(self._model).count
+
+    def __enter__(self):
+        orig = self._orig = self._cls.start
+
+        def start(engine):
+            orig(engine)
+            self._zero()
+            self._base = self._count()
+
+        self._cls.start = start
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.start = self._orig
+
+    def launches(self) -> int:
+        return self._read()["nms_keep_mask"]
+
+    def batches(self) -> int:
+        return self._count() - self._base
+
+
+def soak_tool():
+    """``tools/torch_soak_replay.py`` as a module: its soak gates."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_soak_replay", os.path.join(ROOT, "tools", "torch_soak_replay.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def soak_gates(tag: str, soak: dict, counted: LaunchesAfterStart, failures: dict) -> list:
+    """The gates every soak leg of phase 19 holds: tools/torch_soak_replay.py's
+    chaos gates (no misrouted result, the uplink conserved and drained, the
+    drop budget) and the script's own."""
+    bad = soak_tool().chaos_failures(soak, soak["duration_s"])
+    # The quality leg's canary stream is served beside the cameras.
+    canary = 1 if soak["quality"] is not None else 0
+    if soak["streams_with_results"] != soak["streams"] + canary:
+        bad.append(f"{soak['streams_with_results']} streams with results, {soak['streams']} "
+                   f"cameras and {canary} canary")
+    if not soak["step_cache"]["stable"]:
+        bad.append(f"step cache not stable: {soak['step_cache']['samples']}")
+    if counted.launches() != counted.batches() or counted.batches() <= 0:
+        bad.append(f"{counted.launches()} keep-mask launches for {counted.batches()} detector "
+                   f"batches")
+    if any(failures.values()):
+        bad.append(f"logged failures {failures}")
+    return [f"phase {tag}: {b}" for b in bad]
+
+
+def soak_line(tag: str, card: str, soak: dict, counted: LaunchesAfterStart, logged,
+              failures: dict, seconds: float) -> None:
+    """Phase 19's report of one soak leg."""
+    import torch
+
+    dur = soak["duration_s"]
+    fams = "; ".join(
+        f"{fam} p50 {p['p50']} ms, p95 {p['p95']} ms, p99 {p['p99']} ms ({p['n']} results)"
+        for fam, p in soak["per_family_latency_ms"].items() if p)
+    fills = ", ".join(f"{b['t_s']}s {b['fill']}" for b in soak["bucket_fill_timeline"])
+    cams = ", ".join(f"{d} {n / dur:.2f}" for d, n in soak["published"].items())
+    uplink = soak["resilience"]["uplink"]
+    log(f"phase {tag} on {card}: {soak['streams']} streams {soak['fleet']} at "
+        f"{soak['src_hw'][1]}x{soak['src_hw'][0]} for {dur:g} s ({seconds:.1f} s in all, "
+        f"warmup {soak['warmup_s']} s): {soak['results_measured']} results "
+        f"({soak['results_measured'] / dur:.2f}/s); {fams}; bucket fill by {10:g} s bin: "
+        f"{fills}; published frames/s per camera (30 offered): {cams}; suppressed "
+        f"{soak['suppressed']}; subscriber drops {soak['subscriber_drops']} (budget "
+        f"{int(dur * soak['streams'] * 30.0)}); step cache {soak['step_cache']['final']} "
+        f"programs, stable {soak['step_cache']['stable']}; faults {soak['faults_applied']}; "
+        f"ladder {soak['resilience']['ladder']}; shed {soak['resilience']['shed_frames']}; "
+        f"uplink published {uplink['published']}, delivered {uplink['delivered_events']}, "
+        f"post failures {uplink['post_failures']}, breaker {uplink['breaker']}, spooled "
+        f"{uplink['spool']['spooled_batches']} batches, conserved {uplink['conserved']}; "
+        f"keep-mask launches {counted.launches()} for {counted.batches()} detector batches; "
+        f"{soak['ticks']} ticks; logged failures {failures} ({logged.summary()}); "
+        f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2 ** 20:.1f} MiB reserved after it")
+
+
+def soak_phase(dev, card: str, zero_launches, read_launches, report: dict) -> None:
+    """Phase 19: the chaos soak of the north-star fleet at full width."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from video_edge_ai_proxy_tpu_torch.replay.faults import QUALITY_KINDS, FaultPlan
+    from video_edge_ai_proxy_tpu_torch.replay.harness import (
+        FLEET_CUDA, lockstep_checksum, run_fleet_soak,
+    )
+    from video_edge_ai_proxy_tpu_torch.replay.recorder import record_synthetic_trace
+
+    h, w = FRAME_HW
+    detector = next(iter(FLEET_CUDA))
+    model_of = {f"fleet{i:02d}": m for i, m in enumerate(
+        m for m, n in FLEET_CUDA.items() for _ in range(n))}
+    streams = sorted(model_of)
+    tmp = tempfile.mkdtemp(prefix="vep_soak_smoke_")
+    try:
+        # (a) determinism: 16 streams of 1080p, replayed twice.
+        lock_trace = record_synthetic_trace(os.path.join(tmp, "lockstep.vtrace"), streams,
+                                            width=w, height=h, frames=SOAK_LOCKSTEP_FRAMES)
+        t0 = time.perf_counter()
+        runs = [lockstep_checksum(lock_trace, model=detector, device=dev) for _ in range(2)]
+        log(f"phase 19a lockstep_checksum on {card}: {len(streams)} streams x "
+            f"{SOAK_LOCKSTEP_FRAMES} frames at {w}x{h}, {detector} bf16: folds "
+            f"{runs[0]['checksum']} and {runs[1]['checksum']} ({runs[0]['batches']} batches "
+            f"each, {time.perf_counter() - t0:.1f} s)")
+        if runs[0]["checksum"] != runs[1]["checksum"] or runs[0]["batches"] <= 0:
+            raise AssertionError(f"phase 19a: two replays folded {runs[0]['checksum']} and "
+                                 f"{runs[1]['checksum']}")
+        del runs
+        soak_trace = record_synthetic_trace(os.path.join(tmp, "soak.vtrace"), streams,
+                                            width=w, height=h, frames=SOAK_TRACE_FRAMES)
+        launches = 0
+        for tag, plan, quality in (
+                ("19b", None, ()),
+                ("19c", FaultPlan.resilience(SOAK_S), ()),
+                ("19d", None, QUALITY_KINDS)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            with LogCounter() as logged, \
+                    LaunchesAfterStart(zero_launches, read_launches, detector) as counted:
+                soak = run_fleet_soak(duration_s=SOAK_S, fleet=dict(FLEET_CUDA),
+                                      src_hw=FRAME_HW, tick_ms=10, trace_path=soak_trace,
+                                      fault_plan=plan, quality_kinds=quality, device=dev)
+            failures = {m: logged.count(m) for m in FAILURE_MESSAGES}
+            soak_line(tag, card, soak, counted, logged, failures, time.perf_counter() - t0)
+            bad = soak_gates(tag, soak, counted, failures)
+            launches += counted.launches()
+            if tag == "19b":
+                killed = next(f["device_id"] for f in soak["faults_applied"]
+                              if f["kind"] == "camera_kill")
+                if soak["suppressed"][killed] <= 0:
+                    bad.append(f"phase 19b: the killed camera {killed} suppressed nothing")
+            if tag == "19c":
+                breaker = soak["resilience"]["uplink"]["breaker"]
+                log(f"phase 19c ladder transitions {soak['resilience']['ladder']}; breaker "
+                    f"transitions {breaker['transitions']}, state {breaker['state']}")
+                if not breaker["transitions"].get("open") or breaker["state"] != "closed":
+                    bad.append(f"phase 19c: the breaker did not open and close: {breaker}")
+            if tag == "19d":
+                q = soak["quality"] or {}
+                qsnap = soak["obs"]["quality"] or {"streams": {}}
+                black = next((f["device_id"] for f in q.get("faults", [])
+                              if f["kind"] == "black_frame"), "")
+                det = {d: qsnap["streams"].get(d, {}).get("det_ema", 0.0)
+                       for d in streams if model_of[d] == detector}
+                log(f"phase 19d quality: faults {q.get('faults')}; false positives "
+                    f"{q.get('false_positives')}; canary {q.get('canary')}; canary episodes "
+                    f"{q.get('canary_watchdog_episodes')}; {detector} detections a frame (EMA) "
+                    f"{det}")
+                if len(q.get("faults", [])) != len(QUALITY_KINDS):
+                    bad.append(f"phase 19d: quality section {q}")
+                else:
+                    bad += [f"phase 19d: {f}" for f in soak_tool().quality_failures(
+                        q, QUALITY_KINDS, SOAK_QUALITY_BOUND_S)]
+                if not all(v > 0 for d, v in det.items() if d != black):
+                    bad.append(f"phase 19d: {detector} streams without detections {det}")
+            del soak
+            if bad:
+                raise AssertionError("; ".join(bad))
+        report["launches_soak"] = launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def e2e_phase(dev, card: str, zero_launches, read_launches, report: dict) -> None:
+    """Phase 20: ``run_e2e`` of ``E2E_MODEL`` at 1080p, publish -> gRPC client."""
+    from video_edge_ai_proxy_tpu_torch.replay.harness import run_e2e
+
+    import shutil
+
+    # The server's data directory (the worker's log among it) is kept here.
+    workdir = os.path.join(ROOT, "chiprun_out", "phase20")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    with LogCounter() as logged, \
+            LaunchesAfterStart(zero_launches, read_launches, E2E_MODEL) as counted:
+        e2e = run_e2e(duration_s=E2E_S, warmup_s=E2E_WARMUP_S, width=FRAME_HW[1],
+                      height=FRAME_HW[0], model=E2E_MODEL, workdir=workdir, device=dev.type)
+    failures = {m: logged.count(m) for m in FAILURE_MESSAGES}
+    lat = e2e["latency_ms"] or {}
+    stages = {k: {q: v.get(q) for q in ("count", "p50", "p90", "p99")}
+              for k, v in e2e["obs"]["stage_breakdown"].items() if isinstance(v, dict)}
+    log(f"phase 20 run_e2e on {card}: {E2E_MODEL} at {FRAME_HW[1]}x{FRAME_HW[0]}, one replay:// "
+        f"worker at 30 fps on the shm bus, gRPC Inference to a client thread, {E2E_S:g} s "
+        f"after {E2E_WARMUP_S:g} s ({time.perf_counter() - t0:.1f} s in all): "
+        f"{e2e['results_measured']} results measured of {e2e['results_total']}; publish -> "
+        f"client-receive p50 {lat.get('p50')} ms, p90 {lat.get('p90')}, p95 {lat.get('p95')}, "
+        f"p99 {lat.get('p99')} (limit {E2E_LATENCY_LIMIT_MS:g} ms at p50, not gated); stages "
+        f"{stages}; keep-mask launches {counted.launches()} for {counted.batches()} "
+        f"{E2E_MODEL} batches; logged failures {failures} ({logged.summary()})")
+    if e2e["results_measured"] <= 0 or counted.launches() <= 0 or \
+            counted.launches() != counted.batches() or any(failures.values()):
+        raise AssertionError(f"phase 20: {e2e['results_measured']} results, "
+                             f"{counted.launches()} keep-mask launches for {counted.batches()} "
+                             f"batches, failures {failures}")
+    report["launches_e2e"] = counted.launches()
+
+
+def child_main(phase) -> int:
+    """``chip_smoke.py --soak`` / ``--e2e``: phase 19 or 20 alone, as ``main``
+    runs it in a process of its own (the kernels as phase 2 built them);
+    the keep mask's report entries are its last line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, ROOT)
+    from video_edge_ai_proxy_tpu_torch.device import resolve_device
+    from video_edge_ai_proxy_tpu_torch.kernels import build
+    from video_edge_ai_proxy_tpu_torch.kernels.nms import nms_keep_mask_cuda
+
+    build.build_all()
+
+    def zero_launches():
+        nms_keep_mask_cuda.launches = 0
+
+    def read_launches():
+        return {"nms_keep_mask": nms_keep_mask_cuda.launches}
+
+    report: dict = {}
+    phase(resolve_device("cuda"), card_line(), zero_launches, read_launches, report)
+    print(json.dumps(report), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -5097,6 +5537,12 @@ def main() -> int:
     # -- phase 18: the other model families -------------------------------------------------------
     families_phase(dev, card, zero_launches, read_launches, kernels, report)
 
+    # -- phase 19: the chaos soak, in a process of its own ------------------------------------------
+    report["nms_keep_mask"].update(run_child("--soak", "19", SOAK_CHILD_TIMEOUT_S))
+
+    # -- phase 20: the wire run, in a process of its own ----------------------------------------
+    report["nms_keep_mask"].update(run_child("--e2e", "20", E2E_CHILD_TIMEOUT_S))
+
     line = {"kernels": []}
     for name, meta in kernels.items():
         r = report[name]
@@ -5112,6 +5558,8 @@ def main() -> int:
             **({"launches_roi": r["launches_roi"]} if "launches_roi" in r else {}),
             **({"launches_cascade": r["launches_cascade"]} if "launches_cascade" in r else {}),
             **({"launches_fleet": r["launches_fleet"]} if "launches_fleet" in r else {}),
+            **({"launches_soak": r["launches_soak"]} if "launches_soak" in r else {}),
+            **({"launches_e2e": r["launches_e2e"]} if "launches_e2e" in r else {}),
             **({"replay_ms_yolov8s": r["replay_ms_yolov8s"]} if "replay_ms_yolov8s" in r else {}),
             "replaces": meta["replaces"], "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -5126,4 +5574,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(fleet_main() if sys.argv[1:] == ["--fleet"] else main())
+    CHILDREN = {"--fleet": fleet_main, "--soak": lambda: child_main(soak_phase),
+                "--e2e": lambda: child_main(e2e_phase)}
+    sys.exit(CHILDREN[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in CHILDREN
+             else main())

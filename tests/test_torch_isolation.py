@@ -16,7 +16,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "video_edge_ai_proxy_tpu")
 
 
 def _port_sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    # tools/torch_soak_replay.py drives the port alone (the other
+    # tools/torch_*.py hold the port against the JAX package).
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tools" / "torch_soak_replay.py"]
 
 
 def _imported_roots(path: Path):

@@ -101,8 +101,7 @@ def sink():
     httpd.server_close()
 
 
-@pytest.fixture(scope="module")
-def variables():
+def _twin_variables():
     """tiny_yolov8's flax init in float32 with randomised BatchNorm terms and
     the class prior zeroed (so NMS sees real candidates, without ties), as
     numpy: the weights of both packages' servers."""
@@ -119,6 +118,11 @@ def variables():
             return rng.normal(0.0, 0.2, node.shape).astype(np.float32)
         return np.asarray(node, np.float32)
     return jax.tree_util.tree_map(np.asarray, jchecksum.zero_class_prior(walk(v, ())))
+
+
+@pytest.fixture(scope="module")
+def variables():
+    return _twin_variables()
 
 
 def _shm():
@@ -144,33 +148,29 @@ def _config(shm_dir, sink_url, **engine):
     return cfg
 
 
-@pytest.fixture(scope="module")
-def server(tmp_path_factory, sink, variables):
-    import shutil
-
+def _port_server(data_dir, sink_url, variables):
+    """The port's engine server on the twin weights, started; (server, its
+    ring directory)."""
     shm = _shm()
-    srv = Server(_config(shm, sink[0]), data_dir=str(tmp_path_factory.mktemp("srv")),
-                 grpc_port=0, rest_port=0, enable_engine=True, device="cpu")
+    srv = Server(_config(shm, sink_url), data_dir=data_dir, grpc_port=0, rest_port=0,
+                 enable_engine=True, device="cpu")
     srv.engine.warmup()
     srv.engine._model.load_state_dict(from_flax(variables))
     srv.start()
-    yield srv
-    srv.stop()
-    shutil.rmtree(shm, ignore_errors=True)
+    return srv, shm
 
 
-@pytest.fixture(scope="module")
-def jax_server(tmp_path_factory, variables):
+def _jax_server(data, variables):
     """The JAX package's Server on the CPU with the port's settings and the
     same weights (a checkpoint of ``variables``); its uplink fails fast. The
     JAX registry builds ``tiny_yolov8`` in bfloat16 and its engine has no
-    dtype switch, so for this module its entry builds the float32 model, as
+    dtype switch, so while it runs its entry builds the float32 model, as
     the port's server runs it. Its engine compiles the program of the twin
-    camera's geometry here, as the port's fixture warms its engine: an XLA
+    camera's geometry here, as the port's server warms its engine: an XLA
     compile inside a timed request would outlast the worker heartbeat's
-    freshness on a loaded machine."""
+    freshness on a loaded machine. (server, the registry patch to undo, its
+    ring directory)."""
     import dataclasses
-    import shutil
 
     from video_edge_ai_proxy_tpu.models import registry as jregistry
     from video_edge_ai_proxy_tpu.serve.server import Server as JaxServer
@@ -179,9 +179,7 @@ def jax_server(tmp_path_factory, variables):
     patch.setitem(jregistry._REGISTRY, "tiny_yolov8", dataclasses.replace(
         jregistry.get("tiny_yolov8"),
         build=lambda: jyolo.YOLOv8(jyolo.tiny_yolov8_config(), dtype=jnp.float32)))
-
-    data = tmp_path_factory.mktemp("jax_srv")
-    save_msgpack(str(data / "tiny_yolov8.msgpack"), variables)
+    save_msgpack(os.path.join(data, "tiny_yolov8.msgpack"), variables)
     cfg = JaxConfig()
     cfg.bus.shm_dir = shm = _shm()
     cfg.annotation.endpoint = "http://127.0.0.1:1/annotate"
@@ -190,10 +188,29 @@ def jax_server(tmp_path_factory, variables):
     cfg.engine.tick_ms = 20
     cfg.engine.batch_buckets = (1, 2, 4)
     cfg.engine.dtype = "float32"
-    cfg.engine.checkpoint_path = str(data / "tiny_yolov8.msgpack")
-    srv = JaxServer(cfg, data_dir=str(data), grpc_port=0, rest_port=0, enable_engine=True)
+    cfg.engine.checkpoint_path = os.path.join(data, "tiny_yolov8.msgpack")
+    srv = JaxServer(cfg, data_dir=data, grpc_port=0, rest_port=0, enable_engine=True)
     srv.start()
     srv.engine.compile_for(TWIN_HW, 1)
+    return srv, patch, shm
+
+
+@pytest.fixture(scope="module")
+def server(tmp_path_factory, sink, variables):
+    import shutil
+
+    srv, shm = _port_server(str(tmp_path_factory.mktemp("srv")), sink[0], variables)
+    yield srv
+    srv.stop()
+    shutil.rmtree(shm, ignore_errors=True)
+
+
+@pytest.fixture(scope="module")
+def jax_server(tmp_path_factory, variables):
+    """``_jax_server`` for the module."""
+    import shutil
+
+    srv, patch, shm = _jax_server(str(tmp_path_factory.mktemp("jax_srv")), variables)
     yield srv
     srv.stop()
     patch.undo()
@@ -784,30 +801,151 @@ def _families(text: bytes) -> set:
             if line.startswith("# TYPE ")}
 
 
-def test_engine_metric_families_and_drops_equal_jax(server, jax_server):
+def _families_probe(tmp: str) -> None:
+    """Run in a fresh interpreter (``test_engine_metric_families_and_drops_equal_jax``):
+    both packages' servers on the twin weights, each serving the twin
+    camera's one frame to an Inference subscriber, then each one's
+    ``/metrics`` families and ``/api/v1/stats`` drops. Its process-wide
+    registries hold only what these two servers registered. Prints one
+    ``FAMILIES {json}`` line."""
+    import shutil
+
+    from video_edge_ai_proxy_tpu_torch.obs import registry as obs_registry
+
+    variables = _twin_variables()
+    Sink.requests = []
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Sink)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    for d in ("srv", "jax_srv"):
+        os.makedirs(os.path.join(tmp, d), exist_ok=True)
+    port_srv, port_shm = _port_server(os.path.join(tmp, "srv"),
+                                      f"http://127.0.0.1:{httpd.server_port}", variables)
+    jax_srv, patch, jax_shm = _jax_server(os.path.join(tmp, "jax_srv"), variables)
+    out = {}
+    try:
+        for tag, srv, mod, mod_grpc in (("port", port_srv, pb, pb_grpc),
+                                        ("jax", jax_srv, jpb, jpb_grpc)):
+            channel = grpc.insecure_channel(f"127.0.0.1:{srv.bound_grpc_port}")
+            stub = mod_grpc.ImageStub(channel)
+            n_subs = len(srv.engine._subscribers)
+            call = stub.Inference(mod.InferenceRequest(device_ids=["twin"]),
+                                  timeout=RESULT_WAIT_S)
+            results: list = []
+            reader = threading.Thread(target=lambda: results.extend(itertools.islice(call, 1)),
+                                      daemon=True)
+            reader.start()
+            assert wait_for(lambda: len(srv.engine._subscribers) > n_subs), \
+                f"{tag}: the Inference subscription did not reach the engine"
+            assert rest(srv, "/api/v1/process", TWIN)[0] == 200
+            reader.join(timeout=RESULT_WAIT_S)
+            call.cancel()
+            channel.close()
+            text = rest(srv, "/metrics")[1]
+            drops = srv.engine.subscriber_drops
+            out[tag] = {
+                "results": len(results),
+                "families": sorted(_families(text)),
+                "stats_drops": rest(srv, "/api/v1/stats")[1]["engine"]["subscriber_drops"],
+                "engine_drops": drops,
+                "drops_line": f"vep_subscriber_dropped_total {drops}".encode() in text
+                or f"vep_subscriber_dropped_total {float(drops)}".encode() in text,
+            }
+        out["port"]["registry"] = sorted(f.name for f in obs_registry.families())
+    finally:
+        port_srv.stop()
+        jax_srv.stop()
+        patch.undo()
+        httpd.shutdown()
+        httpd.server_close()
+        for shm in (port_shm, jax_shm):
+            shutil.rmtree(shm, ignore_errors=True)
+    print("FAMILIES " + json.dumps(out), flush=True)
+
+
+FAMILIES_PROBE = ("import sys; sys.path.insert(0, sys.argv[2]); "
+                  "import test_torch_server; test_torch_server._families_probe(sys.argv[1])")
+
+
+def test_engine_metric_families_and_drops_equal_jax(tmp_path):
     """The /metrics families of both servers' engines and control planes
-    (the process-wide registries also hold what other tests of a worker
-    registered, so the comparison keeps to the families the JAX server
-    exports for its engine, workers and uplink), and the slow-subscriber
-    drops in /api/v1/stats and /metrics."""
-    answers = []
-    for srv in (server, jax_server):
-        text = rest(srv, "/metrics")[1]
-        stats = rest(srv, "/api/v1/stats")[1]["engine"]
-        answers.append((_families(text), stats, text))
-    (mine, port_stats, port_text), (theirs, jax_stats, _) = answers
+    (the families the JAX server exports for its engine, workers and
+    uplink), and the slow-subscriber drops in /api/v1/stats and /metrics.
+    Both servers run in a fresh interpreter (``_families_probe``): the
+    process-wide registries of a test worker also hold what its other tests
+    registered (a JAX test that sets ``vep_engine_feature_disabled``), which
+    neither server registers."""
+    proc = subprocess.run(
+        [sys.executable, "-c", FAMILIES_PROBE, str(tmp_path), os.path.join(ROOT, "tests")],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT, JAX_PLATFORMS="cpu"),
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("FAMILIES ")]
+    assert line, proc.stdout[-3000:]
+    port, jax_ = (json.loads(line[-1][len("FAMILIES "):])[k] for k in ("port", "jax"))
+    assert port["results"] == jax_["results"] == 1
+    mine, theirs = set(port["families"]), set(jax_["families"])
     shared = {f for f in theirs if f.startswith(ENGINE_FAMILY_PREFIXES)}
     # A labelled family shows once it has a child (a stream, a model).
     assert {"vep_engine_ticks_total", "vep_batch_occupancy_pct",
             "vep_subscriber_dropped_total"} <= shared
     assert shared - mine == set()
-    from video_edge_ai_proxy_tpu_torch.obs import registry as obs_registry
-
     assert {"vep_engine_ticks_total", "vep_device_batch_ms", "vep_batch_occupancy_pct",
             "vep_frames_late_total", "vep_stream_subscriber_dropped_total"} <= \
-        {f.name for f in obs_registry.families()}
-    assert port_stats["subscriber_drops"] == server.engine.subscriber_drops
-    assert isinstance(jax_stats["subscriber_drops"], int)
-    assert f"vep_subscriber_dropped_total {server.engine.subscriber_drops}".encode() in \
-        port_text or f"vep_subscriber_dropped_total {float(server.engine.subscriber_drops)}" \
-        .encode() in port_text
+        set(port["registry"])
+    assert port["stats_drops"] == port["engine_drops"]
+    assert isinstance(jax_["stats_drops"], int)
+    assert port["drops_line"]
+
+
+def test_a_stopped_server_leaves_its_engine_collectable(tmp_path):
+    """Once a Server that answered REST requests has stopped, nothing of the
+    process keeps its engine (and the device memory behind it) alive:
+    aiohttp's process-wide cache of built middleware chains held every
+    handler it served, and the handlers close over the engine."""
+    import gc
+    import shutil
+    import weakref
+
+    shm = _shm()
+    srv = Server(_config(shm, "http://127.0.0.1:1"), data_dir=str(tmp_path / "data"),
+                 grpc_port=0, rest_port=0, enable_engine=True, device="cpu")
+    srv.start()
+    try:
+        for path in ("/api/v1/stats", "/api/v1/processlist", "/healthz"):
+            assert rest(srv, path)[0] == 200
+    finally:
+        srv.stop()
+        shutil.rmtree(shm, ignore_errors=True)
+    engine = weakref.ref(srv.engine)
+    del srv
+    gc.collect()
+    assert engine() is None
+
+
+def test_a_cleaned_up_rest_app_leaves_its_engine_collectable():
+    """The same through ``build_app`` on aiohttp's test server (as the card
+    smoke reads ``/api/v1/hbm``): once the app is cleaned up, the engine its
+    handlers served is collectable."""
+    import asyncio
+    import gc
+    import weakref
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from video_edge_ai_proxy_tpu_torch.bus.memory_bus import MemoryFrameBus
+    from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine
+    from video_edge_ai_proxy_tpu_torch.serve.rest_api import build_app
+    from video_edge_ai_proxy_tpu_torch.utils.config import EngineConfig
+
+    engine = InferenceEngine(MemoryFrameBus(), EngineConfig(model="tiny_yolov8", hbm=True),
+                             device="cpu")
+
+    async def ask():
+        async with TestClient(TestServer(build_app(None, None, engine=engine))) as client:
+            return (await client.get("/api/v1/hbm")).status
+
+    assert asyncio.run(ask()) == 200
+    ref = weakref.ref(engine)
+    del engine
+    gc.collect()
+    assert ref() is None

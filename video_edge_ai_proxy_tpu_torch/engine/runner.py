@@ -1742,6 +1742,19 @@ class InferenceEngine:
             return PipelineStats(**vars(self._pipe))
 
     @property
+    def shed_frames(self) -> int:
+        """Frames the degradation ladder shed, stale at dispatch (the JAX
+        engine's ``shed_frames``)."""
+        with self._pipe_lock:
+            return self._pipe.shed_frames
+
+    @property
+    def _step_cache(self) -> Dict[tuple, Callable]:
+        """The step of each key built so far, under the JAX engine's name
+        (the chaos soak samples its size)."""
+        return self._steps
+
+    @property
     def checksum(self) -> int:
         """Running fold of ``host_slot_checksum`` over every emitted
         detection slot, mod 2^31: a sum, so it does not depend on the order

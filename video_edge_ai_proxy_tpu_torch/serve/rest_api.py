@@ -96,9 +96,24 @@ async def _cors(request: web.Request, handler):
     return resp
 
 
+async def _forget_served_handlers(app) -> None:
+    """``app``'s cleanup: aiohttp keeps each (handler, apps) pair it served
+    in a process-wide cache of built middleware chains
+    (``web_app._cached_build_middleware``, up to 1024 entries), so a
+    cleaned-up app's handlers, and the engine, process manager and settings
+    they close over, would stay alive with the process. A running app
+    rebuilds its chains at its next requests."""
+    from aiohttp import web_app
+
+    cache = getattr(web_app, "_cached_build_middleware", None)
+    if cache is not None and hasattr(cache, "cache_clear"):
+        cache.cache_clear()
+
+
 def build_app(pm: ProcessManager, settings: SettingsManager, engine=None,
               annotations=None) -> web.Application:
     app = web.Application(middlewares=[_cors], client_max_size=8 << 20)
+    app.on_cleanup.append(_forget_served_handlers)
 
     async def start_process(request: web.Request) -> web.Response:
         try:
