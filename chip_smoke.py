@@ -290,7 +290,35 @@ exits non-zero:
    ``Inference`` stream to a client thread, 20 s after a 15 s warmup:
    gated on results measured, keep-mask launches equal to the batches and
    no logged failure; printed: publish -> client-receive p50/p90/p95/p99
-   beside the 40 ms limit, and the stage legs.
+   beside the 40 ms limit, and the stage legs;
+21. the camera tier, in a process of its own (``chip_smoke.py
+   --camera``). First one line: whether ``g++ -E`` finds the FFmpeg
+   development headers (``libavformat/avformat.h``,
+   ``libavcodec/avcodec.h``, ``libswscale/swscale.h``) and whether ``cv2``
+   imports. (a) The Redis wire, on the port's ``MiniRedis`` in a process
+   of its own: 11a's trace (16x1080p, 8 frames each) through
+   ``lockstep_checksum`` and the engine's ``serve_lockstep`` over a
+   ``RedisFrameBus``, gated on 11a's and 11b's folds (305268384,
+   304869744); then a ``Server`` with ``bus.backend: redis`` and 4 worker
+   processes (``test://`` 1080p at 30 fps) for 15 s with its wire, gated
+   on every camera answering a gRPC ``Inference`` client, annotations in
+   the Redis queue, every worker exiting 0 at SIGTERM, no worker on the
+   card and at least one keep-mask launch a batch; printed: frames/s and
+   capture -> client-receive p50/p95/p99. Where the headers are found:
+   (b) a 1920x1080 H.264 clip (90 frames, a keyframe every 30) encoded
+   with the port's ``write_test_video``, decoded by 16 worker processes on
+   the shm bus (a file endpoint each, re-opened at its end) and read by
+   the default engine for 20 s: gated on ``vep_source_opens_total{kind=
+   "packet"}`` counting 16 in the workers, every stream served,
+   ``is_keyframe`` on every 30th packet, a keyframe-only camera decoding
+   only its keyframes, every detection tracked, exit 0 at SIGTERM and no
+   worker on the card; printed: frames/s and p50/p95/p99 beside 13b's, each
+   worker's cores and CPU ms a decoded frame; (c) a worker process with
+   ``disk_buffer_path`` archives the clip into MP4 segments that demux back
+   with a keyframe head and the packets fed, and a worker relaying to an
+   ``.flv`` file from the activating keyframe when ``proxy_rtmp`` turns on
+   mid-GOP. Where the headers are absent, (b) and (c) do not run and the
+   first line says so.
 
 On the card the engine runs every serving step as a graph replay, so
 phases 5, 8, 11, 13, 15-20 run graphed; phases 4, 6, 7, 9 and 10 call the eager
@@ -301,8 +329,8 @@ workspace of each stream that ran a matmul, and the preprocessing
 constants of every geometry met so far) and frees it, so that phase 9's
 peak memory counts the training alone.
 
-Phases 5, 8, 9, 11c, 13b, 14, 15c, 16a, 16b, 17a, 17b, 18b, 19b-d and 20
-are the main paths: the kernels' launch counts are set to 0 just before each and read
+Phases 5, 8, 9, 11c, 13b, 14, 15c, 16a, 16b, 17a, 17b, 18b, 19b-d, 20 and
+21 (a, and b where it runs) are the main paths: the kernels' launch counts are set to 0 just before each and read
 just after it, and every kernel of that path must have launched (a graph
 replay adds the launches its capture recorded); the keep mask's count in
 13b is ``launches_frame_path``, in 14's first server (zeroed before its
@@ -4367,10 +4395,11 @@ E2E_LATENCY_LIMIT_MS = 40.0  # PERF.md section 2's p50 limit, printed beside the
 E2E_CHILD_TIMEOUT_S = 300    # 20 runs in a process of its own
 
 
-def run_child(flag: str, tag: str, timeout_s: float) -> dict:
-    """``chip_smoke.py <flag>`` in a process of its own: its lines logged
-    here, its last line (a JSON object) returned; a non-zero exit raises."""
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag], cwd=ROOT,
+def run_child(flag: str, tag: str, timeout_s: float, *args: str) -> dict:
+    """``chip_smoke.py <flag> [args]`` in a process of its own: its lines
+    logged here, its last line (a JSON object) returned; a non-zero exit
+    raises."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag, *args], cwd=ROOT,
                           capture_output=True, text=True, timeout=timeout_s)
     lines = proc.stdout.splitlines()
     for line in lines[:-1]:
@@ -4608,9 +4637,587 @@ def e2e_phase(dev, card: str, zero_launches, read_launches, report: dict) -> Non
     report["launches_e2e"] = counted.launches()
 
 
+# -- phase 21: the camera tier -------------------------------------------------------------
+
+CAMERA_MODEL = "yolov8n"         # 21: the default EngineConfig's model
+CAMERA_FOLDS = (305268384, 304869744)   # 11a's and 11b's folds (11a's trace, seeded yolov8n)
+CAMERA_REDIS_CAMS = 4            # 21a: the Server's worker processes on the Redis bus
+CAMERA_REDIS_S = 15.0            # 21a: the Server's measured window
+CAMERA_DECODE_S = 20.0           # 21b: the engine reads the decoding workers this long
+CAMERA_HW = FRAME_HW             # 21b, 21c: the encoded clip's geometry
+CAMERA_STREAMS = N_STREAMS       # 21b: decoding worker processes
+CAMERA_CLIP_FRAMES = 90          # 21b, 21c: the clip, 3 s at 30 fps
+CAMERA_CLIP_GOP = 30
+CAMERA_ENCODERS = ("libx264", "libopenh264")   # H.264 encoders libav may offer
+CAMERA_RELAY_TOGGLE = 45         # 21c: the relay turns on at this grab, mid-GOP
+CAMERA_CHILD_TIMEOUT_S = 600     # 21 runs in a process of its own
+# A decoding worker: the worker's own entry point, then its process's
+# vep_source_opens_total by kind as its last line (the counter lives in the
+# worker's process).
+CAMERA_WORKER = ("import json\n"
+                 "from video_edge_ai_proxy_tpu_torch.ingest import worker\n"
+                 "from video_edge_ai_proxy_tpu_torch.obs import registry\n"
+                 "worker.main()\n"
+                 "fam = {f.name: f for f in registry.families()}.get('vep_source_opens_total')\n"
+                 "print(json.dumps({k: fam.labels(k).value if fam else 0.0\n"
+                 "                  for k in ('packet', 'opencv', 'synthetic')}), flush=True)\n")
+
+
+def libav_probe() -> tuple:
+    """(the FFmpeg development headers found, the line that says so and
+    whether ``cv2`` imports): ``g++ -E`` of a file that only includes the
+    three headers the libav shim compiles against."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "probe.cc")
+        with open(src, "w") as fh:
+            fh.write("#include <libavformat/avformat.h>\n#include <libavcodec/avcodec.h>\n"
+                     "#include <libswscale/swscale.h>\n")
+        try:
+            proc = subprocess.run(["g++", "-E", src, "-o", os.devnull], capture_output=True,
+                                  text=True, timeout=120)
+            found = proc.returncode == 0
+            why = "" if found else (proc.stderr.strip().splitlines() or ["?"])[-3:]
+        except FileNotFoundError as exc:
+            found, why = False, f"g++ absent ({exc})"
+    try:
+        import cv2
+
+        cv = f"cv2 {cv2.__version__} imports"
+    except ImportError as exc:
+        cv = f"cv2 does not import ({exc})"
+    line = (f"phase 21 libav: the FFmpeg development headers (libavformat/avformat.h, "
+            f"libavcodec/avcodec.h, libswscale/swscale.h) are "
+            + ("found by g++ -E; 21b and 21c run" if found else
+               f"absent (g++ -E: {why}): 21b and 21c do not run on this machine, the libav "
+               f"shim cannot build here")
+            + f"; {cv} (not used: no decode falls back to OpenCV)")
+    return found, line
+
+
+def seeded_detector(dev):
+    """yolov8n from seed 0 with the class prior zeroed: 11a's weights."""
+    import torch
+
+    from video_edge_ai_proxy_tpu_torch.models import registry
+    from video_edge_ai_proxy_tpu_torch.replay.checksum import zero_class_prior
+
+    model = registry.get(CAMERA_MODEL).init_params(torch.Generator().manual_seed(0), device=dev)
+    model.load_state_dict(zero_class_prior(model.state_dict()))
+    return model
+
+
+def start_miniredis():
+    """The port's MiniRedis in a process of its own (it does not share the
+    engine's interpreter lock): (process, address)."""
+    proc = subprocess.Popen([sys.executable, "-m", "video_edge_ai_proxy_tpu_torch.bus.miniredis",
+                             "--port", "0"], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                            stdout=subprocess.PIPE, text=True)
+    addr = proc.stdout.readline().strip()
+    if proc.poll() is not None or ":" not in addr:
+        raise AssertionError(f"phase 21a: MiniRedis did not start ({proc.poll()}, {addr!r})")
+    return proc, addr
+
+
+def redis_replay_phase(dev, card: str, model, addr: str, zero_launches, read_launches) -> None:
+    """21a, first half: 11a's trace through ``lockstep_checksum`` and through
+    the engine's ``serve_lockstep`` over a RedisFrameBus: 11a's and 11b's
+    folds."""
+    import tempfile
+
+    from video_edge_ai_proxy_tpu_torch.bus.redis_bus import RedisFrameBus
+    from video_edge_ai_proxy_tpu_torch.bus.resp import RespClient
+    from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine
+    from video_edge_ai_proxy_tpu_torch.replay.harness import lockstep_checksum
+    from video_edge_ai_proxy_tpu_torch.replay.player import TracePlayer
+    from video_edge_ai_proxy_tpu_torch.replay.recorder import record_synthetic_trace
+    from video_edge_ai_proxy_tpu_torch.utils.config import EngineConfig
+
+    streams = [f"cam{i:02d}" for i in range(N_STREAMS)]
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = record_synthetic_trace(os.path.join(tmp, "pipeline.vtrace"), streams,
+                                      width=FRAME_HW[1], height=FRAME_HW[0], fps=30.0,
+                                      frames=REPLAY_FRAMES)
+        bus = RedisFrameBus(addr)
+        try:
+            zero_launches()
+            t0 = time.perf_counter()
+            lock = lockstep_checksum(path, model=CAMERA_MODEL, device=dev, state_dict=weights,
+                                     bus=bus)
+            lock_s = time.perf_counter() - t0
+            lock_launches = read_launches()["nms_keep_mask"]
+        finally:
+            bus.close()
+        by_packet: dict = {}
+        for dev_id, frame, meta in TracePlayer(path).iter_frames():
+            by_packet.setdefault(meta.packet, []).append((dev_id, frame, meta))
+    raw = RespClient.from_addr(addr)
+    raw.command("FLUSHALL")
+    raw.close()
+    ticks = [by_packet[n] for n in sorted(by_packet)]
+    bus = RedisFrameBus(addr)
+    try:
+        engine = InferenceEngine(bus, EngineConfig(), device=dev, model=model)
+        engine.warmup()
+        zero_launches()
+        t0 = time.perf_counter()
+        fold = engine.serve_lockstep(ticks)
+        serve_s = time.perf_counter() - t0
+        serve_launches = read_launches()["nms_keep_mask"]
+        frames = engine.pipeline_stats().frames
+    finally:
+        bus.close()
+    del engine, ticks, by_packet
+    n = N_STREAMS * REPLAY_FRAMES
+    log(f"phase 21a replay over the Redis bus (the port's MiniRedis in a process of its own, "
+        f"XADD MAXLEN ~ of {FRAME_HW[1]}x{FRAME_HW[0]} VideoFrames) on {card}: "
+        f"lockstep_checksum {lock['checksum']} over {lock['frames']} frames in {lock_s:.2f} s "
+        f"({lock_s * 1000.0 / max(lock['frames'], 1):.1f} ms a frame), {lock_launches} "
+        f"keep-mask launches for {lock['batches']} batches; the engine's serve_lockstep {fold} "
+        f"over {frames} results in {serve_s:.2f} s, {serve_launches} keep-mask launches; 11a "
+        f"and 11b fold {CAMERA_FOLDS[0]} and {CAMERA_FOLDS[1]}")
+    if lock["checksum"] != CAMERA_FOLDS[0] or lock["frames"] != n or lock_launches <= 0:
+        raise AssertionError(f"phase 21a: the Redis bus's lockstep fold {lock} (launches "
+                             f"{lock_launches}) is not 11a's {CAMERA_FOLDS[0]}")
+    if fold != CAMERA_FOLDS[1] or frames != n or serve_launches <= 0:
+        raise AssertionError(f"phase 21a: the engine's fold {fold} over {frames} results "
+                             f"(launches {serve_launches}) is not 11b's {CAMERA_FOLDS[1]}")
+
+
+def redis_server_phase(dev, card: str, model, addr: str, zero_launches, read_launches) -> None:
+    """21a, second half: a ``Server`` with ``bus.backend: redis`` and
+    CAMERA_REDIS_CAMS worker processes (``test://`` 1080p at 30 fps) for
+    CAMERA_REDIS_S, its wire started, read by a gRPC ``Inference`` client."""
+    import shutil
+    import tempfile
+
+    import grpc
+
+    from video_edge_ai_proxy_tpu_torch.bus.resp import RespClient
+    from video_edge_ai_proxy_tpu_torch.proto import video_streaming_pb2 as pb
+    from video_edge_ai_proxy_tpu_torch.proto import video_streaming_pb2_grpc as pb_grpc
+    from video_edge_ai_proxy_tpu_torch.serve import StreamProcess
+    from video_edge_ai_proxy_tpu_torch.serve.server import Server
+    from video_edge_ai_proxy_tpu_torch.utils.config import Config
+
+    cams = [f"rcam{i:02d}" for i in range(CAMERA_REDIS_CAMS)]
+    data_dir = tempfile.mkdtemp(prefix="vep_server_redis_")
+    sink = AnnotationSink()
+    cfg = Config()
+    cfg.bus.backend = "redis"
+    cfg.bus.redis_addr = addr
+    cfg.annotation.endpoint = sink.url + "/api/v1/annotate"
+    cfg.api.endpoint = sink.url
+    cfg.worker_adoption = False        # the workers end with the server
+    srv = Server(cfg, data_dir=data_dir, enable_engine=True, grpc_port=0, rest_port=0,
+                 device=dev.type)
+    got: dict = {}
+    procs: dict = {}
+    # The drain's annotation publishes, each an LPUSH round trip to Redis:
+    # (monotonic end, seconds) a call.
+    pub_calls: list = []
+    publish = srv.annotations.publish
+
+    def timed_publish(payload: bytes) -> bool:
+        t_in = time.perf_counter()
+        try:
+            return publish(payload)
+        finally:
+            pub_calls.append((time.monotonic(), time.perf_counter() - t_in))
+
+    srv.annotations.publish = timed_publish
+    try:
+        srv.settings.overwrite(EDGE_KEY, EDGE_SECRET)
+        srv.engine.warmup()
+        srv.engine._model.load_state_dict(model.state_dict())
+        with LogCounter() as logged, \
+                LaunchesAfterStart(zero_launches, read_launches, CAMERA_MODEL) as counted:
+            t_boot = time.monotonic()
+            srv.start()
+            for name in cams:
+                srv.process_manager.start(StreamProcess(name=name, rtsp_endpoint=worker_url()))
+            channel = grpc.insecure_channel(f"127.0.0.1:{srv.bound_grpc_port}")
+            call = pb_grpc.ImageStub(channel).Inference(pb.InferenceRequest(device_ids=cams))
+
+            def client():
+                try:
+                    for r in call:
+                        got.setdefault(r.device_id, []).append((time.time() * 1000.0, r))
+                except grpc.RpcError:
+                    pass        # cancelled at the end of the window
+
+            reader = threading.Thread(target=client, daemon=True)
+            reader.start()
+            while set(srv.bus.streams()) < set(cams):
+                if time.monotonic() - t_boot > 120:
+                    raise AssertionError(f"phase 21a: Redis streams not up within 120 s: "
+                                         f"{srv.bus.streams()}")
+                time.sleep(0.1)
+            up_s = time.monotonic() - t_boot
+            procs = {d: srv.process_manager._entries[d].proc for d in cams}
+            beats0 = heartbeats(srv.bus, cams)
+            t0, t0_wall_ms = time.monotonic(), time.time() * 1000.0
+            time.sleep(CAMERA_REDIS_S / 4)
+            cuda_workers = [d for d, p in procs.items() if maps_cuda(p.pid)]
+            apps = compute_app_pids()
+            time.sleep(max(0.0, t0 + CAMERA_REDIS_S - time.monotonic()))
+            wall_s = time.monotonic() - t0
+            window = [(t, r) for v in list(got.values()) for t, r in list(v)
+                      if t0_wall_ms <= t <= t0_wall_ms + wall_s * 1000.0]
+            launches, batches = counted.launches(), counted.batches()
+            beats = heartbeats(srv.bus, cams)
+            call.cancel()
+            channel.close()
+            ann = srv.annotations
+            queued = (ann.published, ann.acked, ann.dropped, ann.depth())
+            raw = RespClient.from_addr(addr)
+            rmq = sorted(k.decode() for k in raw.command("KEYS", "rmq::*"))
+            raw.close()
+        failures = {m: logged.count(m) for m in FAILURE_MESSAGES}
+    finally:
+        srv.stop()
+        sink.close()
+        shutil.rmtree(data_dir, ignore_errors=True)
+    codes = {d: p.poll() for d, p in procs.items()}
+    lat = sorted(t - r.timestamp for t, r in window)
+    pubs = [dt for t, dt in pub_calls if t0 <= t <= t0 + wall_s]
+    published = sum(beats[d].get("published", 0) - beats0[d].get("published", 0) for d in cams)
+    log(f"phase 21a Server(bus.backend='redis') with {len(cams)} worker processes "
+        f"({worker_url()}, XADD to MiniRedis; streams up in {up_s:.2f} s) and a gRPC Inference "
+        f"client for {wall_s:.3f} s on {card}: {len(window)} results received in the window "
+        f"({len(window) / wall_s:.2f} frames/s), {published} frames published by the workers "
+        f"meanwhile (heartbeat deltas); capture -> client-receive "
+        f"p50 {pct(lat, 50):.1f} ms, p95 {pct(lat, 95):.1f}, p99 {pct(lat, 99):.1f}; results "
+        f"per camera {({d: len(v) for d, v in got.items()})}; {launches} keep-mask launches "
+        f"for {batches} {CAMERA_MODEL} batches (captures of keys met in the window add "
+        f"theirs); the ladder at {srv.engine.ladder.rung}; logged failures {failures}")
+    log(f"phase 21a annotations through the Redis queue (published, acked, dropped, depth): "
+        f"{queued}; in the window {len(pubs)} publishes from the drain took "
+        f"{sum(pubs):.3f} s of its {wall_s:.3f} ({pct(sorted(pubs), 50) * 1000.0:.2f} ms each at "
+        f"p50, {len(pubs) / max(len(window), 1):.1f} a result received); rmq keys {rmq}; {len(sink.posts)} signed posts at the sink; worker exit "
+        f"codes at SIGTERM {codes}; workers with libcuda mapped {cuda_workers}; nvidia-smi "
+        f"compute apps {apps}")
+    worker_pids = {str(p.pid) for p in procs.values()}
+    missing = [d for d in cams if not got.get(d)]
+    if missing:
+        raise AssertionError(f"phase 21a: cameras without a gRPC Inference answer: {missing}")
+    if queued[0] <= 0 or not any(k.startswith("rmq::") for k in rmq):
+        raise AssertionError(f"phase 21a: no annotation reached the Redis queue: {queued} {rmq}")
+    if any(c != 0 for c in codes.values()):
+        raise AssertionError(f"phase 21a: worker exit codes at SIGTERM {codes}")
+    if cuda_workers or any(a.split(",")[0].strip() in worker_pids for a in apps):
+        raise AssertionError(f"phase 21a: a worker process is on the card: {cuda_workers} {apps}")
+    # Each batch launches the keep mask at least once; a key the ladder
+    # first meets in the window (bucket_downshift) adds its capture's calls.
+    if batches <= 0 or launches < batches or any(failures.values()):
+        raise AssertionError(f"phase 21a: {launches} keep-mask launches for {batches} batches, "
+                             f"failures {failures}")
+
+
+def encode_clip(path: str) -> str:
+    """The 21b/21c clip: CAMERA_CLIP_FRAMES frames of CAMERA_HW, a keyframe
+    every CAMERA_CLIP_GOP, through the port's ``write_test_video`` with the
+    first encoder of CAMERA_ENCODERS that libav offers; returns its name."""
+    from video_edge_ai_proxy_tpu_torch.ingest import av
+
+    for codec in CAMERA_ENCODERS:
+        if av.encoder_available(codec):
+            av.write_test_video(path, CAMERA_HW[1], CAMERA_HW[0], frames=CAMERA_CLIP_FRAMES,
+                                fps=PACED_FPS, gop=CAMERA_CLIP_GOP, codec=codec)
+            return codec
+    raise AssertionError(f"phase 21: libav offers none of the encoders {CAMERA_ENCODERS}")
+
+
+def clip_video_packets(path: str) -> list:
+    """(is_keyframe, payload) of every video packet of ``path``."""
+    from video_edge_ai_proxy_tpu_torch.ingest import av
+
+    with av.PacketDemuxer(path) as d:
+        out = []
+        while (p := d.read(want_data=True)) is not None:
+            if not p.is_audio:
+                out.append((p.is_keyframe, p.data, p.pts))
+        return out
+
+
+def run_from_keyframe(pkts: list, source: list) -> bool:
+    """``pkts``' payloads are a run of ``source``'s that starts at one of its
+    keyframes."""
+    payloads = [p[1] for p in source]
+    if not pkts or pkts[0][1] not in payloads:
+        return False
+    i = payloads.index(pkts[0][1])
+    return source[i][0] and payloads[i:i + len(pkts)] == [p[1] for p in pkts]
+
+
+def decode_phase(dev, card: str, model, clip: str, codec: str, out_dir: str, zero_launches,
+                 read_launches, beside: dict) -> None:
+    """21b: CAMERA_STREAMS worker processes on the shm bus, each on the clip
+    as a file endpoint (demux, lazy BGR24 decode in the worker, a re-open
+    at each end of the file), read by the default engine for
+    CAMERA_DECODE_S. One camera is keyframe-only."""
+    import shutil
+
+    from video_edge_ai_proxy_tpu_torch.bus import open_bus
+    from video_edge_ai_proxy_tpu_torch.bus.shm_bus import ring_bytes
+    from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine
+    from video_edge_ai_proxy_tpu_torch.utils.config import EngineConfig
+
+    streams = [f"clip{i:02d}" for i in range(CAMERA_STREAMS)]
+    kf_cam = streams[-1]
+    frame_bytes = CAMERA_HW[0] * CAMERA_HW[1] * 3
+    rdir = ring_dir("b", CAMERA_STREAMS * ring_bytes(max(frame_bytes, 1920 * 1080 * 3),
+                                                     WORKER_SLOTS), phase="21")
+    procs: dict = {}
+    try:
+        bus = open_bus("shm", rdir)
+        bus.set_keyframe_only(kf_cam, True)
+        seen: list = []
+        read_into = bus.read_latest_into
+
+        def tracked(device_id, dst, min_seq=0):
+            res = read_into(device_id, dst, min_seq)
+            meta = res[1] if isinstance(res, tuple) else getattr(res, "meta", None)
+            if meta is not None:
+                seen.append((device_id, meta.packet, meta.is_keyframe, meta.frame_type))
+            return res
+
+        bus.read_latest_into = tracked
+        engine = InferenceEngine(bus, EngineConfig(), device=dev, model=model)
+        results = engine.subscribe(streams)
+        got: dict = {}
+        reader = threading.Thread(target=lambda: [got.setdefault(r.device_id, []).append(r)
+                                                  for r in results], daemon=True)
+        reader.start()
+        engine.warmup()
+        for d in streams:
+            env = dict(worker_env(rdir, d), rtsp_endpoint=clip)
+            env.pop("vep_source", None)
+            with open(os.path.join(out_dir, f"worker_{d}.log"), "wb") as fh:
+                procs[d] = subprocess.Popen([sys.executable, "-c", CAMERA_WORKER], cwd=ROOT,
+                                            env=env, stdout=fh, stderr=subprocess.STDOUT)
+        up_s = wait_for_rings(bus, procs)
+        with LogCounter() as logged:
+            beats0 = heartbeats(bus, streams)
+            cpu0 = {d: cpu_seconds(p.pid) for d, p in procs.items()}
+            zero_launches()
+            engine.start()
+            t0 = time.monotonic()
+            try:
+                time.sleep(CAMERA_DECODE_S / 4)
+                apps = compute_app_pids()
+                cuda_workers = [d for d, p in procs.items() if maps_cuda(p.pid)]
+                time.sleep(max(0.0, t0 + CAMERA_DECODE_S - time.monotonic()))
+                wall_s = time.monotonic() - t0
+                cpu = {d: cpu_seconds(p.pid) - cpu0[d] for d, p in procs.items()}
+                beats = heartbeats(bus, streams)
+                health = engine.health()
+            finally:
+                engine.stop()
+            launches = read_launches()["nms_keep_mask"]
+            codes = stop_workers(procs)
+        bus.close()
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(rdir, ignore_errors=True)
+    reader.join(10)
+    opens: dict = {}
+    for d in streams:
+        with open(os.path.join(out_dir, f"worker_{d}.log")) as fh:
+            last = (fh.read().strip().splitlines() or ["{}"])[-1]
+        try:
+            for k, v in json.loads(last).items():
+                opens[k] = opens.get(k, 0) + v
+        except ValueError:
+            opens.setdefault("unreadable", []).append(d)
+    p = engine.pipeline_stats()
+    lat = [r.latency_ms for v in got.values() for r in v]
+    dets = [det for v in got.values() for r in v for det in r.detections]
+    untracked = sum(1 for det in dets if not det.track_id)
+    missing = [s for s in streams if not got.get(s)]
+    delta = {d: {k: beats[d].get(k, 0) - beats0[d].get(k, 0)
+                 for k in ("packets", "decoded", "keyframes", "published")} for d in streams}
+    bad_kf = [(d, n, kf) for d, n, kf, _ in seen if kf != (n % CAMERA_CLIP_GOP == 0)]
+    failures = {m: logged.count(m) for m in FAILURE_MESSAGES}
+    log(f"phase 21b {CAMERA_STREAMS} worker processes decoding {os.path.basename(clip)} "
+        f"({CAMERA_HW[1]}x{CAMERA_HW[0]}, {CAMERA_CLIP_FRAMES} frames, a keyframe every "
+        f"{CAMERA_CLIP_GOP}, {codec}; a file endpoint, re-opened at its end; rings up in "
+        f"{up_s:.2f} s) read by InferenceEngine(open_bus('shm'), EngineConfig()) for "
+        f"{wall_s:.3f} s on {card}: {p.frames} results ({p.frames / wall_s:.2f} frames/s), "
+        f"{p.batches} batches; capture->result p50 {pct(lat, 50):.3f} ms, p95 "
+        f"{pct(lat, 95):.3f}, p99 {pct(lat, 99):.3f}; beside 13b's pattern render in this "
+        f"run: {beside or 'not run in this process'}")
+    log("phase 21b workers (packets/decoded/keyframes/published over the window; host cores; "
+        "CPU ms a decoded frame, demux, decode and publish): "
+        + ", ".join(f"{d} {v['packets']}/{v['decoded']}/{v['keyframes']}/{v['published']} "
+                    f"{cpu[d] / wall_s:.3f} {cpu[d] * 1000.0 / max(v['decoded'], 1):.2f}"
+                    for d, v in delta.items()))
+    log(f"phase 21b checks: vep_source_opens_total in the workers {opens}; frames read by the "
+        f"engine {len(seen)}, is_keyframe off the every-{CAMERA_CLIP_GOP} cadence {bad_kf[:5]}; "
+        f"keyframe-only camera {kf_cam}: {delta[kf_cam]}; {len(dets)} detections, {untracked} "
+        f"without a track id; logged failures {failures}; keep-mask launches {launches}; "
+        f"worker exit codes at SIGTERM {sorted(set(map(str, codes.values())))}; workers with "
+        f"libcuda mapped {cuda_workers}; health ok {health['ok']}")
+    worker_pids = {str(pr.pid) for pr in procs.values()}
+    if opens.get("packet") != CAMERA_STREAMS or opens.get("opencv") or opens.get("unreadable"):
+        raise AssertionError(f"phase 21b: vep_source_opens_total {opens}: every worker must "
+                             f"open its file through the libav shim")
+    if missing:
+        raise AssertionError(f"phase 21b: streams without results: {missing}")
+    if not seen or bad_kf:
+        raise AssertionError(f"phase 21b: is_keyframe off the clip's cadence: {bad_kf[:10]}")
+    kf = delta[kf_cam]
+    if not (0 < kf["decoded"] == kf["keyframes"]) or any(
+            v["decoded"] <= v["keyframes"] for d, v in delta.items() if d != kf_cam):
+        raise AssertionError(f"phase 21b: keyframe-only decode: {delta}")
+    if not dets or untracked:
+        raise AssertionError(f"phase 21b: {untracked} of {len(dets)} detections without a "
+                             f"track id")
+    if any(c != 0 for c in codes.values()):
+        raise AssertionError(f"phase 21b: worker exit codes at SIGTERM {codes}")
+    if cuda_workers or any(a.split(",")[0].strip() in worker_pids for a in apps):
+        raise AssertionError(f"phase 21b: a worker process is on the card: {cuda_workers} {apps}")
+    if launches <= 0 or any(failures.values()) or not health["ok"]:
+        raise AssertionError(f"phase 21b: keep-mask launches {launches}, failures {failures}, "
+                             f"health {health}")
+
+
+def side_paths_phase(card: str, clip: str, out_dir: str) -> None:
+    """21c: the archive (a worker process with ``disk_buffer_path``, the
+    clip once through) and the RTMP pass-through to an ``.flv`` file (a
+    worker on the shm bus whose ``proxy_rtmp`` turns on at grab
+    CAMERA_RELAY_TOGGLE, mid-GOP)."""
+    import shutil
+    import tempfile
+
+    from video_edge_ai_proxy_tpu_torch.bus import open_bus
+    from video_edge_ai_proxy_tpu_torch.ingest.sources import PacketSource
+    from video_edge_ai_proxy_tpu_torch.ingest.worker import IngestWorker, WorkerConfig
+
+    source = clip_video_packets(clip)
+    work = tempfile.mkdtemp(prefix="vep_side_")
+    try:
+        arch = os.path.join(work, "archive")
+        env = dict(worker_env(os.path.join(work, "rings"), "arch"), rtsp_endpoint=clip,
+                   disk_buffer_path=arch, vep_max_frames=str(CAMERA_CLIP_FRAMES))
+        env.pop("vep_source", None)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "video_edge_ai_proxy_tpu_torch.ingest.worker"],
+                              cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        with open(os.path.join(out_dir, "worker_arch.log"), "w") as fh:
+            fh.write(proc.stdout + proc.stderr)
+        arch_s = time.perf_counter() - t0
+        segs = sorted(os.listdir(os.path.join(arch, "arch"))) if os.path.isdir(
+            os.path.join(arch, "arch")) else []
+        seg_pkts = [clip_video_packets(os.path.join(arch, "arch", s)) for s in segs]
+        archived = sorted(p[1] for pk in seg_pkts for p in pk)
+        bad_heads = [s for s, pk in zip(segs, seg_pkts)
+                     if not (pk and pk[0][0] and pk[0][2] == 0 and run_from_keyframe(pk, source))]
+        log(f"phase 21c archive on {card}: a worker process (disk_buffer_path, "
+            f"vep_max_frames={CAMERA_CLIP_FRAMES}) exited {proc.returncode} in {arch_s:.2f} s; "
+            f"{len(segs)} MP4 segments {segs}, {len(archived)} video packets archived of "
+            f"{len(source)} fed; segments without a keyframe head at pts 0 or off the clip's "
+            f"packets {bad_heads}")
+        if proc.returncode != 0 or len(segs) != CAMERA_CLIP_FRAMES // CAMERA_CLIP_GOP or \
+                bad_heads or archived != sorted(p[1] for p in source):
+            raise AssertionError(f"phase 21c: the archive: exit {proc.returncode}, segments "
+                                 f"{segs}, bad heads {bad_heads}")
+
+        relay = os.path.join(work, "relay.flv")
+        bus = open_bus("shm", os.path.join(work, "relay_rings"))
+        try:
+            worker = IngestWorker(WorkerConfig(rtsp_endpoint=clip, device_id="relay",
+                                               rtmp_endpoint=relay,
+                                               max_frames=CAMERA_CLIP_FRAMES),
+                                  bus=bus, source=PacketSource(clip))
+            grab, count = worker.source.grab, [0]
+
+            def counting_grab():
+                count[0] += 1
+                if count[0] == CAMERA_RELAY_TOGGLE:
+                    bus.set_proxy_rtmp("relay", True)      # the Proxy RPC's write
+                return grab()
+
+            worker.source.grab = counting_grab
+            worker.run()
+        finally:
+            bus.close()
+        relayed = clip_video_packets(relay)
+        first = (CAMERA_RELAY_TOGGLE - 1) // CAMERA_CLIP_GOP * CAMERA_CLIP_GOP
+        log(f"phase 21c relay on {card}: proxy_rtmp on at packet {CAMERA_RELAY_TOGGLE - 1} "
+            f"(mid-GOP): {len(relayed)} video packets in {os.path.basename(relay)}, the first a "
+            f"keyframe {bool(relayed and relayed[0][0])}, equal to the clip's packets "
+            f"{first}-{len(source) - 1} {[p[1] for p in relayed] == [p[1] for p in source[first:]]}; "
+            f"decode gate kept lazy: decoded {worker._decoded} of {worker._packets} packets")
+        if [p[1] for p in relayed] != [p[1] for p in source[first:]] or not relayed[0][0]:
+            raise AssertionError(f"phase 21c: the relay holds {len(relayed)} packets, not the "
+                                 f"clip's {first}-{len(source) - 1} from the activating keyframe")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def camera_phase(dev, card: str, zero_launches, read_launches, report: dict) -> None:
+    """Phase 21: the camera tier. (a) the Redis wire: 11a's trace over a
+    RedisFrameBus on the port's MiniRedis, then a Server with
+    ``bus.backend: redis``; (b) real decode of an encoded clip by 16 worker
+    processes; (c) the archive and the RTMP pass-through. (b) and (c) need
+    the FFmpeg development files, and run only where ``g++`` finds them."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    found, line = libav_probe()
+    log(line)
+    beside = json.loads(sys.argv[2]) if len(sys.argv) > 2 else {}
+    out_dir = os.path.join(ROOT, "chiprun_out", "phase21")
+    os.makedirs(out_dir, exist_ok=True)
+    model = seeded_detector(dev)
+    t0 = time.perf_counter()
+    redis_proc, addr = start_miniredis()
+    try:
+        redis_replay_phase(dev, card, model, addr, zero_launches, read_launches)
+        redis_server_phase(dev, card, model, addr, zero_launches, read_launches)
+    finally:
+        redis_proc.terminate()
+        redis_proc.wait(30)
+    log(f"phase 21a took {time.perf_counter() - t0:.1f} s")
+    if not found:
+        return
+    from video_edge_ai_proxy_tpu_torch.ingest import av
+
+    t0 = time.perf_counter()
+    av._load()                 # built once here, before any worker starts
+    build_s = time.perf_counter() - t0
+    work = tempfile.mkdtemp(prefix="vep_clip_")
+    try:
+        clip = os.path.join(work, "clip.mp4")
+        t0 = time.perf_counter()
+        codec = encode_clip(clip)
+        source = clip_video_packets(clip)
+        log(f"phase 21b the libav shim built in {build_s:.2f} s; the clip encoded with {codec} "
+            f"in {time.perf_counter() - t0:.2f} s: {len(source)} packets, keyframes at "
+            f"{[i for i, p in enumerate(source) if p[0]]}")
+        t0 = time.perf_counter()
+        decode_phase(dev, card, model, clip, codec, out_dir, zero_launches, read_launches,
+                     beside)
+        log(f"phase 21b took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        side_paths_phase(card, clip, out_dir)
+        log(f"phase 21c took {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del model
+    torch.cuda.empty_cache()
+
+
 def child_main(phase) -> int:
-    """``chip_smoke.py --soak`` / ``--e2e``: phase 19 or 20 alone, as ``main``
-    runs it in a process of its own (the kernels as phase 2 built them);
+    """``chip_smoke.py --soak`` / ``--e2e`` / ``--camera``: phase 19, 20 or 21
+    alone, as ``main`` runs it in a process of its own (the kernels as phase 2 built them);
     the keep mask's report entries are its last line."""
     import torch
 
@@ -5543,6 +6150,9 @@ def main() -> int:
     # -- phase 20: the wire run, in a process of its own ----------------------------------------
     report["nms_keep_mask"].update(run_child("--e2e", "20", E2E_CHILD_TIMEOUT_S))
 
+    # -- phase 21: the camera tier, in a process of its own ------------------------------------
+    run_child("--camera", "21", CAMERA_CHILD_TIMEOUT_S, json.dumps({"13b": frame_path}))
+
     line = {"kernels": []}
     for name, meta in kernels.items():
         r = report[name]
@@ -5575,6 +6185,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     CHILDREN = {"--fleet": fleet_main, "--soak": lambda: child_main(soak_phase),
-                "--e2e": lambda: child_main(e2e_phase)}
+                "--e2e": lambda: child_main(e2e_phase),
+                "--camera": lambda: child_main(camera_phase)}
     sys.exit(CHILDREN[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in CHILDREN
              else main())

@@ -616,8 +616,9 @@ def test_segment_archiver_writes_the_jax_layout(tmp_path):
     """The decoded-frame archive: the same file names under the same
     directories as the JAX archiver (``<start>_<duration>``, a ``-n``
     suffix for a second segment of one millisecond), by the same encoder
-    route (OpenCV when it imports, else ``.npz``); ``PacketGopSegment``
-    raises in the port."""
+    route (OpenCV when it imports, else ``.npz``); an empty
+    ``PacketGopSegment`` (the compressed archive's segment) is skipped by
+    both, as an empty ``GopSegment`` is."""
     rng = np.random.default_rng(1)
     frames = [rng.integers(0, 256, (32, 32, 3), dtype=np.uint8) for _ in range(6)]
     layouts = []
@@ -637,8 +638,9 @@ def test_segment_archiver_writes_the_jax_layout(tmp_path):
         layouts.append(sorted(str(p.relative_to(root)) for p in root.rglob("*") if p.is_file()))
     assert layouts[0] == layouts[1]
     assert any(name.startswith("camB/5_300") for name in layouts[0])
-    with pytest.raises(NotImplementedError):
-        archive.PacketGopSegment("cam", 0, None)
+    for mod, root in ((archive, tmp_path / "port_empty"), (jarchive, tmp_path / "jax_empty")):
+        mod.SegmentArchiver(str(root))._write(mod.PacketGopSegment("cam", 0, None))
+        assert not root.exists()
 
 
 # -- the REST surface ------------------------------------------------------------------

@@ -72,14 +72,21 @@ def test_synthetic_source_pts_monotonic():
 
 
 def test_sources_the_port_does_not_open_raise():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        open_source("rtsp://camera.local/stream")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        IngestWorker(WorkerConfig(rtsp_endpoint=unpaced(), device_id="cam1",
-                                  disk_buffer_path="/archive"), bus=MemoryFrameBus())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        IngestWorker(WorkerConfig(rtsp_endpoint=unpaced(), device_id="cam1",
-                                  rtmp_endpoint="rtmp://relay/live"), bus=MemoryFrameBus())
+    """Camera URLs, the archive and the RTMP pass-through, which earlier
+    slices refused, now open: a camera URL routes to the libav source (or
+    to OpenCV where the shim cannot build, as the JAX package routes it),
+    and a worker with ``disk_buffer_path`` or ``rtmp_endpoint`` builds."""
+    from video_edge_ai_proxy_tpu_torch.ingest import av
+    from video_edge_ai_proxy_tpu_torch.ingest.sources import OpenCVSource, PacketSource
+
+    src = open_source("rtsp://camera.local/stream")
+    assert isinstance(src, PacketSource if av.available() else OpenCVSource)
+    assert src.kind == ("packet" if av.available() else "opencv")
+    for side in ({"disk_buffer_path": "/archive"}, {"rtmp_endpoint": "rtmp://relay/live"}):
+        worker = IngestWorker(WorkerConfig(rtsp_endpoint=unpaced(), device_id="cam1", **side),
+                              bus=MemoryFrameBus())
+        assert worker.cfg.disk_buffer_path == side.get("disk_buffer_path", "")
+        assert worker.cfg.rtmp_endpoint == side.get("rtmp_endpoint", "")
 
 
 def _run_worker(bus, worker_cls=IngestWorker, cfg_cls=WorkerConfig, *, url=None, frames=20,

@@ -57,6 +57,36 @@ def test_importing_every_module_loads_no_jax():
     assert n_modules >= 20
 
 
+# The camera tier's modules, which worker processes load (a worker runs
+# under RLIMIT_AS and away from the card): none may load torch, directly
+# or through a package's __init__, nor grpc.
+WORKER_SIDE = ("utils.logging", "utils.cbuild", "ingest", "ingest.av", "ingest.sources",
+               "ingest.archive", "ingest.passthrough", "ingest.worker", "ingest.native",
+               "bus", "bus.resp", "bus.miniredis", "bus.redis_bus", "bus.shm_bus",
+               "uplink.redis_queue")
+
+
+@pytest.mark.parametrize("module", WORKER_SIDE)
+def test_worker_side_modules_load_no_torch(module):
+    code = (f"import sys, video_edge_ai_proxy_tpu_torch.{module}\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('torch', 'grpc')!r}))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
+def test_the_new_modules_are_in_the_source_scan():
+    names = {str(p.relative_to(PKG)) for p in _port_sources() if p.is_relative_to(PKG)}
+    for rel in ("utils/logging.py", "ingest/av.py", "ingest/passthrough.py", "bus/resp.py",
+                "bus/miniredis.py", "bus/redis_bus.py", "uplink/redis_queue.py",
+                "ingest/native/__init__.py"):
+        assert rel in names, rel
+    assert (PKG / "ingest" / "native" / "vepav.cpp").is_file()
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the no-GPU refusal cannot be shown here")

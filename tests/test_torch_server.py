@@ -949,3 +949,100 @@ def test_a_cleaned_up_rest_app_leaves_its_engine_collectable():
     del engine
     gc.collect()
     assert ref() is None
+
+
+def test_redis_backend_server_answers_equal_jax(tmp_path, sink):
+    """``bus.backend: redis``: the port's ``Server`` on the port's MiniRedis
+    beside the JAX ``Server`` on the JAX package's, neither with an engine.
+    Each registers the one-frame camera over REST; its worker publishes to
+    Redis, and the same requests get the same answers: the process record,
+    ``ListStreams``, the frame ``VideoLatestImage`` reads back through
+    ``XREVRANGE``, ``Annotate`` queued in Redis (the rmq ready list, the
+    Redis annotation queue's), ``Proxy`` written to the camera's hash. The
+    Redis keys both leave are the same."""
+    import shutil
+
+    from video_edge_ai_proxy_tpu.bus.miniredis import MiniRedis as JMiniRedis
+    from video_edge_ai_proxy_tpu.serve.server import Server as JaxServer
+    from video_edge_ai_proxy_tpu_torch.bus.miniredis import MiniRedis
+    from video_edge_ai_proxy_tpu_torch.bus.resp import RespClient
+    from video_edge_ai_proxy_tpu_torch.uplink.redis_queue import RedisAnnotationQueue
+
+    cam = {"name": "rtwin", "rtsp_endpoint": synth_url(1, w=64, h=48)}
+    ts = int(time.time() * 1000)
+    got = {}
+    for tag, redis_cls, server_cls, cfg_cls, mod, mod_grpc in (
+            ("port", MiniRedis, Server, Config, pb, pb_grpc),
+            ("jax", JMiniRedis, JaxServer, JaxConfig, jpb, jpb_grpc)):
+        redis = redis_cls()
+        cfg = cfg_cls()
+        cfg.bus.backend = "redis"
+        cfg.bus.redis_addr = redis.addr
+        cfg.bus.shm_dir = shm = _shm()
+        cfg.annotation.endpoint = sink[0] + "/api/v1/annotate"
+        cfg.annotation.poll_duration_ms = 60_000      # the events stay queued in Redis
+        cfg.worker_adoption = False
+        srv = server_cls(cfg, data_dir=str(tmp_path / tag), grpc_port=0, rest_port=0)
+        srv.start()
+        channel = grpc.insecure_channel(f"127.0.0.1:{srv.bound_grpc_port}")
+        try:
+            stub = mod_grpc.ImageStub(channel)
+            out = got[tag] = {
+                "POST settings": rest(srv, "/api/v1/settings", {"edge_key": "k",
+                                                                 "edge_secret": "s"}),
+                "POST process": rest(srv, "/api/v1/process", cam)}
+            seen = {}
+
+            def published():
+                seen["GET process"] = rest(srv, "/api/v1/process/rtwin")
+                return (seen["GET process"][1].get("heartbeat") or {}).get("published") == 1
+
+            assert wait_for(published, timeout=HEARTBEAT_WAIT_S), tag
+
+            def ask():
+                for _ in range(80):
+                    yield mod.VideoFrameRequest(device_id="rtwin")
+                    time.sleep(0.02)
+
+            out.update({
+                "GET process": seen["GET process"],
+                "ListStreams": [{f.name: v for f, v in s.ListFields() if f.name != "pid"}
+                                for s in stub.ListStreams(mod.ListStreamRequest())],
+                "frame": next(iter(stub.VideoLatestImage(ask(), timeout=30))),
+                "Annotate": stub.Annotate(mod.AnnotateRequest(
+                    device_name="rtwin", type="parked", start_timestamp=ts, confidence=0.5)),
+                "Proxy": stub.Proxy(mod.ProxyRequest(device_id="rtwin", passthrough=True)),
+                "annotations": type(srv.annotations).__name__,
+                "bus": type(srv.bus).__name__,
+            })
+            raw = RespClient.from_addr(redis.addr)
+            out["keys"] = sorted(k for k in raw.command("KEYS", "*")
+                                 if not k.startswith(b"rmq::connection::"))
+            out["ready"] = raw.command("LRANGE", "rmq::queue::[annotationqueue]::ready", "0",
+                                       "-1")
+            out["hash"] = sorted(raw.command("HKEYS", "last_access_time_rtwin"))
+            out["proxy"] = raw.command("HGET", "last_access_time_rtwin", "proxy_rtmp")
+            raw.close()
+        finally:
+            channel.close()
+            srv.stop()
+            redis.close()
+            shutil.rmtree(shm, ignore_errors=True)
+    port, jax_ = got["port"], got["jax"]
+    assert port["annotations"] == jax_["annotations"] == RedisAnnotationQueue.__name__
+    assert port["bus"] == jax_["bus"] == "RedisFrameBus"
+    for name in ("POST settings", "POST process", "GET process"):
+        assert _stable(port[name]) == _stable(jax_[name]), name
+    assert port["ListStreams"] == jax_["ListStreams"] != []
+    for name in ("frame", "Annotate", "Proxy"):
+        a, b = (type(m).FromString(m.SerializeToString()) for m in (port[name], jax_[name]))
+        if name == "frame":
+            a.ClearField("timestamp")
+            b.ClearField("timestamp")
+        assert a.SerializeToString(deterministic=True) == \
+            b.SerializeToString(deterministic=True), name
+    assert (port["frame"].width, port["frame"].height) == (64, 48)
+    assert port["keys"] == jax_["keys"] and b"rtwin" in port["keys"]
+    assert port["hash"] == jax_["hash"] and port["proxy"] == jax_["proxy"] == b"true"
+    assert len(port["ready"]) == len(jax_["ready"]) == 1
+    assert port["ready"] == jax_["ready"]

@@ -6,8 +6,11 @@ blocking reads, stream listing, the ``head`` probe, the doorbell, the KV
 and hash contract, the ring wrap, oversize publishes, the reader's buffer
 growth, frames that never alias, the writer's self-heal, a publish from
 another process, and the concurrent writer/reader race) run on the port's
-``MemoryFrameBus`` and ``ShmFrameBus`` as cases of one parametrised test;
-the shm-only cases run on the shm bus alone. The interop cases hold the
+``MemoryFrameBus``, ``ShmFrameBus`` and ``RedisFrameBus`` (over the port's
+``MiniRedis``) as cases of one parametrised test; the shm-only cases run
+on the shm bus alone, and the Redis bus leaves out the ``head`` probe and
+the doorbell (it keeps the interface's defaults for both, as the JAX
+package's Redis bus does). The interop cases hold the
 port's shm bus against the JAX package's on one ring directory: a ring
 and KV written by either package are read by the other with the same
 bytes, metadata and sequence numbers.
@@ -358,14 +361,27 @@ def ring_file_size(prod, cons, shm_dir):
     assert ring_bytes(1001, 3) - ring_bytes(1001, 2) == ring_bytes(1024, 3) - ring_bytes(1024, 2)
 
 
-PARAMS = [(backend, name) for name in CASES for backend in ("memory", "shm")
-          if backend == "shm" or name not in SHM_ONLY]
+# The fast-path probes the Redis bus does not offer (head: None; doorbell:
+# off), as in the JAX package.
+NOT_REDIS = {"head_probe", "doorbell_contract"}
+PARAMS = [(backend, name) for name in CASES for backend in ("memory", "shm", "redis")
+          if backend == "shm" or (name not in SHM_ONLY
+                                  and (backend == "memory" or name not in NOT_REDIS))]
 
 
 @pytest.mark.parametrize("backend,name", PARAMS, ids=[f"{b}-{n}" for b, n in PARAMS])
 def test_bus_contract(backend, name, shm_dir):
+    server = None
     if backend == "memory":
         prod = cons = MemoryFrameBus()
+    elif backend == "redis":
+        from video_edge_ai_proxy_tpu_torch.bus.miniredis import MiniRedis
+        from video_edge_ai_proxy_tpu_torch.bus.redis_bus import RedisFrameBus
+
+        server = MiniRedis()
+        prod, cons = open_bus("redis", redis_addr=server.addr), \
+            open_bus("redis", redis_addr=server.addr)
+        assert isinstance(prod, RedisFrameBus)
     else:
         prod, cons = open_bus("shm", shm_dir), open_bus("shm", shm_dir)
         assert isinstance(prod, ShmFrameBus)
@@ -374,6 +390,8 @@ def test_bus_contract(backend, name, shm_dir):
     finally:
         prod.close()
         cons.close()
+        if server is not None:
+            server.close()
 
 
 # -- interop with the JAX package's shm bus -------------------------------------
@@ -428,8 +446,13 @@ def test_open_bus_backends(shm_dir):
     bus = open_bus("shm", shm_dir)
     assert isinstance(bus, ShmFrameBus)
     bus.close()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        open_bus("redis")
+    from video_edge_ai_proxy_tpu_torch.bus.miniredis import MiniRedis
+    from video_edge_ai_proxy_tpu_torch.bus.redis_bus import RedisFrameBus
+
+    with MiniRedis() as addr:
+        bus = open_bus("redis", redis_addr=addr)
+        assert isinstance(bus, RedisFrameBus)
+        bus.close()
     with pytest.raises(ValueError, match="unknown bus backend"):
         open_bus("kafka")
 

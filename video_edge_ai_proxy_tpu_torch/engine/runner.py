@@ -150,12 +150,16 @@ from ..proto.annotate import BoundingBox as AnnotationBox
 from ..replay.checksum import CHECKSUM_MASK, host_slot_checksum
 from ..resilience.ladder import RUNGS, DegradationLadder
 from ..utils.config import EngineConfig
+from ..utils.logging import ContextFilter, log_context
 from . import aot_cache
 from .classes import class_name
 from .collector import BatchGroup, CanvasPacker, Collector, bucket_for, host_empty
 from .tracker import IoUTracker
 
 log = logging.getLogger("vep.torch.engine.runner")
+# Records carry the per-slot context (utils/logging.py) to every handler,
+# the root logger's included.
+log.addFilter(ContextFilter())
 
 TOP_K_CLASSES = 5
 
@@ -2644,60 +2648,63 @@ class InferenceEngine:
         track_s = 0.0
         harvest_s = 0.0
         for i, (device_id, meta) in enumerate(zip(group.device_ids, group.metas)):
-            detections = to_detections(host, i, kind, num_classes)
-            if self._cfg.track and kind == "detect":
-                # Empty frames too: misses must accumulate so stale tracks
-                # expire.
-                t_track = time.perf_counter()
-                self._assign_tracks(device_id, spec.name, detections)
-                track_s += time.perf_counter() - t_track
-                if self._cascade is not None and group.frames.ndim == 4:
-                    # The cascade's harvest: each tracked detection's crop
-                    # from the leased host frame (valid until this emit
-                    # returns) into its track's tile.
-                    t_harvest = time.perf_counter()
-                    try:
-                        self._cascade.harvest(device_id, group.frames[i], detections, meta)
-                    except Exception:
-                        log.exception("cascade harvest failed; continuing")
-                    harvest_s += time.perf_counter() - t_harvest
-            if self.quality is not None:
-                self._observe_quality(host, i, device_id, meta, detections)
-            latency = max(0.0, now_ms - meta.timestamp_ms) if meta.timestamp_ms else 0.0
-            if meta.timestamp_ms:
-                capture_sum += inflight.t_collect * 1000.0 - meta.timestamp_ms
-            self._publish(InferenceResult(
-                device_id=device_id, timestamp=meta.timestamp_ms, model=spec.name,
-                detections=detections, latency_ms=latency, batch_size=group.bucket,
-                frame_packet=meta.packet, trace_id=meta.trace_id, parent_span=meta.parent_span,
-            ))
-            self._annotate(device_id, meta, detections, spec)
-            if kind == "detect":
-                self._checksum = (self._checksum + host_slot_checksum(host, i)) & CHECKSUM_MASK
-            st = self._stats.setdefault(device_id, StreamStats())
-            st.frames += 1
-            st.note_latency(latency)
-            st.last_batch = group.bucket
-            st.note_device(device_ms, group.padded_slots)
-            st.last_emit_mono = time.monotonic()
-            if slo_latency is not None and meta.timestamp_ms:
-                ok = latency <= self._cfg.slo_latency_ms
-                slo_latency.record(good=float(ok), bad=float(not ok))
-            self._m_frames.labels(device_id).inc()
-            self._m_latency.labels(device_id).observe(latency)
-            if latency > self._cfg.obs_late_ms:
-                self._m_late.labels(device_id).inc()
-            if self._cfg.stage_trace:
-                self.stage_records.append({
-                    "device_id": device_id, "ts_pub_ms": meta.timestamp_ms,
-                    "t_collect": inflight.t_collect, "t_submit": inflight.t_submit,
-                    "t_drain0": t_drain0, "t_drained": t_drained, "t_emitted": time.time(),
-                    "bucket": group.bucket})
-            if tracer.sampled(meta.packet):
-                tid = trace_id_of(meta, device_id)
-                tracer.record(device_id, "device", meta.packet, ts=t_drained,
-                              dur_ms=device_ms, bucket=group.bucket, trace_id=tid)
-                tracer.record(device_id, "emit", meta.packet, trace_id=tid)
+            # Every record logged while this slot emits (tracker,
+            # annotate, publish, quality) carries stream=<id> seq=<packet>.
+            with log_context(stream=device_id, seq=meta.packet):
+                detections = to_detections(host, i, kind, num_classes)
+                if self._cfg.track and kind == "detect":
+                    # Empty frames too: misses must accumulate so stale tracks
+                    # expire.
+                    t_track = time.perf_counter()
+                    self._assign_tracks(device_id, spec.name, detections)
+                    track_s += time.perf_counter() - t_track
+                    if self._cascade is not None and group.frames.ndim == 4:
+                        # The cascade's harvest: each tracked detection's crop
+                        # from the leased host frame (valid until this emit
+                        # returns) into its track's tile.
+                        t_harvest = time.perf_counter()
+                        try:
+                            self._cascade.harvest(device_id, group.frames[i], detections, meta)
+                        except Exception:
+                            log.exception("cascade harvest failed; continuing")
+                        harvest_s += time.perf_counter() - t_harvest
+                if self.quality is not None:
+                    self._observe_quality(host, i, device_id, meta, detections)
+                latency = max(0.0, now_ms - meta.timestamp_ms) if meta.timestamp_ms else 0.0
+                if meta.timestamp_ms:
+                    capture_sum += inflight.t_collect * 1000.0 - meta.timestamp_ms
+                self._publish(InferenceResult(
+                    device_id=device_id, timestamp=meta.timestamp_ms, model=spec.name,
+                    detections=detections, latency_ms=latency, batch_size=group.bucket,
+                    frame_packet=meta.packet, trace_id=meta.trace_id, parent_span=meta.parent_span,
+                ))
+                self._annotate(device_id, meta, detections, spec)
+                if kind == "detect":
+                    self._checksum = (self._checksum + host_slot_checksum(host, i)) & CHECKSUM_MASK
+                st = self._stats.setdefault(device_id, StreamStats())
+                st.frames += 1
+                st.note_latency(latency)
+                st.last_batch = group.bucket
+                st.note_device(device_ms, group.padded_slots)
+                st.last_emit_mono = time.monotonic()
+                if slo_latency is not None and meta.timestamp_ms:
+                    ok = latency <= self._cfg.slo_latency_ms
+                    slo_latency.record(good=float(ok), bad=float(not ok))
+                self._m_frames.labels(device_id).inc()
+                self._m_latency.labels(device_id).observe(latency)
+                if latency > self._cfg.obs_late_ms:
+                    self._m_late.labels(device_id).inc()
+                if self._cfg.stage_trace:
+                    self.stage_records.append({
+                        "device_id": device_id, "ts_pub_ms": meta.timestamp_ms,
+                        "t_collect": inflight.t_collect, "t_submit": inflight.t_submit,
+                        "t_drain0": t_drain0, "t_drained": t_drained, "t_emitted": time.time(),
+                        "bucket": group.bucket})
+                if tracer.sampled(meta.packet):
+                    tid = trace_id_of(meta, device_id)
+                    tracer.record(device_id, "device", meta.packet, ts=t_drained,
+                                  dur_ms=device_ms, bucket=group.bucket, trace_id=tid)
+                    tracer.record(device_id, "emit", meta.packet, trace_id=tid)
         n = len(group.device_ids)
         self.perf.note_batch(spec.name, group.src_hw, group.bucket, device_ms, n)
         self._note_results(inflight, n, capture_sum, t_drained, device_ms, track_s, harvest_s)
@@ -2728,8 +2735,9 @@ class InferenceEngine:
         now_ms = int(t_drained * 1000)
         capture_sum = 0.0
         for device_id, meta, detections in group.coast:
-            capture_sum += self._emit_stream_result(inflight, device_id, meta, detections, spec,
-                                                    now_ms, 0.0, coasted=True)
+            with log_context(stream=device_id, seq=meta.packet):
+                capture_sum += self._emit_stream_result(inflight, device_id, meta, detections,
+                                                        spec, now_ms, 0.0, coasted=True)
         self.perf.note_roi_emit(len(group.coast))
         self._note_results(inflight, len(group.coast), capture_sum, t_drained, 0.0)
 
@@ -2777,8 +2785,9 @@ class InferenceEngine:
                     class_name=class_name(cid, num_classes)))
         capture_sum = 0.0
         for device_id, (meta, detections) in results.items():
-            capture_sum += self._emit_stream_result(inflight, device_id, meta, detections, spec,
-                                                    now_ms, device_ms)
+            with log_context(stream=device_id, seq=meta.packet):
+                capture_sum += self._emit_stream_result(inflight, device_id, meta, detections,
+                                                        spec, now_ms, device_ms)
         self.perf.note_roi_emit(len(results))
         self._note_results(inflight, len(results), capture_sum, t_drained, device_ms)
 

@@ -1,14 +1,23 @@
 """Video sources (counterpart of ``video_edge_ai_proxy_tpu/ingest/sources.py``):
-the two-phase source contract and the synthetic pattern source.
+the two-phase source contract and its four sources.
 
 ``grab()`` advances the stream without decoding pixels (cheap),
 ``retrieve()`` produces the BGR24 frame. ``SyntheticSource`` is the
 deterministic moving test pattern; its ``render(h, w, n)`` is the single
 source of truth the replay plane regenerates ``synth`` trace events from.
-``open_source`` routes a URL: ``test://`` to ``SyntheticSource`` and
+``PacketSource`` reads cameras and files through the port's libav shim
+(``ingest/av.py``): ``grab()`` is a pure demux with the demuxer's own
+keyframe flags, pts, dts and time base, the compressed payload stays
+available for the stream-copy archive and pass-through, and ``retrieve()``
+decodes the grabbed packet. ``OpenCVSource`` is the fallback where the
+shim cannot build (its ``grab()`` runs the codec, and its keyframes are a
+GOP-cadence guess).
+
+``open_source`` routes a URL: ``test://`` to ``SyntheticSource``,
 ``replay://`` to the recorded-trace source (``replay/player.py``
-``ReplaySource``). The sources that open cameras or files (``rtsp://``
-and the rest, through libav or OpenCV) are a later slice.
+``ReplaySource``), anything else (``rtsp://``, a file) to
+``PacketSource``, or to ``OpenCVSource`` when the shim is unavailable or
+``vep_source=opencv`` asks for it. None of these imports torch.
 """
 
 from __future__ import annotations
@@ -132,11 +141,164 @@ class SyntheticSource(VideoSource):
         self._open = False
 
 
+class OpenCVSource(VideoSource):
+    """RTSP, file or HTTP source through OpenCV's ``VideoCapture``: grab() and
+    retrieve() map onto ``VideoCapture.grab()`` and ``.retrieve()``;
+    keyframes are put on a GOP cadence because ``VideoCapture`` does not
+    expose the picture type."""
+
+    kind = "opencv"
+
+    def __init__(self, url: str, gop_hint: int = 30):
+        self.url = url
+        self.gop = gop_hint
+        self._cap = None
+        self._n = -1
+
+    def open(self) -> None:
+        import cv2
+
+        cap = cv2.VideoCapture(self.url)
+        if not cap.isOpened():
+            raise ConnectionError(f"failed to open video source {self.url!r}")
+        self._cap = cap
+        self.width = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)) or 0
+        self.height = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)) or 0
+        self.fps = float(cap.get(cv2.CAP_PROP_FPS)) or 30.0
+
+    def grab(self) -> Optional[PacketInfo]:
+        if self._cap is None or not self._cap.grab():
+            return None
+        self._n += 1
+        pts = int(self._n * 90000 / (self.fps or 30.0))
+        return PacketInfo(packet=self._n, is_keyframe=(self._n % self.gop == 0), pts=pts,
+                          dts=pts, timestamp_ms=int(time.time() * 1000),
+                          time_base=1.0 / 90000.0)
+
+    def retrieve(self) -> Optional[np.ndarray]:
+        if self._cap is None:
+            return None
+        ok, frame = self._cap.retrieve()
+        if not ok:
+            return None
+        if self.width == 0 and frame is not None:
+            self.height, self.width = frame.shape[:2]
+        return frame  # OpenCV yields BGR24
+
+    def close(self) -> None:
+        if self._cap is not None:
+            self._cap.release()
+            self._cap = None
+
+
+class PacketSource(VideoSource):
+    """Packet-level source over the libav shim (``ingest/av.py``): ``grab()``
+    is a pure demux (no codec work, so the lazy-decode gate saves decode
+    CPU), keyframe flags, pts, dts and time base come from the demuxer, and
+    the compressed payload of the current packet is there for the
+    stream-copy archive and RTMP relay. Audio packets (a camera's mic) are
+    grabbed as ``PacketInfo(is_audio=True)`` for those consumers only."""
+
+    supports_packets = True
+    kind = "packet"
+
+    def __init__(self, url: str, timeout_s: float = 5.0, av_options: str = ""):
+        self.url = url
+        self.timeout_s = timeout_s
+        self.av_options = av_options   # e.g. "rtsp_flags=listen" (push mode)
+        self._d = None
+        self._n = -1
+        self._pkt = None
+
+    def open(self) -> None:
+        from . import av
+
+        self._d = av.PacketDemuxer(self.url, timeout_s=self.timeout_s, options=self.av_options)
+        info = self._d.info
+        self.width, self.height = info.width, info.height
+        self.fps = info.fps or 30.0
+
+    @property
+    def stream_info(self):
+        """``av.StreamInfo`` of the open demuxer (muxer construction)."""
+        return self._d.info if self._d is not None else None
+
+    @property
+    def audio_info(self):
+        """``av.StreamInfo`` of the camera's audio stream, or None: the
+        archive's and the relay's audio track."""
+        return self._d.audio_info if self._d is not None else None
+
+    def grab(self) -> Optional[PacketInfo]:
+        if self._d is None:
+            return None
+        try:
+            pkt = self._d.read()
+        except IOError:
+            return None  # the worker takes it as the end: reconnect loop
+        if pkt is None:
+            return None
+        self._pkt = pkt
+        if pkt.is_audio:
+            ainfo = self._d.audio_info
+            num, den = ainfo.time_base if ainfo else (1, 48000)
+            return PacketInfo(packet=self._n, is_keyframe=False,   # AAC KEY flags are no GOP heads
+                              pts=pkt.pts, dts=pkt.dts, timestamp_ms=int(time.time() * 1000),
+                              time_base=num / den, is_corrupt=pkt.is_corrupt, is_audio=True)
+        self._n += 1
+        num, den = self._d.info.time_base
+        return PacketInfo(packet=self._n, is_keyframe=pkt.is_keyframe, pts=pkt.pts,
+                          dts=pkt.dts, timestamp_ms=int(time.time() * 1000),
+                          time_base=num / den, is_corrupt=pkt.is_corrupt)
+
+    def packet_bytes(self) -> bytes:
+        """Compressed payload of the grabbed packet (a demux-side copy, no
+        codec work)."""
+        return self._d.packet_data() if self._d is not None else b""
+
+    def packet_with_data(self):
+        """``av.Packet`` of the grabbed packet with its compressed payload
+        (GOP buffering, stream-copy consumers)."""
+        import dataclasses
+
+        if self._pkt is None:
+            return None
+        return dataclasses.replace(self._pkt, data=self.packet_bytes())
+
+    def retrieve(self) -> Optional[np.ndarray]:
+        if self._d is None:
+            return None
+        try:
+            return self._d.decode()
+        except IOError:
+            return None
+
+    @property
+    def last_frame_type(self) -> str:
+        """Picture type ('I'/'P'/'B') of the last decoded frame."""
+        return self._d.last_frame_type if self._d is not None else ""
+
+    @property
+    def last_frame_pts(self) -> Optional[int]:
+        """pts of the last DECODED frame (stream time base): under decoder
+        delay it lags the grabbed packet's, and a published frame carries
+        its own presentation time."""
+        return self._d.last_frame_pts if self._d is not None else None
+
+    def close(self) -> None:
+        if self._d is not None:
+            self._d.close()
+            self._d = None
+
+
 def open_source(url: str, prefer: str = "") -> VideoSource:
-    """Route a URL to a source: ``test://`` (the synthetic pattern) or
-    ``replay://`` (a recorded trace). Camera and file URLs need the libav
-    or OpenCV sources, which are not ported yet: they raise. ``prefer``
-    (``opencv`` / ``packet``) chooses among those and is not used yet."""
+    """Route a URL to a source. ``prefer`` (or the environment's
+    ``vep_source``) forces ``opencv`` or ``packet``; otherwise a camera or
+    file opens through the libav shim, or through OpenCV when the shim is
+    unavailable on this host. Each open counts in
+    ``vep_source_opens_total{kind}``."""
+    import os
+
     from ..obs import registry as obs_registry
 
     opens = obs_registry.counter(
@@ -146,11 +308,25 @@ def open_source(url: str, prefer: str = "") -> VideoSource:
         opens.labels("synthetic").inc()
         return SyntheticSource(url)
     if scheme == "replay":
+        # replay://<trace-path>?device=<id>&pace=1|0; imported here: a
+        # live camera's worker never loads the replay plane.
         from ..replay.player import ReplaySource
 
         opens.labels("replay").inc()
         return ReplaySource(url)
-    raise NotImplementedError(
-        f"source {url!r} needs the libav "
-        "(PyAV) or OpenCV sources, which come in a later slice; the port opens "
-        "test:// and replay:// URLs")
+    prefer = prefer or os.environ.get("vep_source", "")
+    if prefer == "opencv":
+        opens.labels("opencv").inc()
+        return OpenCVSource(url)
+    if prefer != "packet":
+        from . import av
+
+        if not av.available():
+            opens.labels("opencv").inc()
+            return OpenCVSource(url)
+    # The environment's ``vep_av_options``: extra "k=v:k=v" AVOptions for
+    # every packet source a worker opens. "decode_threads=0" turns on
+    # libav's frame threads for a camera whose decode needs more than one
+    # core; the default is one decode thread a worker.
+    opens.labels("packet").inc()
+    return PacketSource(url, av_options=os.environ.get("vep_av_options", ""))

@@ -19,18 +19,29 @@ Decode gate (the reference's lazy decode):
   or the engine, which touches exactly the streams it infers
   (``Collector.keep_streams_hot``);
 - keyframe-only mode (the per-device KV flag) restricts decoding to
-  keyframes.
+  keyframes;
+- with a packet source (``PacketSource``, the libav shim) the archive and
+  the RTMP pass-through take the *compressed* packets (stream copy) and
+  never touch the gate; with the OpenCV fallback they take decoded frames
+  and so keep decoding on while they run.
+
+Media side paths: ``disk_buffer_path`` archives one MP4 a GOP under
+``<path>/<device_id>/`` (``ingest/archive.py``; a GOP past
+``MAX_GOP_BYTES`` is cut, and the GOP still open is archived at the end of
+a stream, at a reconnect and at shutdown); ``rtmp_endpoint`` relays the
+stream while the camera's ``proxy_rtmp`` toggle is on
+(``ingest/passthrough.py``), starting with the GOP buffered so far.
 
 Failure semantics: a failed first connect exits with code 2 (a supervisor
 restarts the worker); an end of stream mid-run re-opens the source every
 second, forever (``max_frames`` bounds a run for tests). SIGTERM and
 SIGINT stop the loop and the process exits 0.
 
+Every record the worker logs carries ``stream=<device_id>``, and while a
+packet is handled ``seq=<packet>`` too (``utils/logging.py``).
+
 The worker imports no ``torch`` unless its flight recorder is on
-(``trace_dir``) or it plays a trace (``replay://``), and never touches a
-GPU. The archive (``disk_buffer_path``) and the RTMP pass-through
-(``rtmp_endpoint``) need the libav shim and are a later slice: a non-empty
-value raises.
+(``trace_dir``), and never touches a GPU.
 """
 
 from __future__ import annotations
@@ -47,9 +58,11 @@ from typing import Optional
 from ..bus import FrameBus, FrameMeta, RingSlotTooSmall, open_bus
 from ..obs import registry as obs_registry, trace_id_for, tracer
 from ..utils.config import BusConfig
+from ..utils.logging import get_logger, set_log_context
+from .archive import GopSegment, PacketGopSegment, SegmentArchiver
 from .sources import VideoSource, open_source
 
-log = logging.getLogger("vep.torch.ingest.worker")
+log = get_logger("ingest.worker")
 
 # Heartbeats older than this are stale: a crashed worker must not report
 # healthy off its last write.
@@ -118,11 +131,6 @@ class WorkerConfig:
 class IngestWorker:
     def __init__(self, cfg: WorkerConfig, bus: Optional[FrameBus] = None,
                  source: Optional[VideoSource] = None):
-        for name in ("disk_buffer_path", "rtmp_endpoint"):
-            if getattr(cfg, name):
-                raise NotImplementedError(
-                    f"{name}={getattr(cfg, name)!r}: the archive and the RTMP pass-through "
-                    "need the libav shim, which comes in a later slice")
         self.cfg = cfg
         self._owns_bus = bus is None
         self.bus = bus or open_bus(cfg.bus_backend, cfg.shm_dir, cfg.redis_addr,
@@ -140,6 +148,19 @@ class IngestWorker:
         self._published = 0
         self._last_status = 0.0
         self._fps_window: list = []
+        self._archiver: Optional[SegmentArchiver] = None
+        self._gop_frames: list = []
+        self._gop_start_ms = 0
+        self._passthrough = None  # built in run(), once the source's fps is known
+        # Packet mode: the source exposes compressed payloads, so the
+        # archive and the pass-through are stream copies that never touch
+        # the decode gate.
+        self._packet_mode = bool(getattr(self.source, "supports_packets", False))
+        self._gop_packets: list = []
+        self._gop_bytes = 0
+        self._gop_info = None        # video StreamInfo taken at the GOP's open
+        self._gop_audio_info = None  # audio StreamInfo taken at the GOP's open
+        self._audio_packets = 0
         self._recorder = None  # flight recorder (cfg.trace_dir), built in run()
         dev = (cfg.device_id,)
         self._m_packets = obs_registry.counter(
@@ -168,6 +189,13 @@ class IngestWorker:
         return last is not None and (now_ms - last) < self.cfg.active_window_s * 1000
 
     def _should_decode(self, is_keyframe: bool, now_ms: int) -> bool:
+        if not self._packet_mode:
+            # The OpenCV fallback: the archive and the relay take decoded
+            # frames, so they keep decoding on. Packet mode stream-copies.
+            if self._archiver is not None:
+                return True
+            if self._passthrough is not None and self._passthrough.active:
+                return True
         if is_keyframe:
             return True
         if self.bus.keyframe_only(self.cfg.device_id):
@@ -186,7 +214,7 @@ class IngestWorker:
             "pid": os.getpid(),
             "running": not self._stop.is_set(),
             "packets": self._packets,
-            "audio_packets": 0,       # the port's sources carry no audio
+            "audio_packets": self._audio_packets,
             "keyframes": self._keyframes,
             "decoded": self._decoded,
             "published": self._published,
@@ -199,6 +227,96 @@ class IngestWorker:
         }
         self.bus.kv_set(KEY_STATUS_PREFIX + self.cfg.device_id,
                         json.dumps(status, separators=(",", ":")))
+
+    # -- archive plumbing --
+
+    def _archive_frame(self, frame, meta: FrameMeta) -> None:
+        if self._archiver is None or self._packet_mode:
+            return
+        if meta.is_keyframe and self._gop_frames:
+            # A keyframe closes the GOP before it: to the archiver thread.
+            self._archiver.submit(GopSegment(
+                device_id=self.cfg.device_id, start_ts_ms=self._gop_start_ms,
+                end_ts_ms=meta.timestamp_ms, fps=self.source.fps or 30.0,
+                frames=self._gop_frames))
+            self._gop_frames = []
+        if meta.is_keyframe or self._gop_frames:
+            if not self._gop_frames:
+                self._gop_start_ms = meta.timestamp_ms
+            self._gop_frames.append(frame)
+
+    # The most one buffered GOP may hold (a camera that stops sending
+    # keyframes must not grow it without bound). Past it, the buffered
+    # prefix, which starts at a keyframe and so decodes, is archived, and
+    # the GOP's other packets are skipped until the next keyframe.
+    MAX_GOP_BYTES = 64 << 20
+
+    def _flush_gop_tail(self) -> None:
+        """Archive the buffered GOP (keyframe-headed, not yet closed by the
+        next keyframe): at the end of a stream, a reconnect, shutdown.
+        Packets of two demuxers must never share a segment: their clocks
+        are unrelated."""
+        if self._archiver is not None and self._gop_packets:
+            self._archiver.submit(PacketGopSegment(
+                device_id=self.cfg.device_id, start_ts_ms=self._gop_start_ms,
+                info=self._gop_info, packets=self._gop_packets,
+                audio_info=self._gop_audio_info))
+        self._gop_packets = []
+
+    def _archive_packet(self, pkt, is_keyframe: bool, now_ms: int) -> None:
+        """Compressed-GOP archiving (packet mode): a VIDEO keyframe closes
+        the GOP before it and opens a new one. Audio packets
+        (``is_keyframe=False``: AAC KEY flags are no GOP heads) join the
+        GOP that is open and mux into the segment's audio track."""
+        if self._archiver is None:
+            return
+        if self._gop_packets and (is_keyframe
+                                  or self._gop_bytes + len(pkt.data) > self.MAX_GOP_BYTES):
+            self._flush_gop_tail()
+        if is_keyframe or self._gop_packets:
+            if not self._gop_packets:
+                self._gop_start_ms = now_ms
+                self._gop_bytes = 0
+                # Taken at the GOP's open: by its flush the source may be
+                # closed (the end) or re-opened with other parameters.
+                self._gop_info = self.source.stream_info
+                self._gop_audio_info = getattr(self.source, "audio_info", None)
+            self._gop_packets.append(pkt)
+            self._gop_bytes += len(pkt.data)
+
+    # -- RTMP pass-through (the proxy_rtmp toggle, the buffered-GOP flush) --
+
+    def _maybe_passthrough(self) -> None:
+        if self._passthrough is None:
+            return
+        self._passthrough.set_active(self.bus.proxy_rtmp(self.cfg.device_id))
+
+    def _open_side_paths(self) -> None:
+        cfg = self.cfg
+        if cfg.disk_buffer_path:
+            self._archiver = SegmentArchiver(cfg.disk_buffer_path)
+            self._archiver.start()
+        if cfg.rtmp_endpoint:
+            if self._packet_mode:
+                from .passthrough import PacketPassthroughWriter
+
+                self._passthrough = PacketPassthroughWriter(
+                    cfg.rtmp_endpoint, self.source.stream_info,
+                    audio_info=getattr(self.source, "audio_info", None))
+            else:
+                from .passthrough import PassthroughWriter
+
+                self._passthrough = PassthroughWriter(cfg.rtmp_endpoint,
+                                                      fps=self.source.fps or 30.0)
+
+    def _feed_packet_consumers(self, is_keyframe: bool, now_ms: int) -> None:
+        """The compressed consumers ride the demux: one payload copy, no
+        codec work, the decode gate untouched."""
+        if self._packet_mode and (self._archiver is not None or self._passthrough is not None):
+            full = self.source.packet_with_data()
+            if self._passthrough is not None:
+                self._passthrough.feed(full)
+            self._archive_packet(full, is_keyframe, now_ms)
 
     # -- main loop --
 
@@ -219,30 +337,46 @@ class IngestWorker:
         log.warning("stream %s EOF/gone; reconnecting in %.0fs", self.cfg.device_id,
                     RECONNECT_DELAY_S)
         self._m_reconnects.inc()
+        # The buffered GOP is a keyframe-headed prefix of the stream that
+        # ended: archive it now, before the new demuxer's clock.
+        self._flush_gop_tail()
         self.source.close()
         if self._stop.wait(RECONNECT_DELAY_S):
             return False
         try:
             self.source.open()
+            if self._packet_mode and self._passthrough is not None:
+                # A new demuxer: a new clock, maybe new codec parameters.
+                # The stale GOP buffer and mux go; a relay the operator
+                # still wants resumes at the new stream's next keyframe.
+                self._passthrough.reset(self.source.stream_info,
+                                        getattr(self.source, "audio_info", None))
         except ConnectionError:
             pass
         return True
 
     def _publish(self, frame, pkt) -> None:
         cfg = self.cfg
+        frame_type = (getattr(self.source, "last_frame_type", "")
+                      or ("I" if pkt.is_keyframe else "P"))
+        # Under decoder delay the frame lags the grabbed packet: publish the
+        # frame's own presentation time.
+        frame_pts = getattr(self.source, "last_frame_pts", None)
+        if frame_pts is None:
+            frame_pts = pkt.pts
         meta = FrameMeta(
             width=frame.shape[1],
             height=frame.shape[0],
             channels=frame.shape[2] if frame.ndim == 3 else 1,
             timestamp_ms=pkt.timestamp_ms,
             # A source that supplied no pts/dts ships 0.
-            pts=pkt.pts if pkt.pts is not None else 0,
+            pts=frame_pts if frame_pts is not None else 0,
             dts=pkt.dts if pkt.dts is not None else 0,
             packet=pkt.packet,
             keyframe_cnt=self._keyframes,
             is_keyframe=pkt.is_keyframe,
             is_corrupt=pkt.is_corrupt,
-            frame_type="I" if pkt.is_keyframe else "P",
+            frame_type=frame_type,
             time_base=pkt.time_base,
             # Deterministic lineage id, stamped once here.
             trace_id=trace_id_for(cfg.device_id, pkt.packet),
@@ -272,9 +406,14 @@ class IngestWorker:
                 synth = {"w": frame.shape[1], "h": frame.shape[0], "n": pkt.packet}
             self._recorder.record_frame(cfg.device_id, frame, meta, synth=synth)
         self._fps_window.append(time.monotonic())
+        self._archive_frame(frame, meta)
+        if self._passthrough is not None and not self._packet_mode:
+            self._passthrough.buffer(frame, meta.is_keyframe)
+            self._passthrough.relay(frame)
 
     def run(self) -> None:
         cfg = self.cfg
+        set_log_context(stream=cfg.device_id)
         try:
             self.source.open()
         except ConnectionError as exc:
@@ -287,6 +426,7 @@ class IngestWorker:
                                slots=max(2, cfg.in_memory_buffer + 1))
         if cfg.trace_dir:
             self._open_recorder()
+        self._open_side_paths()
         log.info("ingest worker up: device=%s source=%s %dx%d@%.1ffps", cfg.device_id,
                  cfg.rtsp_endpoint, self.source.width, self.source.height, self.source.fps)
         try:
@@ -298,12 +438,27 @@ class IngestWorker:
                     if not self._reconnect():
                         break
                     continue
+                if getattr(pkt, "is_audio", False):
+                    # A camera's mic: to the stream-copy consumers (the
+                    # archive's audio track, the relay) and nothing else.
+                    self._audio_packets += 1
+                    self._maybe_passthrough()
+                    self._feed_packet_consumers(False, pkt.timestamp_ms)
+                    self._publish_status(time.monotonic())
+                    if cfg.max_frames and self._packets >= cfg.max_frames:
+                        break
+                    continue
                 self._packets += 1
                 self._m_packets.inc()
+                # The worker's thread serves this stream alone: the context
+                # is overwritten a packet, never reset.
+                set_log_context(stream=cfg.device_id, seq=pkt.packet)
                 if pkt.is_corrupt:
                     self._m_corrupt.inc()
                 if pkt.is_keyframe:
                     self._keyframes += 1
+                self._maybe_passthrough()
+                self._feed_packet_consumers(pkt.is_keyframe, pkt.timestamp_ms)
                 if self._should_decode(pkt.is_keyframe, pkt.timestamp_ms):
                     frame = self.source.retrieve()
                     if frame is None:
@@ -323,6 +478,12 @@ class IngestWorker:
                     log.exception("worker teardown: %s failed", what)
 
             _safe("status", lambda: self._publish_status(time.monotonic(), force=True))
+            if self._archiver is not None:
+                # The GOP still open is archived too, not dropped.
+                _safe("gop flush", self._flush_gop_tail)
+                _safe("archiver", self._archiver.stop)
+            if self._passthrough is not None:
+                _safe("passthrough", self._passthrough.close)
             if self._recorder is not None:
                 _safe("trace recorder", self._recorder.close)
             _safe("source", self.source.close)

@@ -12,6 +12,11 @@ cron, then the workers are detached (``worker_adoption``: they keep
 publishing and the next boot re-adopts them) or stopped, and the bus and
 the registry are closed.
 
+With ``bus.backend: redis`` the bus is the reference's Redis wire
+(``bus/redis_bus.py`` at ``bus.redis_addr``), the workers get the same
+address, and annotations queue in that Redis (``uplink/redis_queue.py``,
+the reference's rmq layout) instead of in memory.
+
 The engine runs on the card (``device="cuda"``) unless the caller asks
 for the CPU. It takes its per-stream model and annotation policy from the
 process manager's registry records. The process's decision journal
@@ -165,7 +170,7 @@ class Server:
         # dir and drain again once it heals.
         ann = self.cfg.annotation
         spool_dir = ann.spool_dir or os.path.join(data_dir, "annotation_spool")
-        self.annotations = AnnotationQueue(
+        ann_kwargs = dict(
             handler=make_batch_handler(
                 self.settings, ann.endpoint,
                 spool=DeadLetterSpool(spool_dir, max_bytes=ann.spool_max_bytes)),
@@ -173,6 +178,17 @@ class Server:
             poll_duration_ms=ann.poll_duration_ms,
             unacked_limit=ann.unacked_limit,
         )
+        if backend == "redis":
+            # The deployment that has a Redis keeps its annotations there:
+            # unacked events survive a server restart (the reference's rmq
+            # queue, uplink/redis_queue.py).
+            from ..uplink.redis_queue import RedisAnnotationQueue
+
+            self.annotations = RedisAnnotationQueue(
+                addr=self.cfg.bus.redis_addr, password=self.cfg.bus.redis_password,
+                db=self.cfg.bus.redis_db, **ann_kwargs)
+        else:
+            self.annotations = AnnotationQueue(**ann_kwargs)
         self.engine = None
         self._cascade_archiver = None
         if enable_engine:
