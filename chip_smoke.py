@@ -318,7 +318,31 @@ exits non-zero:
    with a keyframe head and the packets fed, and a worker relaying to an
    ``.flv`` file from the activating keyframe when ``proxy_rtmp`` turns on
    mid-GOP. Where the headers are absent, (b) and (c) do not run and the
-   first line says so.
+   first line says so;
+22. the fleet tier on the one card, in a process of its own
+   (``chip_smoke.py --fleet-tier``), each member server a process of its
+   own on the card (``--device cuda``, 2 torch threads) serving
+   ``yolov8n`` at 1920x1080. First ``torch.cuda.mem_get_info()``. (a)
+   Capacity: ``tools/torch_capacity_smoke.py``'s three parts, part A a
+   hand-stepped engine with ROI, the cascade (``videomae_b``'s head every
+   4 ticks) and the full path live on ``blob_gauge`` at 1080p, gated as
+   ``CAPACITY_r01.json`` (conservation, the three kinds, headroom in
+   [0, 1], the ledger tap under 1% of the tick budget, a monotone
+   forecast, no admission on the saturating member, deterministic ties);
+   (b) ``run_fleet_obs`` with 3 members, one 30 fps 1080p stream each,
+   gated as ``FLEETOBS_r01.json``; (c) ``run_router_soak`` with 3
+   serve-only members and 6 streams at 2 fps through the burn and the
+   kill legs, gated as ``ROUTER_r01.json``; (d) ``run_autoscale_soak``
+   with 2 members and one spawned from the prewarm manifest,
+   ``mobilenet_v2`` tenants beside ``yolov8n``, gated as
+   ``AUTOSCALE_r01.json``, the horizon scaled by the members' headroom
+   after the base warmup against the artifact's spawn headroom. Each
+   member printed: boot s, first frame s, device ms a batch at p50, peak
+   reserved memory, torch threads and keep-mask launches against its
+   ``yolov8n`` batches served after its ready line, gated ``launches ==
+   batches > 0`` (``launches_fleet_tier``; 22a's in
+   ``launches_capacity``). The legs run one after another, each stopping
+   its members before the next starts.
 
 On the card the engine runs every serving step as a graph replay, so
 phases 5, 8, 11, 13, 15-20 run graphed; phases 4, 6, 7, 9 and 10 call the eager
@@ -338,7 +362,8 @@ engine starts) ``launches_server``, in 15c's served batches of each
 variant ``launches_variants``, in 16a's ROI run ``launches_roi``, in 17a
 ``launches_cascade``, in 18b ``launches_fleet``, in 19b-d ``launches_soak``
 (counted from each soak engine's ``start()``, after its prewarm), in 20
-``launches_e2e``, and the flash forward's in 17b ``launches_cascade``; the keep mask's line also carries
+``launches_e2e``, in 22a ``launches_capacity``, in 22b-d
+``launches_fleet_tier`` (each member's from its ready line), and the flash forward's in 17b ``launches_cascade``; the keep mask's line also carries
 ``replay_ms_yolov8s`` (18a). The line before the last is one JSON object describing
 every kernel; the last line is ``{"ok": true, "device": {...}}``. Longer
 output (the profile tables) goes to ``chiprun_out/``.
@@ -4451,12 +4476,12 @@ class LaunchesAfterStart:
         return self._count() - self._base
 
 
-def soak_tool():
-    """``tools/torch_soak_replay.py`` as a module: its soak gates."""
+def tool_module(name: str):
+    """``tools/<name>.py`` as a module: its gates."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(
-        "torch_soak_replay", os.path.join(ROOT, "tools", "torch_soak_replay.py"))
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "tools",
+                                                                     f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -4466,7 +4491,7 @@ def soak_gates(tag: str, soak: dict, counted: LaunchesAfterStart, failures: dict
     """The gates every soak leg of phase 19 holds: tools/torch_soak_replay.py's
     chaos gates (no misrouted result, the uplink conserved and drained, the
     drop budget) and the script's own."""
-    bad = soak_tool().chaos_failures(soak, soak["duration_s"])
+    bad = tool_module("torch_soak_replay").chaos_failures(soak, soak["duration_s"])
     # The quality leg's canary stream is served beside the cameras.
     canary = 1 if soak["quality"] is not None else 0
     if soak["streams_with_results"] != soak["streams"] + canary:
@@ -4590,7 +4615,7 @@ def soak_phase(dev, card: str, zero_launches, read_launches, report: dict) -> No
                 if len(q.get("faults", [])) != len(QUALITY_KINDS):
                     bad.append(f"phase 19d: quality section {q}")
                 else:
-                    bad += [f"phase 19d: {f}" for f in soak_tool().quality_failures(
+                    bad += [f"phase 19d: {f}" for f in tool_module("torch_soak_replay").quality_failures(
                         q, QUALITY_KINDS, SOAK_QUALITY_BOUND_S)]
                 if not all(v > 0 for d, v in det.items() if d != black):
                     bad.append(f"phase 19d: {detector} streams without detections {det}")
@@ -4635,6 +4660,209 @@ def e2e_phase(dev, card: str, zero_launches, read_launches, report: dict) -> Non
                              f"{counted.launches()} keep-mask launches for {counted.batches()} "
                              f"batches, failures {failures}")
     report["launches_e2e"] = counted.launches()
+
+
+# -- phase 22: the fleet tier -----------------------------------------------------------------
+
+FLEET_TIER_MODEL = "yolov8n"          # 22b-d: each member's default model
+FLEET_TIER_TENANT = "mobilenet_v2"    # 22d: LoadShape's second tenant
+FLEET_TIER_THREADS = 2                # each member's torch intra-op threads
+FLEET_OBS_MEMBERS = 3                 # 22b (FLEETOBS_r01.json's)
+FLEET_OBS_S = 12.0                    # 22b: each member's window after its warmup
+FLEET_OBS_WARMUP_S = 8.0              # 22b: the worker boot (JAX tool default)
+FLEET_OBS_FPS = 30.0
+ROUTER_MEMBERS = 3                    # 22c (ROUTER_r01.json's)
+ROUTER_STREAMS_PER_MEMBER = 2
+ROUTER_FPS = 2.0
+ROUTER_SCRAPE_S = 1.0
+ROUTER_ESCALATE_S = 8.0
+AUTOSCALE_HORIZON_S = 600.0           # 22d: tools/autoscale_smoke.py's --spawn-horizon
+FLEET_TIER_CHILD_TIMEOUT_S = 600      # 22 runs in a process of its own
+
+
+def member_lines(tag: str, runs: dict, card: str) -> tuple:
+    """Log each member of a fleet-tier leg (boot s, first frame s, device ms
+    a batch at p50, peak reserved memory, torch threads, keep-mask launches
+    against its ``yolov8n`` batches over the served window: from its ready
+    line, whose counts hold the boot's captures and warm-up batches, to its
+    last counts); returns (the members' keep-mask launches over their
+    windows in all, the members failing ``launches == batches > 0``)."""
+    total = 0
+    bad = []
+    for name, run in sorted(runs.items()):
+        c = run.get("counts") or {}
+        base = run.get("ready_counts") or {}
+        launches = batches = None
+        if c:
+            launches = ((c.get("launches") or {}).get("nms_keep_mask", 0)
+                        - (base.get("launches") or {}).get("nms_keep_mask", 0))
+            batches = ((c.get("batches") or {}).get(FLEET_TIER_MODEL, 0)
+                       - (base.get("batches") or {}).get(FLEET_TIER_MODEL, 0))
+        reserved = c.get("max_memory_reserved")
+        log(f"phase {tag} member {name} on {card}: boot {run.get('boot_s')} s (main -> "
+            f"Server built, -> model and kernels, -> started: {run.get('boot_split_s')}), "
+            f"first frame {run.get('first_frame_s')} s after its Popen, device ms a batch at "
+            f"p50 {c.get('device_ms_p50')}, peak reserved "
+            f"{reserved / 2 ** 20 if reserved is not None else None} MiB, torch threads "
+            f"{c.get('torch_threads', run.get('torch_threads'))}, keep-mask launches {launches} "
+            f"for {batches} {FLEET_TIER_MODEL} batches served after its ready line (at ready: "
+            f"{base}; batches by model at the end {c.get('batches')}); graph captures s "
+            f"{c.get('capture_s')}, subscriber drops {c.get('subscriber_drops')}")
+        total += launches or 0
+        if not (launches is not None and launches == batches > 0):
+            bad.append((name, launches, batches))
+    return total, bad
+
+
+def fleet_tier_phase(dev, card: str, zero_launches, read_launches, report: dict) -> None:
+    """Phase 22: the fleet tier on the one card. (a) the capacity smoke;
+    (b) the fleet telemetry soak; (c) the router soak; (d) the autoscale
+    soak: each gated as the JAX artifact of its tool, each member a process
+    of its own on the card."""
+    import torch
+
+    from video_edge_ai_proxy_tpu_torch.kernels import launch_counters
+    from video_edge_ai_proxy_tpu_torch.replay.harness import (
+        LoadShape, run_autoscale_soak, run_fleet_obs, run_router_soak,
+    )
+
+    import shutil
+
+    # Each leg's directory (member stderr, span dumps, traces) is kept.
+    out_dir = os.path.join(ROOT, "chiprun_out", "phase22")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    def leg_dir(leg: str) -> str:
+        path = os.path.join(out_dir, leg)
+        os.makedirs(path)
+        return path
+
+    free, total = torch.cuda.mem_get_info()
+    log(f"phase 22 card: {card}; torch.cuda.mem_get_info() at the child's start: free "
+        f"{free / 2 ** 30:.2f} GiB of {total / 2 ** 30:.2f} GiB")
+    h, w = FRAME_HW
+    t_phase = time.perf_counter()
+    members_launches = 0
+    failures = []
+
+    # (a) capacity: part A on the card, B and C on the host.
+    cap = tool_module("torch_capacity_smoke")
+    t0 = time.perf_counter()
+    zero_launches()
+    before = {wr.__name__: wr.launches for wr in launch_counters()}
+    part_a = cap.part_a("cuda", (w, h))
+    torch.cuda.synchronize()
+    a_launches = read_launches()["nms_keep_mask"]
+    # The cascade head's attention goes to the flash forward or not, as
+    # phase 17a configures it: its launches are reported either way.
+    flash = {wr.__name__.removesuffix("_cuda"): wr.launches - before[wr.__name__]
+             for wr in launch_counters() if wr.__name__.startswith("flash")}
+    part_b, part_c = cap.part_b(), cap.part_c()
+    torch.cuda.empty_cache()
+    a_fail = cap.capacity_failures(part_a, part_b, part_c)
+    log(f"phase 22a capacity on {card} ({time.perf_counter() - t0:.1f} s): {part_a['model']} "
+        f"{part_a['size'][0]}x{part_a['size'][1]}, {part_a['cascade_model']} head every 4 ticks, {part_a['ticks']} hand-stepped "
+        f"ticks in {part_a['wall_s']} s: streams {part_a['streams']}, kinds {part_a['kinds']}, "
+        f"per stream ms by kind {part_a['by_stream']}; conservation {part_a['conservation']}; "
+        f"headroom {part_a['headroom']}, utilization (fast) {part_a['utilization_fast']}; cells "
+        f"{part_a['cells']}; ledger tap {part_a['ledger_tap_mean_us']} us mean over "
+        f"{part_a['ledger_taps']} taps = {part_a['ledger_tap_pct_of_tick_budget']}% of the "
+        f"10 ms tick; keep-mask launches {a_launches}, the flash kernels' {flash}")
+    log(f"phase 22a forecast (host): tts {part_b['tts_first_s']:.3f} -> "
+        f"{part_b['tts_last_s']:.3f} s monotone {part_b['tts_monotone_decreasing']}, min "
+        f"headroom {part_b['min_headroom']}; admission storm {part_c['storm_by_member']}, "
+        f"ties {part_c['tie_placements']} deterministic {part_c['tie_deterministic']}, hash "
+        f"fallback deterministic {part_c['hash_fallback_deterministic']}")
+    if a_launches <= 0:
+        a_fail.append(f"no keep-mask launch in part A ({a_launches})")
+    failures += [f"22a: {f}" for f in a_fail]
+    report["launches_capacity"] = a_launches
+
+    # (b) fleet telemetry.
+    t0 = time.perf_counter()
+    fleet = run_fleet_obs(n_members=FLEET_OBS_MEMBERS, duration_s=FLEET_OBS_S,
+                          warmup_s=FLEET_OBS_WARMUP_S, width=w, height=h, fps=FLEET_OBS_FPS,
+                          model=FLEET_TIER_MODEL, device="cuda",
+                          torch_threads=FLEET_TIER_THREADS, workdir=leg_dir("fleet_obs"))
+    log(f"phase 22b run_fleet_obs on {card} ({time.perf_counter() - t0:.1f} s): "
+        f"{fleet['members']} members x one {w}x{h} stream at {FLEET_OBS_FPS:g} fps, "
+        f"{FLEET_OBS_S:g} s after {FLEET_OBS_WARMUP_S:g} s: gates {fleet['gates']}; client "
+        f"results {fleet['client_results']}, trace ids {fleet['client_trace_ids']}; counters "
+        f"gated {fleet['counters_gated']}; merged page {fleet['merged_exposition_lines']} lines; "
+        f"health {[(r['instance'], r['score'], r['up'], r['stale']) for r in fleet['health']]}")
+    n, bad = member_lines("22b", fleet["member_runs"], card)
+    members_launches += n
+    failures += [f"22b: {f}" for f in tool_module("torch_soak_replay").fleet_failures(fleet)]
+    failures += [f"22b: member {b[0]}: {b[1]} keep-mask launches for {b[2]} batches"
+                 for b in bad]
+
+    # (c) the router.
+    t0 = time.perf_counter()
+    router = run_router_soak(n_members=ROUTER_MEMBERS,
+                             streams_per_member=ROUTER_STREAMS_PER_MEMBER, width=w, height=h,
+                             fps=ROUTER_FPS, model=FLEET_TIER_MODEL,
+                             scrape_interval_s=ROUTER_SCRAPE_S,
+                             ladder_escalate_s=ROUTER_ESCALATE_S, device="cuda",
+                             torch_threads=FLEET_TIER_THREADS, workdir=leg_dir("router"))
+    log(f"phase 22c run_router_soak on {card} ({time.perf_counter() - t0:.1f} s): "
+        f"{router['members']} members, {router['streams']} streams at {ROUTER_FPS:g} fps: gates "
+        f"{router['gates']}; burn: {router['burn']['member']} evacuated in "
+        f"{router['burn']['migrate_s']} s, transitions at migration "
+        f"{router['burn']['transitions_at_migration']}; kill: {router['kill']['member']} "
+        f"detect -> resumed {router['kill']['replace_detect_s']} s, wall "
+        f"{router['kill']['replace_wall_s']} s, its workers reaped after it "
+        f"{router['kill']['orphan_workers_reaped']}; ledger "
+        f"{ {k: router['ledger'][k] for k in ('balanced', 'lost', 'duplicated')} }; "
+        f"{len(router['lineage'])} migrations with lineage; streams not balanced "
+        f"{[r for r in router['ledger']['streams'] if r['lost'] or r['duplicated']]}; "
+        f"migrations {router['router_snapshot']['migrations']}")
+    n, bad = member_lines("22c", router["member_runs"], card)
+    members_launches += n
+    failures += [f"22c: {f}" for f in tool_module("torch_router_smoke").router_failures(router)]
+    failures += [f"22c: member {b[0]}: {b[1]} keep-mask launches for {b[2]} batches"
+                 for b in bad]
+
+    # (d) the autoscaling supervisor.
+    t0 = time.perf_counter()
+    autoscale = tool_module("torch_autoscale_smoke")
+    with open(os.path.join(ROOT, "AUTOSCALE_r01.json")) as f:
+        ref_spawn = json.load(f)["spawn"]["event"]
+    auto = run_autoscale_soak(width=w, height=h, model=FLEET_TIER_MODEL,
+                              spawn_horizon_s=AUTOSCALE_HORIZON_S,
+                              shape=LoadShape(models=("", FLEET_TIER_TENANT)),
+                              ref_spawn_headroom=autoscale.reference_spawn_headroom(),
+                              device="cuda", torch_threads=FLEET_TIER_THREADS,
+                              workdir=leg_dir("autoscale"))
+    cfg = auto["config"]
+    base = cfg["base_min_headroom"]
+    # The reference spawn's fleet tts on this device's scale: the horizon's
+    # factor applied to the artifact's.
+    scale = cfg["spawn_horizon_s_used"] / cfg["spawn_horizon_s"]
+    log(f"phase 22d run_autoscale_soak on {card} ({time.perf_counter() - t0:.1f} s): gates "
+        f"{auto['gates']}; horizon {cfg['spawn_horizon_s_used']:.1f} s used (the artifact's "
+        f"{cfg['spawn_horizon_s']:g} s x (h {base} / ref {cfg['ref_spawn_headroom']}) x "
+        f"((1 - ref) / (1 - h)), h the members' min headroom after the base warmup, ref "
+        f"AUTOSCALE_r01.json's spawn headroom); the artifact's spawn at pass {ref_spawn['pass']}, "
+        f"fleet tts {ref_spawn['fleet_tts_s']:.1f} s ({ref_spawn['fleet_tts_s'] * scale:.1f} s "
+        f"scaled), headroom {ref_spawn['min_headroom']} (expected here: about h); LoadShape "
+        f"rates as AUTOSCALE_r01.json's ({auto['shape']}); spawn {auto['spawn']['event']}, boot "
+        f"{auto['spawn']['boot_s']} s, first frame {auto['spawn']['first_frame_s']} s, prewarm "
+        f"{auto['spawn']['prewarm']}; storm first frames {auto['storm']['admitted_first_frame_s']} "
+        f"(p99 {auto['storm']['p99_s']} s); retire {auto['retire']['event']}; ledger "
+        f"{ {k: auto['ledger'][k] for k in ('balanced', 'lost', 'duplicated')} }; admission "
+        f"failures {auto['failures']}; admitted onto {auto['admitted']}; "
+        f"migrations {auto['migrations']}; supervisor events "
+        f"{auto['supervisor_snapshot'].get('events')}")
+    n, bad = member_lines("22d", auto["member_runs"], card)
+    members_launches += n
+    failures += [f"22d: {f}" for f in autoscale.autoscale_failures(auto)]
+    failures += [f"22d: member {b[0]}: {b[1]} keep-mask launches for {b[2]} batches"
+                 for b in bad]
+
+    log(f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    report["launches_fleet_tier"] = members_launches   # 22b-d, the served windows
+    if failures:
+        raise AssertionError("phase 22: " + "; ".join(failures))
 
 
 # -- phase 21: the camera tier -------------------------------------------------------------
@@ -5216,8 +5444,8 @@ def camera_phase(dev, card: str, zero_launches, read_launches, report: dict) -> 
 
 
 def child_main(phase) -> int:
-    """``chip_smoke.py --soak`` / ``--e2e`` / ``--camera``: phase 19, 20 or 21
-    alone, as ``main`` runs it in a process of its own (the kernels as phase 2 built them);
+    """``chip_smoke.py --soak`` / ``--e2e`` / ``--camera`` / ``--fleet-tier``:
+    phase 19, 20, 21 or 22 alone, as ``main`` runs it in a process of its own (the kernels as phase 2 built them);
     the keep mask's report entries are its last line."""
     import torch
 
@@ -5321,6 +5549,7 @@ def main() -> int:
         return {n: kernels[n]["wrapper"].launches for n in kernels}
 
     # -- phase 1: the card ------------------------------------------------
+    t_script = time.perf_counter()
     dev = resolve_device("cuda")
     card = card_line()
     log(card)
@@ -6153,6 +6382,10 @@ def main() -> int:
     # -- phase 21: the camera tier, in a process of its own ------------------------------------
     run_child("--camera", "21", CAMERA_CHILD_TIMEOUT_S, json.dumps({"13b": frame_path}))
 
+    # -- phase 22: the fleet tier, in a process of its own -------------------------------------
+    report["nms_keep_mask"].update(run_child("--fleet-tier", "22", FLEET_TIER_CHILD_TIMEOUT_S))
+    log(f"chip_smoke: phases 1-22 took {time.perf_counter() - t_script:.1f} s")
+
     line = {"kernels": []}
     for name, meta in kernels.items():
         r = report[name]
@@ -6170,6 +6403,10 @@ def main() -> int:
             **({"launches_fleet": r["launches_fleet"]} if "launches_fleet" in r else {}),
             **({"launches_soak": r["launches_soak"]} if "launches_soak" in r else {}),
             **({"launches_e2e": r["launches_e2e"]} if "launches_e2e" in r else {}),
+            **({"launches_fleet_tier": r["launches_fleet_tier"]}
+               if "launches_fleet_tier" in r else {}),
+            **({"launches_capacity": r["launches_capacity"]}
+               if "launches_capacity" in r else {}),
             **({"replay_ms_yolov8s": r["replay_ms_yolov8s"]} if "replay_ms_yolov8s" in r else {}),
             "replaces": meta["replaces"], "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -6186,6 +6423,7 @@ def main() -> int:
 if __name__ == "__main__":
     CHILDREN = {"--fleet": fleet_main, "--soak": lambda: child_main(soak_phase),
                 "--e2e": lambda: child_main(e2e_phase),
-                "--camera": lambda: child_main(camera_phase)}
+                "--camera": lambda: child_main(camera_phase),
+                "--fleet-tier": lambda: child_main(fleet_tier_phase)}
     sys.exit(CHILDREN[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in CHILDREN
              else main())

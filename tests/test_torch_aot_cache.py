@@ -179,6 +179,31 @@ def test_note_compile_records_equal_jax():
     assert ours._m_compile_s.labelnames == ("model", "geometry", "bucket")
 
 
+def test_recorded_flops_round_trip_and_lookup(tmp_path):
+    """A program's FLOP count rides with it in the manifest, so a member
+    prewarming from it does not count it again; programs recorded without
+    it (as the JAX manifest records all) have none."""
+    d = str(tmp_path / "aot")
+    aot_cache.record_program(d, model="yolov8n", stem="classic", src_hw=(1080, 1920),
+                             bucket=8, flops=129281556480.0)
+    aot_cache.record_program(d, model="mobilenet_v2", stem="classic", src_hw=(1080, 1920),
+                             bucket=8)
+    assert aot_cache.load_manifest(d) == [
+        {"model": "yolov8n", "stem": "classic", "h": 1080, "w": 1920, "bucket": 8,
+         "flops": 129281556480.0},
+        {"model": "mobilenet_v2", "stem": "classic", "h": 1080, "w": 1920, "bucket": 8},
+    ]
+    lookup = dict(stem="classic", src_hw=(1080, 1920))
+    assert aot_cache.program_flops(d, model="yolov8n", bucket=8, **lookup) == 129281556480.0
+    assert aot_cache.program_flops(d, model="mobilenet_v2", bucket=8, **lookup) is None
+    assert aot_cache.program_flops(d, model="yolov8n", bucket=4, **lookup) is None
+    assert aot_cache.program_flops(str(tmp_path / "none"), model="yolov8n", bucket=8,
+                                   **lookup) is None
+    # The prewarm entries and the JAX reading of the same programs ignore it.
+    progs = aot_cache.load_manifest(d)
+    assert aot_cache.prewarm_entries(progs) == jaot.prewarm_entries(progs)
+
+
 # -- the engine on the CPU -------------------------------------------------------------------
 
 # A served program, a bucket the engine does not serve, a bad entry and a

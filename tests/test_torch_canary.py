@@ -27,6 +27,7 @@ from video_edge_ai_proxy_tpu_torch.bus.memory_bus import MemoryFrameBus
 from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine
 from video_edge_ai_proxy_tpu_torch.obs import metrics, quality, watch
 from video_edge_ai_proxy_tpu_torch.replay import recorder
+from video_edge_ai_proxy_tpu_torch.resilience.ladder import RUNGS
 from video_edge_ai_proxy_tpu_torch.utils.config import EngineConfig
 
 PACKAGES = {"jax": (jquality, jwatch, jmetrics), "port": (quality, watch, metrics)}
@@ -156,7 +157,7 @@ def test_admission_pause_never_pauses_the_canary():
         bus.publish(name, np.zeros((32, 32, 3), np.uint8),
                     FrameMeta(width=32, height=32, channels=3,
                               timestamp_ms=int(time.time() * 1000)))
-    eng.ladder._rung = 3
+    eng.ladder._rung = RUNGS.index("admission_pause")
     with torch.inference_mode():
         inferred = eng._tick(0.01)
     sub.close()

@@ -492,6 +492,38 @@ def test_engine_serves_with_tracks_quality_and_a_calm_ladder(prefetch):
     assert set(engine._thumbs) == set(streams)
 
 
+@pytest.mark.parametrize("prefetch", [True, False])
+def test_the_serving_path_warm_up_is_not_traffic(prefetch):
+    """start()'s warm-up of the serving path (the card's; called here on a
+    CPU engine): one batch of each built program goes through placement,
+    the step and the drain's read-back, and nothing of it is served: no
+    result to a subscriber, no stats, pipeline totals, batch metric,
+    capacity ledger or checksum, and its lease comes back."""
+    engine = InferenceEngine(MemoryFrameBus(), EngineConfig(
+        model="tiny_yolov8", prefetch=prefetch, capacity=True, batch_buckets=(1, 2),
+        prewarm=[[96, 128, 2]]), device="cpu")
+    engine.warmup()
+    engine._prewarm()
+    engine._start_pipeline()
+    results = engine.subscribe(timeout=0.05)
+    batches = engine._m_device.labels("tiny_yolov8").count
+    read = []
+    read_back = engine._read_back
+    engine._read_back = lambda inflight: read.append(inflight.group.bucket) or read_back(inflight)
+    try:
+        engine._warm_serving_path()
+    finally:
+        engine.stop()
+    assert read == [2]
+    assert list(results) == []
+    assert engine.stats() == {} and engine.checksum == 0
+    assert engine.pipeline_stats().batches == engine.pipeline_stats().frames == 0
+    assert engine._m_device.labels("tiny_yolov8").count == batches
+    assert engine.capacity.snapshot()["cells"] == {}
+    with engine._collector._pool_lock:
+        assert all(not slot["leased"] for slot in engine._collector._pool.values())
+
+
 def test_absent_stream_state_is_dropped_after_the_grace():
     """A stream gone from the bus keeps its state for the grace period (a
     producer re-creating its ring keeps its track ids), then loses the

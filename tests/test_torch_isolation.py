@@ -15,11 +15,15 @@ PKG = ROOT / "video_edge_ai_proxy_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "video_edge_ai_proxy_tpu")
 
 
+# The tools that drive the port alone (the other tools/torch_*.py hold the
+# port against the JAX package).
+PORT_TOOLS = ("torch_soak_replay.py", "torch_router_smoke.py", "torch_autoscale_smoke.py",
+              "torch_capacity_smoke.py")
+
+
 def _port_sources():
-    # tools/torch_soak_replay.py drives the port alone (the other
-    # tools/torch_*.py hold the port against the JAX package).
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tools" / "torch_soak_replay.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+        ROOT / "tools" / name for name in PORT_TOOLS]
 
 
 def _imported_roots(path: Path):
@@ -87,6 +91,26 @@ def test_the_new_modules_are_in_the_source_scan():
     assert (PKG / "ingest" / "native" / "vepav.cpp").is_file()
 
 
+# The fleet tier's control plane runs in router and supervisor processes
+# of its own: importable without torch, like JAX's without jax.
+CONTROL_PLANE = ("obs.capacity", "obs.fleet", "obs.journal", "serve.router",
+                 "serve.supervisor", "resilience.ladder")
+
+
+@pytest.mark.parametrize("module", CONTROL_PLANE)
+def test_fleet_control_plane_loads_no_torch(module):
+    test_worker_side_modules_load_no_torch(module)
+
+
+def test_the_fleet_tier_modules_are_in_the_source_scan():
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for rel in ("obs/capacity.py", "obs/fleet.py", "serve/router.py", "serve/supervisor.py",
+                "replay/harness.py"):
+        assert f"video_edge_ai_proxy_tpu_torch/{rel}" in names, rel
+    for name in PORT_TOOLS:
+        assert f"tools/{name}" in names and (ROOT / "tools" / name).is_file(), name
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the no-GPU refusal cannot be shown here")
@@ -111,12 +135,26 @@ def _engine():
     InferenceEngine(MemoryFrameBus())
 
 
-@pytest.mark.parametrize("entry", [_resolve, _init_params, _engine],
-                         ids=["resolve_device", "init_params", "InferenceEngine"])
-def test_entry_point_without_gpu_raises(entry):
+def _fleet_member(tmp_path):
+    from video_edge_ai_proxy_tpu_torch.replay.harness import _fleet_member_main
+
+    _fleet_member_main(["--instance", "m0", "--workdir", str(tmp_path), "--serve-only",
+                        "--spans-out", str(tmp_path / "spans.json")])
+
+
+def _fleet_obs(tmp_path):
+    from video_edge_ai_proxy_tpu_torch.replay.harness import run_fleet_obs
+
+    run_fleet_obs(n_members=1, workdir=str(tmp_path))
+
+
+@pytest.mark.parametrize("entry", [_resolve, _init_params, _engine, _fleet_member, _fleet_obs],
+                         ids=["resolve_device", "init_params", "InferenceEngine",
+                              "fleet_member", "run_fleet_obs"])
+def test_entry_point_without_gpu_raises(entry, tmp_path):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        entry()
+        entry(tmp_path) if entry in (_fleet_member, _fleet_obs) else entry()
 
 
 def test_cpu_is_served_only_when_asked():

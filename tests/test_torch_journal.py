@@ -238,23 +238,11 @@ def _slo_episode(jmod, lmod, smod, wmod, mmod):
             "why_slo": stable_why(j.why("slo", "lat"))}
 
 
-def _jax_rung_index(results):
-    """The port's 4-rung ladder has no ``shed_to_fleet`` (the JAX ladder
-    skips it without a fleet router, but its rung index counts it), so
-    the ``engine_degraded`` episode's value and peak, a rung index, read
-    one lower from ``bucket_downshift`` on. Map the port's to the JAX
-    index by rung name; nothing else is touched."""
-    for ev in results["port"]["events"]:
-        if ev["subject"] == ["watch", "engine_degraded"]:
-            for key in ("value", "peak"):
-                if key in ev["trigger"]:
-                    name = ladder.RUNGS[int(ev["trigger"][key])]
-                    ev["trigger"][key] = float(jladder.RUNGS.index(name))
-    return results
-
-
 def test_slo_episodes_watchdog_and_ladder_chain_equal_jax():
-    out = equal(_jax_rung_index(both(_slo_episode)))
+    # The rungs are JAX's five, so the engine_degraded episode's value and
+    # peak (a rung index) compare directly.
+    assert ladder.RUNGS == jladder.RUNGS
+    out = equal(both(_slo_episode))
     acts = [(e["actor"], e["action"]) for e in out["events"]]
     assert ("slo", "episode_open") in acts and ("slo", "episode_close") in acts
     assert out["episodes"]["slo_burn:lat"] == 1

@@ -6,6 +6,7 @@ under the context JAX's set (``stream=<id> seq=<packet>`` while a slot
 emits or a packet is handled). Tolerance: none.
 """
 
+import contextvars
 import json
 import logging
 import os
@@ -84,7 +85,7 @@ def test_tab_lines_and_context_strings_equal(ctx):
         jlog.reset_log_context(b)
 
 
-def test_log_context_nests_and_resets_alike():
+def _nests_and_resets_alike():
     seen = []
     for mod in (tlog, jlog):
         with mod.log_context(stream="a"):
@@ -97,7 +98,30 @@ def test_log_context_nests_and_resets_alike():
     assert seen[0] == ("[stream=a]\t", "[stream=b seq=3]\t", "[stream=a]\t") and seen[1] == ""
 
 
-def test_context_is_per_thread():
+def test_log_context_nests_and_resets_alike():
+    # A fresh context: an ingest worker run earlier on this thread leaves
+    # its per-packet context armed (both packages' workers set it and never
+    # reset it, which is right in a worker process).
+    contextvars.Context().run(_nests_and_resets_alike)
+
+
+def test_log_context_nests_after_a_worker_ran_on_this_thread():
+    from video_edge_ai_proxy_tpu_torch.bus import MemoryFrameBus
+    from video_edge_ai_proxy_tpu_torch.ingest import IngestWorker, WorkerConfig
+
+    def body():
+        bus = MemoryFrameBus()
+        cfg = WorkerConfig(rtsp_endpoint="test://pattern?w=64&h=48&fps=30&gop=5&pace=0&frames=9",
+                           device_id="cam1", bus_backend="memory", max_frames=9)
+        bus.touch_query("cam1")
+        IngestWorker(cfg, bus=bus).run()
+        assert tlog._LOG_CTX.get() == "[stream=cam1 seq=8]\t"
+        test_log_context_nests_and_resets_alike()
+
+    contextvars.Context().run(body)
+
+
+def _per_thread():
     got = {}
 
     def other():
@@ -109,6 +133,10 @@ def test_context_is_per_thread():
         th.join()
         got["main"] = tlog._LOG_CTX.get()
     assert got == {"other": "", "main": "[stream=main seq=1]\t"}
+
+
+def test_context_is_per_thread():
+    contextvars.Context().run(_per_thread)
 
 
 @pytest.mark.parametrize("name", ["ingest.worker", "ingest.av", "ingest.archive",

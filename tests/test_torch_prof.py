@@ -35,6 +35,7 @@ import pytest
 from video_edge_ai_proxy_tpu.obs import journal as jjournal
 from video_edge_ai_proxy_tpu.obs import metrics as jmetrics
 from video_edge_ai_proxy_tpu.obs import prof as jprof
+from video_edge_ai_proxy_tpu.resilience import ladder as jladder
 from video_edge_ai_proxy_tpu_torch.bus.memory_bus import MemoryFrameBus
 from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine
 from video_edge_ai_proxy_tpu_torch.obs import journal, metrics, prof
@@ -320,9 +321,10 @@ def test_the_engine_polls_the_trigger_with_its_episodes_and_rung(engine):
     engine.slo = None             # keeps the episode count set here
     engine._slo_episodes = 2
     engine._watch_tick(["cam0"])
-    engine.ladder._rung = 2
+    engine.ladder._rung = jladder.RUNGS.index("bucket_downshift")
     engine._watch_tick([])
-    assert [c["episodes"] for c in calls] == [2, 2] and [c["rung"] for c in calls] == [0, 2]
+    # The rung index the trigger reads is JAX's (shed_to_fleet counts).
+    assert [c["episodes"] for c in calls] == [2, 2] and [c["rung"] for c in calls] == [0, 3]
     assert calls[1]["context"] == {"slo_episode": 2, "slo_burning": False,
                                    "rung": "bucket_downshift"}
     # drain backpressure and a recompile storm are watchdog episodes

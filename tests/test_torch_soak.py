@@ -408,13 +408,35 @@ def test_the_tools_legs_on_the_cpu(tmp_path, capsys):
         "camera_kill", "frame_gap", "camera_restore", "bus_stall", "slow_subscriber"]
 
 
-def test_tool_refuses_the_fleet_leg_and_unknown_kinds(capsys):
+def test_tool_refuses_the_fleet_leg_and_unknown_kinds(capsys, monkeypatch, tmp_path):
+    """Unknown fault kinds are refused at parse time; ``--fleet N`` runs
+    ``run_fleet_obs`` (stubbed here, with one gate failing) and refuses a
+    fleet leg whose gates fail, with JAX's message."""
+    from video_edge_ai_proxy_tpu_torch.replay import harness
+
     tool = _tool()
-    for argv in (["--fleet", "3"], ["--faults", "meteor"], ["--faults", "camera_kill"]):
+    for argv in (["--faults", "meteor"], ["--faults", "camera_kill"]):
         with pytest.raises(SystemExit) as err:
             tool.main(["--device", "cpu"] + argv)
         assert err.value.code == 2
-    assert "obs/fleet.py" in capsys.readouterr().err
+    calls = []
+
+    def fake_fleet_obs(**kw):
+        calls.append(kw)
+        return {"backend": "cpu", "members": kw["n_members"], "client_results": [1, 1],
+                "health": [], "lint_errors": [], "counter_mismatches": [{"family": "x"}],
+                "trace_problems": [],
+                "gates": {"merged_lint_clean": True, "member_lint_clean": True,
+                          "all_members_present": True, "stitched_traces": 1,
+                          "counters_conserved": False, "fleet_trace_valid": True}}
+
+    monkeypatch.setattr(harness, "run_fleet_obs", fake_fleet_obs)
+    out = tmp_path / "fleet.json"
+    with pytest.raises(SystemExit) as err:
+        tool.main(["--device", "cpu", "--fleet", "3", "--fleet-out", str(out)])
+    assert "merged counters != member sums" in str(err.value)
+    assert calls[0]["n_members"] == 3 and calls[0]["device"] == "cpu"
+    assert json.loads(out.read_text())["tool"] == "torch_soak_replay"
 
 
 def test_a_finished_soak_leaves_no_engine_alive():

@@ -24,17 +24,24 @@ exactly when score_drift was injected. ``--profile-on-burn`` arms the
 triggered torch.profiler captures and requires an intact bundle when
 faults fired.
 
+``--fleet N`` replaces the three legs with the fleet-telemetry leg
+(``run_fleet_obs``): N member servers in processes of their own (each a
+replay worker -> shm bus -> engine -> gRPC/REST pipeline; on the card they
+share it) under one ``FleetAggregator``, gated as the JAX tool gates it: a
+lint-clean merged page and member pages, every member present, at least
+one stitched trace (worker -> bus -> engine -> client under one trace id),
+merged counters equal to the members' sums, a valid fleet timeline.
+
 The engines run on the card (``--device cuda``, the default: ``yolov8n``,
 ``resnet50`` and ``vit_b16``) or on the CPU (``--device cpu``: their tiny
-twins, the same serving families). The fleet-telemetry leg of the JAX
-tool (``--fleet``) needs the fleet aggregator and member servers, which
-the port does not have yet; the tool refuses it.
+twins, the same serving families).
 
 Usage:
   python tools/torch_soak_replay.py --device cpu --duration 20 --no-e2e
   python tools/torch_soak_replay.py --device cpu --duration 20 --no-e2e \\
       --faults uplink_down,bus_flap,device_stall
   python tools/torch_soak_replay.py --device cuda --size 1920x1080 --duration 20
+  python tools/torch_soak_replay.py --device cpu --fleet 2 --fleet-out FLEETOBS_torch.json
 """
 
 from __future__ import annotations
@@ -48,6 +55,26 @@ import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def fleet_failures(fleet: dict) -> list:
+    """The fleet-telemetry leg's gates (JAX's ``FLEETOBS_r01.json`` six)."""
+    gates = fleet["gates"]
+    failures = []
+    if not gates["merged_lint_clean"]:
+        failures.append(f"merged exposition lint: {fleet['lint_errors']}")
+    if not gates["member_lint_clean"]:
+        failures.append("a member /metrics page failed lint")
+    if not gates["all_members_present"]:
+        failures.append(f"member missing/stale at quiesce: {fleet['health']}")
+    if not gates["stitched_traces"]:
+        failures.append("no fully-stitched cross-process trace (worker -> bus -> engine -> "
+                        "client)")
+    if not gates["counters_conserved"]:
+        failures.append(f"merged counters != member sums: {fleet['counter_mismatches']}")
+    if not gates["fleet_trace_valid"]:
+        failures.append(f"merged fleet timeline invalid: {fleet['trace_problems']}")
+    return failures
 
 
 def quality_failures(quality: dict, quality_kinds, latency_bound_s: float) -> list:
@@ -147,12 +174,16 @@ def main(argv=None) -> None:
     ap.add_argument("--prof-dir", default="",
                     help="retention directory for --profile-on-burn bundles")
     ap.add_argument("--fleet", type=int, default=0, metavar="N",
-                    help="the fleet-telemetry leg: not ported (refused)")
+                    help="the fleet-telemetry leg with N member servers instead of the "
+                         "three legs")
+    ap.add_argument("--fleet-out", default="FLEETOBS_torch.json",
+                    help="fleet-telemetry artifact path (--fleet)")
+    ap.add_argument("--fleet-duration", type=float, default=12.0,
+                    help="each member's replay window for --fleet, seconds")
+    ap.add_argument("--torch-threads", type=int, default=0,
+                    help="each fleet member's torch intra-op threads (--fleet; 0: torch's "
+                         "default)")
     args = ap.parse_args(argv)
-
-    if args.fleet:
-        ap.error("--fleet: the fleet-telemetry leg needs the fleet aggregator "
-                 "(obs/fleet.py) and member servers, which the port does not have yet")
 
     from video_edge_ai_proxy_tpu_torch.replay.checksum import check_golden
     from video_edge_ai_proxy_tpu_torch.replay.faults import (
@@ -169,6 +200,29 @@ def main(argv=None) -> None:
         w, h = (int(v) for v in args.size.lower().split("x"))
     except ValueError:
         ap.error(f"--size must be WxH, got {args.size!r}")
+
+    # -- the fleet-telemetry leg (--fleet N): instead of the three legs ---
+    if args.fleet:
+        from video_edge_ai_proxy_tpu_torch.replay.harness import run_fleet_obs
+
+        fleet = run_fleet_obs(n_members=args.fleet, duration_s=args.fleet_duration,
+                              width=w, height=h, model=model, device=device,
+                              torch_threads=args.torch_threads)
+        fleet["tool"] = "torch_soak_replay"
+        with open(args.fleet_out, "w") as f:
+            json.dump(fleet, f, indent=2)
+            f.write("\n")
+        print(json.dumps({
+            "leg": "fleet", "artifact": args.fleet_out, "backend": fleet["backend"],
+            "members": fleet["members"], "gates": fleet["gates"],
+            "client_results": fleet["client_results"],
+            "health": [{k: row[k] for k in ("instance", "score", "up", "stale", "ladder_rung",
+                                            "streams")} for row in fleet["health"]],
+        }), flush=True)
+        failures = fleet_failures(fleet)
+        if failures:
+            raise SystemExit("fleet obs failure: " + "; ".join(failures))
+        return
 
     fault_plan = None
     quality_kinds: tuple = ()

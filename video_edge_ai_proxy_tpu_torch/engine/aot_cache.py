@@ -9,7 +9,11 @@ capture. On the card a program is a CUDA graph, which cannot be saved to
 disk: the manifest saves the list, and each engine captures anew (the
 kernels' libraries already persist in ``build/torch_kernels/``). So the
 JAX module's ``configure`` (its persistent compile cache) has no
-counterpart here.
+counterpart here. What the port keeps beside each program is its FLOP
+count (``flops``): an engine prewarming a recorded program takes it from
+the manifest instead of counting it under ``FlopCounterMode``, whose first
+use in a process imports ``torch._dynamo`` (8-10 s on the card's host), so
+a member spawned on a populated directory captures its graphs without it.
 
 Mismatch rule: a manifest whose ``version`` or ``stamp`` (torch's
 version, CUDA's version and the device's name) differs from the running
@@ -101,9 +105,26 @@ def load_manifest(cache_dir: str) -> Optional[List[Dict[str, Any]]]:
         if key in seen or key[4] <= 0:
             continue
         seen.add(key)
-        out.append({"model": key[0] or None, "stem": key[1],
-                    "h": key[2], "w": key[3], "bucket": key[4]})
+        entry = {"model": key[0] or None, "stem": key[1], "h": key[2], "w": key[3],
+                 "bucket": key[4]}
+        flops = prog.get("flops")
+        if isinstance(flops, (int, float)) and flops > 0:
+            entry["flops"] = float(flops)
+        out.append(entry)
     return out
+
+
+def program_flops(cache_dir: str, *, model: Optional[str], stem: str, src_hw: tuple,
+                  bucket: int) -> Optional[float]:
+    """The FLOPs recorded with one program, None when the manifest lacks
+    them (or the program). A member prewarming a recorded program takes its
+    FLOPs from here instead of counting them again."""
+    key = _program_key({"model": model, "stem": stem, "h": src_hw[0], "w": src_hw[1],
+                        "bucket": bucket})
+    for prog in load_manifest(cache_dir) or []:
+        if _program_key(prog) == key:
+            return prog.get("flops")
+    return None
 
 
 def prewarm_entries(programs: List[Dict[str, Any]]) -> List[list]:
@@ -113,12 +134,13 @@ def prewarm_entries(programs: List[Dict[str, Any]]) -> List[list]:
 
 
 def record_program(cache_dir: str, *, model: Optional[str], stem: str, src_hw: tuple,
-                   bucket: int) -> None:
+                   bucket: int, flops: Optional[float] = None) -> None:
     """Merge one served program into the manifest: read, add, write to a
     temporary file and rename it over the old one, under the process lock,
     so that an engine starting meanwhile never reads a torn file. A stale
     manifest on disk is replaced, not merged into. Best effort: a failure
-    is logged, never raised."""
+    is logged, never raised. ``flops``: the program's FLOP count, kept
+    with it (the JAX manifest has no such field)."""
     prog = {
         "model": model or None,
         "stem": stem or "classic",
@@ -126,6 +148,8 @@ def record_program(cache_dir: str, *, model: Optional[str], stem: str, src_hw: t
         "w": int(src_hw[1]),
         "bucket": int(bucket),
     }
+    if flops:
+        prog["flops"] = float(flops)
     with _manifest_lock:
         try:
             existing = load_manifest(cache_dir) or []

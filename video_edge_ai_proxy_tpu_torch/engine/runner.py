@@ -19,8 +19,10 @@ one CUDA graph over static input buffers and replays that graph for
 every batch of the key (the counterpart of the JAX ``_TimedStep``), with
 step-cache hit and miss counters, the capture's time in
 ``obs/perf.py``, prewarming at ``start()`` from ``cfg.prewarm`` and the
-prewarm manifest (``engine/aot_cache.py``), and ``prewarm_status()``. On
-the CPU, where the caller asked for it, the step runs eagerly.
+prewarm manifest (``engine/aot_cache.py``), and ``prewarm_status()``;
+then the tick thread warms the serving path with one unserved batch of
+each program before its first tick. On the CPU, where the caller asked
+for it, the step runs eagerly.
 
 ``InferenceEngine`` is the serving pipeline around it, on three threads:
 
@@ -478,6 +480,9 @@ class _Inflight:
     t_submit: float               # wall s the step was queued
     start: Optional["torch.cuda.Event"] = None   # compute stream, before the step
     done: Optional["torch.cuda.Event"] = None    # compute stream, after the step
+    # A warm-up batch (start() on the card): read back, not emitted; the
+    # drain sets the event once it is through.
+    warm: Optional[threading.Event] = None
 
 
 class _ThumbPool:
@@ -739,7 +744,8 @@ class _GraphedStep:
                  thumb_hw: Optional[tuple], *, device: torch.device,
                  pool: Callable[[], tuple],
                  on_capture: Callable[[float], None],
-                 on_capture_failed: Callable[[BaseException], None] = lambda exc: None):
+                 on_capture_failed: Callable[[BaseException], None] = lambda exc: None,
+                 flops: Optional[float] = None):
         self._build = build
         self._pool = pool
         self._on_capture = on_capture
@@ -752,6 +758,8 @@ class _GraphedStep:
             self.thumbs_in = torch.zeros((frame_shape[0],) + tuple(thumb_hw),
                                          dtype=torch.float32, device=device)
         self.capture_s = 0.0
+        # Known FLOPs (the prewarm manifest's) spare the FlopCounterMode pass.
+        self._known_flops = flops
         self.flops = 0.0
         self.pool_growth = 0
         self._graph: Optional["torch.cuda.CUDAGraph"] = None
@@ -785,7 +793,11 @@ class _GraphedStep:
 
         step = self._build()
         args = (self.frames_in,) if self.thumbs_in is None else (self.frames_in, self.thumbs_in)
-        _, self.flops = count_flops(step, *args)
+        if self._known_flops:
+            step(*args)
+            self.flops = float(self._known_flops)
+        else:
+            _, self.flops = count_flops(step, *args)
         for _ in range(self.WARMUP_CALLS - 1):
             step(*args)
         counters = launch_counters()
@@ -1069,6 +1081,7 @@ class InferenceEngine:
         self._fanout_closed = False
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self._warmed = threading.Event()   # the tick thread warmed the serving path
         self._errors: List[BaseException] = []
         # Dispatched batches wait here for the drain thread. Depth 2 is
         # double buffering; a full queue back-pressures the tick loop.
@@ -1136,6 +1149,20 @@ class InferenceEngine:
                 lambda: self._cascade.pool_nbytes() if self._cascade is not None else 0)
             self.hbm.register_pool("prefetch", self._xfer.nbytes)
             self.hbm.register_pool("collector_host", self._collector.pool_nbytes)
+        # The capacity plane (cfg.capacity): each measured batch's device
+        # time attributed to its occupant streams, the headroom forecast
+        # evaluated off the tick (throttled). None when off: no tap in the
+        # emit path, /api/v1/capacity answers 400.
+        self.capacity = None
+        if self._cfg.capacity:
+            from ..obs.capacity import CapacityTracker
+
+            self.capacity = CapacityTracker(
+                tick_ms=self._cfg.tick_ms,
+                fast_window_s=self._cfg.capacity_fast_window_s,
+                slow_window_s=self._cfg.capacity_slow_window_s,
+                util_objective=self._cfg.capacity_util_objective,
+                eval_interval_s=self._cfg.capacity_eval_interval_s)
         # _watch_tick's state (tick thread only): the effective drain
         # depth, the step-cache misses seen and the consecutive-miss streak.
         self._bp_depth = 0
@@ -1403,14 +1430,23 @@ class InferenceEngine:
 
     def start(self) -> None:
         """Warm up, prewarm (``cfg.prewarm`` and the manifest's programs),
-        then start the threads."""
+        then start the threads; on the card, return once the tick thread
+        has warmed the serving path."""
         if self._drain_thread is not None:
             raise RuntimeError("engine already started")
         self.warmup()
         self._prewarm()
         self._start_pipeline()
+        self._warmed.clear()
         self._thread = threading.Thread(target=self._loop, name="vep-torch-engine", daemon=True)
         self._thread.start()
+        # On the card the tick thread warms the serving path before its
+        # first tick (_warm_serving_path): a frame published after start()
+        # returns meets a warm path.
+        while self._cuda and not self._warmed.wait(0.1):
+            if not self._thread.is_alive():
+                raise RuntimeError("engine failed while warming its serving path") from (
+                    self._errors[0] if self._errors else None)
         if self.quality is not None and self._cfg.quality_canary:
             try:
                 self._start_canary()
@@ -1462,6 +1498,54 @@ class InferenceEngine:
                 log.exception("prewarm entry %r failed; continuing", geom)
             finally:
                 self._prewarm_done += 1
+
+    def _warm_serving_path(self, timeout_s: float = 60.0) -> None:
+        """On the card, on the tick thread before its first tick: one batch
+        of zero frames for each program built so far (the prewarm's)
+        through the path a tick's batch takes: a pooled pinned batch
+        buffer, the placement (on the transfer thread with
+        ``cfg.prefetch``), the step on the compute stream with its
+        thumbnail gather, and the drain thread's read-back. Without it a
+        process's first served batch pays the first use of each (0.5-0.9 s
+        on one H100 with the program prewarmed, most of it the first
+        thumbnail gather on the tick thread), and the tick loop stalls
+        behind it: a paced stream's next frame is overwritten before it is
+        collected. The batch is not traffic: nothing is emitted, and no
+        stats, metric, capacity ledger, checksum or span sees it. A key
+        whose batch fails is logged and skipped, as a tick skips it."""
+        t0 = time.monotonic()
+        for (name, _stem, src_hw, bucket), step in list(self._steps.items()):
+            spec = self._model_entry(name)[0]
+            shape = ((bucket,) + ((spec.clip_len,) if spec.clip_len else ()) + src_hw + (3,))
+            frames, idx = self._collector.staging_buffer(shape)
+            group = BatchGroup(src_hw, [], frames, [], bucket, model=name)
+            self._collector.lease_staged(group, shape, idx)
+            drained = threading.Event()
+            try:
+                if self._cfg.prefetch:
+                    pre = self._xfer.submit(group, self._stop)
+                    if pre is None or not pre.ready.wait(timeout_s):
+                        raise RuntimeError("warm-up placement did not resolve")
+                    self._xfer.unpark(pre)
+                    if pre.error is not None:
+                        raise pre.error
+                    placed, event = pre.placed, pre.event
+                else:
+                    placed, event, _ = self._xfer.place(frames)
+                inflight = self._run_step(step, group, placed, event, time.time())
+                inflight.warm = drained
+                self._enqueue_drain(inflight)
+            except Exception:
+                self._collector.release(group)
+                log.exception("warm-up batch of %s %sx%s bucket=%d failed; continuing", name,
+                              src_hw[0], src_hw[1], bucket)
+                continue
+            if not drained.wait(timeout_s):
+                raise RuntimeError(f"the warm-up batch of {name} {src_hw[0]}x{src_hw[1]} "
+                                   f"bucket={bucket} was not drained within {timeout_s} s")
+        if self._steps:
+            log.info("serving path warmed over %d programs in %.3f s", len(self._steps),
+                     time.monotonic() - t0)
 
     def prewarm_status(self) -> dict:
         """Prewarm progress, as the JAX engine reports it: ``required``
@@ -1821,6 +1905,9 @@ class InferenceEngine:
             if self._cuda:
                 torch.cuda.set_device(self._device)
             with self._compute_stream(), torch.inference_mode():
+                if self._cuda:
+                    self._warm_serving_path()
+                self._warmed.set()
                 self._serve_ticks()
         except BaseException as exc:  # the thread cannot go on: record, end
             self._fail(exc)
@@ -2237,6 +2324,16 @@ class InferenceEngine:
         except Exception:
             log.exception("cascade tick failed; continuing")
             return
+        if self.capacity is not None and res.head_ms is not None:
+            # The 1/N-cadence head's pass splits equally across its due
+            # tracks' streams: raw cost in the ledger, cost / every_n in the
+            # per-tick figure.
+            side = self._cascade.side
+            self.capacity.note_batch(
+                f"cascade/{self._cfg.cascade_model}", (side, side),
+                len(res.head_tracks) or 1, res.head_ms,
+                [stream for stream, _ in res.head_tracks],
+                kind="cascade", amortize_n=self._cfg.cascade_every_n)
         if tracer.enabled and res.head_ms is not None:
             t_now = time.time()
             for stream, meta in res.head_tracks:
@@ -2341,6 +2438,10 @@ class InferenceEngine:
                             detail="step-cache miss on 3+ consecutive ticks (shape churn)")
         if self.slo is not None:
             self._slo_tick(inferred)
+        if self.capacity is not None:
+            # Throttled to capacity_eval_interval_s inside: between
+            # refreshes a clock read and a compare.
+            self.capacity.evaluate()
         if self.hbm is not None:
             self.hbm.evaluate()
         if self.prof is not None:
@@ -2390,22 +2491,26 @@ class InferenceEngine:
             return fn
         self._m_cache_miss.inc()
         build = functools.partial(build_serving_step, module, spec, quality_thumb=thumb)
+        graphed = None
         if self._cuda:
             shape = ((bucket,) + ((spec.clip_len,) if spec.clip_len else ()) + src_hw + (3,))
             graphed = _GraphedStep(
                 build, shape, (thumb, thumb) if thumb else None,
                 device=self._device, pool=self._current_graph_pool,
                 on_capture=lambda seconds: self._note_graph(name, src_hw, bucket, graphed),
-                on_capture_failed=self._retire_graph_pool)
+                on_capture_failed=self._retire_graph_pool,
+                flops=(aot_cache.program_flops(self._aot_dir, model=name, stem=self._stem,
+                                               src_hw=src_hw, bucket=bucket)
+                       if self._aot_dir else None))
             self._graphs.append(graphed)
             fn = graphed
         else:
             fn = _note_first_call(build(), lambda seconds, flops: self.perf.note_compile(
                 name, src_hw, bucket, seconds, cost={"flops": flops}))
         if self._aot_dir:
-            fn = _record_after_first_success(fn, functools.partial(
-                aot_cache.record_program, self._aot_dir, model=name, stem=self._stem,
-                src_hw=src_hw, bucket=bucket))
+            fn = _record_after_first_success(fn, lambda: aot_cache.record_program(
+                self._aot_dir, model=name, stem=self._stem, src_hw=src_hw, bucket=bucket,
+                flops=graphed.flops if graphed is not None else None))
         self._steps[key] = fn
         return fn
 
@@ -2519,8 +2624,12 @@ class InferenceEngine:
 
     def _run_step(self, step: Callable, group: BatchGroup, placed: torch.Tensor, event,
                   t_collect: float) -> _Inflight:
-        """Queue one step on the compute stream after its input's copy."""
+        """Queue one step on the compute stream after its input's copy.
+        ``t_submit`` is taken after the step is queued, as in JAX, on the
+        card; on the CPU, where the call runs the step, before it, so that
+        submit -> drained (JAX's device time on the CPU) includes it."""
         start = done = None
+        t_submit = time.time()
         if self._cuda:
             stream = torch.cuda.current_stream(self._device)
             stream.wait_event(event)
@@ -2544,7 +2653,8 @@ class InferenceEngine:
         if self._cuda:
             done = torch.cuda.Event(enable_timing=True)
             done.record(stream)
-        return _Inflight(group, outputs, t_collect, time.time(), start, done)
+            t_submit = time.time()
+        return _Inflight(group, outputs, t_collect, t_submit, start, done)
 
     def _enqueue_drain(self, inflight: _Inflight) -> None:
         """Hand a dispatched batch to the drain thread; blocks (in short
@@ -2607,6 +2717,12 @@ class InferenceEngine:
     def _emit(self, inflight: _Inflight) -> None:
         group = inflight.group
         spec, module = self._model_entry(group.model)
+        if inflight.warm is not None:
+            try:
+                self._read_back(inflight)
+            finally:
+                inflight.warm.set()
+            return
         if group.coast is not None:
             self._emit_coast(inflight, spec)
             return
@@ -2628,8 +2744,21 @@ class InferenceEngine:
                 streams=len({p.device_id for p in group.crops}),
                 area_frac=CanvasPacker.area_fraction(group.crops, len(group.device_ids),
                                                      group.src_hw[0]))
+            if self.capacity is not None:
+                # Each stream's share is its crops' blitted canvas area.
+                areas: Dict[str, int] = {}
+                for p in group.crops:
+                    a = (p.dst[2] - p.dst[0]) * (p.dst[3] - p.dst[1])
+                    areas[p.device_id] = areas.get(p.device_id, 0) + a
+                self.capacity.note_batch(spec.name, group.src_hw, group.bucket, device_ms,
+                                         list(areas), weights=list(areas.values()), kind="roi")
             self._emit_canvas(inflight, host, spec, module, device_ms, t_drained)
             return
+        if self.capacity is not None:
+            # The bucket's cost, padded slots included, splits equally
+            # across the real frames.
+            self.capacity.note_batch(spec.name, group.src_hw, group.bucket, device_ms,
+                                     group.device_ids)
         now_ms = int(t_drained * 1000)
         kind = spec.kind
         num_classes = module.cfg.num_classes
@@ -2739,6 +2868,9 @@ class InferenceEngine:
                 capture_sum += self._emit_stream_result(inflight, device_id, meta, detections,
                                                         spec, now_ms, 0.0, coasted=True)
         self.perf.note_roi_emit(len(group.coast))
+        if self.capacity is not None:
+            # A coasting stream costs 0 ms in the ledger, not "missing".
+            self.capacity.note_coast([device_id for device_id, _, _ in group.coast])
         self._note_results(inflight, len(group.coast), capture_sum, t_drained, 0.0)
 
     def _emit_canvas(self, inflight: _Inflight, host: Dict[str, np.ndarray], spec, module,

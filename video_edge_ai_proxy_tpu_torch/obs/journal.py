@@ -281,3 +281,18 @@ class DecisionJournal:
                     for seq in range(max(oldest, self._next_seq - tail),
                                      self._next_seq)]
         return out
+
+
+def merge_journals(members: Dict[str, List[dict]]) -> List[dict]:
+    """The fleet merge: events from ``{member_name: [event dicts]}``, each
+    tagged with its member and ordered by ``(ts, member, seq)``. Per-member
+    seqs are monotone, so ties on wall time fall to a stable member+seq
+    order and the merge does not depend on scrape arrival order."""
+    out: List[dict] = []
+    for name, events in members.items():
+        for ev in events or []:
+            tagged = dict(ev)
+            tagged["member"] = name
+            out.append(tagged)
+    out.sort(key=lambda e: (e.get("ts", 0.0), e.get("member", ""), e.get("seq", 0)))
+    return out

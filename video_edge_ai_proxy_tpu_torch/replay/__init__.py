@@ -5,7 +5,8 @@ by both), ``recorder.py`` the taps and the synthetic traffic generator,
 ``player.py`` the deterministic frame iteration and the ``replay://``
 source, ``faults.py`` the scripted fault plans, ``checksum.py`` the
 content-derived result checksum, and ``harness.py`` the lockstep replay,
-the chaos soak and the end-to-end run.
+the chaos soak, the end-to-end run and the fleet tier's soaks (fleet
+telemetry, the router, the autoscaling supervisor).
 
 An ingest worker imports this package for its ``replay://`` source, under
 its ``RLIMIT_AS`` and away from the card: the names of ``checksum.py`` and
@@ -20,7 +21,8 @@ from .trace import TRACE_MAGIC, TRACE_VERSION, TraceError, TraceWriter, read_tra
 _LAZY = {
     "checksum": ("CHECKSUM_MASK", "device_checksum", "finalize_checksum", "fold_checksum",
                  "golden_lookup", "host_slot_checksum", "zero_class_prior"),
-    "harness": ("lockstep_checksum", "run_e2e", "run_fleet_soak"),
+    "harness": ("LoadShape", "lockstep_checksum", "run_autoscale_soak", "run_e2e",
+                "run_fleet_obs", "run_fleet_soak", "run_router_soak"),
 }
 
 

@@ -7,14 +7,19 @@ Rungs, in escalation order (each includes the previous):
 1. ``normal``           -- nothing.
 2. ``shed``             -- drop frames older than a staleness bound before
                            dispatch (oldest first, per group).
-3. ``bucket_downshift`` -- cap the collector's batch bucket one size down
+3. ``shed_to_fleet``    -- ask the fleet router (``serve/router.py``, which
+                           scrapes ``vep_ladder_rung``) to move this
+                           engine's lowest-priority streams to healthy
+                           peers. The engine does what it does at
+                           ``shed``; the rung makes horizontal re-placement
+                           engage before the local ladder shrinks device
+                           programs. Skipped unless a router registered
+                           (:meth:`DegradationLadder.register_fleet`): an
+                           engine without one walks the other four rungs.
+4. ``bucket_downshift`` -- cap the collector's batch bucket one size down
                            so device programs shrink.
-4. ``admission_pause``  -- pause admission for a deterministic half of the
+5. ``admission_pause``  -- pause admission for a deterministic half of the
                            streams; the rest keep their latency.
-
-The JAX ladder's ``shed_to_fleet`` rung, armed only when a fleet router
-registers, is left out with the router: an engine without one walks
-exactly these four rungs there too.
 
 Pressure is ``queue_depth >= depth_threshold`` (drain backpressure),
 ``tick_lag_s > lag_factor * tick_budget_s`` (tick staleness) or
@@ -47,7 +52,8 @@ log = logging.getLogger("vep.torch.resilience.ladder")
 
 __all__ = ["RUNGS", "DegradationLadder"]
 
-RUNGS = ("normal", "shed", "bucket_downshift", "admission_pause")
+RUNGS = ("normal", "shed", "shed_to_fleet", "bucket_downshift", "admission_pause")
+_FLEET_IDX = RUNGS.index("shed_to_fleet")
 
 
 class DegradationLadder:
@@ -70,11 +76,15 @@ class DegradationLadder:
         self._rung = 0
         self._pressure_since: Optional[float] = None
         self._calm_since: Optional[float] = None
+        # The fleet router's hook: None skips shed_to_fleet in the walk.
+        self._fleet_cb: Optional[Callable[[bool], None]] = None
+        self._fleet_info: Optional[Dict] = None
         #: transition counts by target rung name.
         self.transitions: Dict[str, int] = {}
         self._m_rung = obs_registry.gauge(
             "vep_ladder_rung",
-            "Engine degradation ladder rung (0=normal .. 3=admission_pause)").labels()
+            "Engine degradation ladder rung (0=normal .. 4=admission_pause;"
+            " 2=shed_to_fleet only when a fleet router is attached)").labels()
         self._m_trans = obs_registry.counter(
             "vep_ladder_transitions_total", "Degradation ladder transitions", ("to",))
         self._m_rung.set(0)
@@ -110,6 +120,37 @@ class DegradationLadder:
         self._m_rung.set(idx)
         self._m_trans.labels(name).inc()
 
+    def _step(self, direction: int) -> int:
+        """The next rung index one step in ``direction`` (+1 escalate, -1
+        recover), over shed_to_fleet when no router is registered. Caller
+        holds self._lock."""
+        nxt = self._rung + direction
+        if nxt == _FLEET_IDX and self._fleet_cb is None:
+            nxt += direction
+        return nxt
+
+    def register_fleet(self, callback: Callable[[bool], None],
+                       info: Optional[Dict] = None) -> None:
+        """Arm the shed_to_fleet rung. ``callback(active)`` fires with True
+        on entering the rung and False on leaving it, outside the ladder's
+        lock, its exceptions logged; keep it non-blocking. ``info`` shows
+        in :meth:`snapshot` (who attached, from where)."""
+        with self._lock:
+            self._fleet_cb = callback
+            self._fleet_info = dict(info or {})
+
+    def unregister_fleet(self) -> None:
+        """Disarm shed_to_fleet: the walk is the four-rung one again; a
+        ladder at the rung steps over it on its next transition."""
+        with self._lock:
+            self._fleet_cb = None
+            self._fleet_info = None
+
+    @property
+    def fleet_info(self) -> Optional[Dict]:
+        with self._lock:
+            return dict(self._fleet_info) if self._fleet_info is not None else None
+
     def observe(self, *, queue_depth: int, tick_lag_s: float, tick_budget_s: float,
                 slo_burning: bool = False, hbm_pressure: bool = False) -> str:
         """Feed one tick's pressure signals; returns the current rung name.
@@ -122,6 +163,7 @@ class DegradationLadder:
                     or tick_lag_s > self.lag_factor * tick_budget_s
                     or slo_burning
                     or hbm_pressure)
+        fleet_edge: Optional[bool] = None
         with self._lock:
             # The breakdown a transition this tick journals as its trigger.
             self._pressure_detail = {
@@ -131,13 +173,14 @@ class DegradationLadder:
                 "slo_burning": bool(slo_burning),
                 "hbm_pressure": bool(hbm_pressure),
             }
+            was_fleet = self._rung == _FLEET_IDX
             if pressure:
                 self._calm_since = None
                 if self._pressure_since is None:
                     self._pressure_since = now
                 elif (now - self._pressure_since >= self.escalate_after_s
                       and self._rung < len(RUNGS) - 1):
-                    self._to(self._rung + 1)
+                    self._to(self._step(+1))
                     self._pressure_since = now
             else:
                 self._pressure_since = None
@@ -145,11 +188,20 @@ class DegradationLadder:
                     if self._calm_since is None:
                         self._calm_since = now
                     elif now - self._calm_since >= self.recover_after_s:
-                        self._to(self._rung - 1)
+                        self._to(self._step(-1))
                         self._calm_since = now
                 else:
                     self._calm_since = None
+            is_fleet = self._rung == _FLEET_IDX
+            if is_fleet != was_fleet:
+                fleet_edge = is_fleet
+            cb = self._fleet_cb
             rung = self._rung
+        if fleet_edge is not None and cb is not None:
+            try:
+                cb(fleet_edge)
+            except Exception:  # noqa: BLE001 -- the router's hook must not end ticks
+                log.exception("fleet shed callback failed")
         if self._watchdog is not None:
             # One "degraded" episode across the whole excursion, closed
             # when the ladder is back at normal.
@@ -168,9 +220,11 @@ class DegradationLadder:
             return self._rung
 
     def snapshot(self) -> dict:
-        """The rung and the transition counts (the server's
-        ``/api/v1/router`` and the admin ``RouterState``); no fleet router
-        attaches to the port's ladder."""
+        """The rung, the transition counts and the fleet attachment (the
+        server's ``/api/v1/router`` and the admin ``RouterState``)."""
         with self._lock:
-            return {"rung": RUNGS[self._rung], "transitions": dict(self.transitions),
-                    "fleet_attached": False}
+            out = {"rung": RUNGS[self._rung], "transitions": dict(self.transitions),
+                   "fleet_attached": self._fleet_cb is not None}
+            if self._fleet_info is not None:
+                out["fleet"] = dict(self._fleet_info)
+            return out

@@ -13,7 +13,19 @@ Routes of the planes the port has, with the JAX server's payloads:
     GET    /api/v1/stats              engine, uplink and registry view
     GET    /api/v1/slo                SLO burn state
     GET    /api/v1/quality            quality verdicts
-    GET    /api/v1/router             degradation-ladder rung
+    GET    /api/v1/router             degradation-ladder rung and the
+                                      fleet router attached, if any
+    POST   /api/v1/router/attach      a fleet router arms shed_to_fleet
+                                      ({"router": ..., "url": ...})
+    POST   /api/v1/router/detach      disarm it
+    GET    /api/v1/capacity           capacity plane (the per-stream
+                                      device-time ledger, headroom,
+                                      forecast, burn)
+    GET    /api/v1/fleet/stats        fleet health and merged families
+                                      (obs.fleet_members)
+    GET    /api/v1/fleet/metrics      the fleet's one Prometheus page
+    GET    /api/v1/fleet/journal      the members' journals, merged
+    GET    /api/v1/supervisor         autoscaling supervisor state
     GET    /api/v1/hbm                device-memory plane (program
                                       footprints, pools, forecast)
     GET    /api/v1/cascade            temporal cascade (cadence, tracks,
@@ -35,9 +47,8 @@ Routes of the planes the port has, with the JAX server's payloads:
 CORS is wide open like the reference; errors use its JSON envelope
 (``{"code", "message"}``). A plane that is switched off answers 400, a
 capture out of (0, ``prof_max_ms``] answers 400 and a second capture in
-flight 409. The routes of planes not ported (capacity,
-faults, fleet, router attach/detach, supervisor, rtspscan, the portal)
-are absent. Served on a thread of its own with its own event
+flight 409. The routes of planes not ported (faults, rtspscan, the
+portal) are absent. Served on a thread of its own with its own event
 loop. Imports ``aiohttp``: only ``Server.start`` imports this module.
 """
 
@@ -111,7 +122,9 @@ async def _forget_served_handlers(app) -> None:
 
 
 def build_app(pm: ProcessManager, settings: SettingsManager, engine=None,
-              annotations=None) -> web.Application:
+              annotations=None, fleet=None, supervisor=None) -> web.Application:
+    """``fleet``: an ``obs.fleet.FleetAggregator`` (this process is the
+    aggregation tier); ``supervisor``: a ``serve.supervisor.FleetSupervisor``."""
     app = web.Application(middlewares=[_cors], client_max_size=8 << 20)
     app.on_cleanup.append(_forget_served_handlers)
 
@@ -225,6 +238,9 @@ def build_app(pm: ProcessManager, settings: SettingsManager, engine=None,
             # The same snapshot /api/v1/cascade serves.
             "cascade": engine.cascade.snapshot()
             if engine is not None and engine.cascade is not None else None,
+            # The same snapshot /api/v1/capacity serves.
+            "capacity": engine.capacity.snapshot()
+            if engine is not None and engine.capacity is not None else None,
         }
         return web.json_response(out)
 
@@ -237,6 +253,16 @@ def build_app(pm: ProcessManager, settings: SettingsManager, engine=None,
         if engine.cascade is None:
             return _error(400, "cascade disabled (engine.cascade config)")
         out = await asyncio.to_thread(engine.cascade.snapshot)
+        return web.json_response(out)
+
+    async def capacity(_request: web.Request) -> web.Response:
+        """The capacity plane (obs/capacity.py); 400 when it is off
+        (engine.capacity config)."""
+        if engine is None:
+            return _error(400, "engine not running")
+        if engine.capacity is None:
+            return _error(400, "capacity plane disabled (engine.capacity config)")
+        out = await asyncio.to_thread(engine.capacity.snapshot)
         return web.json_response(out)
 
     async def hbm(_request: web.Request) -> web.Response:
@@ -265,12 +291,86 @@ def build_app(pm: ProcessManager, settings: SettingsManager, engine=None,
         out["canary"] = engine.canary.snapshot() if engine.canary is not None else None
         return web.json_response(out)
 
-    async def router_state(_request: web.Request) -> web.Response:
+    def _ladder_or_error():
+        """The router routes drive the ladder's fleet hook: a running
+        engine with its ladder on, else 400."""
         if engine is None:
-            return _error(400, "engine not running")
+            return None, _error(400, "engine not running")
         if engine.ladder is None:
-            return _error(400, "degradation ladder disabled (engine.ladder config)")
-        return web.json_response(engine.ladder.snapshot())
+            return None, _error(400, "degradation ladder disabled (engine.ladder config)")
+        return engine.ladder, None
+
+    async def router_state(_request: web.Request) -> web.Response:
+        """The rung, its transitions and who (if anyone) routes this member."""
+        ladder, err = _ladder_or_error()
+        if err is not None:
+            return err
+        return web.json_response(ladder.snapshot())
+
+    def _shed_gauge():
+        return obs_registry.gauge(
+            "vep_fleet_shed_active",
+            "1 while the ladder sits at shed_to_fleet asking the fleet "
+            "router to move streams away").labels()
+
+    async def router_attach(request: web.Request) -> web.Response:
+        """A fleet router arms this member's shed_to_fleet rung. The
+        callback mirrors the rung's edges into ``vep_fleet_shed_active``;
+        the router itself runs the migration."""
+        ladder, err = _ladder_or_error()
+        if err is not None:
+            return err
+        try:
+            body = await request.json()
+        except Exception:
+            body = {}
+        if not isinstance(body, dict):
+            return _error(400, "JSON object body expected")
+        gauge = _shed_gauge()
+        gauge.set(0)
+        ladder.register_fleet(lambda active: gauge.set(1 if active else 0),
+                              {"router": str(body.get("router", "")),
+                               "url": str(body.get("url", "")), "via": "rest"})
+        return web.json_response(ladder.snapshot())
+
+    async def router_detach(_request: web.Request) -> web.Response:
+        ladder, err = _ladder_or_error()
+        if err is not None:
+            return err
+        ladder.unregister_fleet()
+        _shed_gauge().set(0)
+        return web.json_response(ladder.snapshot())
+
+    async def fleet_stats(_request: web.Request) -> web.Response:
+        """Ranked member health and the merged counters, gauges and
+        histograms; 400 when this process is not the aggregation tier
+        (obs.fleet_members config)."""
+        if fleet is None:
+            return _error(400, "fleet aggregation disabled (obs.fleet_members config)")
+        return web.json_response(await asyncio.to_thread(fleet.fleet_stats))
+
+    async def fleet_metrics(_request: web.Request) -> web.Response:
+        """The fleet's one lint-clean Prometheus page: member samples under
+        ``instance`` labels and the ``vep_fleet_*`` health families."""
+        if fleet is None:
+            return _error(400, "fleet aggregation disabled (obs.fleet_members config)")
+        text = await asyncio.to_thread(fleet.merged_exposition)
+        return web.Response(text=text, content_type="text/plain", charset="utf-8",
+                            headers={"X-Prometheus-Version": "0.0.4"})
+
+    async def fleet_journal(_request: web.Request) -> web.Response:
+        """Every member's journal events tagged ``member=<name>``, in
+        ``(ts, member, seq)`` order."""
+        if fleet is None:
+            return _error(400, "fleet aggregation disabled (obs.fleet_members config)")
+        return web.json_response(await asyncio.to_thread(fleet.merged_journal))
+
+    async def supervisor_state(_request: web.Request) -> web.Response:
+        """The supervisor's member set, bounds, merged signals, last
+        decision and events; 400 when none runs here (supervisor config)."""
+        if supervisor is None:
+            return _error(400, "supervisor disabled (supervisor config)")
+        return web.json_response(await asyncio.to_thread(supervisor.snapshot))
 
     async def journal(request: web.Request) -> web.Response:
         """Retained decision events oldest to newest, filtered by
@@ -481,6 +581,13 @@ def build_app(pm: ProcessManager, settings: SettingsManager, engine=None,
     app.router.add_get("/api/v1/slo", slo)
     app.router.add_get("/api/v1/quality", quality)
     app.router.add_get("/api/v1/router", router_state)
+    app.router.add_post("/api/v1/router/attach", router_attach)
+    app.router.add_post("/api/v1/router/detach", router_detach)
+    app.router.add_get("/api/v1/capacity", capacity)
+    app.router.add_get("/api/v1/fleet/stats", fleet_stats)
+    app.router.add_get("/api/v1/fleet/metrics", fleet_metrics)
+    app.router.add_get("/api/v1/fleet/journal", fleet_journal)
+    app.router.add_get("/api/v1/supervisor", supervisor_state)
     app.router.add_get("/api/v1/hbm", hbm)
     app.router.add_get("/api/v1/cascade", cascade)
     app.router.add_get("/api/v1/journal", journal)
@@ -500,8 +607,10 @@ class RestServer:
     """The aiohttp app on a thread of its own; start/stop from the caller."""
 
     def __init__(self, pm: ProcessManager, settings: SettingsManager,
-                 host: str = "0.0.0.0", port: int = 8080, engine=None, annotations=None):
-        self._app = build_app(pm, settings, engine=engine, annotations=annotations)
+                 host: str = "0.0.0.0", port: int = 8080, engine=None, annotations=None,
+                 fleet=None, supervisor=None):
+        self._app = build_app(pm, settings, engine=engine, annotations=annotations,
+                              fleet=fleet, supervisor=supervisor)
         self._host = host
         self._port = port
         self._loop: Optional[asyncio.AbstractEventLoop] = None

@@ -31,9 +31,16 @@ under ``<data_dir>/cascade_clips`` (``ingest/archive.py``).
 ``google.protobuf`` nor ``aiohttp`` (nor ``yaml``, unless ``load_config``
 reads a file); ``start()`` imports the wire modules first and raises their
 ``ImportError`` before it starts anything: there is no server without its
-wire. Planes of the JAX server that the port lacks stay off, each with a
-log line: the fleet aggregator, router and supervisor, and the persistent
-XLA compile cache (no counterpart).
+wire. The persistent XLA compile cache of the JAX server has no
+counterpart: ``engine.compile_cache_dir`` stays off, with a log line.
+
+The fleet tier as in the JAX server: ``obs.instance`` labels every
+``/metrics`` sample; ``obs.fleet_members`` runs a ``FleetAggregator`` in
+this process (``/api/v1/fleet/*``); ``supervisor.enabled`` with
+``router.members`` runs a ``StreamRouter`` and an advisory
+``FleetSupervisor`` here (``/api/v1/supervisor``), the router attaching to
+its members (which arms each member's ``shed_to_fleet`` rung through
+``/api/v1/router/attach``).
 """
 
 from __future__ import annotations
@@ -60,9 +67,6 @@ log = logging.getLogger("vep.torch.serve.server")
 # (config switch, what stays off) for the JAX server's planes the port
 # lacks; a YAML file may set them, and the server says it ignores them.
 _NOT_PORTED = (
-    ("obs.fleet_members", "the fleet aggregator"),
-    ("router.members", "the fleet router"),
-    ("supervisor.enabled", "the fleet supervisor"),
     ("engine.compile_cache_dir", "the persistent XLA compile cache (no counterpart)"),
 )
 
@@ -141,13 +145,53 @@ class Server:
 
         tracer.configure(enabled=self.cfg.obs.trace, sample_every=self.cfg.obs.sample_every,
                          ring=self.cfg.obs.trace_ring)
-        # One decision journal per process, shared with the engine;
-        # engine.journal=False is the process-wide kill switch.
+        # The fleet identity: a constant label at render time only.
+        if self.cfg.obs.instance:
+            from ..obs import registry as obs_registry
+
+            obs_registry.set_const_labels(instance=self.cfg.obs.instance)
+        self.fleet = None
+        if self.cfg.obs.fleet_members:
+            from ..obs.fleet import FleetAggregator
+
+            self.fleet = FleetAggregator(
+                self.cfg.obs.fleet_members, scrape_interval_s=self.cfg.obs.fleet_scrape_s,
+                stale_after_s=self.cfg.obs.fleet_stale_s or None)
+        # One decision journal per process, shared by the engine, the
+        # router and the supervisor; engine.journal=False is the
+        # process-wide kill switch.
         self.journal = None
         if self.cfg.engine.journal:
             from ..obs.journal import DecisionJournal
 
             self.journal = DecisionJournal(self.cfg.engine.journal_capacity)
+        # The supervisor runs advisory here (no spawner comes from YAML):
+        # its decisions show in /api/v1/supervisor and vep_supervisor_*.
+        # It acts only through a router, so it needs router.members.
+        self.router = None
+        self.supervisor = None
+        if self.cfg.supervisor.enabled:
+            if not self.cfg.router.members:
+                log.warning("supervisor.enabled with no router.members: nothing to "
+                            "supervise; the supervisor stays off")
+            else:
+                from .router import StreamRouter
+                from .supervisor import FleetSupervisor
+
+                rc = self.cfg.router
+                sup = self.cfg.supervisor
+                self.router = StreamRouter(
+                    rc.members, scrape_interval_s=rc.scrape_interval_s, base_vnodes=rc.vnodes,
+                    max_moves_per_pass=rc.max_moves_per_pass,
+                    min_healthy_age_s=rc.min_healthy_age_s, drain_timeout_s=rc.drain_timeout_s,
+                    ema_alpha=rc.ema_alpha, healthy_above=rc.healthy_above,
+                    unhealthy_below=rc.unhealthy_below, journal=self.journal)
+                self.supervisor = FleetSupervisor(
+                    self.router, min_members=sup.min_members, max_members=sup.max_members,
+                    decision_interval_s=sup.decision_interval_s,
+                    spawn_horizon_s=sup.spawn_horizon_s, surplus_headroom=sup.surplus_headroom,
+                    surplus_hold_s=sup.surplus_hold_s, spawn_cooldown_s=sup.spawn_cooldown_s,
+                    retire_cooldown_s=sup.retire_cooldown_s)
         self.storage = Storage(os.path.join(data_dir, "registry.db"))
         self.bus = open_bus(backend, self.cfg.bus.shm_dir, self.cfg.bus.redis_addr,
                             self.cfg.bus.redis_password, self.cfg.bus.redis_db)
@@ -230,6 +274,14 @@ class Server:
         self.bound_grpc_port = self._grpc_port
 
     def start(self) -> None:
+        # gRPC's fork handlers run in every child this process forks (the
+        # camera workers, which exec at once): with another thread inside
+        # gRPC they aborted a forked worker (SIGABRT, "Check failed:
+        # next_worker->initialized_cv"; 4 of about 20 worker starts in
+        # member servers on the card). The workers use no gRPC, so the
+        # handlers are off unless the environment says otherwise; read
+        # when gRPC first initialises in the process.
+        os.environ.setdefault("GRPC_ENABLE_FORK_SUPPORT", "false")
         # The wire's packages first: without them nothing starts.
         import grpc
         from concurrent import futures
@@ -248,10 +300,27 @@ class Server:
         # REST binds before the engine prewarms: the server answers during
         # the compile ramp (prewarm incomplete in /api/v1/stats).
         self._rest = RestServer(self.process_manager, self.settings, port=self._rest_port,
-                                engine=self.engine, annotations=self.annotations)
+                                engine=self.engine, annotations=self.annotations,
+                                fleet=self.fleet, supervisor=self.supervisor)
         self._rest.start()
         if self.engine is not None:
             self.engine.start()
+        if self.fleet is not None:
+            self.fleet.start()
+            log.info("fleet aggregator scraping %d members every %gs "
+                     "(/api/v1/fleet/stats, /api/v1/fleet/metrics)",
+                     len(self.cfg.obs.fleet_members), self.fleet.scrape_interval_s)
+        if self.router is not None:
+            # Arm shed_to_fleet on the reachable members (per-member errors
+            # are recorded, not fatal) and start the placement loop.
+            self.router.attach()
+            self.router.start()
+        if self.supervisor is not None:
+            self.supervisor.start()
+            log.info("fleet supervisor (advisory) over %d members: bounds [%d, %d], "
+                     "decision every %gs (/api/v1/supervisor)", len(self.router.clients),
+                     self.supervisor.min_members, self.supervisor.max_members,
+                     self.supervisor.decision_interval_s)
         servicer = ImageServicer(self.bus, self.process_manager, self.settings,
                                  self.annotations, engine=self.engine,
                                  api_endpoint=self.cfg.api.endpoint)
@@ -277,6 +346,13 @@ class Server:
 
     def stop(self) -> None:
         log.info("shutting down")
+        if self.supervisor is not None:
+            self.supervisor.stop()
+        if self.router is not None:
+            self.router.stop()
+            self.router.detach()
+        if self.fleet is not None:
+            self.fleet.stop()
         if self._grpc_server is not None:
             self._grpc_server.stop(grace=2).wait()
         if self._rest is not None:

@@ -135,6 +135,21 @@ class EngineConfig:
     ladder_recover_after_s: float = 2.0
     # Rung shed: frames older than this at dispatch are dropped.
     shed_staleness_ms: float = 500.0
+    # Capacity attribution plane (obs/capacity.py): each measured batch's
+    # device time attributed to its occupant streams (full slots equally,
+    # ROI canvases by packed area, the cascade head amortized over its
+    # cadence), utilization rings per (model, geometry, bucket), the
+    # time_to_saturation_s forecast and fast/slow burn rates; the headroom
+    # signal the fleet merges and StreamRouter.admit consults.
+    # capacity=False (default): no tap in the emit path, /api/v1/capacity
+    # answers 400.
+    capacity: bool = False
+    capacity_fast_window_s: float = 60.0     # fast burn window
+    capacity_slow_window_s: float = 1800.0   # slow burn window (30 m)
+    # Sustainable utilization: burn = utilization over this; burning when
+    # both windows exceed 1.0.
+    capacity_util_objective: float = 0.8
+    capacity_eval_interval_s: float = 1.0    # forecast refresh throttle
     # Device-memory plane (obs/hbm.py): program footprints, live pool
     # ledgers (thumbs, track_state, prefetch, collector_host) and a time-
     # to-OOM forecast against the budget that feeds the ladder. hbm=False
@@ -282,6 +297,53 @@ class ObsConfig:
     sample_every: int = 16    # trace 1 in N frames (by packet id, so spans
                               # join into lineages)
     trace_ring: int = 1024    # span events buffered per stream
+    # Fleet telemetry (obs/fleet.py). instance: this member's identity, a
+    # constant label on every /metrics sample when set. fleet_members:
+    # "name=http://host:port" specs; when set this process also runs a
+    # FleetAggregator and serves /api/v1/fleet/*.
+    instance: str = ""
+    fleet_members: tuple = ()
+    fleet_scrape_s: float = 2.0
+    fleet_stale_s: float = 0.0   # 0 -> one scrape interval
+
+
+@dataclass
+class RouterConfig:
+    """Fleet router (serve/router.py): consistent-hash stream placement
+    across engine members and burn-driven live migration. Read by the
+    router process (``python -m video_edge_ai_proxy_tpu_torch.serve.router``)
+    and by a server whose supervisor is on."""
+
+    members: tuple = ()             # "name=http://host:port" specs
+    port: int = 9091                # router admin plane (/metrics, stats)
+    scrape_interval_s: float = 1.0  # health poll + decision-pass cadence
+    vnodes: int = 64                # virtual nodes per member at weight 1
+    max_moves_per_pass: int = 2     # graceful migrations per pass
+    min_healthy_age_s: float = 0.0  # a new healthy member waits this long
+    drain_timeout_s: float = 8.0    # max wait for the source to flush
+    ema_alpha: float = 0.4          # health-score smoothing
+    healthy_above: float = 0.7      # hysteresis band: healthy at/above
+    unhealthy_below: float = 0.4    # ... unhealthy at/below; hold between
+
+
+@dataclass
+class SupervisorConfig:
+    """Autoscaling supervisor (serve/supervisor.py): spawns a member when
+    the fleet's time_to_saturation_s forecast falls inside the horizon,
+    retires the emptiest after a sustained headroom surplus, within
+    min/max bounds and cooldowns. enabled=True in a server runs it
+    advisory over ``router.members`` (decisions in /api/v1/supervisor and
+    vep_supervisor_*); enabled=False: /api/v1/supervisor answers 400."""
+
+    enabled: bool = False
+    min_members: int = 1
+    max_members: int = 4
+    decision_interval_s: float = 2.0
+    spawn_horizon_s: float = 120.0
+    surplus_headroom: float = 0.6
+    surplus_hold_s: float = 30.0
+    spawn_cooldown_s: float = 10.0
+    retire_cooldown_s: float = 30.0
 
 
 @dataclass
@@ -300,6 +362,8 @@ class Config:
     buffer: BufferConfig = field(default_factory=BufferConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
+    router: RouterConfig = field(default_factory=RouterConfig)
+    supervisor: SupervisorConfig = field(default_factory=SupervisorConfig)
 
 
 def _merge(dc: Any, data: dict) -> Any:
