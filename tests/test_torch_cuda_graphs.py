@@ -7,7 +7,9 @@ stem, geometry, bucket) key (``engine/runner.py`` ``_GraphedStep``).
   flash-attention kernel inside the graph).
 - The outputs a replay returned are not changed by the next replays.
 - A step that synchronises with the host raises at capture, and nothing
-  runs it eagerly in its place.
+  runs it eagerly in its place; after that failed capture ``empty_cache``
+  still returns freed memory to the device, and after a capture into its
+  pool, which torch refuses, once ``_end_pool_recording`` ends it.
 - The kernel wrappers' launch counts grow by the captured launches at
   every replay, and not at capture.
 - The engine on the card serves through graphs: one capture per key,
@@ -30,6 +32,7 @@ import torch
 
 from video_edge_ai_proxy_tpu_torch.bus.interface import FrameMeta
 from video_edge_ai_proxy_tpu_torch.bus.memory_bus import MemoryFrameBus
+from video_edge_ai_proxy_tpu_torch.engine import runner as runner_mod
 from video_edge_ai_proxy_tpu_torch.engine.runner import (
     InferenceEngine, _GraphedStep, build_serving_step,
 )
@@ -151,6 +154,63 @@ def test_a_synchronising_step_raises_at_capture(card):
     # call ran in its place and nothing was returned.
     assert len(calls) == _GraphedStep.WARMUP_CALLS + 1
     assert step._graph is None and not out
+
+
+def test_a_failed_capture_leaves_empty_cache_working(card):
+    """After a capture fails, the allocator records into no pool: a freed
+    block goes back to the device at ``empty_cache``, as it would have
+    before the capture."""
+    def build():
+        def step(frames):
+            return {"mean": frames.float().mean() + float(frames[0, 0, 0, 0])}
+        return step
+
+    step = _GraphedStep(build, (1, 8, 8, 3), None, device=card,
+                        pool=torch.cuda.graph_pool_handle, on_capture=lambda s: None)
+    frames = torch.zeros((1, 8, 8, 3), dtype=torch.uint8, device=card)
+    with torch.cuda.stream(torch.cuda.Stream(card)):
+        with pytest.raises(RuntimeError):
+            step(frames)
+    torch.cuda.synchronize()
+    block = torch.empty(256 << 20, dtype=torch.uint8, device=card)
+    reserved = torch.cuda.memory_reserved(card)
+    del block
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved(card) <= reserved - (256 << 20)
+
+
+def test_a_refused_capture_into_a_failed_pool_is_ended_as_well(card):
+    """torch refuses a capture into the pool of a failed one ("already
+    recording") and leaves the refused capture's recording open, so that
+    ``empty_cache`` releases nothing; ``_end_pool_recording`` ends it."""
+    def build():
+        def step(frames):
+            return {"mean": frames.float().mean() + float(frames[0, 0, 0, 0])}
+        return step
+
+    pool = torch.cuda.graph_pool_handle()
+    step = _GraphedStep(build, (1, 8, 8, 3), None, device=card, pool=lambda: pool,
+                        on_capture=lambda s: None)
+    with torch.cuda.stream(torch.cuda.Stream(card)):
+        with pytest.raises(RuntimeError):
+            step(torch.zeros((1, 8, 8, 3), dtype=torch.uint8, device=card))
+
+    def released() -> int:
+        torch.cuda.synchronize()
+        block = torch.empty(256 << 20, dtype=torch.uint8, device=card)
+        reserved = torch.cuda.memory_reserved(card)
+        del block
+        torch.cuda.empty_cache()
+        return reserved - torch.cuda.memory_reserved(card)
+
+    side = torch.cuda.Stream(card)
+    with pytest.raises(RuntimeError, match="already recording"):
+        with torch.cuda.stream(side), torch.cuda.graph(torch.cuda.CUDAGraph(), pool=pool,
+                                                      stream=side):
+            torch.zeros(4, device=card).add_(1)
+    assert released() == 0
+    runner_mod._end_pool_recording(card, pool)
+    assert released() >= 256 << 20
 
 
 def test_launch_counts_grow_by_the_captured_launches_at_each_replay(card, detector, video):

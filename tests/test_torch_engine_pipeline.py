@@ -19,7 +19,8 @@ equal exactly (host code, the same float32 and Python-float arithmetic):
 - the engine on the CPU: results with track ids, quality verdicts, the
   ladder at ``normal``, the state of a stream gone from the bus dropped
   after the grace period, and a transfer-thread error raised by
-  ``stop()``.
+  ``stop()``; a failed graph capture ends the allocator's recording into
+  its pool (``_end_pool_recording``, torch's call stubbed).
 """
 
 import logging
@@ -593,3 +594,24 @@ def test_transfer_error_ends_the_engine_and_stop_raises(caplog):
     assert health["ok"], health
     logged = [r for r in caplog.records if r.getMessage() == "engine tick failed; continuing"]
     assert len(logged) == 3 and all(isinstance(r.exc_info[1], OSError) for r in logged)
+
+
+def test_a_failed_capture_ends_the_allocators_recording_into_its_pool(monkeypatch):
+    """``_end_pool_recording`` ends the recording into the failed capture's
+    pool on the capture's device, and a recording the capture had already
+    ended (the allocator raises) is no error."""
+    import torch
+
+    from video_edge_ai_proxy_tpu_torch.engine import runner
+
+    calls = []
+
+    def end(index, pool):
+        calls.append((index, pool))
+        if len(calls) > 1:
+            raise RuntimeError("endAllocatePool: not currently recording to mempool_id")
+
+    monkeypatch.setattr(torch._C, "_cuda_endAllocateToPool", end, raising=False)
+    runner._end_pool_recording(torch.device("cuda", 1), (0, 7))
+    runner._end_pool_recording(torch.device("cuda", 1), (0, 7))
+    assert calls == [(1, (0, 7)), (1, (0, 7))]

@@ -13,6 +13,9 @@ and the fleet routes against the JAX package's.
   JAX's: the same status and body, off and on.
 - ``run_fleet_obs`` with 2 CPU members (``tiny_yolov8`` at 128x96), each a
   process of its own, passes its six gates with bounded waits.
+- ``InferenceEngine.at_rest``, which a member's counts are read through,
+  reads between ticks once every dispatched batch is emitted, and after its
+  timeout reads as things stand.
 Tolerance: none.
 """
 
@@ -267,3 +270,58 @@ def test_a_server_forks_its_workers_without_grpc_fork_handlers():
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "fork-support false codes [0]" in proc.stdout, proc.stdout
     assert "fork() handlers" not in proc.stderr
+
+
+def _at_rest_stub():
+    """The two members of an engine that ``at_rest`` reads: the tick lock
+    and the drain queue."""
+    import queue
+    import threading
+
+    return types.SimpleNamespace(_tick_lock=threading.Lock(), _drain_q=queue.Queue(maxsize=2))
+
+
+def test_at_rest_reads_between_ticks_after_the_drain():
+    """A fleet member's counts are read with no batch in flight:
+    ``at_rest`` waits out the tick that is dispatching and the emit of
+    every batch already dispatched, so a batch that has launched its keep
+    mask has also counted as a batch."""
+    import threading
+    import time
+
+    from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine
+
+    eng = _at_rest_stub()
+    counts = {"launches": 0, "batches": 0}
+    eng._tick_lock.acquire()                 # a tick dispatching
+    counts["launches"] += 1
+    eng._drain_q.put(object())
+
+    def finish():
+        time.sleep(0.1)
+        eng._tick_lock.release()             # the tick ends
+        time.sleep(0.1)
+        eng._drain_q.get()                   # the batch's emit
+        counts["batches"] += 1
+        eng._drain_q.task_done()
+
+    t = threading.Thread(target=finish)
+    t.start()
+    seen = InferenceEngine.at_rest(eng, lambda: (dict(counts), eng._tick_lock.locked()))
+    t.join()
+    assert seen == ({"launches": 1, "batches": 1}, True)
+    assert not eng._tick_lock.locked()
+
+
+def test_at_rest_reads_as_it_stands_after_its_timeout(caplog):
+    """A drain that never comes (its thread died) does not hang the read:
+    after the timeout it warns and reads, and leaves the tick lock free."""
+    from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine
+
+    eng = _at_rest_stub()
+    eng._drain_q.put(object())
+    with caplog.at_level("WARNING"):
+        assert InferenceEngine.at_rest(eng, lambda: eng._drain_q.unfinished_tasks,
+                                       timeout=0.1) == 1
+    assert "not at rest" in caplog.text
+    assert not eng._tick_lock.locked()

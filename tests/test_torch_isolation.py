@@ -13,12 +13,16 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "video_edge_ai_proxy_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "video_edge_ai_proxy_tpu")
+# Packages the card's machine does not have: the port reads their formats
+# itself (utils/checkpoint.py, models/import_weights.py).
+ABSENT_ON_CARD = ("msgpack", "safetensors")
 
 
 # The tools that drive the port alone (the other tools/torch_*.py hold the
 # port against the JAX package).
 PORT_TOOLS = ("torch_soak_replay.py", "torch_router_smoke.py", "torch_autoscale_smoke.py",
-              "torch_capacity_smoke.py")
+              "torch_capacity_smoke.py", "torch_import_weights.py", "torch_eval_detector.py",
+              "torch_selftrain_e2e.py")
 
 
 def _port_sources():
@@ -39,7 +43,7 @@ def _imported_roots(path: Path):
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import_anywhere_in_the_source(path):
     """Covers imports inside functions too, which importing cannot see."""
-    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN + ABSENT_ON_CARD))
     assert not bad, f"{path.name} imports {bad}"
 
 
@@ -102,6 +106,13 @@ def test_fleet_control_plane_loads_no_torch(module):
     test_worker_side_modules_load_no_torch(module)
 
 
+def test_the_self_training_modules_are_in_the_source_scan():
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for rel in ("utils/checkpoint.py", "models/detect_loss.py", "ops/augment.py",
+                "data/segments.py", "data/__init__.py"):
+        assert f"video_edge_ai_proxy_tpu_torch/{rel}" in names, rel
+
+
 def test_the_fleet_tier_modules_are_in_the_source_scan():
     names = {str(p.relative_to(ROOT)) for p in _port_sources()}
     for rel in ("obs/capacity.py", "obs/fleet.py", "serve/router.py", "serve/supervisor.py",
@@ -148,13 +159,21 @@ def _fleet_obs(tmp_path):
     run_fleet_obs(n_members=1, workdir=str(tmp_path))
 
 
-@pytest.mark.parametrize("entry", [_resolve, _init_params, _engine, _fleet_member, _fleet_obs],
+def _selftrain(tmp_path):
+    sys.path.insert(0, str(ROOT))
+    from tools import torch_selftrain_e2e
+
+    torch_selftrain_e2e.run("tiny_yolov8", steps=1, workdir=str(tmp_path))
+
+
+@pytest.mark.parametrize("entry", [_resolve, _init_params, _engine, _fleet_member, _fleet_obs,
+                                   _selftrain],
                          ids=["resolve_device", "init_params", "InferenceEngine",
-                              "fleet_member", "run_fleet_obs"])
+                              "fleet_member", "run_fleet_obs", "selftrain"])
 def test_entry_point_without_gpu_raises(entry, tmp_path):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        entry(tmp_path) if entry in (_fleet_member, _fleet_obs) else entry()
+        entry(tmp_path) if entry in (_fleet_member, _fleet_obs, _selftrain) else entry()
 
 
 def test_cpu_is_served_only_when_asked():

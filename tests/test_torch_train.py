@@ -296,9 +296,15 @@ def test_make_trainer_refusals():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_trainer(model)
     assert make_trainer(model, device="cpu").device.type == "cpu"
+    # Detection training is ported (mutable_aux, BatchNorm statistics,
+    # float32 detector weights); a model of one dtype and the int8
+    # activation path still refuse.
+    assert make_trainer(YOLOv8(tiny_yolov8_config(), torch.float32), device="cpu",
+                        mutable_aux=True).mutable_aux
     with pytest.raises(NotImplementedError):
-        make_trainer(model, device="cpu", mutable_aux=True)
-    with pytest.raises(NotImplementedError):
-        make_trainer(YOLOv8(tiny_yolov8_config(), torch.float32), device="cpu")
-    with pytest.raises(NotImplementedError):
-        registry.get("tiny_yolov8").init_params(device="cpu", param_dtype=torch.float32)
+        registry.get("tiny_resnet").init_params(device="cpu", param_dtype=torch.float32)
+    from video_edge_ai_proxy_tpu_torch.models.common import ConvBN, batch_statistics
+
+    conv = ConvBN(3, 8, dtype=torch.float32, act_int8=True)
+    with batch_statistics(conv), pytest.raises(NotImplementedError):
+        conv(torch.zeros(1, 3, 8, 8))

@@ -19,7 +19,7 @@ batches of 2 at 640²) and serves int8 weights as well. The frames are
 them. ``--port-weights`` starts instead from the port's own seeded
 weights (``init_params`` with ``torch.Generator().manual_seed(seed)``, the
 class prior zeroed: the weights ``chip_smoke.py`` phase 15 serves) and
-carries them into the JAX package (``to_flax``). Both packages run bf16 on
+carries them into the JAX package (``carry.to_flax``). Both packages run bf16 on
 the CPU: scores only, no timing. ``fused_letterbox`` in the output is each
 package's max |fused letterbox - space_to_depth(two-pass letterbox)| on the
 same frames (``tools/stem_smoke.py``'s check), and whether the port's two
@@ -76,32 +76,6 @@ def jax_init(seed: int):
         jax.random.PRNGKey(seed),
         jnp.zeros((1, spec.input_size, spec.input_size, 3), jnp.bfloat16))
     return jax.device_get(zero_class_prior(variables))
-
-
-def to_flax(state, template) -> dict:
-    """The inverse of the port's ``from_flax`` for one model: the port
-    ``state`` laid out as the flax ``template`` tree (same structure and
-    shapes), kernels transposed back to HWIO and [in, out]."""
-    import numpy as np
-
-    from video_edge_ai_proxy_tpu_torch.models import carry
-
-    def param(path, value):
-        name, _ = carry._param(path, value)
-        t = state[name].detach().float().cpu().numpy()
-        if path[-1] == "kernel":
-            t = t.transpose(np.argsort(carry._CONV_AXES.get(np.ndim(value), (1, 0))))
-        return t
-
-    def stat(path, _):
-        return state[".".join(path[:-2] + (carry._STAT_LEAVES[path[-2:]],))].float().numpy()
-
-    def fill(tree, prefix, leaf):
-        return {k: fill(v, prefix + (k,), leaf) if isinstance(v, dict)
-                else leaf(prefix + (k,), v) for k, v in tree.items()}
-
-    return {"params": fill(template["params"], (), param),
-            "batch_stats": fill(template["batch_stats"], (), stat)}
 
 
 def jax_detections(variables, frames) -> dict:
@@ -235,7 +209,9 @@ def main(argv=None) -> int:
     for seed in args.seeds:
         if args.port_weights:
             model = port_model(seed)
-            variables = to_flax(model.state_dict(), jax_init(seed))
+            from video_edge_ai_proxy_tpu_torch.models.carry import to_flax
+
+            variables = to_flax(model.state_dict())
         else:
             variables = jax_init(seed)
             model = port_model(seed, variables)

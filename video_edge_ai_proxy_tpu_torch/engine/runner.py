@@ -52,6 +52,17 @@ also runs every ConvBN but the stem int8 x int8 against input ranges
 calibrated at warmup on synthetic frames. Each variant is its own
 (model, stem, geometry, bucket) program.
 
+Checkpoints (``cfg.checkpoint_path``, as in the JAX engine): at warmup,
+before any step is built (so a CUDA graph captures the loaded weights), a
+msgpack checkpoint that exists is loaded into the default model
+(``utils/checkpoint.py`` ``load_msgpack_with_meta`` -> ``carry.from_flax``
+-> ``fit_state``); a missing one logs a warning and leaves the random
+init. Its metadata's ``conf_threshold`` (stamped by the self-training
+loop's calibration) filters the default model's detections, and only
+those: per-stream extra models start from their init and keep the NMS
+floor. ``save_checkpoint`` writes the served weights back (float32, the
+dequantized ones for a quantized engine).
+
 The device accounting: ``perf`` (``obs/perf.py``) counts each program's
 FLOPs when it is built, each batch's device time, padding and MFU against
 the card's peak (resolved from its name at warmup), each placement's H2D
@@ -317,12 +328,13 @@ class InferenceResult:
 
 
 def to_detections(host: Dict[str, np.ndarray], i: int, kind: str,
-                  num_classes: int) -> List[Detection]:
+                  num_classes: int, conf_threshold: float = 0.0) -> List[Detection]:
     """Row ``i`` of a host-side step output -> wire detections. Detectors:
     int pixel boxes (left/top/width/height), confidence, class id and
-    name. Embedders: one box-less detection with the feature vector,
-    confidence 1 and class id -1. Classifiers and video models: one
-    box-less detection per top-5 entry."""
+    name, those scoring below ``conf_threshold`` (a checkpoint's calibrated
+    operating point) left out. Embedders: one box-less detection with the
+    feature vector, confidence 1 and class id -1. Classifiers and video
+    models: one box-less detection per top-5 entry."""
     out: List[Detection] = []
     if kind == "embed":
         return [Detection(confidence=1.0, class_id=-1,
@@ -333,6 +345,8 @@ def to_detections(host: Dict[str, np.ndarray], i: int, kind: str,
                                  class_name=class_name(int(cid), num_classes)))
         return out
     for j in np.nonzero(host["valid"][i])[0]:
+        if float(host["scores"][i, j]) < conf_threshold:
+            continue
         x1, y1, x2, y2 = (int(round(float(v))) for v in host["boxes"][i, j])
         cid = int(host["classes"][i, j])
         out.append(Detection(
@@ -725,8 +739,9 @@ class _GraphedStep:
     eagerly in its place, and the engine drops the batch with a log line.
 
     A failed capture leaves torch's allocator recording into the pool it
-    captured into (``beginAllocateToPool: already recording``), so the pool
-    is given up: ``pool()`` is asked for the pool at every capture, and
+    captured into (``beginAllocateToPool: already recording``): the
+    recording is ended (``_end_pool_recording``) and the pool is given up:
+    ``pool()`` is asked for the pool at every capture, and
     ``on_capture_failed`` lets the engine hand out a fresh pool to the
     captures that follow, of this key and of any other. The key is never
     captured again: its batches raise at once for the engine's lifetime,
@@ -814,8 +829,8 @@ class _GraphedStep:
                                   capture_error_mode="thread_local"):
                 out = step(*args)
         except BaseException as exc:
-            # The graph is kept alive: the allocator may still hold a
-            # filter that reads its capture id.
+            _end_pool_recording(self.frames_in.device, pool)
+            # The failed graph is kept, not destroyed while serving.
             self._failure, self._failed_graph = exc, graph
             self._on_capture_failed(exc)
             raise
@@ -839,6 +854,22 @@ class _GraphedStep:
     @property
     def output_bytes(self) -> int:
         return sum(int(t.nbytes) for t in self._out.values())
+
+
+def _end_pool_recording(device: torch.device, pool: tuple) -> None:
+    """End the allocator's recording into ``pool`` after a failed capture.
+    ``capture_end`` raises on an invalidated capture before it ends the
+    recording, and while any recording is open the allocator's
+    ``empty_cache`` releases nothing and each freed block that another
+    stream used stays pending: the process would keep its cached memory
+    for its lifetime."""
+    end = (getattr(torch._C, "_cuda_endAllocateToPool", None)
+           or torch._C._cuda_endAllocateCurrentStreamToPool)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    try:
+        end(index, pool)
+    except RuntimeError:
+        pass    # the capture's own end closed it
 
 
 def _pool_bytes(pools: set) -> int:
@@ -1009,6 +1040,9 @@ class InferenceEngine:
         self._spec = self._variant_spec(registry.get(self._cfg.model))
         self._model = model
         self._model_ready = False      # fitted, calibrated, quantized (warmup)
+        # The default model's serving threshold from its checkpoint's
+        # metadata (warmup); 0.0 = the NMS floor only.
+        self._conf_threshold = 0.0
         self._buckets = tuple(sorted(self._cfg.batch_buckets))
         self._bus = bus
         self._annotations = annotations
@@ -1087,6 +1121,9 @@ class InferenceEngine:
         # double buffering; a full queue back-pressures the tick loop.
         self._drain_q: "queue.Queue[Optional[_Inflight]]" = queue.Queue(maxsize=2)
         self._drain_thread: Optional[threading.Thread] = None
+        # Held by the tick loop through each tick's dispatch: at_rest()
+        # takes it to read between ticks.
+        self._tick_lock = threading.Lock()
         self._drain_blocked = False
         # _emit mutates tracker state on the drain thread while the tick
         # loop forgets absent streams: one lock covers both.
@@ -1399,6 +1436,7 @@ class InferenceEngine:
                 self._model = self._spec.init_params(device=self._device, dtype=self._dtype)
             else:
                 self._model = self._fit_variant(self._spec, self._model)
+            self._load_checkpoint()
             self._model = self._prepare(self._spec, self._model)
             self.perf.set_peak(resolve_peak_tflops(self._cfg.peak_tflops, self._device))
             if self.hbm is not None and not self._cfg.hbm_budget_bytes and self._cuda:
@@ -1414,6 +1452,58 @@ class InferenceEngine:
             if self._compute is None:
                 self._compute = torch.cuda.Stream(self._device)
                 self._d2h = torch.cuda.Stream(self._device)
+
+    def _load_checkpoint(self) -> None:
+        """``cfg.checkpoint_path`` into the default model, fitted to its
+        variant, strictly; its ``conf_threshold`` metadata becomes the
+        default model's serving threshold. A missing file keeps the
+        random init."""
+        ckpt = self._cfg.checkpoint_path
+        if not ckpt:
+            return
+        if not os.path.exists(ckpt):
+            log.warning("checkpoint %s missing; using random init", ckpt)
+            return
+        from ..models.carry import fit_state, from_flax
+        from ..utils.checkpoint import load_msgpack_with_meta
+
+        raw, meta = load_msgpack_with_meta(ckpt)
+        self._model.load_state_dict(fit_state(from_flax(raw), self._model), strict=True)
+        log.info("loaded engine params from %s", ckpt)
+        thr = (meta or {}).get("conf_threshold")
+        if thr is not None:
+            self._conf_threshold = float(thr)
+            log.info("serving at calibrated conf_threshold=%.3f (checkpoint metadata)",
+                     self._conf_threshold)
+
+    def save_checkpoint(self, path: Optional[str] = None) -> str:
+        """Write the default model's served weights to ``path`` (default:
+        ``cfg.checkpoint_path``) as a float32 msgpack checkpoint (atomic),
+        the format the JAX package's ``load_msgpack`` reads. Refused before
+        warmup, which would write unloaded weights. A quantized engine
+        writes its dequantized weights, lossy against what it loaded."""
+        from ..models.carry import to_flax
+        from ..utils.checkpoint import save_msgpack
+
+        if not self._model_ready:
+            raise RuntimeError("save_checkpoint before warmup would overwrite the checkpoint "
+                               "with unloaded params; call warmup() first")
+        path = path or self._cfg.checkpoint_path
+        if not path:
+            raise ValueError("no checkpoint path configured")
+        if self._cfg.quantize:
+            from ..models.quantize import dequantize_tree
+
+            # Checkpoints stay full precision; quantization re-applies at
+            # the next warmup. The exact pre-quantization weights are gone.
+            log.warning("save_checkpoint from a quantized engine writes int8-roundtripped "
+                        "weights (lossy vs the originally loaded params); keep a copy of the "
+                        "source checkpoint")
+            state = dequantize_tree(self._model.qt)
+        else:
+            state = self._model.state_dict()
+        save_msgpack(path, to_flax(state))
+        return path
 
     def _start_pipeline(self) -> None:
         """Start the transfer and drain threads (start() adds the tick
@@ -1607,8 +1697,8 @@ class InferenceEngine:
         return self._graph_pool
 
     def _retire_graph_pool(self, exc: BaseException) -> None:
-        """A capture failed: torch's allocator may still be recording into
-        the pool, so no later capture uses it."""
+        """A capture failed: the pool holds what the failed capture
+        allocated into it, so no later capture uses it."""
         log.warning("graph capture failed; its pool is retired and later captures get a "
                     "fresh one: %r", exc)
         self._graph_pool = None
@@ -1655,6 +1745,28 @@ class InferenceEngine:
         log.error("engine thread failed", exc_info=exc)
         self._errors.append(exc)
         self._stop.set()
+
+    def at_rest(self, read: Callable[[], object], timeout: float = 10.0):
+        """``read()`` with no batch between its step's launch and its emit:
+        the tick loop is held between two ticks and every batch already
+        dispatched is emitted first, so counts that a batch moves at both
+        ends (its kernels' launches, then its batch metric) read as a pair.
+        After ``timeout`` (a drain thread that died) a warning is logged and
+        ``read()`` runs as things stand."""
+        deadline = time.monotonic() + timeout
+        held = self._tick_lock.acquire(timeout=timeout)
+        try:
+            done = self._drain_q.all_tasks_done
+            with done:
+                while self._drain_q.unfinished_tasks and time.monotonic() < deadline:
+                    done.wait(max(deadline - time.monotonic(), 0.0))
+                drained = not self._drain_q.unfinished_tasks
+            if not (held and drained):
+                log.warning("engine not at rest after %.1f s; reading as it stands", timeout)
+            return read()
+        finally:
+            if held:
+                self._tick_lock.release()
 
     def health(self) -> dict:
         """Liveness: every thread alive and a tick completed within
@@ -1920,7 +2032,8 @@ class InferenceEngine:
         while not self._stop.is_set():
             t0 = time.monotonic()
             try:
-                inferred = self._tick(tick_s)
+                with self._tick_lock:
+                    inferred = self._tick(tick_s)
             except Exception:
                 if self._stop.is_set():
                     # A shutdown race (a prefetched placement abandoned
@@ -2714,6 +2827,11 @@ class InferenceEngine:
                 host[k] = v.to("cpu").numpy()
         return host
 
+    def _threshold_of(self, spec) -> float:
+        """The calibrated threshold rides the default model's checkpoint;
+        per-stream extra models keep the NMS floor."""
+        return self._conf_threshold if spec.name == self._spec.name else 0.0
+
     def _emit(self, inflight: _Inflight) -> None:
         group = inflight.group
         spec, module = self._model_entry(group.model)
@@ -2780,7 +2898,8 @@ class InferenceEngine:
             # Every record logged while this slot emits (tracker,
             # annotate, publish, quality) carries stream=<id> seq=<packet>.
             with log_context(stream=device_id, seq=meta.packet):
-                detections = to_detections(host, i, kind, num_classes)
+                detections = to_detections(host, i, kind, num_classes,
+                                           self._threshold_of(spec))
                 if self._cfg.track and kind == "detect":
                     # Empty frames too: misses must accumulate so stale tracks
                     # expire.
@@ -2891,11 +3010,14 @@ class InferenceEngine:
             by_canvas.setdefault(p.canvas, []).append(p)
             results.setdefault(p.device_id, (p.meta, []))
         num_classes = module.cfg.num_classes
+        thr = self._threshold_of(spec)
         for ci in range(len(group.device_ids)):
             cells = by_canvas.get(ci)
             if not cells:
                 continue
             for j in np.nonzero(host["valid"][ci])[0]:
+                if float(host["scores"][ci, j]) < thr:
+                    continue
                 bx = [float(v) for v in host["boxes"][ci, j]]
                 cx = (bx[0] + bx[2]) / 2.0
                 cy = (bx[1] + bx[3]) / 2.0

@@ -30,14 +30,23 @@ A leaf or collection it does not know raises; ``load_flax`` loads the
 result strictly, so a key missing from either side raises too. The stem
 kernel keeps its padded input channels (``stem_pad_c``), as in JAX.
 
-``fit_state(state, model)`` fits a YOLOv8 ``state_dict`` to a model of
-another variant, as the JAX package's checkpoint loader does: a classic
-3x3 stem kernel folds losslessly into an ``s2d`` model's 2x2 kernel
-(``s2d_fold_kernel``, after slicing off zero-padded input planes), and
-the ``in_absmax`` buffers an ``act_int8`` model has and an fp state
-lacks come from the model (uncalibrated). ``load_flax`` applies it, so
-a classic JAX tree loads into an ``s2d`` model and an ``s2d`` tree
-straight across.
+``to_flax(state)`` is the inverse: a port ``state_dict`` -> the flax
+``{"params", "batch_stats"[, "quant"]}`` tree as float32 numpy, the layout
+``utils/checkpoint.py`` writes and the JAX package's ``load_msgpack``
+reads against its own template; ``to_flax(from_flax(t))`` gives ``t``
+back exactly.
+
+``fit_state(state, model)`` fits a ``state_dict`` to a model of another
+variant, as the JAX package's checkpoint loader does (``pad_stem_on_load``
+there): a classic 3x3 stem kernel folds losslessly into an ``s2d``
+model's 2x2 kernel (``s2d_fold_kernel``, after slicing off zero-padded
+input planes); a stem, patchify or tubelet kernel saved before a
+channel-padding lever (``stem_pad_c``, ``patch_pad_c``) was adopted is
+zero-padded to the model's input planes, where those planes are padding
+(never under the ``s2d`` stem, whose planes carry pixels); and the
+``in_absmax`` buffers an ``act_int8`` model has and an fp state lacks come
+from the model (uncalibrated). ``load_flax`` applies it, so a classic JAX
+tree loads into an ``s2d`` model and an ``s2d`` tree straight across.
 ``zero_class_prior`` (defined in ``replay/checksum.py``, where the JAX
 package has it) is importable from here too.
 """
@@ -50,7 +59,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.preprocess import pad_channels
 from ..replay.checksum import zero_class_prior  # noqa: F401  (re-exported)
+from ..utils.logging import get_logger
+
+log = get_logger("models.import")
 
 _CONVS = {"conv", "patch_embed", "proj"}
 _DENSES = {"qkv", "out", "fc1", "fc2", "head", "classifier", "dec_embed", "dec_pred"}
@@ -89,22 +102,47 @@ def s2d_fold_kernel(k: np.ndarray) -> np.ndarray:
     return out
 
 
+# Conv kernels the channel-padding levers grow: (port key, config attr).
+# The input-channel axis is 1 in torch's layouts (OIHW, OITHW).
+_PAD_KERNELS = (("stem.conv.weight", "stem_pad_c"), ("patch_embed.weight", "patch_pad_c"),
+                ("tubelet.proj.weight", "patch_pad_c"))
+
+
+def _padded_ok(cfg, attr: str, have: tuple, want: tuple) -> bool:
+    """Is zero-padding ``have`` to ``want`` along the input channels sound:
+    the model runs a channel-padded classic stem or patchify (``attr``
+    set), and the shapes differ only by the padded planes."""
+    pad_c = getattr(cfg, attr, 0)
+    if not pad_c or getattr(cfg, "stem", "classic") != "classic":
+        return False
+    return (len(have) == len(want) > 1 and have[:1] == want[:1] and have[2:] == want[2:]
+            and have[1] < want[1] == pad_c)
+
+
 def fit_state(state: Mapping[str, torch.Tensor], model: nn.Module) -> Dict[str, torch.Tensor]:
     """``state`` fitted to ``model``'s variant (see the module docstring):
-    the stem folded into an ``s2d`` model, missing ``in_absmax`` buffers
-    taken from the model. Anything else is left for a strict load to
-    judge."""
+    the stem folded into an ``s2d`` model, pre-padding stem and patchify
+    kernels zero-padded, missing ``in_absmax`` buffers taken from the
+    model. Anything else is left for a strict load to judge."""
     out = dict(state)
     target = model.state_dict()
-    key = "stem.conv.weight"
-    have, want = out.get(key), target.get(key)
     cfg = getattr(model, "cfg", None)
-    if (getattr(cfg, "stem", "classic") == "s2d" and have is not None and want is not None
-            and tuple(have.shape[2:]) == (3, 3) and tuple(want.shape[2:]) == (2, 2)
-            and want.shape[1] % 4 == 0 and have.shape[1] >= want.shape[1] // 4):
-        hwio = have.detach().float().cpu().numpy().transpose(2, 3, 1, 0)
-        folded = s2d_fold_kernel(hwio[:, :, :want.shape[1] // 4])
-        out[key] = torch.tensor(folded.transpose(3, 2, 0, 1))
+    for key, attr in _PAD_KERNELS:
+        have, want = out.get(key), target.get(key)
+        if have is None or want is None or have.shape == want.shape:
+            continue
+        if (key == "stem.conv.weight" and getattr(cfg, "stem", "classic") == "s2d"
+                and tuple(have.shape[2:]) == (3, 3) and tuple(want.shape[2:]) == (2, 2)
+                and want.shape[1] % 4 == 0 and have.shape[1] >= want.shape[1] // 4):
+            hwio = have.detach().float().cpu().numpy().transpose(2, 3, 1, 0)
+            folded = s2d_fold_kernel(hwio[:, :, :want.shape[1] // 4])
+            out[key] = torch.tensor(folded.transpose(3, 2, 0, 1))
+            log.info("checkpoint stem kernel s2d-folded %s -> %s", tuple(have.shape),
+                     tuple(want.shape))
+        elif _padded_ok(cfg, attr, tuple(have.shape), tuple(want.shape)):
+            out[key] = pad_channels(have, want.shape[1], dim=1)
+            log.info("checkpoint %s kernel zero-padded %s -> %s (%s compat)",
+                     key.rsplit(".", 1)[0], tuple(have.shape), tuple(want.shape), attr)
     for name, value in target.items():
         if name.endswith(".in_absmax") and name not in out:
             out[name] = value
@@ -173,6 +211,53 @@ def from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
         out[".".join(path)] = _tensor(value)
     for scope in bn_scopes:
         out[".".join(scope + ("bn.num_batches_tracked",))] = torch.tensor(0)
+    return out
+
+
+def _nest(tree: dict, path: tuple, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def to_flax(state: Mapping[str, torch.Tensor]) -> dict:
+    """Port ``state_dict`` -> flax ``{"params", "batch_stats"[, "quant"]}``
+    of float32 numpy arrays (the inverse of ``from_flax``; BatchNorm's
+    ``num_batches_tracked`` has no flax leaf and is dropped). Raises
+    ``KeyError`` on a key it does not map."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    inverse = {v: k for k, v in _STAT_LEAVES.items()}
+    for name, tensor in state.items():
+        if name.endswith(".num_batches_tracked"):
+            continue
+        arr = tensor.detach().float().cpu().numpy()
+        path = tuple(name.split("."))
+        tail = ".".join(path[-2:])
+        if tail in inverse:
+            _nest(out["batch_stats"], path[:-2] + inverse[tail], arr)
+            continue
+        if path[-2:] == ("conv", "in_absmax"):
+            _nest(out.setdefault("quant", {}), path, arr)
+            continue
+        if len(path) == 1:
+            flax_path = path
+        elif path[-1] == "weight" and path[-2] in _NORMS:
+            flax_path = path[:-1] + ("scale",)
+        elif path[-1] == "weight" and arr.ndim in _CONV_AXES:
+            flax_path = path[:-1] + ("kernel",)
+            arr = arr.transpose(np.argsort(_CONV_AXES[arr.ndim]))
+        elif path[-1] == "weight" and arr.ndim == 2:
+            flax_path = path[:-1] + ("kernel",)
+            arr = arr.T
+        else:
+            flax_path = path
+        # The forward map must take the leaf back to ``name``: anything it
+        # does not know raises here.
+        if _param(flax_path, arr)[0] != name:
+            raise KeyError(f"unmapped port key {name}")
+        _nest(out["params"], flax_path, np.ascontiguousarray(arr))
+    if not out["batch_stats"]:
+        del out["batch_stats"]
     return out
 
 

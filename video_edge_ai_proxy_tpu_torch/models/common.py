@@ -2,9 +2,15 @@
 
 NCHW modules. Precision follows the JAX package's "mixed" policy: the conv
 runs in the module's compute dtype (bf16 for serving), BatchNorm in
-float32 on frozen statistics, the activation back in the compute dtype.
-``Linear``, ``Conv2d`` and ``Conv3d`` keep their parameters in a
+float32, the activation back in the compute dtype. ``Linear``, ``Conv2d``
+and ``Conv3d`` (the conv of ``ConvBN`` too) keep their parameters in a
 ``param_dtype`` of their own and cast them at use, as flax layers do.
+
+BatchNorm runs on its frozen statistics unless ``batch_statistics(model)``
+is entered: then every ``ConvBN`` of the model normalises by the batch's
+statistics and updates its running ones as flax's ``BatchNorm(train=True,
+momentum=0.97)`` does (``flax_batch_norm``). The mode follows that switch,
+not ``module.training``: the JAX package passes ``train=`` explicitly.
 
 ``Int8Conv2d`` is the int8 activation path of ``ConvBN(act_int8=True)``
 (the JAX ``_Int8Conv``): int8 x int8 products accumulated in int32, as an
@@ -14,6 +20,7 @@ convolution there) and an int32 ``torch.mm`` on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -56,18 +63,20 @@ class Linear(nn.Linear):
 
 
 class _CastConv:
-    """Convolution (with bias) whose parameters are kept in ``param_dtype``
-    and cast, with the input, to the compute ``dtype`` at use (see
-    ``Linear``); mixed into ``nn.Conv2d`` and ``nn.Conv3d``."""
+    """Convolution whose parameters are kept in ``param_dtype`` and cast,
+    with the input, to the compute ``dtype`` at use (see ``Linear``); mixed
+    into ``nn.Conv2d`` and ``nn.Conv3d``. ``bias=False`` and ``groups`` as
+    in torch; ``padding`` as ``nn.Conv2d`` takes it."""
 
     def __init__(self, c_in: int, c_out: int, kernel, stride, dtype: torch.dtype,
-                 param_dtype: "torch.dtype | None" = None):
-        super().__init__(c_in, c_out, kernel, stride=stride, dtype=param_dtype or dtype)
+                 param_dtype: "torch.dtype | None" = None, **kw):
+        super().__init__(c_in, c_out, kernel, stride=stride, dtype=param_dtype or dtype, **kw)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
 class Conv2d(_CastConv, nn.Conv2d):
@@ -195,8 +204,38 @@ ACT = {
 }
 
 
+# flax BatchNorm's momentum as the JAX package's ConvBN sets it: the running
+# statistics keep 0.97 of themselves a training step.
+BN_MOMENTUM = 0.97
+
+
+def flax_batch_norm(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """flax ``BatchNorm(use_running_average=False, momentum=0.97,
+    dtype=float32)`` over NCHW ``y``: the batch mean and the biased
+    variance ``max(E[x^2] - E[x]^2, 0)`` over (N, H, W) in float32 (flax's
+    ``use_fast_variance``), ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias``, and the running update ``0.97 * running + 0.03 * batch`` of
+    both statistics, the variance biased. (``F.batch_norm(training=True)``
+    updates with the unbiased variance and weighs the new value by its
+    ``momentum``.) Gradients flow through the batch statistics, as under
+    ``jax.grad``. The normalisation is written out, not
+    ``F.batch_norm(training=True)`` without buffers: that one's two-pass
+    variance and fused backward round otherwise, and the stem's gradient of
+    ``tiny_yolov8`` then misses flax's by 2.8e-4 (7.7e-4 relative)."""
+    x = y.float()
+    mean = x.mean(dim=(0, 2, 3))
+    var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+    with torch.no_grad():
+        running = [bn.running_mean, bn.running_var]
+        torch._foreach_mul_(running, BN_MOMENTUM)
+        torch._foreach_add_(running, [mean, var], alpha=1.0 - BN_MOMENTUM)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
+    return (x - mean[None, :, None, None]) * mul[None, :, None, None] \
+        + bn.bias.float()[None, :, None, None]
+
+
 class ConvBN(nn.Module):
-    """Conv (no bias) -> BatchNorm (frozen statistics) -> activation.
+    """Conv (no bias) -> BatchNorm -> activation.
 
     Padding is explicit symmetric k//2, as in the JAX package (not SAME,
     which at stride 2 pads (0, 1) on even inputs), unless ``padding``
@@ -205,8 +244,12 @@ class ConvBN(nn.Module):
     by default; the ResNets take ReLU, MobileNetV2 ReLU6), ``eps`` the
     BatchNorm epsilon (1e-3, ultralytics'; torchvision's convnets train
     with 1e-5), ``groups`` the conv's feature groups (MobileNetV2's
-    depthwise convs). ``act_int8`` swaps the conv for ``Int8Conv2d``
-    (serving only)."""
+    depthwise convs). The conv casts its weight to the compute ``dtype`` at
+    use, so a model may keep it in float32 for training, as flax does
+    (YOLOv8's ``param_dtype``); BatchNorm's terms are float32. BatchNorm
+    runs on its running statistics unless ``update_stats`` is set
+    (``batch_statistics``).
+    ``act_int8`` swaps the conv for ``Int8Conv2d`` (serving only)."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int = 3, stride: int = 1,
                  eps: float = 1e-3, dtype: torch.dtype = torch.bfloat16,
@@ -214,28 +257,49 @@ class ConvBN(nn.Module):
         super().__init__()
         pads = padding or ((kernel // 2,) * 2,) * 2
         self.pad = None
+        self.compute_dtype = dtype
+        self.update_stats = False
         if act_int8:
             if groups != 1:
                 raise NotImplementedError("act_int8 with grouped convs")
             self.conv = Int8Conv2d(c_in, c_out, kernel, stride, pads, dtype)
         elif padding is None:
-            self.conv = nn.Conv2d(c_in, c_out, kernel, stride, padding=kernel // 2,
-                                  groups=groups, bias=False, dtype=dtype)
+            self.conv = Conv2d(c_in, c_out, kernel, stride, dtype, padding=kernel // 2,
+                               groups=groups, bias=False)
         else:
             self.pad = _pads(padding)
-            self.conv = nn.Conv2d(c_in, c_out, kernel, stride, groups=groups, bias=False,
-                                  dtype=dtype)
+            self.conv = Conv2d(c_in, c_out, kernel, stride, dtype, groups=groups, bias=False)
         self.bn = nn.BatchNorm2d(c_out, eps=eps, dtype=torch.float32)
         self.act = ACT[act]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv(x if self.pad is None else F.pad(x, self.pad))
-        y = F.batch_norm(y.float(), self.bn.running_mean, self.bn.running_var,
-                         self.bn.weight, self.bn.bias, training=False,
-                         eps=self.bn.eps)
-        conv = self.conv
-        return self.act(y.to(conv.compute_dtype if isinstance(conv, Int8Conv2d)
-                             else conv.weight.dtype))
+        if self.update_stats:
+            if isinstance(self.conv, Int8Conv2d):
+                raise NotImplementedError("act_int8 is a serving-path quantization; train the "
+                                          "fp variant and re-calibrate")
+            y = flax_batch_norm(y, self.bn)
+        else:
+            y = F.batch_norm(y.float(), self.bn.running_mean, self.bn.running_var,
+                             self.bn.weight, self.bn.bias, training=False, eps=self.bn.eps)
+        return self.act(y.to(self.compute_dtype))
+
+
+@contextlib.contextmanager
+def batch_statistics(model: nn.Module, on: bool = True):
+    """While entered, every ``ConvBN`` of ``model`` normalises by batch
+    statistics and updates its running ones (``on``), as flax's
+    ``apply(..., train=True, mutable=["batch_stats"])``; the previous modes
+    come back at exit."""
+    convbns = [m for m in model.modules() if isinstance(m, ConvBN)]
+    before = [m.update_stats for m in convbns]
+    for m in convbns:
+        m.update_stats = on
+    try:
+        yield
+    finally:
+        for m, was in zip(convbns, before):
+            m.update_stats = was
 
 
 def init_convnet_weights(model: nn.Module, generator: torch.Generator) -> None:

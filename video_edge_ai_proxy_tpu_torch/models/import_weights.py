@@ -18,9 +18,14 @@ path the JAX package's module would have (``conv.weight`` ->
 ``conv/kernel``, ``bn.running_var`` -> ``bn/var``), and the JAX importer's
 per-family rule names its source key. Two stem kernels are refitted: a
 channel-padded stem (``stem_pad_c``, classic stem only) takes the source's
-3 input planes zero-padded (``ops.preprocess.pad_channels``), and an
-``s2d`` stem takes the lossless fold of the source's 3x3 kernel
-(``carry.fit_state``).
+3 input planes zero-padded, and an ``s2d`` stem takes the lossless fold of
+the source's 3x3 kernel (both ``carry.fit_state``).
+
+``load_state_dict(path)`` reads a source checkpoint (``.npz``,
+``.safetensors``, torch ``.pt``/``.pth`` with ``weights_only=True``) into
+float32 numpy; safetensors files are parsed directly (an 8-byte
+little-endian header length, a JSON header, raw little-endian buffers), so
+the ``safetensors`` package is not needed.
 
 Accounting is strict: every port tensor must be assigned from a source
 tensor of its shape, and every source tensor consumed but ultralytics'
@@ -31,19 +36,95 @@ instead of serving half-imported weights.
 
 from __future__ import annotations
 
+import json
+import struct
 from typing import Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
-from ..ops.preprocess import pad_channels
 from .carry import fit_state
 
-__all__ = ["convert", "SUPPORTED"]
+__all__ = ["convert", "load_state_dict", "pad_stem_on_load", "SUPPORTED"]
+
+# The JAX package's ``pad_stem_on_load(raw, template, model)`` fits a loaded
+# flax tree to the model's stem and patchify kernels; on port state dicts
+# ``carry.fit_state(state, model)`` does that job.
+pad_stem_on_load = fit_state
 
 _BN_SOURCE = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 _BN_LEAF = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
 _LN_SCOPES = ("ln1", "ln2", "ln_final")
+
+
+# safetensors dtype names -> torch dtypes (torch reads bf16, numpy cannot).
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
+    "U8": torch.uint8, "BOOL": torch.bool,
+}
+
+
+def _read_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """A ``.safetensors`` file -> float32 numpy, read directly: u64 header
+    length (little-endian), the JSON header (``{name: {dtype, shape,
+    data_offsets}}``, ``__metadata__`` aside), then the byte buffer the
+    offsets index."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if len(data) < 8:
+        raise ValueError(f"{path}: too short for a safetensors header")
+    (n,) = struct.unpack("<Q", data[:8])
+    if 8 + n > len(data):
+        raise ValueError(f"{path}: header length {n} runs past the file")
+    header = json.loads(data[8:8 + n].decode("utf-8"))
+    body = memoryview(data)[8 + n:]
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: tensor {name!r} has dtype {info['dtype']}, not read")
+        start, end = info["data_offsets"]
+        if not 0 <= start <= end <= len(body):
+            raise ValueError(f"{path}: tensor {name!r} has offsets {start}..{end} outside "
+                             f"the {len(body)}-byte buffer")
+        shape = tuple(info["shape"])
+        if end > start:
+            t = torch.frombuffer(bytearray(body[start:end]), dtype=torch.uint8).view(dtype)
+        else:
+            t = torch.empty(0, dtype=dtype)
+        if t.numel() != int(np.prod(shape, dtype=np.int64)):
+            raise ValueError(f"{path}: tensor {name!r} holds {t.numel()} elements, its "
+                             f"shape {shape} wants {int(np.prod(shape))}")
+        out[name] = t.reshape(shape).float().numpy()
+    return out
+
+
+def load_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A state dict from ``.npz`` / ``.safetensors`` / torch ``.pt|.pth``
+    as float32 numpy (imports are offline; float32 is the interchange).
+    Torch pickles load with ``weights_only=True`` (a checkpoint never runs
+    code), unwrapped from a ``{"state_dict": sd}`` or ``{"model": sd}``
+    wrapper; non-tensor entries are dropped."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return {k: np.asarray(z[k], np.float32) for k in z.files}
+    if path.endswith(".safetensors"):
+        return _read_safetensors(path)
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    if not isinstance(obj, dict):
+        raise ValueError(f"unsupported checkpoint object in {path!r}")
+    for wrapper in ("state_dict", "model"):
+        if wrapper in obj and isinstance(obj[wrapper], dict):
+            obj = obj[wrapper]
+    return {
+        k: np.asarray(v.detach().float().numpy() if hasattr(v, "detach") else v, np.float32)
+        for k, v in obj.items() if hasattr(v, "shape")
+    }
 
 
 def _flax_path(name: str) -> Tuple[str, ...]:
@@ -177,23 +258,6 @@ SUPPORTED = sorted(_FAMILIES)
 _IGNORABLE = ("num_batches_tracked", "dfl.conv.weight")
 
 
-def _fit_stem(model: torch.nn.Module, name: str, val: torch.Tensor,
-              want: tuple) -> torch.Tensor:
-    """A source stem kernel refitted to the model's stem, where its config
-    says how: folded into an ``s2d`` stem, or zero-padded to a classic
-    ``stem_pad_c`` stem's input planes; otherwise as it came."""
-    cfg = getattr(model, "cfg", None)
-    pad_c = getattr(cfg, "stem_pad_c", 0)
-    if getattr(cfg, "stem", "classic") == "s2d":
-        if tuple(val.shape[:1]) == want[:1]:
-            return fit_state({name: val}, model)[name]
-        return val
-    if (pad_c and val.dim() == len(want) and val.shape[0] == want[0]
-            and tuple(val.shape[2:]) == want[2:] and val.shape[1] < want[1] == pad_c):
-        return pad_channels(val, pad_c, dim=1)
-    return val
-
-
 def convert(model_name: str, state: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """A state dict in ``model_name``'s community layout -> the port's
     ``state_dict`` (float32 CPU tensors) for the registry model, ready for
@@ -222,7 +286,7 @@ def convert(model_name: str, state: Mapping[str, np.ndarray]) -> Dict[str, torch
         val = torch.tensor(np.asarray(state[src_key], np.float32))
         want = tuple(target.shape)
         if name == "stem.conv.weight" and tuple(val.shape) != want:
-            val = _fit_stem(model, name, val, want)
+            val = fit_state({name: val}, model)[name]
         if tuple(val.shape) != want:
             problems.append(f"shape mismatch for {name}: source {src_key!r} gives "
                             f"{tuple(val.shape)}, the model wants {want}")

@@ -35,7 +35,7 @@ from .yolov8 import YOLOv8, tiny_yolov8_config, yolov8n_config, yolov8s_config
 class ModelSpec:
     name: str
     # (dtype[, param_dtype]) -> module on the CPU; param_dtype is taken by
-    # the transformer family only.
+    # the transformer family and the YOLOv8 detectors.
     build: Callable[..., nn.Module]
     input_size: int                             # square side the model consumes
     preprocess: str                             # "classify" | "letterbox" | "clip"
@@ -51,15 +51,13 @@ class ModelSpec:
         generator; default seed 0), in eval mode, on ``device``, computing
         in ``dtype``. ``param_dtype`` (default: ``dtype``) is the dtype the
         transformer family keeps its Dense and patch/tubelet conv
-        parameters in: float32 for bf16 training, as flax does."""
+        parameters in, and the YOLOv8 detectors their conv kernels: float32
+        for bf16 training, as flax does."""
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         if param_dtype is None:
             model = self.build(dtype)
-        elif self.kind in ("detect", "embed"):
-            raise NotImplementedError("param_dtype: the convnets keep one dtype "
-                                      "(their training is not ported yet)")
         else:
             model = self.build(dtype, param_dtype)
         model.init_weights(generator)
@@ -77,10 +75,11 @@ def place(model: nn.Module, device: torch.device, channels_last: bool = False) -
 
 
 def _convnet(cls, cfg, dtype: torch.dtype, param_dtype: Optional[torch.dtype]) -> nn.Module:
-    """A convnet classifier of one dtype: its training is not ported yet."""
+    """A model of one dtype: its training is not ported (the detectors'
+    is)."""
     if param_dtype is not None:
-        raise NotImplementedError("param_dtype: the convnets keep one dtype "
-                                  "(their training is not ported yet)")
+        raise NotImplementedError("param_dtype: this model keeps one dtype "
+                                  "(its training is not ported)")
     return cls(cfg, dtype)
 
 
@@ -103,19 +102,20 @@ def get(name: str) -> ModelSpec:
 
 
 register(ModelSpec(
-    "yolov8n", lambda dtype: YOLOv8(yolov8n_config(), dtype),
+    "yolov8n", lambda dtype, param_dtype=None: YOLOv8(yolov8n_config(), dtype, param_dtype),
     input_size=640, preprocess="letterbox", kind="detect",
     description="batched detection, the default serving model",
 ))
 register(ModelSpec(
-    "yolov8n_s2d", lambda dtype: YOLOv8(dataclasses.replace(yolov8n_config(), stem="s2d"), dtype),
+    "yolov8n_s2d", lambda dtype, param_dtype=None: YOLOv8(
+        dataclasses.replace(yolov8n_config(), stem="s2d"), dtype, param_dtype),
     input_size=640, preprocess="letterbox", kind="detect",
     description="yolov8n with the space-to-depth stem (a stride-1 2x2 stem on the "
                 "folded 320x320x12 plane); classic weights fold in losslessly "
                 "(models/carry.py s2d_fold_kernel)",
 ))
 register(ModelSpec(
-    "yolov8s", lambda dtype: YOLOv8(yolov8s_config(), dtype),
+    "yolov8s", lambda dtype, param_dtype=None: YOLOv8(yolov8s_config(), dtype, param_dtype),
     input_size=640, preprocess="letterbox", kind="detect",
     description="small-variant detection",
 ))
@@ -126,7 +126,7 @@ register(ModelSpec(
     description="single-stream frame classification",
 ))
 register(ModelSpec(
-    "resnet50", lambda dtype: ResNet(ResNetConfig(), dtype),
+    "resnet50", lambda dtype, param_dtype=None: _convnet(ResNet, ResNetConfig(), dtype, param_dtype),
     input_size=224, preprocess="classify", kind="embed",
     description="16-stream re-ID feature extraction (2048-wide embeddings)",
 ))
@@ -150,25 +150,28 @@ register(ModelSpec(
                 "goes to the flash-attention kernel",
 ))
 register(ModelSpec(
-    "blob_gauge", lambda dtype: BlobGauge(BlobGaugeConfig(), dtype),
+    "blob_gauge", lambda dtype, param_dtype=None: _convnet(BlobGauge, BlobGaugeConfig(), dtype,
+                                                            param_dtype),
     input_size=640, preprocess="letterbox", kind="detect",
     description="detect-identity measurement gauge (models/blob.py): exact pixel "
                 "bboxes of color-keyed synthetic blobs, served to check that "
                 "pack -> detect -> scatter-back preserves geometry",
 ))
 register(ModelSpec(
-    "tiny_blob_gauge", lambda dtype: BlobGauge(BlobGaugeConfig(), dtype),
+    "tiny_blob_gauge",
+    lambda dtype, param_dtype=None: _convnet(BlobGauge, BlobGaugeConfig(), dtype, param_dtype),
     input_size=64, preprocess="letterbox", kind="detect",
     description="CPU/CI twin of blob_gauge",
 ))
 register(ModelSpec(
-    "tiny_yolov8", lambda dtype: YOLOv8(tiny_yolov8_config(), dtype),
+    "tiny_yolov8", lambda dtype, param_dtype=None: YOLOv8(tiny_yolov8_config(), dtype, param_dtype),
     input_size=64, preprocess="letterbox", kind="detect",
     description="CPU/CI twin of yolov8n",
 ))
 register(ModelSpec(
     "tiny_yolov8_s2d",
-    lambda dtype: YOLOv8(dataclasses.replace(tiny_yolov8_config(), stem="s2d"), dtype),
+    lambda dtype, param_dtype=None: YOLOv8(
+        dataclasses.replace(tiny_yolov8_config(), stem="s2d"), dtype, param_dtype),
     input_size=64, preprocess="letterbox", kind="detect",
     description="CPU/CI twin of yolov8n_s2d",
 ))
@@ -180,7 +183,8 @@ register(ModelSpec(
     description="CPU/CI twin of mobilenet_v2",
 ))
 register(ModelSpec(
-    "tiny_resnet", lambda dtype: ResNet(tiny_resnet_config(), dtype),
+    "tiny_resnet",
+    lambda dtype, param_dtype=None: _convnet(ResNet, tiny_resnet_config(), dtype, param_dtype),
     input_size=32, preprocess="classify", kind="embed",
     description="CPU/CI twin of resnet50",
 ))

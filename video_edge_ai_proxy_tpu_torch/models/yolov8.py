@@ -7,7 +7,13 @@ decoupled DFL head, in NCHW. Submodules are named after the flax scopes
 
 Precision: the backbone, neck and head ConvBNs run in the model's compute
 dtype (bf16 for serving); the head's 1x1 output convs, the DFL softmax and
-the class reduction run in float32, as in the JAX package.
+the class reduction run in float32, as in the JAX package. ``param_dtype``
+(default: the compute dtype) is the dtype the ConvBN conv kernels are kept
+in: float32 for bf16 training, where the optimizer updates float32 master
+weights as optax does (the head's output convs are float32 either way).
+``decode=False`` returns the raw per-level head output the detection loss
+reads (``models/detect_loss.py``); under ``common.batch_statistics`` its
+BatchNorms run in train mode.
 
 Variant axes of the config, as in JAX: ``stem="s2d"`` folds 2x2 pixel
 blocks into channels (3 -> 12) and runs a stride-1 2x2 stem conv over
@@ -32,7 +38,7 @@ from torch import nn
 
 from ..ops.boxes import dist_to_bbox
 from ..ops.preprocess import pad_channels, space_to_depth
-from .common import ConvBN, init_convnet_weights, make_divisible, round_depth
+from .common import ConvBN, Int8Conv2d, init_convnet_weights, make_divisible, round_depth
 
 
 @dataclass(frozen=True)
@@ -198,7 +204,8 @@ class YOLOv8(nn.Module):
     # Its conv weights take channels_last on the card (registry.place).
     channels_last = True
 
-    def __init__(self, cfg: YOLOv8Config, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, cfg: YOLOv8Config, dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: "torch.dtype | None" = None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -230,6 +237,10 @@ class YOLOv8(nn.Module):
         self.neck_down5 = ConvBN(ch(512), ch(512), 3, 2, dtype=dtype, act_int8=q)
         self.neck_out5 = C2f(ch(512) + ch(1024), ch(1024), d(3), False, dtype, q)
         self.detect = DetectHead(cfg, [ch(256), ch(512), ch(1024)], dtype)
+        if param_dtype is not None:
+            for m in self.modules():
+                if isinstance(m, ConvBN) and not isinstance(m.conv, Int8Conv2d):
+                    m.conv.to(param_dtype)
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Random init from ``generator`` (a CPU generator, on a model that

@@ -993,10 +993,14 @@ def _member_counts(srv, device: str) -> dict:
         fam = fams.get(name)
         return fam.children() if fam is not None else []
 
+    # Read at rest: a batch in flight has launched its keep mask and not
+    # yet counted as a batch.
+    launches, batches = srv.engine.at_rest(lambda: (
+        {w.__name__.removesuffix("_cuda"): int(w.launches) for w in launch_counters()},
+        {labels[0]: h.count for labels, h in children("vep_device_batch_ms")}))
     return {
-        "launches": {w.__name__.removesuffix("_cuda"): int(w.launches)
-                     for w in launch_counters()},
-        "batches": {labels[0]: h.count for labels, h in children("vep_device_batch_ms")},
+        "launches": launches,
+        "batches": batches,
         "device_ms_p50": {f"{labels[0]}/{labels[1]}": h.percentile(50)
                           for labels, h in children("vep_perf_device_ms") if h.count},
         "max_memory_reserved": (int(torch.cuda.max_memory_reserved())

@@ -20,12 +20,12 @@ class BusConfig:
     """Frame-bus connection: the defaults of ``open_bus`` and of the ingest
     workers' environment contract."""
 
-    backend: str = "shm"  # "shm" (native ring) | "memory" (in-process, tests)
+    backend: str = "shm"  # "shm" (native ring) | "redis" | "memory" (in-process, tests)
     # Directory holding the shared-memory segments (one ring per camera,
     # the control KV, the publish doorbell).
     shm_dir: str = "/dev/shm/vep_tpu"
-    # The Redis connection of the workers' environment contract (the
-    # port's buses are shm and memory; the redis bus is not ported).
+    # The Redis connection of backend "redis" and of the workers'
+    # environment contract.
     redis_addr: str = "127.0.0.1:6379"
     redis_password: str = ""
     redis_db: int = 0
@@ -84,6 +84,10 @@ class EngineConfig:
     # workers' 10 s decode gate.
     active_window_s: float = 10.0
     dtype: str = "bfloat16"
+    # msgpack params checkpoint (tools/torch_import_weights.py writes one,
+    # engine.save_checkpoint too); empty = random init. Loaded at warmup,
+    # its metadata's conf_threshold is the default model's serving floor.
+    checkpoint_path: str = ""
     # H2D prefetch stage: batches are placed on the device by a transfer
     # thread (a side CUDA stream on the card), double-buffered, so the copy
     # of batch t+1 overlaps the compute of batch t. False = the tick thread
