@@ -76,7 +76,7 @@ exits non-zero:
    folds bit-identical, a perturbed weight moves the fold); (b) the same
    frames through the engine's collector and dispatch with the transfer
    and drain threads, and synchronously: the same result checksum, bit
-   for bit; (c) 16 streams published at 30 fps for 20 s on distinct
+   for bit; (c) 16 streams published at 30 fps for 10 s on distinct
    frames through ``InferenceEngine(bus, EngineConfig())``: every stream
    served, every detection with a track id, the ladder back at
    ``normal``; capture->result latency p50/p95/p99 against the 40 ms
@@ -115,7 +115,7 @@ exits non-zero:
    video_edge_ai_proxy_tpu_torch.ingest.worker`` processes, one per camera,
    on the environment contract (``test://`` 1080p at 30 fps, a ring of 2
    slots each), read by ``InferenceEngine(open_bus("shm", dir),
-   EngineConfig())`` with one subscriber over all 16 for 20 s: frames/s,
+   EngineConfig())`` with one subscriber over all 16 for 10 s: frames/s,
    latency p50/p95/p99 and stages, frames superseded, each worker's
    published and decoded counts from its heartbeat, beside 11c's numbers;
    gated: every stream served, every detection with a track id, no "engine
@@ -259,7 +259,7 @@ exits non-zero:
    --fleet``: this process's allocator keeps the earlier phases' freed
    blocks reserved), the mixed fleet of BASELINE.md (6 ``yolov8n``, 5
    ``resnet50`` and 5 ``vit_b16`` streams) in one ``InferenceEngine`` with
-   per-stream models on the memory bus, 1080p at 30 fps for 10 s as 11c
+   per-stream models on the memory bus, 1080p at 30 fps for 6 s as 11c
    publishes, every key prewarmed: gated on every
    stream served, each result's model its stream's, 2048-wide embeddings
    on the ``resnet50`` results, no logged tick or drain failure, and
@@ -271,7 +271,7 @@ exits non-zero:
    bit-identical; then ``run_fleet_soak`` of the 6 ``yolov8n`` + 5
    ``resnet50`` + 5 ``vit_b16`` ``fleetNN`` cameras at 1920x1080, bf16,
    on the memory bus, ``tick_ms=10``, looping a recorded 60-frame trace,
-   20 s each: (b) the acceptance churn (``FaultPlan.default_churn``), (c)
+   15 s each: (b) the acceptance churn (``FaultPlan.default_churn``), (c)
    ``uplink_down``, ``bus_flap`` and ``device_stall``, (d)
    ``black_frame``, ``frozen_frame`` and ``score_drift``. Gated in each:
    0 misrouted results, every camera with results (and the canary in d),
@@ -287,7 +287,7 @@ exits non-zero:
 20. the wire run, in a process of its own (``chip_smoke.py --e2e``):
    ``run_e2e`` of ``yolov8n`` at 1920x1080, a ``Server`` with one
    ``replay://`` worker at 30 fps on the shm bus and the gRPC
-   ``Inference`` stream to a client thread, 20 s after a 15 s warmup:
+   ``Inference`` stream to a client thread, 10 s after a 10 s warmup:
    gated on results measured, keep-mask launches equal to the batches and
    no logged failure; printed: publish -> client-receive p50/p90/p95/p99
    beside the 40 ms limit, and the stage legs;
@@ -368,6 +368,43 @@ exits non-zero:
    (``launches_selftrain``), and a checkpoint ``save_checkpoint`` wrote
    reloading into a fresh engine whose graphed step is bit-identical on
    one batch.
+24. data-parallel mesh serving and the device-fault domain, in a process
+   of its own (``chip_smoke.py --mesh``), on slots of the one card
+   (``parallel/mesh.py``: each slot steps its own rows on its own stream,
+   one graph a slot): (a) 11a's trace (16x1080p, ``yolov8n`` bf16,
+   ``quality_thumb=32``) through ``lockstep_checksum`` on a dp=1 mesh, the
+   fold gated equal to 11a's (305268384), and through the engine's
+   ``serve_lockstep`` on a dp=1 mesh, gated equal to 11b's (304869744);
+   then the engine on a dp=2 mesh over two slots of ``cuda:0``: its fold
+   printed, every frame's detections gated against the single-device
+   engine's (counts and classes equal, boxes within ``MESH_BOX_TOL_PX``),
+   keep-mask launches gated equal to the slot sub-batches stepped (the
+   programs captured before the count is zeroed), and each slot's graph
+   replay bit-identical to its eager step on two inputs; (b)
+   ``tools/torch_multichip_serve_smoke.py`` on 4 slots without its
+   lockstep leg (24a gates the dp=1 mesh's fold at full width): dp 1/2/4
+   over 2, 4 and 8 streams of the colour-keyed
+   ``blob_gauge`` fleet at 1080p with ROI, the cascade head, quality and
+   capacity on, gated on the JAX tool's gates (0 misrouted, 0 unrouted,
+   aggregate and per-slot ``rel_drift`` 0.0, a ``cascade/`` model at
+   dp > 1, per-slot perf rows, ``vep_perf_shard_*`` and
+   ``vep_capacity_shard_*`` lint-clean); its weak-scaling ratio is
+   printed, not gated (the slots share one card); (c)
+   ``tools/torch_fault_smoke.py`` on 4 slots with ``yolov8n`` at 1080p
+   over 8 streams, ``FAULT_r01.json``'s plan (a hard fault on slot 1:
+   dp4 -> dp3, gated; a stall on a survivor through the scripted probe:
+   dp3 -> dp2, printed), gated on the JAX tool's gates (detection within 2
+   ticks, the failover within ``fault_failover_budget_ms``, the evacuated
+   streams serving within 5 s, pin retention >= 0.9, the ledger at 0 lost
+   and 0 duplicated with every ``device_fault`` drop inside a window,
+   ``vep_fault_*`` lint-clean); printed: ``failover_ms``, its recapture
+   share and ``evac_first_result_ms``. The keep-mask launches of each
+   24b leg's measured window, and of 24c's window from the first fault to
+   the end, both read at rest at each end (``window_counts``), are gated
+   equal to the slot sub-batches stepped in it plus the launches of the
+   program builds in it (a capture's eager warm-up calls, the failover's
+   recapture), which are counted on their own and printed;
+   ``launches_mesh`` is 24a's and these windows'.
 
 On the card the engine runs every serving step as a graph replay, so
 phases 5, 8, 11, 13, 15-20 run graphed; phases 4, 6, 7, 9 and 10 call the eager
@@ -379,7 +416,7 @@ constants of every geometry met so far) and frees it, so that phase 9's
 peak memory counts the training alone.
 
 Phases 5, 8, 9, 11c, 13b, 14, 15c, 16a, 16b, 17a, 17b, 18b, 19b-d, 20,
-21 (a, and b where it runs), 22 and 23 are the main paths: the kernels' launch counts are set to 0 just before each and read
+21 (a, and b where it runs), 22, 23 and 24 are the main paths: the kernels' launch counts are set to 0 just before each and read
 just after it, and every kernel of that path must have launched (a graph
 replay adds the launches its capture recorded); the keep mask's count in
 13b is ``launches_frame_path``, in 14's first server (zeroed before its
@@ -389,7 +426,7 @@ variant ``launches_variants``, in 16a's ROI run ``launches_roi``, in 17a
 (counted from each soak engine's ``start()``, after its prewarm), in 20
 ``launches_e2e``, in 22a ``launches_capacity``, in 22b-d
 ``launches_fleet_tier`` (each member's from its ready line), in 23's
-serving legs ``launches_selftrain``, and the flash forward's in 17b
+serving legs ``launches_selftrain``, in 24 ``launches_mesh``, and the flash forward's in 17b
 ``launches_cascade``; the keep mask's line also carries
 ``replay_ms_yolov8s`` (18a). The line before the last is one JSON object describing
 every kernel; the last line is ``{"ok": true, "device": {...}}``. Longer
@@ -891,7 +928,7 @@ class ReadTrackingBus:
 # ladder to come back to normal with no new frames. Its SLOs reach no
 # verdict: slo_warmup_s is 60 s.
 PACED_FPS = 30.0
-PACED_S = 20.0
+PACED_S = 10.0              # cut from 20 s for phase 24's room
 SETTLE_S = 10.0
 PACED_POOL = 30
 # 11d: the same traffic with slo_warmup_s cut, so that the SLO plane
@@ -1492,13 +1529,14 @@ def graphs_phase(dev, card: str, report: dict) -> None:
 
 # One ingest worker process per camera on the shm bus, as the process
 # manager starts them (the environment contract), at the north-star width.
-WORKER_RUN_S = 20.0          # 13b: the engine reads the workers this long
+WORKER_RUN_S = 10.0          # 13b: the engine reads the workers this long (cut from 20)
 WORKER_SLOTS = 2             # a worker's ring: max(2, in_memory_buffer + 1) slots
 GATE_WINDOW_S = 2.0          # 13c: active_window_s cut from 10 s
 GATE_BOTH_S = 3.0            # 13c: both streams of interest this long first
 GATE_WAIT_S = 30.0           # 13c: at most this long for the keyframe-only fallback
 ENGINE_LOGGER = "vep.torch.engine.runner"
 FAILURE_MESSAGES = ("engine tick failed; continuing", "drain failed; continuing")
+CASCADE_TICK_FAILED = "cascade tick failed; continuing"   # logged, the detect path serves on
 
 
 class LogCounter:
@@ -2109,26 +2147,31 @@ def interest_phase(dev, card: str, model, out_dir: str) -> None:
     del engine
 
 
-# 13d's refused capture's pool, whose recording release_for_children ends.
+# 13d's refused capture's pool, whose recording release_cache ends.
 REFUSED_POOLS: list = []
 
 
-def release_for_children(dev) -> None:
+def release_cache(dev, before: str) -> None:
     """End the recordings that 13d's refused capture left open, so that
-    ``empty_cache`` returns this process's cached memory to the device
-    before the phases that run in processes of their own (19-23)."""
+    ``empty_cache`` returns this process's cached memory to the device:
+    before phase 17, whose clip rings need room the cache would otherwise
+    hold (while a recording is open the allocator frees nothing, even to
+    satisfy an allocation), and before the phases that run in processes
+    of their own (19-24). Phases 14-16 keep the recording open: ending it
+    at 13d made every later capture's ``empty_cache`` hand the cache back,
+    and phase 14's server fell behind its first frames."""
     import torch
 
     from video_edge_ai_proxy_tpu_torch.engine import runner
 
-    before = torch.cuda.memory_reserved(dev)
+    reserved = torch.cuda.memory_reserved(dev)
     for pool in REFUSED_POOLS:
         runner._end_pool_recording(dev, pool)
     REFUSED_POOLS.clear()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info(dev)
-    log(f"before phase 19: {before / 2 ** 20:.1f} MiB reserved, "
+    log(f"before phase {before}: {reserved / 2 ** 20:.1f} MiB reserved, "
         f"{torch.cuda.memory_reserved(dev) / 2 ** 20:.1f} MiB after the release; the card's "
         f"free memory {free / 2 ** 30:.2f} GiB of {total / 2 ** 30:.2f} GiB")
 
@@ -2265,8 +2308,8 @@ def log_and_continue_phase(dev, card: str, model) -> None:
                     old_pool_state = f"refuses a capture: {str(exc).splitlines()[0][:160]}"
                     # The refused capture leaves the allocator recording into
                     # the pool, so no empty_cache of this process releases
-                    # anything until release_for_children ends it before
-                    # phase 19. Ended here, each later capture's empty_cache
+                    # anything until release_cache ends it before phase
+                    # 17. Ended here, each later capture's empty_cache
                     # returns the cache to the device, and phase 14's server
                     # then served too slowly to fill its audit capture.
                     REFUSED_POOLS.append(old_pool)
@@ -3969,6 +4012,7 @@ def cascade_phase(dev, card: str, zero_launches, read_launches, kernels, report)
     model.load_state_dict(zero_class_prior(model.state_dict()))
     frames = [SyntheticSource.render(h, w, k) for k in range(4)]
     runs = {}
+    logged = LogCounter()
     for cascade in (False, True):
         bus = MemoryFrameBus()
         engine = InferenceEngine(bus, EngineConfig(model=ROI_DET_MODEL, prof=False,
@@ -3980,12 +4024,13 @@ def cascade_phase(dev, card: str, zero_launches, read_launches, kernels, report)
         for s in streams:
             bus.create_stream(s, h * w * 3)
         dets = 0
-        for step in range(CASCADE_HARVEST_TICKS):
-            ts = int(time.time() * 1000)
-            for i, s in enumerate(streams):
-                bus.publish(s, frames[(step + i) % len(frames)], FrameMeta(
-                    width=w, height=h, channels=3, timestamp_ms=ts, is_keyframe=True))
-            dets += sum(len(r.detections) for r in hand_tick(engine, results_q))
+        with logged:
+            for step in range(CASCADE_HARVEST_TICKS):
+                ts = int(time.time() * 1000)
+                for i, s in enumerate(streams):
+                    bus.publish(s, frames[(step + i) % len(frames)], FrameMeta(
+                        width=w, height=h, channels=3, timestamp_ms=ts, is_keyframe=True))
+                dets += sum(len(r.detections) for r in hand_tick(engine, results_q))
         p = engine.pipeline_stats()
         runs[cascade] = (p, dets, engine.cascade.snapshot() if cascade else None,
                          engine.cascade.pool_nbytes() if cascade else 0)
@@ -3998,7 +4043,12 @@ def cascade_phase(dev, card: str, zero_launches, read_launches, kernels, report)
         f"{len(snap['tracks'])} tracks (pool {pool_bytes} B); the harvest "
         f"{p_on.harvest_ms / max(p_on.frames, 1):.3f} ms a frame, the emit "
         f"{p_on.emit_ms / max(p_on.frames, 1):.3f} ms a frame with it and "
-        f"{p_off.emit_ms / max(p_off.frames, 1):.3f} without")
+        f"{p_off.emit_ms / max(p_off.frames, 1):.3f} without; logged failures "
+        f"{logged.summary() or 'none'}")
+    failures = {m: logged.count(m) for m in FAILURE_MESSAGES + (CASCADE_TICK_FAILED,)}
+    if any(failures.values()):
+        raise AssertionError(f"phase 17c: the engine logged failures {failures}: "
+                             f"{logged.summary()}")
     del model, runs
     torch.cuda.empty_cache()
 
@@ -4012,7 +4062,7 @@ def cascade_phase(dev, card: str, zero_launches, read_launches, kernels, report)
 F32_EMBED_REL_TOL = 1e-4
 FLEET = (("yolov8n", 6), ("resnet50", 5), ("vit_b16", 5))   # BASELINE.md's mixed fleet
 FLEET_EMBED_WIDTH = 2048     # 18b: resnet50's pooled feature
-FLEET_RUN_S = 10.0           # 18b: paced at 30 fps for this long
+FLEET_RUN_S = 6.0            # 18b: paced at 30 fps for this long (cut from 10)
 FLEET_BUCKETS = (1, 2, 4, 8)  # 18b: every bucket a model of at most 6 streams can take
 FLEET_CHILD_TIMEOUT_S = 600  # 18b runs in a process of its own (families_phase)
 
@@ -4472,14 +4522,14 @@ def mixed_fleet_phase(dev, card: str, zero_launches, read_launches, report) -> N
     torch.cuda.empty_cache()
 
 
-SOAK_S = 20.0                # 19b-d: each soak's measured window
+SOAK_S = 15.0                # 19b-d: each soak's measured window (cut from 20)
 SOAK_TRACE_FRAMES = 60       # 19: the recorded trace the cameras loop (2 s at 30 fps)
 SOAK_LOCKSTEP_FRAMES = 8     # 19a: frames a stream in the determinism trace (11a's depth)
 SOAK_QUALITY_BOUND_S = 5.0   # 19d: the soak tools' detection-latency bound
 SOAK_CHILD_TIMEOUT_S = 600   # 19 runs in a process of its own
 E2E_MODEL = "yolov8n"        # 20: the default EngineConfig's model
-E2E_S = 20.0                 # 20: the measured window after the warmup
-E2E_WARMUP_S = 15.0          # 20: the worker's boot and the engine's first batches
+E2E_S = 10.0                 # 20: the measured window after the warmup (cut from 20)
+E2E_WARMUP_S = 10.0          # 20: the worker's boot and the engine's first batches (cut from 15)
 E2E_LATENCY_LIMIT_MS = 40.0  # PERF.md section 2's p50 limit, printed beside the run
 E2E_CHILD_TIMEOUT_S = 300    # 20 runs in a process of its own
 
@@ -4732,7 +4782,7 @@ FLEET_TIER_MODEL = "yolov8n"          # 22b-d: each member's default model
 FLEET_TIER_TENANT = "mobilenet_v2"    # 22d: LoadShape's second tenant
 FLEET_TIER_THREADS = 2                # each member's torch intra-op threads
 FLEET_OBS_MEMBERS = 3                 # 22b (FLEETOBS_r01.json's)
-FLEET_OBS_S = 12.0                    # 22b: each member's window after its warmup
+FLEET_OBS_S = 6.0                     # 22b: each member's window after its warmup (cut from 12)
 FLEET_OBS_WARMUP_S = 8.0              # 22b: the worker boot (JAX tool default)
 FLEET_OBS_FPS = 30.0
 ROUTER_MEMBERS = 3                    # 22c (ROUTER_r01.json's)
@@ -5692,9 +5742,283 @@ def selftrain_phase(dev, card: str, zero_launches, read_launches, report: dict) 
     report["launches_selftrain"] = sum(legs.launches.values())
 
 
+# -- phase 24: data-parallel mesh serving and the device-fault domain ----------------------------
+MESH_SLOTS = 4                   # 24b, 24c: slots of the one card (the tools' dp=4 legs)
+MESH_STREAMS = N_STREAMS         # 24a: 11a's trace
+# 24a: the dp=2 engine's boxes against the single-device engine's: phase
+# 18's box bar (1e-2 px in a 640-px frame).
+MESH_BOX_TOL_PX = 1e-2
+MESH_SERVE_S = 4.0               # 24b: each leg's measured window (the JAX tool's 8 s cut)
+MESH_PRIME_S = 3.0               # 24b: serving before it (the JAX tool's 6 s cut)
+MESH_FAULT_PRIME_S = 3.0         # 24c: healthy serving before the fault (the JAX tool's 5 s cut)
+MESH_FAULT_SETTLE_S = 4.0        # 24c: serving after each failover (the JAX tool's 5 s cut)
+MESH_CHILD_TIMEOUT_S = 600       # 24 runs in a process of its own
+
+
+def mesh_detections(results: list) -> dict:
+    """(stream, packet) -> [(class, box xyxy)] of a run's results."""
+    out = {}
+    for r in results:
+        if r is None:
+            continue
+        out[(r.device_id, r.frame_packet)] = [
+            (d.class_id, (d.box.left, d.box.top, d.box.left + d.box.width,
+                          d.box.top + d.box.height)) for d in r.detections]
+    return out
+
+
+def mesh_lockstep_engine(dev, model, ticks: list, mesh: dict, slots: list, bucket: int,
+                         buckets: tuple):
+    """``serve_lockstep`` of ``ticks`` on an engine (``mesh`` {} = one
+    device) with ``buckets``, its program of ``bucket`` captured first, the
+    keep mask's launches zeroed just before: -> (engine, fold, results)."""
+    import queue
+
+    from video_edge_ai_proxy_tpu_torch.bus.memory_bus import MemoryFrameBus
+    from video_edge_ai_proxy_tpu_torch.engine.runner import InferenceEngine
+    from video_edge_ai_proxy_tpu_torch.kernels.nms import nms_keep_mask_cuda
+    from video_edge_ai_proxy_tpu_torch.utils.config import EngineConfig
+
+    engine = InferenceEngine(MemoryFrameBus(), EngineConfig(mesh=mesh, batch_buckets=buckets),
+                             device=dev, model=model, slots=slots)
+    engine.warmup()
+    engine.compile_for(FRAME_HW, bucket)
+    q: queue.Queue = queue.Queue()
+    with engine._sub_lock:
+        engine._subscribers.append((q, None))
+    nms_keep_mask_cuda.launches = 0
+    fold = engine.serve_lockstep(ticks)
+    results = []
+    while not q.empty():
+        results.append(q.get_nowait())
+    return engine, fold, results
+
+
+def mesh_phase(dev, card: str, zero_launches, read_launches, report: dict) -> None:
+    """Phase 24 (module docstring)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from video_edge_ai_proxy_tpu_torch.engine.collector import stream_shard
+    from video_edge_ai_proxy_tpu_torch.engine.runner import build_serving_step
+    from video_edge_ai_proxy_tpu_torch.kernels.nms import nms_keep_mask_cuda
+    from video_edge_ai_proxy_tpu_torch.models import registry
+    from video_edge_ai_proxy_tpu_torch.parallel import make_mesh
+    from video_edge_ai_proxy_tpu_torch.replay.checksum import zero_class_prior
+    from video_edge_ai_proxy_tpu_torch.replay.harness import lockstep_checksum
+    from video_edge_ai_proxy_tpu_torch.replay.player import TracePlayer
+    from video_edge_ai_proxy_tpu_torch.replay.recorder import record_synthetic_trace
+
+    t_phase = time.perf_counter()
+    spec = registry.get("yolov8n")
+    streams = [f"cam{i:02d}" for i in range(MESH_STREAMS)]
+    model = spec.init_params(torch.Generator().manual_seed(0), device=dev)
+    model.load_state_dict(zero_class_prior(model.state_dict()))
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    # (a) 11a's trace on a dp=1 mesh, then the engine on dp=1 and dp=2.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = record_synthetic_trace(os.path.join(tmp, "mesh.vtrace"), streams,
+                                      width=FRAME_HW[1], height=FRAME_HW[0], fps=30.0,
+                                      frames=REPLAY_FRAMES)
+        t0 = time.perf_counter()
+        mesh1 = lockstep_checksum(path, model="yolov8n", device=dev, state_dict=weights,
+                                  mesh=make_mesh(devices=[dev]))
+        lock_s = time.perf_counter() - t0
+        by_packet: dict = {}
+        for dev_id, frame, meta in TracePlayer(path).iter_frames():
+            by_packet.setdefault(meta.packet, []).append((dev_id, frame, meta))
+    ticks = [by_packet[n] for n in sorted(by_packet)]
+    buckets = (1, 2, 4, 8, 16, 32, 64)
+    runs = {}
+    # "single8": one device whose programs step 8 rows, as each dp=2 slot's
+    # does (the 16 streams split 8 and 8): the reference the dp=2 frames are
+    # gated against. A bf16 program of 16 rows runs other convolution
+    # algorithms than one of 8, so "single" (11b's) is compared, printed.
+    for tag, mesh, slots, bks in (("single", {}, None, buckets),
+                                  ("single8", {}, None, (1, 2, 4, 8)),
+                                  ("dp1", {"dp": 1}, [dev], buckets),
+                                  ("dp2", {"dp": 2}, [dev, dev], buckets)):
+        dp = mesh.get("dp", 1)
+        per = [sum(1 for s in streams if stream_shard(s, dp) == k) for k in range(dp)]
+        bucket = next(b for b in bks if b % dp == 0 and b // dp >= min(max(per), bks[-1]))
+        t0 = time.perf_counter()
+        engine, fold, results = mesh_lockstep_engine(dev, model, ticks, mesh, slots, bucket,
+                                                     bks)
+        runs[tag] = {"engine": engine, "fold": fold, "dets": mesh_detections(results),
+                     "launches": nms_keep_mask_cuda.launches,
+                     "slot_batches": engine.pipeline_stats().slot_batches,
+                     "batches": engine.pipeline_stats().batches, "bucket": bucket,
+                     "per_slot": per, "s": time.perf_counter() - t0}
+        if tag != "dp2":
+            del engine
+    single, single8, dp1, dp2 = runs["single"], runs["single8"], runs["dp1"], runs["dp2"]
+
+    def differ(want_run, got_run):
+        worst, mismatched = 0.0, []
+        for key, want in want_run["dets"].items():
+            got = got_run["dets"].get(key)
+            if got is None or len(got) != len(want) or \
+                    [c for c, _ in got] != [c for c, _ in want]:
+                mismatched.append(key)
+                continue
+            for (_, gb), (_, wb) in zip(got, want):
+                worst = max(worst, max(abs(a - b) for a, b in zip(gb, wb)))
+        return worst, mismatched
+
+    worst, mismatched = differ(single8, dp2)
+    worst16, mismatched16 = differ(single, dp2)
+    n_dets = sum(len(v) for v in single8["dets"].values())
+    # Each slot's graph of the dp=2 key against its eager step, bit for bit.
+    engine = dp2["engine"]
+    key = next(k for k in engine._steps if k[0] == "yolov8n")
+    mstep = engine._steps[key]
+    eager = build_serving_step(model, spec, quality_thumb=THUMB)
+    seg = key[3] // 2
+    gen = torch.Generator(device=dev).manual_seed(24)
+    replay_ok = []
+    for slot, graphed in zip(engine._mesh.slots, mstep.steps):
+        with slot.context(), torch.inference_mode():
+            inputs = [(torch.randint(0, 256, (seg,) + FRAME_HW + (3,), generator=gen,
+                                     device=dev, dtype=torch.uint8),
+                       torch.rand((seg, THUMB, THUMB), generator=gen, device=dev))
+                      for _ in range(2)]
+            want = [eager(*x) for x in inputs]
+            got = [graphed(*x) for x in inputs]
+            torch.cuda.synchronize()
+            replay_ok.append(all(torch.equal(g[k], w[k]) for g, w in zip(got, want)
+                                 for k in w)
+                             and not all(torch.equal(got[0][k], got[1][k]) for k in got[0]))
+    log(f"phase 24a on {card}: 11a's trace ({MESH_STREAMS} streams x {REPLAY_FRAMES} frames at "
+        f"{FRAME_HW[1]}x{FRAME_HW[0]}, yolov8n bf16) through lockstep_checksum on a dp=1 mesh: "
+        f"fold {mesh1['checksum']} ({CAMERA_FOLDS[0]} in 11a; {lock_s:.1f} s); the engine's "
+        f"serve_lockstep: single device {single['fold']}, dp=1 mesh {dp1['fold']} "
+        f"({CAMERA_FOLDS[1]} in 11b), dp=2 over two slots of {dev} {dp2['fold']} (slots of "
+        f"{dp2['per_slot']} streams, bucket {dp2['bucket']}), one device in programs of 8 "
+        f"rows {single8['fold']}; dp=2 detections against that single device: "
+        f"{len(single8['dets'])} frames, {n_dets} detections, {len(mismatched)} frames with "
+        f"other counts or classes, largest box difference {worst:.4g} px (tolerance "
+        f"{MESH_BOX_TOL_PX}); against 11b's programs of 16 rows (printed): {len(mismatched16)} "
+        f"frames with other counts or classes, largest box difference {worst16:.4g} px "
+        f"(random weights: every detection a near-tie); keep-mask launches {dp2['launches']} for "
+        f"{dp2['slot_batches']} slot sub-batches ({dp2['batches']} batches; dp=1: "
+        f"{dp1['launches']} for {dp1['slot_batches']}); each slot's graph replay "
+        f"bit-identical to its eager step: {replay_ok}; engine runs "
+        f"{', '.join(f'{t} {r['s']:.1f} s' for t, r in runs.items())}")
+    bad = []
+    if mesh1["checksum"] != CAMERA_FOLDS[0]:
+        bad.append(f"dp=1 mesh lockstep fold {mesh1['checksum']} != 11a's {CAMERA_FOLDS[0]}")
+    if dp1["fold"] != CAMERA_FOLDS[1] or single["fold"] != CAMERA_FOLDS[1]:
+        bad.append(f"engine folds single {single['fold']}, dp=1 {dp1['fold']} != 11b's "
+                   f"{CAMERA_FOLDS[1]}")
+    if len(single8["dets"]) != MESH_STREAMS * REPLAY_FRAMES or not n_dets:
+        bad.append(f"single-device run served {len(single8['dets'])} frames, {n_dets} "
+                   f"detections")
+    if mismatched or worst > MESH_BOX_TOL_PX:
+        bad.append(f"dp=2 detections differ from the single device: {len(mismatched)} frames "
+                   f"(e.g. {mismatched[:3]}), worst box {worst:.4g} px")
+    for tag in ("dp1", "dp2"):
+        r = runs[tag]
+        if r["launches"] != r["slot_batches"] or r["slot_batches"] <= 0:
+            bad.append(f"{tag}: {r['launches']} keep-mask launches for {r['slot_batches']} "
+                       f"slot sub-batches")
+    if not all(replay_ok) or len(replay_ok) != 2:
+        bad.append(f"slot graph replays against eager: {replay_ok}")
+    if bad:
+        raise AssertionError("phase 24a: " + "; ".join(bad))
+    launches = dp1["launches"] + dp2["launches"]
+    del runs, single, single8, dp1, dp2, engine, mstep, eager, model, ticks, by_packet
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the multichip serve smoke on 4 slots of the card, without its
+    # lockstep leg: 24a gates the dp=1 mesh at full width.
+    t0 = time.perf_counter()
+    zero_launches()
+    tool = tool_module("torch_multichip_serve_smoke")
+    out = tool.run(device=dev, slots=MESH_SLOTS, duration_s=MESH_SERVE_S, prime_s=MESH_PRIME_S,
+                   frames=0)
+    legs = out["serve"]
+    log(f"phase 24b on {card}: {out['model']} at {out['src_hw'][1]}x{out['src_hw'][0]}, "
+        f"{MESH_SLOTS} slots of {dev}; " + "; ".join(
+            f"{name}: {leg['streams']} streams, {leg['results']} results, {leg['fps']} results/s "
+            f"in the window, matched {leg['matched_detections']}, misrouted {leg['misrouted']}, "
+            f"unrouted {leg['unrouted']}, roi {leg['roi']}, cascade {leg['cascade_models']} "
+            f"({leg['cascade_head_batches']} head batches), slot frames "
+            f"{leg['perf_shard_frames']}, drift {leg['conservation']['rel_drift']} (slots "
+            f"{ {s: r['rel_drift'] for s, r in (leg['conservation'].get('shards') or {}).items()} })"
+            f", in the window {leg['keep_mask_launches_window']} keep-mask launches for "
+            f"{leg['slot_batches_window']} slot sub-batches and {leg['build_launches_window']} "
+            f"build launches ({leg['slot_batches']} slot sub-batches in {leg['batches']} batches "
+            f"in all)"
+            for name, leg in legs.items())
+        + f"; weak scaling dp4/dp1 {out['fps_scale_dp4_over_dp1']} (printed, not gated: the "
+        f"slots share one card); exposition problems {out['exposition_problems']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    bad = tool.failures(out)
+    for name, leg in legs.items():
+        if leg["slot_batches_window"] is None or leg["slot_batches_window"] <= 0 or \
+                leg["keep_mask_launches_window"] != (leg["slot_batches_window"]
+                                                     + leg["build_launches_window"]):
+            bad.append(f"{name}: {leg['keep_mask_launches_window']} keep-mask launches in the "
+                       f"window for {leg['slot_batches_window']} slot sub-batches and "
+                       f"{leg['build_launches_window']} build launches")
+    if bad:
+        raise AssertionError("phase 24b: " + "; ".join(bad))
+    launches += sum(leg["keep_mask_launches_window"] for leg in legs.values())
+    del out, legs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the fault smoke on 4 slots of the card.
+    t0 = time.perf_counter()
+    zero_launches()
+    tool = tool_module("torch_fault_smoke")
+    out = tool.run(device=dev, slots=MESH_SLOTS, prime_s=MESH_FAULT_PRIME_S,
+                   settle_s=MESH_FAULT_SETTLE_S)
+    hard, stall = out["hard_fault"], out["stall_fault"]
+    fo = hard["failover"] or {}
+    fo2 = stall["failover"] or {}
+
+    def share(f):
+        return f"{f['recapture_ms'] / f['failover_ms']:.3f}" if f.get("failover_ms") else "n/a"
+
+    log(f"phase 24c on {card}: {out['model']} at {out['src_hw'][1]}x{out['src_hw'][0]}, "
+        f"{out['streams']} streams on {MESH_SLOTS} slots of {dev}, plan {out['plan']}: hard "
+        f"fault on slot {hard['shard']} detected in {hard['detect_ticks']} ticks, failover_ms "
+        f"{fo.get('failover_ms')} (recapture share {share(fo)}, aot {fo.get('aot')}, recapture "
+        f"launches {fo.get('recapture_launches')}), survivors {fo.get('survivors')}, evacuated "
+        f"{fo.get('evacuated')}, streams {fo.get('streams')}, evac_first_result_ms "
+        f"{hard['evac_first_result_ms']} ({hard['evac_firsts_ms']}), pin retention "
+        f"{hard['pin_retention']}; stall on slot {stall['shard']}: detected "
+        f"{stall['detected'] and stall['detected']['tick']}, failover_ms "
+        f"{fo2.get('failover_ms')} (recapture share {share(fo2)}, recapture launches "
+        f"{fo2.get('recapture_launches')}), survivors {fo2.get('survivors')}, repin composes "
+        f"{stall['repin_composes']} (informational); ledger {out['ledger']['dispatched']} "
+        f"dispatched, {out['ledger']['emitted']} emitted, dropped {out['ledger']['dropped']}, "
+        f"lost {out['ledger']['lost']}, duplicated {out['ledger']['duplicated']}, outside a "
+        f"window {out['ledger']['lost_outside_window']}, {len(out['ledger']['windows'])} "
+        f"windows; journal {out['journal_conservation']}; from the first fault to the end "
+        f"{out['keep_mask_launches_window']} keep-mask launches for "
+        f"{out['slot_batches_window']} slot sub-batches and {out['build_launches_window']} "
+        f"build launches; {time.perf_counter() - t0:.1f} s")
+    bad = tool.failures(out)
+    if out["slot_batches_window"] is None or out["slot_batches_window"] <= 0 or \
+            out["keep_mask_launches_window"] != (out["slot_batches_window"]
+                                                 + out["build_launches_window"]):
+        bad.append(f"{out['keep_mask_launches_window']} keep-mask launches in the window for "
+                   f"{out['slot_batches_window']} slot sub-batches and "
+                   f"{out['build_launches_window']} build launches")
+    if bad:
+        raise AssertionError("phase 24c: " + "; ".join(bad))
+    report["launches_mesh"] = launches + out["keep_mask_launches_window"]
+    log(f"phase 24 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def child_main(phase) -> int:
     """``chip_smoke.py --soak`` / ``--e2e`` / ``--camera`` / ``--fleet-tier`` /
-    ``--selftrain``: phase 19, 20, 21, 22 or 23 alone, as ``main`` runs it in a process of its own (the kernels as phase 2 built them);
+    ``--selftrain`` / ``--mesh``: phase 19, 20, 21, 22, 23 or 24 alone, as ``main`` runs it in a process of its own (the kernels as phase 2 built them);
     the keep mask's report entries are its last line."""
     import torch
 
@@ -6616,14 +6940,15 @@ def main() -> int:
     # -- phase 16: ROI serving ------------------------------------------------------------------
     roi_phase(dev, card, zero_launches, read_launches, kernels, report, pipeline)
 
-    # -- phase 17: the temporal cascade -----------------------------------------------------------
+    # -- phase 17: the temporal cascade, with 13d's cache released first -------------------------
+    release_cache(dev, "17")
     cascade_phase(dev, card, zero_launches, read_launches, kernels, report)
 
     # -- phase 18: the other model families -------------------------------------------------------
     families_phase(dev, card, zero_launches, read_launches, kernels, report)
 
     # -- phases 19-23 run in processes of their own: this one's cache goes back first --------------
-    release_for_children(dev)
+    release_cache(dev, "19")
 
     # -- phase 19: the chaos soak, in a process of its own ------------------------------------------
     report["nms_keep_mask"].update(run_child("--soak", "19", SOAK_CHILD_TIMEOUT_S))
@@ -6639,7 +6964,9 @@ def main() -> int:
 
     # -- phase 23: the self-training loop, in a process of its own -------------------------------
     report["nms_keep_mask"].update(run_child("--selftrain", "23", SELFTRAIN_CHILD_TIMEOUT_S))
-    log(f"chip_smoke: phases 1-23 took {time.perf_counter() - t_script:.1f} s")
+    # -- phase 24: mesh serving and the fault domain, in a process of its own ---------------------
+    report["nms_keep_mask"].update(run_child("--mesh", "24", MESH_CHILD_TIMEOUT_S))
+    log(f"chip_smoke: phases 1-24 took {time.perf_counter() - t_script:.1f} s")
 
     line = {"kernels": []}
     for name, meta in kernels.items():
@@ -6664,6 +6991,7 @@ def main() -> int:
                if "launches_capacity" in r else {}),
             **({"launches_selftrain": r["launches_selftrain"]}
                if "launches_selftrain" in r else {}),
+            **({"launches_mesh": r["launches_mesh"]} if "launches_mesh" in r else {}),
             **({"replay_ms_yolov8s": r["replay_ms_yolov8s"]} if "replay_ms_yolov8s" in r else {}),
             "replaces": meta["replaces"], "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -6682,6 +7010,7 @@ if __name__ == "__main__":
                 "--e2e": lambda: child_main(e2e_phase),
                 "--camera": lambda: child_main(camera_phase),
                 "--fleet-tier": lambda: child_main(fleet_tier_phase),
-                "--selftrain": lambda: child_main(selftrain_phase)}
+                "--selftrain": lambda: child_main(selftrain_phase),
+                "--mesh": lambda: child_main(mesh_phase)}
     sys.exit(CHILDREN[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in CHILDREN
              else main())

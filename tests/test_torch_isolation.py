@@ -22,7 +22,7 @@ ABSENT_ON_CARD = ("msgpack", "safetensors")
 # port against the JAX package).
 PORT_TOOLS = ("torch_soak_replay.py", "torch_router_smoke.py", "torch_autoscale_smoke.py",
               "torch_capacity_smoke.py", "torch_import_weights.py", "torch_eval_detector.py",
-              "torch_selftrain_e2e.py")
+              "torch_selftrain_e2e.py", "torch_multichip_serve_smoke.py", "torch_fault_smoke.py")
 
 
 def _port_sources():

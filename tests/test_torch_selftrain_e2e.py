@@ -8,19 +8,24 @@ program -> the calibrated threshold in the checkpoint's metadata -> the
 engine serving the checkpoint) at the JAX twin's settings: ``tiny_yolov8``
 at 64 px, 250 steps, the easy synthetic site. The assertions are the JAX
 twin's: the chain closes and learning is real (post > pre on held-out
-data). The port's run takes about 40-50 s alone, so it is not marked
-slow (JAX's twin takes about 3 minutes and is).
+data). The port's run takes about 40-50 s on an idle machine, but 303 s
+of a tier-1 run beside five other test workers, so it is marked slow, as
+JAX's twin is (about 3 minutes): the tier-1 gate runs ``-m 'not slow'``
+and the chain runs with ``-m slow``.
 """
 
 import os
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tools import torch_selftrain_e2e as st  # noqa: E402
+
+pytestmark = pytest.mark.slow
 
 
 def _chain(workdir: str) -> dict:

@@ -696,10 +696,9 @@ def test_admin_and_observability_routes(server, stub):
         assert resp.status == 204
         assert resp.headers["Access-Control-Allow-Origin"] == "*"
     assert rest(server, "/api/v1/journal")[1]["next_seq"] >= 1
-    # A plane not ported: only the OPTIONS route matches its path.
-    assert rest_error(server, "/api/v1/faults") == 405
-    # The capacity and cascade routes, with their planes off: the
-    # disabled-plane 400.
+    # The fault domain's, capacity and cascade routes, with their planes
+    # off: the disabled-plane 400.
+    assert rest_error(server, "/api/v1/faults") == 400
     assert rest_error(server, "/api/v1/capacity") == 400
     assert rest_error(server, "/api/v1/cascade") == 400
 

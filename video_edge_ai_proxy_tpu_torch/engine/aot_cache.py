@@ -2,7 +2,7 @@
 ``video_edge_ai_proxy_tpu/engine/aot_cache.py``).
 
 A versioned JSON file in ``EngineConfig.aot_cache_dir`` records the
-program set: one entry per ``(model, stem, geometry, bucket)`` serving
+program set: one entry per ``(model, stem, geometry, bucket, mesh)`` serving
 step an engine sharing the directory has served. A starting engine
 prewarms the whole set before it takes traffic, so no batch waits for a
 capture. On the card a program is a CUDA graph, which cannot be saved to
@@ -19,9 +19,11 @@ Mismatch rule: a manifest whose ``version`` or ``stamp`` (torch's
 version, CUDA's version and the device's name) differs from the running
 process's is ignored, never an exception; the next record replaces it.
 The JSON shape is the JAX module's, with ``stamp`` in place of
-``jaxlib``. The port serves one card, so the JAX module's mesh key (the
-sharded programs of a multi-chip member) is not written or read here.
-Standard library and torch only.
+``jaxlib``. A program served on a mesh of device slots carries the JAX
+module's ``mesh`` key (``mesh_spec``: sorted ``[axis, size]`` pairs of
+the axes above 1; absent for a single device), and a manifest replays
+only the programs recorded under the same mesh. Standard library and
+torch only.
 """
 
 from __future__ import annotations
@@ -55,6 +57,21 @@ def manifest_path(cache_dir: str) -> str:
     return os.path.join(cache_dir, MANIFEST_NAME)
 
 
+def mesh_spec(mesh) -> List[list]:
+    """The manifest form of a mesh, as the JAX module writes it: sorted
+    ``[axis, size]`` pairs of the axes above 1; empty for a single device.
+    Takes None, a mesh (its ``shape`` mapping) or a pair list."""
+    if mesh is None:
+        return []
+    shape = getattr(mesh, "shape", None)
+    pairs = shape.items() if shape is not None and hasattr(shape, "items") else mesh
+    return sorted([str(a), int(n)] for a, n in pairs if int(n) > 1)
+
+
+def _mesh_key(prog: Dict[str, Any]) -> tuple:
+    return tuple((a, n) for a, n in mesh_spec(prog.get("mesh")))
+
+
 def _program_key(prog: Dict[str, Any]) -> tuple:
     return (
         str(prog.get("model") or ""),
@@ -62,6 +79,9 @@ def _program_key(prog: Dict[str, Any]) -> tuple:
         int(prog.get("h", 0)),
         int(prog.get("w", 0)),
         int(prog.get("bucket", 0)),
+        # A program served on a mesh and one served on a single device
+        # are distinct; a manifest without the key is single-device.
+        _mesh_key(prog),
     )
 
 
@@ -107,6 +127,8 @@ def load_manifest(cache_dir: str) -> Optional[List[Dict[str, Any]]]:
         seen.add(key)
         entry = {"model": key[0] or None, "stem": key[1], "h": key[2], "w": key[3],
                  "bucket": key[4]}
+        if key[5]:
+            entry["mesh"] = [[a, n] for a, n in key[5]]
         flops = prog.get("flops")
         if isinstance(flops, (int, float)) and flops > 0:
             entry["flops"] = float(flops)
@@ -115,26 +137,30 @@ def load_manifest(cache_dir: str) -> Optional[List[Dict[str, Any]]]:
 
 
 def program_flops(cache_dir: str, *, model: Optional[str], stem: str, src_hw: tuple,
-                  bucket: int) -> Optional[float]:
+                  bucket: int, mesh=None) -> Optional[float]:
     """The FLOPs recorded with one program, None when the manifest lacks
     them (or the program). A member prewarming a recorded program takes its
     FLOPs from here instead of counting them again."""
     key = _program_key({"model": model, "stem": stem, "h": src_hw[0], "w": src_hw[1],
-                        "bucket": bucket})
+                        "bucket": bucket, "mesh": mesh_spec(mesh)})
     for prog in load_manifest(cache_dir) or []:
         if _program_key(prog) == key:
             return prog.get("flops")
     return None
 
 
-def prewarm_entries(programs: List[Dict[str, Any]]) -> List[list]:
+def prewarm_entries(programs: List[Dict[str, Any]], mesh=None) -> List[list]:
     """Manifest programs -> ``cfg.prewarm``-shaped 5-element entries
-    (``[h, w, bucket, model, stem]``; model "" = the engine's own)."""
-    return [[p["h"], p["w"], p["bucket"], p["model"] or "", p["stem"]] for p in programs]
+    (``[h, w, bucket, model, stem]``; model "" = the engine's own), of the
+    programs recorded under ``mesh`` only (a mesh, a pair list, or None =
+    a single device): a stale manifest of the other kind yields none."""
+    want = tuple((a, n) for a, n in mesh_spec(mesh))
+    return [[p["h"], p["w"], p["bucket"], p["model"] or "", p["stem"]] for p in programs
+            if _mesh_key(p) == want]
 
 
 def record_program(cache_dir: str, *, model: Optional[str], stem: str, src_hw: tuple,
-                   bucket: int, flops: Optional[float] = None) -> None:
+                   bucket: int, flops: Optional[float] = None, mesh=None) -> None:
     """Merge one served program into the manifest: read, add, write to a
     temporary file and rename it over the old one, under the process lock,
     so that an engine starting meanwhile never reads a torn file. A stale
@@ -148,6 +174,9 @@ def record_program(cache_dir: str, *, model: Optional[str], stem: str, src_hw: t
         "w": int(src_hw[1]),
         "bucket": int(bucket),
     }
+    spec = mesh_spec(mesh)
+    if spec:
+        prog["mesh"] = spec
     if flops:
         prog["flops"] = float(flops)
     with _manifest_lock:

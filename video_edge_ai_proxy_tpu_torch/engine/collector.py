@@ -47,7 +47,14 @@ closed set of shapes.
   pooled (pinned on the card) buffer for the canvas batch, leased like a
   collected group's.
 
-The mesh-sharded layouts are a later slice.
+- **Mesh-sharded layouts.** With ``shards`` > 1 (the engine's dp mesh)
+  every batch is segmented into ``shards`` equal row ranges: a stream's
+  frame lands in the segment of its slot (``stream_shard``, a stable
+  crc32; after a device fault, the ``make_repin`` map the engine
+  installs), each segment pads on its own, and ``BatchGroup.rows`` names
+  each stream's row. Buckets that do not split evenly are dropped (with
+  none left the collector serves unsharded). Shards = 1 keeps every path
+  as it was.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
+import zlib
 from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
@@ -66,6 +74,45 @@ from ..obs import registry as obs_registry
 from ..obs.spans import trace_id_of, tracer
 
 log = logging.getLogger("vep.torch.engine.collector")
+
+
+def stream_shard(device_id: str, shards: int) -> int:
+    """The stable stream -> mesh-slot assignment of data-parallel serving,
+    the JAX package's: crc32 is the same on every platform and run, so a
+    stream always lands on the same slot, where its thumbnail, tracker
+    and cascade state live. Engine and collector must agree on it."""
+    if shards <= 1:
+        return 0
+    return zlib.crc32(device_id.encode("utf-8")) % shards
+
+
+def make_repin(base_shard_of, shards: int, dead):
+    """The deterministic re-pin of a survivor-mesh failover, the JAX
+    package's. ``base_shard_of`` is the routing live when the fault hit
+    (``stream_shard`` bound to the old slot count, or an earlier
+    failover's repin: composition covers cascaded faults), ``shards`` its
+    slot count, ``dead`` the faulted slot indices. The survivors keep
+    their old order in the rebuilt mesh (new slot i = the i-th surviving
+    old slot, the same device), so a stream whose slot survives keeps
+    that slot's new index (its state intact), and a stream whose slot died
+    re-pins by highest-random-weight (rendezvous) hashing over the
+    survivors: deterministic, spread evenly, and stable under further
+    losses (only the streams of a newly dead slot move again)."""
+    dead = frozenset(int(s) for s in dead)
+    survivors = [s for s in range(int(shards)) if s not in dead]
+    if not survivors:
+        raise ValueError("no surviving shards to re-pin onto")
+    new_index = {s: i for i, s in enumerate(survivors)}
+
+    def repin(device_id: str) -> int:
+        home = base_shard_of(device_id)
+        idx = new_index.get(home)
+        if idx is not None:
+            return idx
+        best = max(survivors, key=lambda t: zlib.crc32(f"{device_id}@{t}".encode("utf-8")))
+        return new_index[best]
+
+    return repin
 
 
 @dataclass
@@ -88,6 +135,11 @@ class BatchGroup:
     # stream's results keep their order. Both None on the classic path.
     crops: Optional[list] = None
     coast: Optional[list] = None
+    # The mesh-sharded layout (Collector(shards=S)): ``rows[j]`` is the
+    # frame row of ``device_ids[j]``; slot s owns rows [s * bucket / S,
+    # (s + 1) * bucket / S), each segment zero-padded on its own. None:
+    # the dense layout, row j is device_ids[j].
+    rows: Optional[List[int]] = None
 
     @property
     def padded_slots(self) -> int:
@@ -253,9 +305,21 @@ class Collector:
                  interest_of: Optional[Callable[[str], bool]] = None,
                  model_of: Optional[Callable[[str], Optional[tuple]]] = None,
                  strict_lease: bool = False,
-                 alloc: Callable[[tuple], np.ndarray] = host_empty):
+                 alloc: Callable[[tuple], np.ndarray] = host_empty, shards: int = 1):
         self._bus = bus
         self._buckets = tuple(sorted(buckets))
+        # The mesh-sharded layout: None routing = stream_shard; repin()
+        # installs a failover's map.
+        self._shards = 1
+        self._shard_fn: Optional[Callable[[str], int]] = None
+        if shards > 1:
+            sharded = tuple(b for b in self._buckets if b % shards == 0)
+            if sharded:
+                self._shards = int(shards)
+                self._buckets = sharded
+            else:
+                log.warning("no bucket in %s divides into %d shards; serving unsharded",
+                            self._buckets, shards)
         self._bucket_cap: Optional[int] = None
         self.clip_len = clip_len
         self._default_model = default_model
@@ -493,6 +557,95 @@ class Collector:
         if dirty > n:
             buf[n:dirty] = 0
 
+    def _zero_pad_rows_sharded(self, buf: np.ndarray, shape: tuple, idx, real: set,
+                               bucket: int, touched: int) -> None:
+        """The sharded twin of _zero_pad_rows: the padding is interleaved
+        (each segment pads on its own), so the dirty rows are every row of
+        the dirty extent without a real frame. After this, rows >= bucket
+        are zero (fill == bucket) and so are the pad rows inside the
+        view."""
+        touched = min(max(touched, bucket), buf.shape[0])
+        dirty = touched
+        if idx is not None:
+            with self._pool_lock:
+                fill = self._pool[shape]["fill"]
+                dirty = max(fill.get(idx, 0), touched)
+                fill[idx] = bucket
+        for r in range(dirty):
+            if r not in real:
+                buf[r] = 0
+
+    def _finish_sharded(self, buf: np.ndarray, shape: tuple, idx, per: List[list],
+                        seg_src: int, bucket: int, touched: int, *, src_hw: tuple,
+                        model: str) -> BatchGroup:
+        """Compact each slot's rows from the allocation's spacing
+        (``seg_src`` rows a slot) to the final bucket's, zero the dirty pad
+        rows and build the shard-segmented group. ``per[s]`` is slot s's
+        (device_id, meta) list in read order. With seg <= seg_src the
+        destination s * seg + i never passes the source s * seg_src + i,
+        and ascending (s, i) reads every source before a later destination
+        can land on it. One slot is the dense layout: nothing moves, the
+        pad rows are the tail and ``rows`` is None."""
+        seg = bucket // self._shards
+        ids: List[str] = []
+        metas: List[FrameMeta] = []
+        rows: List[int] = []
+        real: set = set()
+        for s, entries in enumerate(per):
+            for i, (device_id, meta) in enumerate(entries):
+                old = s * seg_src + i
+                new = s * seg + i
+                if new != old:
+                    buf[new] = buf[old]
+                ids.append(device_id)
+                metas.append(meta)
+                rows.append(new)
+                real.add(new)
+        if self._shards > 1:
+            self._zero_pad_rows_sharded(buf, shape, idx, real, bucket, touched)
+        else:
+            self._zero_pad_rows(buf, shape, idx, len(ids), touched)
+        group = BatchGroup(src_hw=src_hw, device_ids=ids, frames=buf[:bucket], metas=metas,
+                           bucket=bucket, model=model,
+                           rows=rows if self._shards > 1 else None)
+        self._lease(group, shape, idx)
+        return group
+
+    def _by_shard(self, devs: Sequence) -> List[list]:
+        """Split streams (or (device_id, ...) tuples) into per-slot lists,
+        in order within each slot."""
+        if self._shards == 1:
+            return [list(devs)]
+        out: List[list] = [[] for _ in range(self._shards)]
+        fn = self._shard_fn
+        for item in devs:
+            did = item if isinstance(item, str) else item[0]
+            s = stream_shard(did, self._shards) if fn is None else fn(did)
+            out[s % self._shards].append(item)
+        return out
+
+    def _sharded_bucket(self, need: int, buckets: Sequence[int]) -> int:
+        """The smallest bucket whose per-slot segment holds ``need`` rows."""
+        return next(b for b in buckets if b // self._shards >= need)
+
+    def repin(self, *, shards: int, shard_of=None,
+              buckets: Optional[Sequence[int]] = None) -> None:
+        """Swap the slot count and the routing in one tick-thread call: the
+        mesh at warmup (``shard_of`` None: ``stream_shard``) and a
+        survivor-mesh failover (a ``make_repin`` map; engine and collector
+        must share it). The live assembly window is dropped: its plan was
+        laid out under the old routing; its frames are still on their
+        rings and the next tick reads them (latest-wins, nothing lost).
+        ``buckets`` replaces the bucket list; those the new slot count
+        does not divide are dropped."""
+        self._window = None
+        self._shards = max(1, int(shards))
+        self._shard_fn = shard_of if self._shards > 1 else None
+        if buckets is not None:
+            sharded = tuple(sorted(b for b in buckets if b % self._shards == 0))
+            if sharded:
+                self._buckets = sharded
+
     # -- incremental assembly (between ticks) ----------------------------------
 
     def assemble_until(self, deadline: float, device_ids: Optional[Sequence[str]] = None,
@@ -538,18 +691,29 @@ class Collector:
                 plan.setdefault((model, geom), []).append(device_id)
         groups: Dict[tuple, dict] = {}
         of: Dict[str, tuple] = {}
+        shard_of: Dict[str, int] = {}
+        cap = max_bucket // self._shards
         for (model, geom), devs in sorted(plan.items()):
-            for ci, start in enumerate(range(0, len(devs), max_bucket)):
-                chunk = devs[start:start + max_bucket]
-                alloc = bucket_for(len(chunk), buckets)
+            # Shard-segmented window groups: a chunk fills when its fullest
+            # slot fills, and a stream's row is pinned inside its slot's
+            # segment (one slot: the dense layout).
+            by_shard = self._by_shard(devs)
+            n_chunks = max(((len(l) + cap - 1) // cap for l in by_shard if l), default=0)
+            for ci in range(n_chunks):
+                chunk = [l[ci * cap:(ci + 1) * cap] for l in by_shard]
+                alloc = self._sharded_bucket(max(len(l) for l in chunk), buckets)
                 shape = (alloc,) + geom
                 buf, bidx = self._pooled(shape)
                 key = (model, geom, ci)
                 groups[key] = {"model": model, "geom": geom, "shape": shape, "buf": buf,
-                               "idx": bidx, "ids": [], "metas": [], "slot": {}, "hw": 0}
-                for device_id in chunk:
-                    of[device_id] = key
-        self._window = {"groups": groups, "of": of, "spill": []}
+                               "idx": bidx, "per": [[] for _ in range(self._shards)],
+                               "entry": {}, "slot": {}, "seg": alloc // self._shards,
+                               "hw": 0}
+                for s, shard_devs in enumerate(chunk):
+                    for device_id in shard_devs:
+                        of[device_id] = key
+                        shard_of[device_id] = s
+        self._window = {"groups": groups, "of": of, "spill": [], "shard": shard_of}
 
     def assemble_step(self) -> int:
         """One pass over the planned streams: copy any newly published frame
@@ -570,7 +734,8 @@ class Collector:
                 continue   # idle ring: one cheap load
             g = win["groups"][key]
             slot = g["slot"].get(device_id)
-            t = slot if slot is not None else len(g["ids"])
+            s = win["shard"][device_id]
+            t = slot if slot is not None else g["seg"] * s + len(g["per"][s])
             g["hw"] = max(g["hw"], t + 1)
             res = self._bus.read_latest_into(device_id, g["buf"][t], min_seq=cursor)
             if res is None:
@@ -585,27 +750,18 @@ class Collector:
             seq, meta = res
             self._note_read(device_id, seq, meta)
             if slot is None:
-                g["slot"][device_id] = len(g["ids"])
-                g["ids"].append(device_id)
-                g["metas"].append(meta)
+                g["slot"][device_id] = t
+                g["entry"][device_id] = (s, len(g["per"][s]))
+                g["per"][s].append((device_id, meta))
             else:
-                g["metas"][slot] = meta
+                es, ei = g["entry"][device_id]
+                g["per"][es][ei] = (device_id, meta)
             got += 1
         for device_id in drifted:
             del win["of"][device_id]
         return got
 
     # -- the tick ----------------------------------------------------------------
-
-    def _fast_group(self, buf: np.ndarray, shape: tuple, idx, ids: list, metas: list,
-                    touched: int, buckets: Sequence[int], model: str) -> BatchGroup:
-        n = len(ids)
-        bucket = bucket_for(n, buckets)
-        self._zero_pad_rows(buf, shape, idx, n, touched)
-        group = BatchGroup(src_hw=shape[1:3], device_ids=ids, frames=buf[:bucket],
-                           metas=metas, bucket=bucket, model=model)
-        self._lease(group, shape, idx)
-        return group
 
     def _clip(self, device_id: str, frame: Frame, clip_len: int) -> "deque | None":
         """Append ``frame`` to the stream's window; the full window once it
@@ -630,7 +786,6 @@ class Collector:
             device_ids = self.inference_streams()
         self._begin_tick()
         buckets = self._effective_buckets()
-        max_bucket = buckets[-1]
         groups: List[BatchGroup] = []
         spill: List[tuple] = []
         planned: set = set()
@@ -643,12 +798,14 @@ class Collector:
             planned = set(win["of"])
             spill.extend(win["spill"])
             for _, g in sorted(win["groups"].items()):
-                if g["ids"]:
+                counts = [len(p) for p in g["per"]]
+                if any(counts):
                     # The full bucket list: the window's buffer predates any
-                    # cap and its size is a member of the full list >= n.
-                    groups.append(self._fast_group(g["buf"], g["shape"], g["idx"], g["ids"],
-                                                   g["metas"], g["hw"], self._buckets,
-                                                   g["model"]))
+                    # cap and its size is a member of the full list.
+                    groups.append(self._finish_sharded(
+                        g["buf"], g["shape"], g["idx"], g["per"], g["seg"],
+                        self._sharded_bucket(max(counts), self._buckets), g["hw"],
+                        src_hw=g["geom"][:2], model=g["model"]))
 
         fast: Dict[tuple, list] = {}
         slow: List[str] = []
@@ -663,36 +820,7 @@ class Collector:
                 fast.setdefault((model, geom), []).append(device_id)
 
         for (model, geom), devs in sorted(fast.items()):
-            for start in range(0, len(devs), max_bucket):
-                chunk = devs[start:start + max_bucket]
-                shape = (bucket_for(len(chunk), buckets),) + geom
-                buf, bidx = self._pooled(shape)
-                ids: List[str] = []
-                metas: List[FrameMeta] = []
-                touched = 0
-                for device_id in chunk:
-                    touched = max(touched, len(ids) + 1)
-                    cursor = self._cursors.get(device_id, 0)
-                    res = self._bus.read_latest_into(device_id, buf[len(ids)], min_seq=cursor)
-                    if res is None and self._rebase_if_restarted(device_id):
-                        res = self._bus.read_latest_into(device_id, buf[len(ids)], min_seq=0)
-                    if res is None:
-                        continue
-                    if isinstance(res, Frame):   # geometry drifted
-                        self._note_read(device_id, res.seq, res.meta)
-                        if res.data.ndim == 3:
-                            self._geom[device_id] = res.data.shape
-                        spill.append((device_id, model, res))
-                        continue
-                    seq, meta = res
-                    self._note_read(device_id, seq, meta)
-                    ids.append(device_id)
-                    metas.append(meta)
-                if ids:
-                    groups.append(self._fast_group(buf, shape, bidx, ids, metas, touched,
-                                                   buckets, model))
-                elif bidx is not None:
-                    self._unrotate(shape)
+            self._collect_fast(model, geom, devs, buckets, groups, spill)
 
         # The generic path: first sight, clips, drift.
         by_hw: Dict[tuple, list] = {}
@@ -716,22 +844,91 @@ class Collector:
                 by_hw.setdefault((model, 0, frame.data.shape), []).append(
                     (device_id, frame.meta, frame.data))
         for (model, clip_len, shape), items in sorted(by_hw.items()):
-            for start in range(0, len(items), max_bucket):
-                chunk = items[start:start + max_bucket]
-                n = len(chunk)
-                bucket = bucket_for(n, buckets)
-                sample_shape = ((clip_len,) + shape) if clip_len else shape
-                batch = self._alloc((bucket,) + sample_shape)
-                for i, (_, _, sample) in enumerate(chunk):
+            self._collect_generic(model, clip_len, shape, items, buckets, groups)
+        return groups
+
+    def _collect_fast(self, model: str, geom: tuple, devs: Sequence[str], buckets: tuple,
+                      groups: List[BatchGroup], spill: List[tuple]) -> None:
+        """The fast path (the JAX collector's ``_collect_fast_sharded`` and
+        its dense loop): one (model, geometry) stream set -> pooled,
+        bucket-padded, shard-segmented batches (one slot: dense), chunked to
+        the largest bucket. Each stream is read straight into its slot's
+        segment at the allocation's spacing; the final bucket is the
+        smallest whose segment holds the fullest slot, and _finish_sharded
+        compacts the segments to it."""
+        S = self._shards
+        cap = buckets[-1] // S
+        by_shard = self._by_shard(devs)
+        n_chunks = max(((len(l) + cap - 1) // cap for l in by_shard if l), default=0)
+        for c in range(n_chunks):
+            chunk = [l[c * cap:(c + 1) * cap] for l in by_shard]
+            alloc = self._sharded_bucket(max(len(l) for l in chunk), buckets)
+            shape = (alloc,) + geom
+            batch, bidx = self._pooled(shape)
+            seg_a = alloc // S
+            per: List[list] = [[] for _ in range(S)]
+            touched = 0
+            for s, shard_devs in enumerate(chunk):
+                for device_id in shard_devs:
+                    t = s * seg_a + len(per[s])
+                    touched = max(touched, t + 1)
+                    cursor = self._cursors.get(device_id, 0)
+                    res = self._bus.read_latest_into(device_id, batch[t], min_seq=cursor)
+                    if res is None and self._rebase_if_restarted(device_id):
+                        res = self._bus.read_latest_into(device_id, batch[t], min_seq=0)
+                    if res is None:
+                        continue
+                    if isinstance(res, Frame):   # geometry drifted
+                        self._note_read(device_id, res.seq, res.meta)
+                        if res.data.ndim == 3:
+                            self._geom[device_id] = res.data.shape
+                        spill.append((device_id, model, res))
+                        continue
+                    seq, meta = res
+                    self._note_read(device_id, seq, meta)
+                    per[s].append((device_id, meta))
+            counts = [len(p) for p in per]
+            if not any(counts):
+                if bidx is not None:
+                    self._unrotate(shape)
+                continue
+            groups.append(self._finish_sharded(
+                batch, shape, bidx, per, seg_a, self._sharded_bucket(max(counts), buckets),
+                touched, src_hw=geom[:2], model=model))
+
+    def _collect_generic(self, model: str, clip_len: int, shape: tuple,
+                         items: Sequence[tuple], buckets: tuple,
+                         groups: List[BatchGroup]) -> None:
+        """The generic path (first sight, clips, drift; the JAX collector's
+        ``_collect_generic_sharded`` and its dense loop): a fresh buffer,
+        each sample written at the final bucket's spacing, so nothing
+        compacts, and each segment's tail zeroed (one slot: dense)."""
+        S = self._shards
+        cap = buckets[-1] // S
+        by_shard = self._by_shard(items)
+        n_chunks = max(((len(l) + cap - 1) // cap for l in by_shard if l), default=0)
+        sample_shape = ((clip_len,) + shape) if clip_len else shape
+        for c in range(n_chunks):
+            chunk = [l[c * cap:(c + 1) * cap] for l in by_shard]
+            bucket = self._sharded_bucket(max(len(l) for l in chunk), buckets)
+            seg = bucket // S
+            batch = self._alloc((bucket,) + sample_shape)
+            ids: List[str] = []
+            metas: List[FrameMeta] = []
+            rows: List[int] = []
+            for s, shard_items in enumerate(chunk):
+                for i, (device_id, meta, sample) in enumerate(shard_items):
+                    r = s * seg + i
                     if clip_len:
                         for t, f in enumerate(sample):
-                            batch[i, t] = f.data
+                            batch[r, t] = f.data
                     else:
-                        batch[i] = sample
-                if bucket != n:
-                    batch[n:] = 0
-                groups.append(BatchGroup(
-                    src_hw=shape[:2], device_ids=[d for d, _, _ in chunk], frames=batch,
-                    metas=[m for _, m, _ in chunk], bucket=bucket, model=model,
-                ))
-        return groups
+                        batch[r] = sample
+                    ids.append(device_id)
+                    metas.append(meta)
+                    rows.append(r)
+                if len(shard_items) < seg:
+                    batch[s * seg + len(shard_items):(s + 1) * seg] = 0
+            groups.append(BatchGroup(src_hw=shape[:2], device_ids=ids, frames=batch,
+                                     metas=metas, bucket=bucket, model=model,
+                                     rows=rows if S > 1 else None))

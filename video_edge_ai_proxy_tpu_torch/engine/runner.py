@@ -119,12 +119,42 @@ whose enter and exit events go to the metrics, the uplink
 (``type="cascade"``) and, on enter, the archive. Both are off by default
 and leave the classic path as it was.
 
-The fault domain, the capacity plane and the mesh paths are later slices.
+Data-parallel serving over a mesh of device slots (``cfg.mesh``,
+``parallel/mesh.py``): the slots come from the engine's slot list (by
+default the visible cards; the CPU tests pass N slots of ``cpu``, the
+card's smoke two slots of ``cuda:0``). Every collected batch is
+shard-segmented (``engine/collector.py``: slot s owns rows [s * B / dp,
+(s + 1) * B / dp) and a stream's rows stay on its slot), the transfer
+stage copies each slot's rows to the slot's device, and each slot steps
+its own rows on its own stream with a program of its own: on the card one
+CUDA graph per (model, stem, geometry, bucket, slot), in a graph memory
+pool per slot, since two slots' graphs replay concurrently. The weights
+are one copy per distinct device. The thumbnails (``_ShardedThumbPool``),
+the ROI canvases (packed per slot) and the cascade's clip rings
+(``ShardedTrackStatePool``) live on the slot that serves their stream. The
+drain reads each slot's outputs back and joins them in row order; the
+perf and capacity planes charge each slot that carried frames the batch's
+device time. No collective runs: a dp mesh needs none.
+
+The device-fault domain (``cfg.fault``, ``engine/fault.py``): every frame
+that enters the pipeline is counted out as emitted or as a reasoned drop
+(``FaultLedger``); a step error that names a slot (its ``fault_shard``, a
+CUDA error raised by that slot's step, or a device name only that slot
+holds) marks the slot faulted, and a drain overrunning the dispatch
+deadline on ``fault_hysteresis`` consecutive batches opens a stall
+suspicion that a round trip a slot attributes (``_probe_shards``). The
+tick thread then fails over at the top of its next tick
+(``_execute_failover``, the JAX engine's order): flush the drain, rebuild
+the mesh over the survivors in their old order, re-place and reset the
+sharded carry state (counted), re-pin the dead slot's streams
+(``make_repin``), recapture the programs the manifest holds for the new
+mesh, and record the event. ``fault=False`` leaves it all out.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import logging
@@ -166,7 +196,9 @@ from ..utils.config import EngineConfig
 from ..utils.logging import ContextFilter, log_context
 from . import aot_cache
 from .classes import class_name
-from .collector import BatchGroup, CanvasPacker, Collector, bucket_for, host_empty
+from .collector import (
+    BatchGroup, CanvasPacker, Collector, bucket_for, host_empty, make_repin, stream_shard,
+)
 from .tracker import IoUTracker
 
 log = logging.getLogger("vep.torch.engine.runner")
@@ -375,13 +407,14 @@ def admitted_streams(inferred: Sequence[str], deprioritized: Sequence[str] = ())
 
 
 def shed_stale(group: BatchGroup, now_ms: float, max_staleness_ms: float,
-               buckets: Sequence[int]):
+               buckets: Sequence[int], shards: int = 1):
     """Ladder rung ``shed``: drop the frames older than the staleness bound
     from a collected group before dispatch. Fresh rows compact in place
-    within the pooled buffer (the lease is untouched) and the view
-    re-slices to the smallest covering bucket. Returns ``(group, shed)``;
-    group is None when every row was stale (the caller releases the lease).
-    Frames without a capture timestamp count as fresh."""
+    within the pooled buffer (the lease is untouched; a shard-segmented
+    group compacts within each slot's segment) and the view re-slices to
+    the smallest covering bucket. Returns ``(group, shed)``; group is None
+    when every row was stale (the caller releases the lease). Frames
+    without a capture timestamp count as fresh."""
     keep = [i for i, m in enumerate(group.metas)
             if not m.timestamp_ms or now_ms - m.timestamp_ms <= max_staleness_ms]
     shed = len(group.metas) - len(keep)
@@ -395,6 +428,8 @@ def shed_stale(group: BatchGroup, now_ms: float, max_staleness_ms: float,
                               trace_id=trace_id_of(m, group.device_ids[i]))
     if not keep:
         return None, shed
+    if group.rows is not None and shards > 1:
+        return _compact_sharded(group, keep, buckets, shards), shed
     for new_i, old_i in enumerate(keep):
         if new_i != old_i:
             group.frames[new_i] = group.frames[old_i]
@@ -408,6 +443,69 @@ def shed_stale(group: BatchGroup, now_ms: float, max_staleness_ms: float,
     group.frames = view
     group.bucket = bucket
     return group, shed
+
+
+def _compact_sharded(group: BatchGroup, keep: List[int], buckets: Sequence[int],
+                     shards: int) -> BatchGroup:
+    """Keep-list compaction of a shard-segmented group (stale shedding and
+    the ROI path's full rows): the rows that stay compact within their
+    slot's segment (a row never moves to another slot), and the group
+    re-slices to the smallest bucket whose segment holds the fullest
+    slot. The moves run in ascending source row, so each reads an
+    untouched source."""
+    seg_src = group.bucket // shards
+    per: Dict[int, List[int]] = {}
+    for i in keep:
+        per.setdefault(group.rows[i] // seg_src, []).append(i)
+    k_max = max(len(v) for v in per.values())
+    bucket = next(b for b in sorted(buckets) if b % shards == 0 and b // shards >= k_max)
+    seg = bucket // shards
+    moves = [(s * seg + j, i) for s, slots in per.items() for j, i in enumerate(slots)]
+    # seg <= seg_src: within a slot each destination is at or below its
+    # source and slots only move down.
+    moves.sort(key=lambda m: group.rows[m[1]])
+    occupied = set()
+    for dst, i in moves:
+        src = group.rows[i]
+        if dst != src:
+            group.frames[dst] = group.frames[src]
+        occupied.add(dst)
+    group.device_ids = [group.device_ids[i] for _, i in moves]
+    group.metas = [group.metas[i] for _, i in moves]
+    group.rows = [dst for dst, _ in moves]
+    view = group.frames[:bucket]
+    for r in range(bucket):
+        if r not in occupied:
+            view[r] = 0
+    group.frames = view
+    group.bucket = bucket
+    return group
+
+
+def _group_slots(group: BatchGroup) -> int:
+    """The stream results a group emits when healthy: the unit the
+    FaultLedger conserves. A coast group emits one a coast entry, a canvas
+    group one a distinct crop stream, a classic group one an occupied
+    row."""
+    if group.coast:
+        return len(group.coast)
+    if group.crops:
+        return len({c.device_id for c in group.crops})
+    return len(group.device_ids)
+
+
+def _slot_rows(group: BatchGroup, shards: int) -> List[List[tuple]]:
+    """Each slot's (index in ``device_ids``, row within its segment) pairs
+    in row order: the shard-segmented layout's rows, or rows 0..n-1 of a
+    dense group (dp=1)."""
+    seg = max(1, group.bucket // shards)
+    rows = group.rows if group.rows is not None else range(len(group.device_ids))
+    per: List[List[tuple]] = [[] for _ in range(shards)]
+    for j, r in enumerate(rows):
+        per[r // seg].append((j, r % seg))
+    for entries in per:
+        entries.sort(key=lambda e: e[1])
+    return per
 
 
 # -- per-stream and pipeline accounting ----------------------------------------
@@ -479,6 +577,13 @@ class PipelineStats:
     emit_ms: float = 0.0          # the emit loop over a batch's slots
     track_ms: float = 0.0         # of it, the tracker
     harvest_ms: float = 0.0       # of it, the cascade's harvest (cfg.cascade)
+    # Mesh serving: the slot sub-batches stepped (a group on a dp mesh is
+    # dp of them, each one launch of the slot's step).
+    slot_batches: int = 0
+    # Kernel launches of program builds, by kernel wrapper name: each
+    # capture's eager warm-up calls, compile_for's calls over zero rows and
+    # start()'s warm-up batches. Every other launch is a dispatched batch's.
+    build_launches: Dict[str, int] = field(default_factory=dict)
 
 
 # -- device state and the in-flight pipeline -------------------------------------
@@ -497,6 +602,11 @@ class _Inflight:
     # A warm-up batch (start() on the card): read back, not emitted; the
     # drain sets the event once it is through.
     warm: Optional[threading.Event] = None
+    # A mesh batch: ``outputs`` is one dict a slot, ``slot_events`` each
+    # slot's (slot, start, done) with CUDA events (None on the CPU), and
+    # ``mesh`` the mesh it was dispatched on.
+    slot_events: Optional[list] = None
+    mesh: object = None
 
 
 class _ThumbPool:
@@ -523,6 +633,9 @@ class _ThumbPool:
 
     def __iter__(self):
         return iter(list(self._slots))
+
+    def __len__(self) -> int:
+        return len(self._slots)
 
     def nbytes(self) -> int:
         """Device bytes of the pool now (rows stay allocated after their
@@ -555,44 +668,79 @@ class _ThumbPool:
             return idx.pin_memory().to(self.device, non_blocking=True)
         return idx
 
-    def gather(self, device_ids: Sequence[str], bucket: int) -> torch.Tensor:
-        """Previous-tick [bucket, th, tw] thumbnails of a batch, slot order."""
+    def gather(self, device_ids: Sequence[str], bucket: int,
+               rows: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """Previous-tick [bucket, th, tw] thumbnails of a batch: stream i's
+        at row ``rows[i]`` (default: i), zeros elsewhere."""
         self._ensure(1)
-        rows = [self._slots.get(d, 0) for d in device_ids]
-        rows += [0] * (bucket - len(rows))
-        return self._pool.index_select(0, self._to_device(rows))
+        if rows is None:
+            idx = [self._slots.get(d, 0) for d in device_ids]
+            idx += [0] * (bucket - len(idx))
+        else:
+            idx = [0] * bucket
+            for d, r in zip(device_ids, rows):
+                idx[r] = self._slots.get(d, 0)
+        return self._pool.index_select(0, self._to_device(idx))
 
-    def scatter(self, device_ids: Sequence[str], thumbs: torch.Tensor) -> None:
-        """Store this tick's thumbnails (rows 0..n-1 of ``thumbs``) for the
-        next tick's diff; assigns rows on first sight."""
-        rows = []
+    def scatter(self, device_ids: Sequence[str], thumbs: torch.Tensor,
+                rows: Optional[Sequence[int]] = None) -> None:
+        """Store this tick's thumbnails (stream i's at row ``rows[i]`` of
+        ``thumbs``, default rows 0..n-1) for the next tick's diff; assigns
+        pool rows on first sight."""
+        rows_ = []
         for d in device_ids:
             row = self._slots.get(d)
             if row is None:
                 row = self._free.pop() if self._free else self._high + 1
                 self._high = max(self._high, row)
                 self._slots[d] = row
-            rows.append(row)
-        if not rows:
+            rows_.append(row)
+        if not rows_:
             return
-        self._ensure(max(rows) + 1)
-        self._pool.index_copy_(0, self._to_device(rows), thumbs[:len(rows)])
+        self._ensure(max(rows_) + 1)
+        src = thumbs[:len(rows_)] if rows is None else thumbs[list(rows)]
+        self._pool.index_copy_(0, self._to_device(rows_), src)
+
+
+class _ShardedThumbPool:
+    """The quality thumbnails under a mesh: one ``_ThumbPool`` a slot, on
+    the slot's device, so a stream's previous thumbnail lives on the slot
+    that serves its frames; gathered and scattered on the slot's stream by
+    its own step (``subs[s].gather``, ``subs[s].scatter``). ``pop`` for
+    the stream GC, ``len`` for the failover's evacuation count, ``nbytes``
+    per slot (the sharded pool shape of ``obs/hbm.py``)."""
+
+    def __init__(self, side: int, *, mesh, shards: int, shard_of: Callable[[str], int]):
+        self.side = int(side)
+        self.shards = int(shards)
+        self._shard_of = shard_of
+        self.subs = [_ThumbPool(side, slot.device) for slot in mesh.slots[:self.shards]]
+
+    def __len__(self) -> int:
+        return sum(len(sub) for sub in self.subs)
+
+    def pop(self, device_id: str) -> None:
+        self.subs[self._shard_of(device_id) % self.shards].pop(device_id)
+
+    def nbytes(self) -> Dict[str, int]:
+        return {str(s): sub.nbytes() for s, sub in enumerate(self.subs)}
 
 
 class _Prefetched:
     """Handle of one batch placement in flight on the transfer thread."""
 
     __slots__ = ("group", "ready", "placed", "event", "error", "transfer_ms",
-                 "overlapped_ms")
+                 "overlapped_ms", "slot")
 
     def __init__(self, group: BatchGroup):
         self.group = group
         self.ready = threading.Event()
-        self.placed: Optional[torch.Tensor] = None
-        self.event = None              # the copy's CUDA event (None on the CPU)
+        self.placed = None             # a tensor; on a mesh one a slot
+        self.event = None              # the copy's CUDA event(s) (None on the CPU)
         self.error: Optional[BaseException] = None
         self.transfer_ms = 0.0
         self.overlapped_ms = 0.0       # transfer time while a batch was in flight
+        self.slot = 0                  # which of the key's two input slots
 
 
 class _PrefetchStage:
@@ -605,12 +753,22 @@ class _PrefetchStage:
     nothing reads the leased host buffer after its handle is ready. An
     error on the transfer thread is stored on the handle and raised on the
     tick thread. Its pinned slots are the collector's leased pool buffers:
-    one is rewritten only after its lease returns."""
+    one is rewritten only after its lease returns.
+
+    On a mesh (``mesh`` set by the engine) a placement is one copy a slot,
+    each slot's rows to its device (``parallel/sharding.py``
+    ``shard_put``), on a transfer stream a device. Double-buffer parity is
+    kept per (slot, model, geometry, bucket) for attribution; a failover
+    resets it (``reset``) and the next placement starts at parity 0."""
 
     DEPTH = 2
 
-    def __init__(self, device: torch.device, drain_q: queue.Queue):
+    def __init__(self, device: torch.device, drain_q: queue.Queue, shards: int = 1):
         self._device = device
+        self.mesh = None
+        self.shards = int(shards)
+        self._slots: Dict[tuple, int] = {}
+        self._streams: Dict[torch.device, "torch.cuda.Stream"] = {}
         # A dispatched batch is in flight while the drain queue has
         # unfinished tasks (put at dispatch, done after emit).
         self._drain_q = drain_q
@@ -625,7 +783,17 @@ class _PrefetchStage:
     def nbytes(self) -> int:
         """Device bytes of placements resolved and not yet dispatched."""
         with self._parked_lock:
-            return sum(int(t.nbytes) for t in self._parked.values())
+            return sum(int(t.nbytes) for p in self._parked.values()
+                       for t in (p if isinstance(p, list) else (p,)))
+
+    def reset(self, shards: int, mesh=None) -> None:
+        """Survivor-mesh failover: parity keyed on the old slot count means
+        nothing once the mesh shrinks; it is dropped and restarts at slot
+        0. The failover flushed the pipeline first, so no key is in
+        flight."""
+        self.shards = max(1, int(shards))
+        self.mesh = mesh
+        self._slots.clear()
 
     def unpark(self, pre: "_Prefetched") -> None:
         """The tick thread took ``pre``'s placement (or gave it up)."""
@@ -641,6 +809,8 @@ class _PrefetchStage:
         are refused: there is no synchronous copy. On the CPU (only when
         the caller asked for it) the placement is a plain copy."""
         host = torch.from_numpy(frames)
+        if self.mesh is not None:
+            return self._place_mesh(host)
         if self._device.type != "cuda":
             return host.clone(), None, 0.0
         if not host.is_pinned():
@@ -656,6 +826,38 @@ class _PrefetchStage:
             end.record()
         end.synchronize()
         return placed, end, start.elapsed_time(end)
+
+    def _place_mesh(self, host: torch.Tensor):
+        """One copy a slot on a transfer stream a device -> (the slots'
+        tensors, each slot's copy event, copy ms: the longest device's
+        span). Returns once every copy has completed."""
+        from ..parallel import batch_sharding, shard_put
+
+        sharding = batch_sharding(self.mesh, host.dim())
+        if self._device.type != "cuda":
+            return shard_put(host, sharding), [None] * self.mesh.size, 0.0
+        if not host.is_pinned():
+            raise RuntimeError("frames to place must lie in pinned host memory")
+        devices = self.mesh.distinct_devices()
+        for d in devices:
+            if d not in self._streams:
+                self._streams[d] = torch.cuda.Stream(d)
+        marks = {}
+        for d in devices:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(self._streams[d])
+            marks[d] = start
+        pieces = shard_put(host, sharding, streams=self._streams)
+        ends = {}
+        for d in devices:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(self._streams[d])
+            ends[d] = end
+        ms = 0.0
+        for d in devices:
+            ends[d].synchronize()
+            ms = max(ms, marks[d].elapsed_time(ends[d]))
+        return pieces, [ends[slot.device] for slot in self.mesh.slots], ms
 
     def _busy(self) -> bool:
         return self._drain_q.unfinished_tasks > 0
@@ -681,6 +883,11 @@ class _PrefetchStage:
         """Queue a placement; blocks while both slots are taken. None on
         shutdown (the caller returns the lease)."""
         pre = _Prefetched(group)
+        keys = [(s, group.model, group.src_hw, group.bucket)
+                for s in range(self.shards if group.rows is not None else 1)]
+        pre.slot = self._slots.get(keys[0], 0)
+        for key in keys:
+            self._slots[key] = self._slots.get(key, 0) ^ 1
         while not stop_event.is_set():
             try:
                 self._q.put(pre, timeout=0.1)
@@ -750,7 +957,8 @@ class _GraphedStep:
     Launch counts: a kernel wrapper counts when Python calls it, which
     inside a capture records a launch but runs none. The capture's counts
     are taken back and added at every replay, so each wrapper's count stays
-    the number of launches the device ran.
+    the number of launches the device ran. The eager warm-up calls run
+    inside ``building()``, the engine's count of build launches.
     """
 
     WARMUP_CALLS = 3
@@ -760,8 +968,11 @@ class _GraphedStep:
                  pool: Callable[[], tuple],
                  on_capture: Callable[[float], None],
                  on_capture_failed: Callable[[BaseException], None] = lambda exc: None,
-                 flops: Optional[float] = None):
+                 flops: Optional[float] = None,
+                 building: Callable[[], "contextlib.AbstractContextManager"] = (
+                     contextlib.nullcontext)):
         self._build = build
+        self._building = building
         self._pool = pool
         self._on_capture = on_capture
         self._on_capture_failed = on_capture_failed
@@ -808,13 +1019,14 @@ class _GraphedStep:
 
         step = self._build()
         args = (self.frames_in,) if self.thumbs_in is None else (self.frames_in, self.thumbs_in)
-        if self._known_flops:
-            step(*args)
-            self.flops = float(self._known_flops)
-        else:
-            _, self.flops = count_flops(step, *args)
-        for _ in range(self.WARMUP_CALLS - 1):
-            step(*args)
+        with self._building():
+            if self._known_flops:
+                step(*args)
+                self.flops = float(self._known_flops)
+            else:
+                _, self.flops = count_flops(step, *args)
+            for _ in range(self.WARMUP_CALLS - 1):
+                step(*args)
         counters = launch_counters()
         before = [w.launches for w in counters]
         graph = torch.cuda.CUDAGraph()
@@ -907,6 +1119,73 @@ def _record_after_first_success(step: Callable, record: Callable[[], None]) -> C
         return out
 
     return recorded
+
+
+class _MeshStep:
+    """The program of one step-cache key on a dp mesh: one step a slot, each
+    over ``bucket / dp`` rows on its slot's device (on the card a
+    ``_GraphedStep`` captured on the slot's stream into the slot's graph
+    pool, on the CPU the eager step). ``on_first_success``: called once,
+    after the key's first dispatch that returned (the manifest record)."""
+
+    __slots__ = ("steps", "on_first_success")
+
+    def __init__(self, steps: Sequence[Callable],
+                 on_first_success: Optional[Callable[[], None]] = None):
+        self.steps = list(steps)
+        self.on_first_success = on_first_success
+
+    def succeeded(self) -> None:
+        if self.on_first_success is not None:
+            record, self.on_first_success = self.on_first_success, None
+            record()
+
+
+class _MeshBuild:
+    """Folds the per-slot builds of one mesh key into one program note:
+    when every slot has built (on the card, captured), ``done`` gets the
+    summed seconds, FLOPs (the whole batch's, as the JAX engine's one
+    sharded program counts them), static input and output bytes and
+    graph pool growth."""
+
+    def __init__(self, slots: int, done: Callable[[dict], None]):
+        self._left = int(slots)
+        self._sum = {"seconds": 0.0, "flops": 0.0, "input_bytes": 0, "output_bytes": 0,
+                     "pool_growth": 0}
+        self._done = done
+        self._lock = threading.Lock()
+
+    def note(self, seconds: float, flops: float, graph: Optional["_GraphedStep"] = None) -> None:
+        with self._lock:
+            self._sum["seconds"] += float(seconds)
+            self._sum["flops"] += float(flops or 0.0)
+            if graph is not None:
+                self._sum["input_bytes"] += graph.input_bytes
+                self._sum["output_bytes"] += graph.output_bytes
+                self._sum["pool_growth"] += graph.pool_growth
+            self._left -= 1
+            finished = self._left == 0
+        if finished:
+            self._done(dict(self._sum))
+
+
+def _slot_event(slot) -> Optional["torch.cuda.Event"]:
+    """A timing event recorded now on a mesh slot's stream; None on the
+    CPU, where a slot has no stream."""
+    if slot.stream is None:
+        return None
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(slot.stream)
+    return event
+
+
+def _is_device_error(exc: BaseException) -> bool:
+    """A CUDA error (torch raises them as ``torch.AcceleratorError`` or as a
+    RuntimeError whose message starts "CUDA error"): raised by a slot's
+    step, it is attributed to that slot."""
+    accel = getattr(torch, "AcceleratorError", None)
+    return ((accel is not None and isinstance(exc, accel))
+            or str(exc).startswith("CUDA error"))
 
 
 class _RoiGate:
@@ -1006,7 +1285,11 @@ class InferenceEngine:
     instead of one of the engine's own, with ``cfg.journal`` on;
     ``archiver``: where the cascade's enter events archive their clips
     (anything with ``submit(GopSegment)``, e.g. ``ingest/archive.py``
-    ``SegmentArchiver``; None: no archive).
+    ``SegmentArchiver``; None: no archive). ``slots``: the device list a
+    ``cfg.mesh`` is built over, which may repeat a device (default: the
+    visible cards on the card, the engine's one device on the CPU); the
+    engine never invents slots, so a mesh larger than the list raises at
+    warmup.
     """
 
     # Per-stream state of a stream absent from the bus this long is dropped;
@@ -1024,9 +1307,23 @@ class InferenceEngine:
                  annotations=None,
                  model_resolver: Optional[Callable[[str], str]] = None,
                  annotation_policy_resolver: Optional[Callable[[str], str]] = None,
-                 journal=None, archiver=None):
+                 journal=None, archiver=None, slots: Optional[Sequence] = None):
         self._device = resolve_device(device)
         self._cuda = self._device.type == "cuda"
+        self._slot_list = list(slots) if slots is not None else None
+        # Data-parallel serving (cfg.mesh, set up at warmup): the mesh, its
+        # dp size and the stream -> slot routing (stream_shard, or a
+        # failover's make_repin map). None / 1 / None: one device.
+        self._mesh = None
+        self._shards = 1
+        self._shard_of: Optional[Callable[[str], int]] = None
+        # Replicated weights: (model name, device) -> the module's copy on
+        # a device of the mesh other than the engine's own.
+        self._replicas: Dict[tuple, torch.nn.Module] = {}
+        # One graph memory pool a slot (slot -> handle): two slots' graphs
+        # replay concurrently, so they must not share temporaries.
+        self._slot_pools: Dict[int, tuple] = {}
+        self._d2h_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
         self._cfg = cfg or EngineConfig()
         # The stem of every program (a key axis), and the quantization.
         self._stem = self._cfg.stem or "classic"
@@ -1148,6 +1445,7 @@ class InferenceEngine:
         self._checksum = 0
         self._pipe = PipelineStats()
         self._pipe_lock = threading.Lock()
+        self._build_depth = threading.local()   # _building's nesting, a thread
         # Streams: the compute stream carries the steps and the thumbnail
         # pool, the read-back stream the drain's D2H copies (made by
         # warmup(), on the engine's device); the transfer stage owns the
@@ -1200,6 +1498,20 @@ class InferenceEngine:
                 slow_window_s=self._cfg.capacity_slow_window_s,
                 util_objective=self._cfg.capacity_util_objective,
                 eval_interval_s=self._cfg.capacity_eval_interval_s)
+        # The device-fault domain (cfg.fault): the dispatch error and drain
+        # deadline watchdog, the survivor-mesh failover and the frame
+        # ledger. None when off: no tap anywhere, /api/v1/faults answers
+        # 400.
+        self.faults = None
+        if self._cfg.fault:
+            from .fault import FaultPlane
+
+            self.faults = FaultPlane(
+                deadline_ms=self._cfg.fault_dispatch_deadline_ms,
+                hysteresis=self._cfg.fault_hysteresis,
+                failover_budget_ms=self._cfg.fault_failover_budget_ms,
+                probe_timeout_ms=self._cfg.fault_probe_timeout_ms,
+                journal=self.journal)
         # _watch_tick's state (tick thread only): the effective drain
         # depth, the step-cache misses seen and the consecutive-miss streak.
         self._bp_depth = 0
@@ -1316,6 +1628,9 @@ class InferenceEngine:
                 torch.cuda.synchronize(self._device)
             entry = (spec, module)
             self._models[name] = entry
+            if self._mesh is not None:
+                for d in self._mesh.distinct_devices():
+                    self._module_on(name, module, d)
             log.info("engine loaded extra model '%s' (kind=%s)", name, spec.kind)
         return entry
 
@@ -1452,6 +1767,159 @@ class InferenceEngine:
             if self._compute is None:
                 self._compute = torch.cuda.Stream(self._device)
                 self._d2h = torch.cuda.Stream(self._device)
+        self._setup_mesh()
+
+    # -- the mesh (cfg.mesh) --------------------------------------------------
+
+    def _slot_devices(self) -> List[torch.device]:
+        """The slot list a mesh is built over: the one given, else the
+        visible cards (the card) or the engine's one device (the CPU)."""
+        if self._slot_list is not None:
+            return [torch.device(d) for d in self._slot_list]
+        if self._cuda:
+            from ..parallel.mesh import default_devices
+
+            return default_devices()
+        return [self._device]
+
+    def _setup_mesh(self) -> None:
+        """``cfg.mesh`` -> the dp mesh over the slot list, once (warmup), as
+        the JAX engine builds it: "auto" puts every slot on dp, a dict
+        names the sizes and needs that many slots (more than the list
+        holds raises, as JAX's make_mesh does on fewer chips). Buckets the
+        dp size does not divide are dropped."""
+        if not self._cfg.mesh or self._mesh is not None:
+            return
+        if self._cfg.quantize:
+            raise NotImplementedError(
+                f"engine.quantize={self._cfg.quantize!r} under engine.mesh: the int8 variants "
+                "on a mesh are a later slice of the port")
+        from ..parallel import factor_mesh, make_mesh
+
+        devices = self._slot_devices()
+        if isinstance(self._cfg.mesh, str):
+            if self._cfg.mesh != "auto":
+                raise ValueError(f"engine.mesh: unknown value {self._cfg.mesh!r}; use 'auto', "
+                                 "an axis dict like {'dp': 4}, or empty for one device")
+            mesh = factor_mesh(prefer=("dp",), devices=devices)
+        else:
+            n_need = 1
+            for v in self._cfg.mesh.values():
+                n_need *= int(v)
+            mesh = make_mesh(**{str(k): int(v) for k, v in self._cfg.mesh.items()},
+                             devices=devices[:n_need])
+        dp = mesh.shape["dp"]
+        buckets = tuple(b for b in self._cfg.batch_buckets if b % dp == 0) or (dp,)
+        self._install_mesh(mesh, functools.partial(stream_shard, shards=dp), None, buckets)
+        if self._cascade is not None:
+            self._cascade.configure_mesh(mesh=mesh, shards=dp, shard_of=self._shard_of)
+        log.info("engine mesh: %s (buckets -> %s)", mesh, self._buckets)
+
+    def _install_mesh(self, mesh, shard_of: Callable[[str], int],
+                      routing: Optional[Callable[[str], int]], buckets: tuple) -> None:
+        """Make ``mesh`` the serving mesh (warmup and failover): the routing
+        (``shard_of`` for the engine, ``routing`` for the collector: None =
+        its own stream_shard), the buckets, the collector's layout, the
+        canvas packer's bound, the transfer stage, a fresh sharded
+        thumbnail pool, the fault plane's slot names, and the weights on
+        every distinct device. The cascade is the caller's (configured at
+        warmup, reset at failover)."""
+        dp = mesh.shape["dp"]
+        self._mesh = mesh
+        self._shards = dp
+        self._shard_of = shard_of
+        self._buckets = tuple(sorted(buckets))
+        self._collector.repin(shards=dp, shard_of=routing, buckets=self._buckets)
+        if self._packer is not None:
+            self._packer = CanvasPacker(
+                side=self._cfg.roi_canvas, gap=self._cfg.roi_gap,
+                max_canvases=min(self._cfg.roi_max_canvases, max(self._buckets)),
+                min_crop=self._cfg.roi_min_crop)
+        self._xfer.reset(dp, mesh)
+        self._slot_pools = {}
+        self._thumbs = _ShardedThumbPool(self._cfg.quality_thumb, mesh=mesh, shards=dp,
+                                         shard_of=shard_of)
+        if self.hbm is not None:
+            self.hbm.register_pool("thumbs", self._thumbs.nbytes)
+        if self.faults is not None:
+            self.faults.configure(shards=dp, shard_devices=self._slot_names(mesh))
+        from ..parallel import replicated
+
+        for device in replicated(mesh).devices():
+            self._module_on(self._spec.name, self._model, device)
+            for name, (_, module) in list(self._models.items()):
+                self._module_on(name, module, device)
+
+    @staticmethod
+    def _slot_names(mesh) -> Dict[int, List[str]]:
+        """Slot -> the device names that attribute an error to it: a
+        device only that slot holds. A device several slots share names
+        none of them (its name in an error does not say which slot)."""
+        devices = [str(d) for d in mesh.devices]
+        return {s: [d] if devices.count(d) == 1 else [] for s, d in enumerate(devices)}
+
+    def _module_on(self, name: str, module: torch.nn.Module, device: torch.device):
+        """``module`` (the model ``name``) on ``device``: itself on the
+        engine's device, else one copy a device, made once (the slots of
+        one device share it)."""
+        if device == self._device:
+            return module
+        key = (name, str(device))
+        replica = self._replicas.get(key)
+        if replica is None:
+            replica = copy.deepcopy(module).to(device)
+            self._replicas[key] = replica
+        return replica
+
+    def _slot_graph_pool(self, slot: int) -> tuple:
+        """The graph memory pool of ``slot``, opened on first use."""
+        pool = self._slot_pools.get(slot)
+        if pool is None:
+            pool = torch.cuda.graph_pool_handle()
+            self._slot_pools[slot] = pool
+            self._graph_pools.append(pool)
+        return pool
+
+    def _retire_slot_pool(self, slot: int, exc: BaseException) -> None:
+        log.warning("graph capture on slot %d failed; its pool is retired: %r", slot, exc)
+        self._slot_pools.pop(slot, None)
+
+    def _mesh_program(self, name: str, src_hw: tuple, bucket: int,
+                      make_build: Callable[[torch.device], Callable], sample_shape: tuple,
+                      thumb: int, flops: Optional[float] = None,
+                      record: Optional[Callable[[], None]] = None) -> _MeshStep:
+        """The program of one key on the mesh: a step a slot over ``bucket
+        / dp`` rows (``make_build(device)`` builds a slot's eager step), its
+        builds folded into one note in ``perf`` (and ``hbm``)."""
+        def done(total: dict) -> None:
+            self.perf.note_compile(name, src_hw, bucket, total["seconds"],
+                                   cost={"flops": total["flops"]})
+            if self.hbm is not None and self._cuda:
+                self.hbm.note_program(name, src_hw, bucket, {
+                    "argument_bytes": total["input_bytes"],
+                    "output_bytes": total["output_bytes"],
+                    "temp_bytes": total["pool_growth"]}, stem=self._stem)
+
+        folder = _MeshBuild(self._shards, done)
+        seg = bucket // self._shards
+        slot_flops = flops / self._shards if flops else None
+        steps = [self._slot_program(s, slot, make_build(slot.device), (seg,) + sample_shape,
+                                    thumb, folder, slot_flops)
+                 for s, slot in enumerate(self._mesh.slots)]
+        return _MeshStep(steps, record)
+
+    def _slot_program(self, s: int, slot, build: Callable, shape: tuple, thumb: int,
+                      folder: _MeshBuild, flops: Optional[float]) -> Callable:
+        if slot.device.type != "cuda":
+            return _note_first_call(build(), folder.note)
+        graphed = _GraphedStep(
+            build, shape, (thumb, thumb) if thumb else None, device=slot.device,
+            pool=functools.partial(self._slot_graph_pool, s),
+            on_capture=lambda seconds: folder.note(seconds, graphed.flops, graphed),
+            on_capture_failed=functools.partial(self._retire_slot_pool, s), flops=flops,
+            building=self._building)
+        self._graphs.append(graphed)
+        return graphed
 
     def _load_checkpoint(self) -> None:
         """``cfg.checkpoint_path`` into the default model, fitted to its
@@ -1560,7 +2028,7 @@ class InferenceEngine:
 
             seen = {k for k in (entry_key(e) for e in entries) if k}
             programs = aot_cache.load_manifest(self._aot_dir) or []
-            for entry in aot_cache.prewarm_entries(programs):
+            for entry in aot_cache.prewarm_entries(programs, mesh=self._mesh):
                 key = entry_key(entry)
                 if key is not None and key not in seen:
                     seen.add(key)
@@ -1672,12 +2140,53 @@ class InferenceEngine:
         thumb = self._thumb_side(spec)
         shape = ((bucket,) + ((spec.clip_len,) if spec.clip_len else ())
                  + tuple(src_hw) + (3,))
-        with self._compute_stream(), torch.inference_mode():
+        with self._building(), self._compute_stream(), torch.inference_mode():
+            step = self._step(src_hw, bucket, spec.name)
+            if isinstance(step, _MeshStep):
+                # Each slot's program over its zero rows, on the slot.
+                seg = bucket // self._shards
+                for slot, fn in zip(self._mesh.slots, step.steps):
+                    with slot.context():
+                        args = [torch.zeros((seg,) + shape[1:], dtype=torch.uint8,
+                                            device=slot.device)]
+                        if thumb:
+                            args.append(torch.zeros((seg, thumb, thumb), dtype=torch.float32,
+                                                    device=slot.device))
+                        fn(*args)
+                step.succeeded()
+                return
             args = [torch.zeros(shape, dtype=torch.uint8, device=self._device)]
             if thumb:
                 args.append(torch.zeros((bucket, thumb, thumb),
                                         dtype=torch.float32, device=self._device))
-            self._step(src_hw, bucket, spec.name)(*args)
+            step(*args)
+
+    @contextlib.contextmanager
+    def _building(self):
+        """The kernel launches made inside, on this thread's watch, go to
+        ``PipelineStats.build_launches``: a program's build, not a
+        dispatched batch. Nested uses count once, at the outermost."""
+        from ..kernels import launch_counters
+
+        if getattr(self._build_depth, "n", 0):
+            self._build_depth.n += 1
+            try:
+                yield
+            finally:
+                self._build_depth.n -= 1
+            return
+        counters = launch_counters()
+        before = [w.launches for w in counters]
+        self._build_depth.n = 1
+        try:
+            yield
+        finally:
+            self._build_depth.n = 0
+            with self._pipe_lock:
+                for w, b in zip(counters, before):
+                    if w.launches != b:
+                        done = self._pipe.build_launches
+                        done[w.__name__] = done.get(w.__name__, 0) + w.launches - b
 
     def graph_stats(self) -> dict:
         """The captured graphs: how many, their capture seconds in all, and
@@ -1939,7 +2448,8 @@ class InferenceEngine:
     def pipeline_stats(self) -> PipelineStats:
         """A copy of the engine-wide totals."""
         with self._pipe_lock:
-            return PipelineStats(**vars(self._pipe))
+            return dataclasses.replace(self._pipe,
+                                       build_launches=dict(self._pipe.build_launches))
 
     @property
     def shed_frames(self) -> int:
@@ -2018,7 +2528,8 @@ class InferenceEngine:
                 torch.cuda.set_device(self._device)
             with self._compute_stream(), torch.inference_mode():
                 if self._cuda:
-                    self._warm_serving_path()
+                    with self._building():
+                        self._warm_serving_path()
                 self._warmed.set()
                 self._serve_ticks()
         except BaseException as exc:  # the thread cannot go on: record, end
@@ -2065,6 +2576,11 @@ class InferenceEngine:
         streams and the inferred subset), the ``admission_pause`` subset of
         the inferred, keep-hot of exactly what is inferred, collect, shed,
         dispatch, forget absent streams. Returns the streams inferred."""
+        if self.faults is not None and self.faults.pending():
+            # A faulted slot fails over here, at the top of the tick: the
+            # one point where this thread owns every mesh-coupled
+            # structure and nothing is mid-dispatch.
+            self._execute_failover()
         # With prefetch the depth-2 drain queue is full in healthy saturated
         # serving; only a handoff that had to block counts as backpressure.
         depth = self._drain_q.qsize()
@@ -2135,7 +2651,8 @@ class InferenceEngine:
         out: List[BatchGroup] = []
         tick_shed = 0
         for group in groups:
-            kept, shed = shed_stale(group, now_ms, self._cfg.shed_staleness_ms, self._buckets)
+            kept, shed = shed_stale(group, now_ms, self._cfg.shed_staleness_ms, self._buckets,
+                                    shards=self._shards)
             if shed:
                 with self._pipe_lock:
                     self._pipe.shed_frames += shed
@@ -2234,8 +2751,10 @@ class InferenceEngine:
                         continue
                     rects = self._track_rois(tracker) if verdict == "roi" else []
                     if rects:
+                        # A shard-segmented group's frame is at its row.
+                        fr = group.rows[i] if group.rows is not None else i
                         for rect in rects:
-                            reqs.append((device_id, group.metas[i], group.frames[i], rect))
+                            reqs.append((device_id, group.metas[i], group.frames[fr], rect))
                             req_row.append(i)
                     else:
                         full_rows.append(i)
@@ -2251,6 +2770,13 @@ class InferenceEngine:
             placements: list = []
             staged: dict = {}
             side = self._packer.side
+            cgroup = None
+            if reqs and self._shards > 1 and group.rows is not None:
+                # On a mesh each slot's crops pack onto that slot's own
+                # canvases: the scatter-back stays slot-local.
+                cgroup, placements, full_rows, n_used = self._pack_canvases_sharded(
+                    group, reqs, req_row, full_rows)
+                reqs = []
             if reqs:
                 def alloc(k: int) -> np.ndarray:
                     shape = (bucket_for(k, self._buckets), side, side, 3)
@@ -2271,7 +2797,11 @@ class InferenceEngine:
                     full_rows = sorted(set(full_rows) | spill_rows)
             self.perf.note_roi_gate(len(coast), len({p.device_id for p in placements}),
                                     len(full_rows))
-            if placements:
+            if cgroup is not None:
+                out.append(cgroup)
+                self.perf.note_roi_pack(len(placements), n_used,
+                                        CanvasPacker.area_fraction(placements, n_used, side))
+            elif placements:
                 n_used = 1 + max(p.canvas for p in placements)
                 metas = []
                 for ci in range(n_used):
@@ -2297,7 +2827,9 @@ class InferenceEngine:
                     src_hw=group.src_hw, device_ids=[c[0] for c in coast],
                     frames=np.empty((0,) + group.frames.shape[1:], group.frames.dtype),
                     metas=[c[1] for c in coast], bucket=0, model=group.model, coast=coast))
-            if full_rows:
+            if full_rows and group.rows is not None and self._shards > 1:
+                out.append(_compact_sharded(group, full_rows, self._buckets, self._shards))
+            elif full_rows:
                 for new_i, old_i in enumerate(full_rows):
                     if new_i != old_i:
                         group.frames[new_i] = group.frames[old_i]
@@ -2316,6 +2848,72 @@ class InferenceEngine:
                 # and the coast group hold copies).
                 self._collector.release(group)
         return out
+
+    def _pack_canvases_sharded(self, group: BatchGroup, reqs, req_row, full_rows):
+        """ROI packing on a mesh, as the JAX engine packs: each slot's crops
+        shelf-pack onto that slot's own canvases, and the canvas batch is
+        shard-segmented, so a canvas only carries crops of streams its slot
+        serves and the scatter-back's routing stays slot-local. The batch
+        is drawn in a pooled staging buffer (pinned on the card) leased to
+        the canvas group. Returns ``(canvas group or None, placements
+        kept, full_rows updated, canvas rows used)``. A spilled stream
+        falls back to the full-frame path as on one device; when no
+        bucket's segment holds a slot's canvases, every request does."""
+        S = self._shards
+        by_shard: Dict[int, List[int]] = {}
+        for ri, req in enumerate(reqs):
+            by_shard.setdefault(self._shard_of(req[0]) % S, []).append(ri)
+        packed: Dict[int, tuple] = {}
+        spill: set = set()
+        for sl, ris in sorted(by_shard.items()):
+            canvases, placements, overflow = self._packer.pack([reqs[ri] for ri in ris])
+            if overflow:
+                spill |= {reqs[ris[oi]][0] for oi in overflow}
+            packed[sl] = (canvases, placements)
+        if spill:
+            full_rows = sorted(set(full_rows) | {req_row[ri] for ri in range(len(reqs))
+                                                 if reqs[ri][0] in spill})
+        n_by_shard: Dict[int, int] = {}
+        for sl, (canvases, placements) in packed.items():
+            kept = [p for p in placements if p.device_id not in spill]
+            packed[sl] = (canvases, kept)
+            n_by_shard[sl] = (1 + max(p.canvas for p in kept)) if kept else 0
+        k_max = max(n_by_shard.values(), default=0)
+        if k_max == 0:
+            return None, [], full_rows, 0
+        bucket = next((b for b in self._buckets if b % S == 0 and b // S >= k_max), None)
+        if bucket is None:
+            return None, [], sorted(set(full_rows) | set(req_row)), 0
+        seg = bucket // S
+        side = self._packer.side
+        shape = (bucket, side, side, 3)
+        frames, idx = self._collector.staging_buffer(shape)
+        frames[:] = 0
+        rows: List[int] = []
+        device_ids: List[str] = []
+        metas: List[FrameMeta] = []
+        out_placements: list = []
+        for sl, (canvases, kept) in sorted(packed.items()):
+            if not kept:
+                continue
+            n_used = n_by_shard[sl]
+            frames[sl * seg:sl * seg + n_used] = canvases[:n_used]
+            for ci in range(n_used):
+                r = sl * seg + ci
+                pts = [p.meta.timestamp_ms or 0 for p in kept if p.canvas == ci]
+                rows.append(r)
+                device_ids.append(f"_canvas{r}")
+                metas.append(FrameMeta(width=side, height=side, channels=3,
+                                       timestamp_ms=min(pts) if pts else 0))
+            # A placement's canvas becomes its batch row, which the
+            # scatter-back indexes the outputs by.
+            out_placements.extend(dataclasses.replace(p, canvas=sl * seg + p.canvas)
+                                  for p in kept)
+        cgroup = BatchGroup(src_hw=(side, side), device_ids=device_ids, frames=frames,
+                            metas=metas, bucket=bucket, model=group.model, crops=out_placements,
+                            rows=rows)
+        self._collector.lease_staged(cgroup, shape, idx)
+        return cgroup, out_placements, full_rows, len(rows)
 
     def _coasted_detections(self, tracker, module) -> List[Detection]:
         """A gated-idle stream's results: its tracker advanced one frame
@@ -2390,6 +2988,8 @@ class InferenceEngine:
         label = f"cascade:{name}"
         key = (label, self._stem, (side, side), bucket)
         fn = self._steps.get(key)
+        if self._mesh is not None:
+            return self._cascade_head_mesh(pool, slot_idx, time_idx, n_real, key, fn, module)
         if fn is None:
             self._m_cache_miss.inc()
             build = functools.partial(_build_cascade_head, module, self._cfg.cascade_score_w,
@@ -2400,7 +3000,7 @@ class InferenceEngine:
                     pool=self._current_graph_pool,
                     on_capture=lambda seconds: self._note_graph(label, (side, side), bucket,
                                                                 graphed),
-                    on_capture_failed=self._retire_graph_pool)
+                    on_capture_failed=self._retire_graph_pool, building=self._building)
                 self._graphs.append(graphed)
                 fn = graphed
             else:
@@ -2427,6 +3027,46 @@ class InferenceEngine:
                              streams=0)
         return host, device_ms
 
+    def _cascade_head_mesh(self, pool, slot_idx: np.ndarray, time_idx: np.ndarray,
+                           n_real: int, key: tuple, fn, module) -> tuple:
+        """The head on the mesh: each slot's segment of the shard-segmented
+        head batch (``ShardedTrackStatePool.plan``) gathered from the slot's
+        ring and run by the slot's program on its stream; the outputs read
+        back and joined in row order. Device ms: the longest slot's span
+        (the CPU: the whole call's)."""
+        label, _, (side, _), bucket = key
+        name = self._cfg.cascade_model
+        if fn is None:
+            self._m_cache_miss.inc()
+            w, b = self._cfg.cascade_score_w, self._cfg.cascade_score_b
+            fn = self._mesh_program(
+                label, (side, side), bucket,
+                lambda dev: functools.partial(_build_cascade_head,
+                                              self._module_on(name, module, dev), w, b),
+                (pool.clip_len, side, side, 3), 0)
+            self._steps[key] = fn
+        else:
+            self._m_cache_hit.inc()
+        t0 = time.perf_counter()
+        pieces = pool.gather(slot_idx, time_idx)
+        host_parts = []
+        device_ms = 0.0
+        for slot, step, clips in zip(self._mesh.slots, fn.steps, pieces):
+            with slot.context():
+                start = _slot_event(slot)
+                out = step(clips)
+                done = _slot_event(slot)
+                host_parts.append({k: v.cpu().numpy() for k, v in out.items()})
+            if done is not None:
+                device_ms = max(device_ms, start.elapsed_time(done))
+        host = {k: np.concatenate([p[k] for p in host_parts], axis=0) for k in host_parts[0]}
+        if not self._cuda:
+            device_ms = (time.perf_counter() - t0) * 1000.0
+        self.perf.note_h2d(f"cascade/{name}", bucket, int(slot_idx.nbytes + time_idx.nbytes), 0.0)
+        self.perf.note_batch(f"cascade/{name}", (side, side), bucket, device_ms, n_real,
+                             streams=0)
+        return host, device_ms
+
     def _cascade_tick(self) -> None:
         """One scheduler tick and its outcome: the ``temporal`` lineage span
         of each sampled track the head read, and each event out to the
@@ -2442,11 +3082,18 @@ class InferenceEngine:
             # tracks' streams: raw cost in the ledger, cost / every_n in the
             # per-tick figure.
             side = self._cascade.side
+            streams = [stream for stream, _ in res.head_tracks]
+            shard_streams = None
+            if self._shards > 1 and streams:
+                shard_streams = {}
+                for stream in set(streams):
+                    shard_streams.setdefault(str(self._shard_of(stream) % self._shards),
+                                             []).append(stream)
             self.capacity.note_batch(
                 f"cascade/{self._cfg.cascade_model}", (side, side),
-                len(res.head_tracks) or 1, res.head_ms,
-                [stream for stream, _ in res.head_tracks],
-                kind="cascade", amortize_n=self._cfg.cascade_every_n)
+                len(res.head_tracks) or 1, res.head_ms, streams,
+                kind="cascade", amortize_n=self._cfg.cascade_every_n,
+                shard_streams=shard_streams)
         if tracer.enabled and res.head_ms is not None:
             t_now = time.time()
             for stream, meta in res.head_tracks:
@@ -2557,6 +3204,22 @@ class InferenceEngine:
             self.capacity.evaluate()
         if self.hbm is not None:
             self.hbm.evaluate()
+        if self.faults is not None and self.faults.stall_suspected():
+            # The drain raised a stall suspicion: a bounded round trip a
+            # slot attributes it; faulted slots fail over at the top of
+            # the next tick. All probes healthy (contention, not a dead
+            # device) resolves it without a failover.
+            try:
+                bad = (self.faults.probe_fn or self._probe_shards)()
+            except Exception:
+                log.exception("shard fault probe failed; unattributed")
+                bad = []
+            marked = self.faults.resolve_stall(bad, self.ticks)
+            if marked:
+                log.warning("device stall attributed to shard(s) %s; failover pending", marked)
+            else:
+                log.warning("dispatch deadline overruns resolved unattributed "
+                            "(all shard probes healthy)")
         if self.prof is not None:
             rung_idx = self.ladder.rung_index if self.ladder is not None else 0
             self.prof.poll(episodes=self._slo_episodes, rung=rung_idx,
@@ -2586,6 +3249,167 @@ class InferenceEngine:
             # Episodes opened by every SLO: the profiler's trigger watermark.
             self._slo_episodes = sum(st["episodes"] for st in verdict["slos"].values())
 
+    # -- the device-fault domain (cfg.fault) ---------------------------------
+
+    def _probe_shards(self) -> List[int]:
+        """The default stall probe: one tiny H2D + D2H round trip on each
+        slot's stream, all at once, each bounded by
+        ``fault_probe_timeout_ms``. A wedged slot cannot answer (its worker
+        thread stays stuck, abandoned) and is reported faulted; the sweep
+        takes one timeout, not one a slot. ``faults.probe_fn`` replaces
+        it (tests, the chaos smoke). No mesh: nothing to attribute."""
+        if self._mesh is None:
+            return []
+        timeout_s = self.faults.probe_timeout_ms / 1000.0
+        done = [threading.Event() for _ in self._mesh.slots]
+
+        def roundtrip(slot, ev):
+            try:
+                with slot.context():
+                    x = torch.ones(8, dtype=torch.float32)
+                    if slot.device.type == "cuda":
+                        x = x.pin_memory().to(slot.device, non_blocking=True)
+                    if float(x.cpu().sum()) == 8.0:
+                        ev.set()
+            except Exception:
+                log.debug("shard probe failed", exc_info=True)
+
+        for slot, ev in zip(self._mesh.slots, done):
+            threading.Thread(target=roundtrip, args=(slot, ev), daemon=True,
+                             name=f"vep-torch-probe{slot.index}").start()
+        deadline = time.monotonic() + timeout_s
+        return [s for s, ev in enumerate(done)
+                if not ev.wait(max(0.0, deadline - time.monotonic()))]
+
+    def _execute_failover(self) -> None:
+        """The survivor-mesh failover, on the tick thread at the top of a
+        tick, in the JAX engine's order, within ``fault_failover_budget_ms``
+        (best effort: each leg is bounded, and a run over budget completes
+        and is reported so, never left half-swapped):
+
+        1. flush the drain (at most half the budget): in-flight batches
+           hold the old mesh's tensors and pooled-buffer leases;
+        2. rebuild the mesh over the survivors in their old order (a slot
+           that survives keeps its device, so ``make_repin`` keeps its
+           streams where they were);
+        3. drop the old mesh's programs, re-place the weights, and reset
+           the sharded carry state, counted (thumbnails, cascade tracks:
+           the dead slot's rows are gone, and the state rebuilds from the
+           stream within ticks);
+        4. re-pin the collector and the prefetch parity;
+        5. record the survivor mesh's programs in the manifest and
+           recapture what it holds for this mesh;
+        6. record the event (the ledger's window closes)."""
+        t0 = time.monotonic()
+        budget_s = self.faults.failover_budget_ms / 1000.0
+        pending = self.faults.pending()
+        if self._mesh is None:
+            log.error("fault pending with no mesh; clearing: %s", pending)
+            self.faults.clear_pending("no_mesh")
+            return
+        slots = list(self._mesh.slots)
+        dead = sorted(s for s in pending if 0 <= int(s) < len(slots))
+        if not dead:
+            log.error("pending fault shards %s out of range; clearing", pending)
+            self.faults.clear_pending("unattributed")
+            return
+        survivors = [slot.device for s, slot in enumerate(slots) if s not in set(dead)]
+        if not survivors:
+            log.error("all %d shards faulted; no survivor mesh: the engine keeps the old mesh "
+                      "and the faults stay visible in /api/v1/faults", len(slots))
+            self.faults.clear_pending("no_survivors")
+            return
+        kinds = sorted(set(pending.values()))
+        log.warning("FAILOVER: shards %s faulted (%s); rebuilding dp%d -> dp%d", dead,
+                    ",".join(kinds), len(slots), len(survivors))
+        # (1) The bounded flush: a wedged slot's read-back never ends, and
+        # its batch is the drain's to drop (drain_error, counted).
+        flush_deadline = t0 + budget_s / 2.0
+        while (self._drain_q.unfinished_tasks and time.monotonic() < flush_deadline
+               and not self._stop.is_set()):
+            time.sleep(0.01)
+        if self._drain_q.unfinished_tasks:
+            log.warning("drain did not flush within %.0f ms; proceeding (stuck batches drop "
+                        "as drain_error)", budget_s * 500.0)
+        from ..parallel import make_mesh
+
+        old_shards, old_shard_of = self._shards, self._shard_of
+        old_keys = [k for k in self._steps if not str(k[0]).startswith("cascade:")]
+        # The census before the swap: a stream is kept when its slot lives.
+        streams = list(self._collector.inference_streams())
+        kept = sum(1 for did in streams if old_shard_of(did) % old_shards not in set(dead))
+        new_shards = len(survivors)
+        new_mesh = make_mesh(dp=new_shards, devices=survivors)
+        repin = make_repin(old_shard_of, old_shards, dead)
+        new_buckets = tuple(b for b in self._cfg.batch_buckets if b % new_shards == 0) or (
+            new_shards,)
+        # (2)-(4) The swap. The old mesh's programs go first: each was
+        # built for its slots.
+        old_graphs = {id(g) for st in self._steps.values() if isinstance(st, _MeshStep)
+                      for g in st.steps}
+        self._steps.clear()
+        self._graphs = [g for g in self._graphs if id(g) not in old_graphs]
+        evacuated: Dict[str, int] = {"quality_thumbs": len(self._thumbs)}
+        self._install_mesh(new_mesh, repin, repin, new_buckets)
+        if self._cascade is not None:
+            try:
+                evacuated.update(self._cascade.repin_mesh(mesh=new_mesh, shards=new_shards,
+                                                          shard_of=repin))
+            except Exception:
+                log.exception("cascade re-pin failed; state dropped")
+        # (5) The manifest: the survivor mesh's variants of every program
+        # the old mesh served, then the prewarm of what it holds for this
+        # mesh (a recapture, warm from the manifest's FLOPs).
+        aot = {"recorded": 0, "prewarmed": 0}
+        t_recapture = time.monotonic()
+        built_before = self.pipeline_stats().build_launches
+        if self._aot_dir:
+            seen = set()
+            for (model, stem, hw, _bucket) in old_keys:
+                for b in new_buckets:
+                    if (model, stem, hw, b) in seen:
+                        continue
+                    seen.add((model, stem, hw, b))
+                    aot_cache.record_program(self._aot_dir, model=model, stem=stem, src_hw=hw,
+                                             bucket=b, mesh=new_mesh)
+                    aot["recorded"] += 1
+            programs = aot_cache.load_manifest(self._aot_dir) or []
+            for entry in aot_cache.prewarm_entries(programs, mesh=new_mesh):
+                try:
+                    h, w, bucket = (int(v) for v in entry[:3])
+                    if bucket not in self._buckets:
+                        continue
+                    self.compile_for((h, w), bucket, str(entry[3]) or None,
+                                     stem=str(entry[4]) if entry[4] else None)
+                    aot["prewarmed"] += 1
+                except Exception:
+                    log.exception("survivor prewarm %r failed; continuing", entry)
+        failover_ms = (time.monotonic() - t0) * 1000.0
+        event = {
+            "ts": time.time(),
+            "tick": self.ticks,
+            "kinds": kinds,
+            "shards_dead": dead,
+            "survivors": new_shards,
+            "failover_ms": failover_ms,
+            "over_budget": failover_ms > self.faults.failover_budget_ms,
+            "evacuated": evacuated,
+            "streams": {"total": len(streams), "kept": kept, "repinned": len(streams) - kept},
+            "aot": aot,
+            # The port's own: the part of failover_ms spent recording and
+            # recapturing the survivor mesh's programs.
+            "recapture_ms": (time.monotonic() - t_recapture) * 1000.0,
+            # and the kernel launches of that recapture, by wrapper name.
+            "recapture_launches": {
+                k: n - built_before.get(k, 0)
+                for k, n in self.pipeline_stats().build_launches.items()
+                if n != built_before.get(k, 0)},
+        }
+        self.faults.note_failover(event)
+        log.warning("FAILOVER complete in %.0f ms: dp%d over %s; %d/%d stream pins kept, "
+                    "evacuated=%s, aot=%s", failover_ms, new_shards,
+                    [str(d) for d in survivors], kept, len(streams), evacuated, aot)
+
     def _step(self, src_hw: tuple, bucket: int, model: Optional[str] = None) -> Callable:
         """The step of (``model``, default: the engine's; its stem,
         ``src_hw``, ``bucket``): on the card a ``_GraphedStep``, captured
@@ -2603,6 +3427,27 @@ class InferenceEngine:
             self._m_cache_hit.inc()
             return fn
         self._m_cache_miss.inc()
+        if self._mesh is not None:
+            record = None
+            if self._aot_dir:
+                def record(_mesh=self._mesh):
+                    graphs = [g for g in fn.steps if isinstance(g, _GraphedStep)]
+                    aot_cache.record_program(
+                        self._aot_dir, model=name, stem=self._stem, src_hw=src_hw,
+                        bucket=bucket, mesh=_mesh,
+                        flops=sum(g.flops for g in graphs) if graphs else None)
+            fn = self._mesh_program(
+                name, src_hw, bucket,
+                lambda dev: functools.partial(build_serving_step,
+                                              self._module_on(name, module, dev), spec,
+                                              quality_thumb=thumb),
+                ((spec.clip_len,) if spec.clip_len else ()) + src_hw + (3,), thumb,
+                flops=(aot_cache.program_flops(self._aot_dir, model=name, stem=self._stem,
+                                               src_hw=src_hw, bucket=bucket, mesh=self._mesh)
+                       if self._aot_dir and self._cuda else None),
+                record=record)
+            self._steps[key] = fn
+            return fn
         build = functools.partial(build_serving_step, module, spec, quality_thumb=thumb)
         graphed = None
         if self._cuda:
@@ -2614,7 +3459,8 @@ class InferenceEngine:
                 on_capture_failed=self._retire_graph_pool,
                 flops=(aot_cache.program_flops(self._aot_dir, model=name, stem=self._stem,
                                                src_hw=src_hw, bucket=bucket)
-                       if self._aot_dir else None))
+                       if self._aot_dir else None),
+                building=self._building)
             self._graphs.append(graphed)
             fn = graphed
         else:
@@ -2655,6 +3501,11 @@ class InferenceEngine:
         dispatched before it, so each stream's results keep their order."""
         if t_collect is None:
             t_collect = time.time()
+        if self.faults is not None:
+            # The ledger: every result slot entering the pipeline is
+            # counted in here and out at its emit or as a reasoned drop.
+            for g in groups:
+                self.faults.ledger.note_dispatched(_group_slots(g))
         if self._roi is not None and groups:
             rest = []
             for g in groups:
@@ -2695,13 +3546,22 @@ class InferenceEngine:
             except BaseException as exc:
                 fatal = (strict or self._stop.is_set() or isinstance(exc, _Stopping)
                          or not isinstance(exc, Exception))
+                shard = None
+                if self.faults is not None and isinstance(exc, Exception):
+                    # Classified before the lease sweep: an error that names
+                    # a slot arms the failover the next tick runs, and the
+                    # drops below are the fault's.
+                    shard = self.faults.note_error(exc, self.ticks)
+                reason = "device_fault" if shard is not None else "dispatch_error"
                 for gj in range(gi, len(groups) if fatal else gi + 1):
                     if gj < len(handles) and handles[gj] is not None:
                         handles[gj].ready.wait(timeout=5.0)
                         self._xfer.unpark(handles[gj])
                     self._collector.release(groups[gj])
+                    if self.faults is not None:
+                        self.faults.note_dropped(_group_slots(groups[gj]), reason)
                     if tracer.enabled:
-                        self._record_dropped(groups[gj], "dispatch_error")
+                        self._record_dropped(groups[gj], reason)
                 if fatal:
                     raise
                 log.exception("engine tick failed; continuing")
@@ -2710,6 +3570,8 @@ class InferenceEngine:
                 self._pipe.batches += 1
                 self._pipe.h2d_ms += h2d_ms
                 self._pipe.h2d_overlapped_ms += overlapped_ms
+                if isinstance(step, _MeshStep):
+                    self._pipe.slot_batches += len(step.steps)
             self._m_batches.inc()
             self._m_occupancy.observe(100.0 * len(group.device_ids) / group.bucket)
             spec = self._model_entry(group.model)[0]
@@ -2741,6 +3603,8 @@ class InferenceEngine:
         ``t_submit`` is taken after the step is queued, as in JAX, on the
         card; on the CPU, where the call runs the step, before it, so that
         submit -> drained (JAX's device time on the CPU) includes it."""
+        if isinstance(step, _MeshStep):
+            return self._run_mesh_step(step, group, placed, event, t_collect)
         start = done = None
         t_submit = time.time()
         if self._cuda:
@@ -2769,6 +3633,48 @@ class InferenceEngine:
             t_submit = time.time()
         return _Inflight(group, outputs, t_collect, t_submit, start, done)
 
+    def _run_mesh_step(self, step: _MeshStep, group: BatchGroup, placed: list, events: list,
+                       t_collect: float) -> _Inflight:
+        """Queue each slot's step on its own stream after its rows' copy:
+        the slot's thumbnails gathered from and scattered to its own pool,
+        its outputs kept apart for the drain. A CUDA error a slot's step
+        raises carries that slot (``fault_shard``) for the fault plane."""
+        t_submit = time.time()
+        thumbs = bool(self._thumb_side(self._model_entry(group.model)[0])) and group.crops is None
+        seg = group.bucket // self._shards
+        per = _slot_rows(group, self._shards)
+        outs: list = []
+        marks: list = []
+        for s, (slot, fn) in enumerate(zip(self._mesh.slots, step.steps)):
+            ids = [group.device_ids[j] for j, _ in per[s]]
+            rows = [r for _, r in per[s]]
+            with slot.context():
+                if slot.stream is not None:
+                    slot.stream.wait_event(events[s])
+                    placed[s].record_stream(slot.stream)
+                start = _slot_event(slot)
+                try:
+                    if thumbs:
+                        sub = self._thumbs.subs[s]
+                        out = dict(fn(placed[s], sub.gather(ids, seg, rows)))
+                        sub.scatter(ids, out.pop("quality_thumbs"), rows)
+                    else:
+                        out = dict(fn(placed[s]))
+                        if group.crops is not None:
+                            out.pop("quality_stats", None)
+                            out.pop("quality_thumbs", None)
+                except Exception as exc:
+                    if _is_device_error(exc) and getattr(exc, "fault_shard", None) is None:
+                        exc.fault_shard = s
+                    raise
+                done = _slot_event(slot)
+            outs.append(out)
+            marks.append((slot, start, done))
+        if self._cuda:
+            t_submit = time.time()
+        step.succeeded()
+        return _Inflight(group, outs, t_collect, t_submit, slot_events=marks, mesh=self._mesh)
+
     def _enqueue_drain(self, inflight: _Inflight) -> None:
         """Hand a dispatched batch to the drain thread; blocks (in short
         interruptible slices) while two are queued. On shutdown while full,
@@ -2786,6 +3692,8 @@ class InferenceEngine:
                 continue
         if tracer.enabled:
             self._record_dropped(inflight.group, "shutdown_drain")
+        if self.faults is not None:
+            self.faults.note_dropped(_group_slots(inflight.group), "shutdown_drain")
         self._collector.release(inflight.group)
 
     # -- drain and emit -----------------------------------------------------------
@@ -2806,6 +3714,10 @@ class InferenceEngine:
                     self._emit(inflight)
                 except Exception:
                     log.exception("drain failed; continuing")
+                    if self.faults is not None and inflight.warm is None:
+                        # The whole group counts dropped, a partial emit
+                        # too: the ledger's loss can only overstate.
+                        self.faults.note_dropped(_group_slots(inflight.group), "drain_error")
                 finally:
                     self._collector.release(inflight.group)
                     inflight.outputs = None
@@ -2817,6 +3729,8 @@ class InferenceEngine:
         """The step's outputs on the host. On the card the copies run on the
         read-back stream after the step's done event, so they neither race
         the step nor queue behind later steps."""
+        if inflight.slot_events is not None:
+            return self._read_back_mesh(inflight)
         if not self._cuda:
             return {k: v.numpy() for k, v in inflight.outputs.items()}
         with torch.cuda.stream(self._d2h):
@@ -2826,6 +3740,34 @@ class InferenceEngine:
                 v.record_stream(self._d2h)
                 host[k] = v.to("cpu").numpy()
         return host
+
+    def _read_back_mesh(self, inflight: _Inflight) -> Dict[str, np.ndarray]:
+        """A mesh batch's outputs on the host, in row order: each slot's
+        read back after its done event, on a read-back stream of its
+        device, then joined (``assemble_sharded``)."""
+        from ..parallel import assemble_sharded, batch_sharding
+
+        parts = []
+        for (slot, _, done), out in zip(inflight.slot_events, inflight.outputs):
+            if done is None:
+                parts.append({k: v.numpy() for k, v in out.items()})
+                continue
+            d2h = self._d2h_streams.get(slot.device)
+            if d2h is None:
+                d2h = self._d2h_streams[slot.device] = torch.cuda.Stream(slot.device)
+            with torch.cuda.device(slot.device), torch.cuda.stream(d2h):
+                d2h.wait_event(done)
+                host = {}
+                for k, v in out.items():
+                    v.record_stream(d2h)
+                    host[k] = v.to("cpu").numpy()
+            parts.append(host)
+        out = {}
+        for k in parts[0]:
+            shape = (sum(p[k].shape[0] for p in parts),) + parts[0][k].shape[1:]
+            out[k] = assemble_sharded([p[k] for p in parts], shape,
+                                      batch_sharding(inflight.mesh, len(shape)))
+        return out
 
     def _threshold_of(self, spec) -> float:
         """The calibrated threshold rides the default model's checkpoint;
@@ -2849,11 +3791,31 @@ class InferenceEngine:
         t_drained = time.time()
         # vep_device_batch_ms is the JAX engine's device time: submit ->
         # host fetch complete; device_ms is the step's own span on the card.
-        self._m_device.labels(spec.name).observe((t_drained - inflight.t_submit) * 1000.0)
-        if self._cuda:
-            device_ms = inflight.start.elapsed_time(inflight.done)
+        drained_ms = (t_drained - inflight.t_submit) * 1000.0
+        self._m_device.labels(spec.name).observe(drained_ms)
+        if self.faults is not None:
+            # The stall watchdog's signal: submit -> drained against the
+            # dispatch deadline, with hysteresis.
+            self.faults.note_drain(drained_ms)
+        if not self._cuda:
+            device_ms = drained_ms
+        elif inflight.slot_events is not None:
+            # A mesh batch: the longest slot's span (slots run
+            # concurrently).
+            device_ms = max(start.elapsed_time(done) for _, start, done in inflight.slot_events)
         else:
-            device_ms = (t_drained - inflight.t_submit) * 1000.0
+            device_ms = inflight.start.elapsed_time(inflight.done)
+        # Per-slot attribution on a mesh: every slot that carried frames
+        # was busy for the batch, so each is charged its device time and
+        # the ledgers conserve per slot as in aggregate.
+        shard_frames = shard_streams = None
+        if group.rows is not None and self._shards > 1:
+            seg = max(1, group.bucket // self._shards)
+            shard_frames, shard_streams = {}, {}
+            for j, r in enumerate(group.rows):
+                sl = str(r // seg)
+                shard_frames[sl] = shard_frames.get(sl, 0) + 1
+                shard_streams.setdefault(sl, []).append(group.device_ids[j])
         if group.crops is not None:
             # A canvas batch: the fps window counts the streams it served,
             # its occupancy is the crop-pixel share.
@@ -2861,22 +3823,30 @@ class InferenceEngine:
                 spec.name, group.src_hw, group.bucket, device_ms, len(group.device_ids),
                 streams=len({p.device_id for p in group.crops}),
                 area_frac=CanvasPacker.area_fraction(group.crops, len(group.device_ids),
-                                                     group.src_hw[0]))
+                                                     group.src_hw[0]),
+                shard_frames=shard_frames)
             if self.capacity is not None:
                 # Each stream's share is its crops' blitted canvas area.
                 areas: Dict[str, int] = {}
                 for p in group.crops:
                     a = (p.dst[2] - p.dst[0]) * (p.dst[3] - p.dst[1])
                     areas[p.device_id] = areas.get(p.device_id, 0) + a
+                crop_shards = None
+                if shard_streams is not None:
+                    crop_shards = {}
+                    for did in areas:
+                        crop_shards.setdefault(str(self._shard_of(did) % self._shards),
+                                               []).append(did)
                 self.capacity.note_batch(spec.name, group.src_hw, group.bucket, device_ms,
-                                         list(areas), weights=list(areas.values()), kind="roi")
+                                         list(areas), weights=list(areas.values()), kind="roi",
+                                         shard_streams=crop_shards)
             self._emit_canvas(inflight, host, spec, module, device_ms, t_drained)
             return
         if self.capacity is not None:
             # The bucket's cost, padded slots included, splits equally
             # across the real frames.
             self.capacity.note_batch(spec.name, group.src_hw, group.bucket, device_ms,
-                                     group.device_ids)
+                                     group.device_ids, shard_streams=shard_streams)
         now_ms = int(t_drained * 1000)
         kind = spec.kind
         num_classes = module.cfg.num_classes
@@ -2895,10 +3865,12 @@ class InferenceEngine:
         track_s = 0.0
         harvest_s = 0.0
         for i, (device_id, meta) in enumerate(zip(group.device_ids, group.metas)):
+            # A shard-segmented group's frame (and output row) of stream i.
+            row = group.rows[i] if group.rows is not None else i
             # Every record logged while this slot emits (tracker,
             # annotate, publish, quality) carries stream=<id> seq=<packet>.
             with log_context(stream=device_id, seq=meta.packet):
-                detections = to_detections(host, i, kind, num_classes,
+                detections = to_detections(host, row, kind, num_classes,
                                            self._threshold_of(spec))
                 if self._cfg.track and kind == "detect":
                     # Empty frames too: misses must accumulate so stale tracks
@@ -2912,15 +3884,20 @@ class InferenceEngine:
                         # returns) into its track's tile.
                         t_harvest = time.perf_counter()
                         try:
-                            self._cascade.harvest(device_id, group.frames[i], detections, meta)
+                            self._cascade.harvest(device_id, group.frames[row], detections,
+                                                  meta)
                         except Exception:
                             log.exception("cascade harvest failed; continuing")
                         harvest_s += time.perf_counter() - t_harvest
                 if self.quality is not None:
-                    self._observe_quality(host, i, device_id, meta, detections)
+                    self._observe_quality(host, row, device_id, meta, detections)
                 latency = max(0.0, now_ms - meta.timestamp_ms) if meta.timestamp_ms else 0.0
                 if meta.timestamp_ms:
                     capture_sum += inflight.t_collect * 1000.0 - meta.timestamp_ms
+                if self.faults is not None:
+                    # (packet, capture ms): monotone per stream, also for
+                    # producers that never stamp packets.
+                    self.faults.ledger.note_emitted(device_id, (meta.packet, meta.timestamp_ms))
                 self._publish(InferenceResult(
                     device_id=device_id, timestamp=meta.timestamp_ms, model=spec.name,
                     detections=detections, latency_ms=latency, batch_size=group.bucket,
@@ -2928,7 +3905,7 @@ class InferenceEngine:
                 ))
                 self._annotate(device_id, meta, detections, spec)
                 if kind == "detect":
-                    self._checksum = (self._checksum + host_slot_checksum(host, i)) & CHECKSUM_MASK
+                    self._checksum = (self._checksum + host_slot_checksum(host, row)) & CHECKSUM_MASK
                 st = self._stats.setdefault(device_id, StreamStats())
                 st.frames += 1
                 st.note_latency(latency)
@@ -2954,7 +3931,8 @@ class InferenceEngine:
                                   dur_ms=device_ms, bucket=group.bucket, trace_id=tid)
                     tracer.record(device_id, "emit", meta.packet, trace_id=tid)
         n = len(group.device_ids)
-        self.perf.note_batch(spec.name, group.src_hw, group.bucket, device_ms, n)
+        self.perf.note_batch(spec.name, group.src_hw, group.bucket, device_ms, n,
+                             shard_frames=shard_frames)
         self._note_results(inflight, n, capture_sum, t_drained, device_ms, track_s, harvest_s)
 
     def _note_results(self, inflight: _Inflight, n: int, capture_sum: float, t_drained: float,
@@ -3011,7 +3989,10 @@ class InferenceEngine:
             results.setdefault(p.device_id, (p.meta, []))
         num_classes = module.cfg.num_classes
         thr = self._threshold_of(spec)
-        for ci in range(len(group.device_ids)):
+        # A shard-segmented canvas batch: each placement's canvas is its
+        # batch row already.
+        canvas_rows = group.rows if group.rows is not None else range(len(group.device_ids))
+        for ci in canvas_rows:
             cells = by_canvas.get(ci)
             if not cells:
                 continue
@@ -3060,6 +4041,8 @@ class InferenceEngine:
             self.quality.observe(device_id, classes=[d.class_id for d in detections],
                                  scores=[d.confidence for d in detections])
         latency = max(0.0, now_ms - meta.timestamp_ms) if meta.timestamp_ms else 0.0
+        if self.faults is not None:
+            self.faults.ledger.note_emitted(device_id, (meta.packet, meta.timestamp_ms))
         self._publish(InferenceResult(
             device_id=device_id, timestamp=meta.timestamp_ms, model=spec.name,
             detections=detections, latency_ms=latency, batch_size=group.bucket,

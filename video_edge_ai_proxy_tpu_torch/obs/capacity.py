@@ -24,9 +24,10 @@ ledger, headroom forecasting and burn-rate accounting that feed admission.
 
 The port's engine feeds ``note_batch`` with its ``device_ms``: the CUDA
 event span of the step on the card (JAX's is submit -> drained). On the
-CPU it is the host's submit -> drained span. The mesh arguments
-(``shard_streams``) are kept with the JAX signature; the port's one-card
-engine never passes them.
+CPU it is the host's submit -> drained span. Under a mesh of device slots
+the engine passes ``shard_streams`` (each slot's occupant streams), with
+the JAX signature: each listed slot's measured and attributed ledgers
+advance by the batch's whole device time.
 
 Metric families (gauges unless noted):
 

@@ -13,8 +13,10 @@ labels are the JAX package's (``vep_compile_*``, ``vep_perf_*``,
 notes (``note_roi_*``, ``vep_roi_*``; a canvas batch's ``note_batch``
 counts the streams it served and its crop-pixel occupancy) and the
 cascade's (``note_cascade_*``, ``vep_cascade_*``) add the snapshot's
-``roi`` and ``cascade`` sections once their planes serve. The mesh-shard
-notes come with the multi-card slice.
+``roi`` and ``cascade`` sections once their planes serve. Under a mesh of
+device slots ``note_batch`` takes ``shard_frames`` (each slot's real
+frames) and charges every listed slot the batch's whole device time
+(``vep_perf_shard_*``, the snapshot's ``shards``).
 
 Where the numbers come from on the card:
 
@@ -162,6 +164,19 @@ class _H2DCell:
         self.slots = 0
 
 
+class _ShardCell:
+    """Per-(model, bucket, shard) mesh attribution: its counter children
+    and running totals."""
+
+    __slots__ = ("frames_child", "busy_child", "frames", "busy_ms")
+
+    def __init__(self, frames_child, busy_child):
+        self.frames_child = frames_child
+        self.busy_child = busy_child
+        self.frames = 0
+        self.busy_ms = 0.0
+
+
 class _BatchCell:
     """Per-(model, geometry, bucket) state of ``note_batch``: its metric
     children and the device-time EMA. The MFU and TFLOP/s children are
@@ -199,6 +214,8 @@ class PerfTracker:
         self._cells: Dict[Tuple[str, str, int], _BatchCell] = {}
         # (model, bucket) -> H2D cell
         self._h2d: Dict[Tuple[str, int], _H2DCell] = {}
+        # (model, bucket, shard) -> mesh slot cell
+        self._shard_cells: Dict[Tuple[str, int, str], _ShardCell] = {}
         self._fps = _RateWindow(window_s=fps_window_s)
 
         self._m_compile_s = reg.histogram(
@@ -235,6 +252,15 @@ class PerfTracker:
             "vep_perf_mfu_pct",
             "Live model-FLOPs utilization against peak_tflops (EMA device "
             "time)", ("model", "bucket"))
+        # Mesh serving: per-slot attribution in families of their own, so
+        # the aggregate series keep their label tuples.
+        self._m_shard_frames = reg.counter(
+            "vep_perf_shard_frames_total", "Real frames served per dp mesh shard",
+            ("model", "bucket", "shard"))
+        self._m_shard_busy = reg.counter(
+            "vep_perf_shard_busy_ms_total",
+            "Device batch milliseconds attributed per dp mesh shard (each shard "
+            "charged the batch's device time)", ("model", "bucket", "shard"))
         self._m_tflops = reg.gauge(
             "vep_perf_achieved_tflops",
             "Achieved TFLOP/s per batch (EMA device time)",
@@ -350,7 +376,8 @@ class PerfTracker:
 
     def note_batch(self, model: str, src_hw: Tuple[int, int], bucket: int,
                    device_ms: float, frames: int, *, streams: Optional[int] = None,
-                   area_frac: Optional[float] = None) -> None:
+                   area_frac: Optional[float] = None,
+                   shard_frames: Optional[Dict[str, int]] = None) -> None:
         """Record one drained batch: ``frames`` real frames in a
         ``bucket``-slot program that ran for ``device_ms``.
 
@@ -359,7 +386,12 @@ class PerfTracker:
         window counts results, not canvases; 0 for a program that emits
         none, the cascade head) and ``area_frac`` the crop-pixel share of
         the canvases, which the occupancy gauge then reports: a half-empty
-        canvas is not one fully occupied slot."""
+        canvas is not one fully occupied slot.
+
+        Mesh serving: ``shard_frames`` maps a dp slot's label to the real
+        frames it carried; each listed slot is charged the whole
+        ``device_ms``, as the JAX tracker charges each chip of its
+        replicated program."""
         key = (model, self._geometry(src_hw), bucket)
         cell = self._cells.get(key)
         if cell is None:
@@ -389,6 +421,16 @@ class PerfTracker:
                                          self._m_tflops.labels(model, str(bucket)))
             cell.mfu.set(util)
             cell.tflops.set(flops / (cell.ema_ms * 1e-3) / 1e12)
+        if shard_frames:
+            for shard, n in shard_frames.items():
+                skey = (model, bucket, str(shard))
+                scell = self._shard_cells.get(skey)
+                if scell is None:
+                    scell = self._make_shard_cell(skey)
+                scell.frames_child.inc(int(n))
+                scell.busy_child.inc(device_ms)
+                scell.frames += int(n)
+                scell.busy_ms += float(device_ms)
         now = self._clock()
         self._fps.add(streams if streams is not None else frames, now)
         self._m_fps.set(self._fps.rate(now))
@@ -499,6 +541,13 @@ class PerfTracker:
         with self._lock:
             return self._h2d.setdefault(key, cell)
 
+    def _make_shard_cell(self, key: Tuple[str, int, str]) -> _ShardCell:
+        model, bucket, shard = key
+        cell = _ShardCell(frames_child=self._m_shard_frames.labels(model, str(bucket), shard),
+                          busy_child=self._m_shard_busy.labels(model, str(bucket), shard))
+        with self._lock:
+            return self._shard_cells.setdefault(key, cell)
+
     def _make_cell(self, key: Tuple[str, str, int]) -> _BatchCell:
         model, _geometry, bucket = key
         b = str(bucket)
@@ -534,6 +583,9 @@ class PerfTracker:
                     "padded_pct": round(100.0 * cell.padded_total / slots, 2) if slots else 0.0,
                     "mfu_pct": round(util, 3) if util is not None else None,
                 })
+            shards = [{"model": model, "bucket": bucket, "shard": shard,
+                       "frames": scell.frames, "busy_ms": round(scell.busy_ms, 3)}
+                      for (model, bucket, shard), scell in sorted(self._shard_cells.items())]
             h2d = []
             h2d_seconds = 0.0
             h2d_hidden = 0.0
@@ -565,6 +617,8 @@ class PerfTracker:
             "h2d_hidden_pct": (round(100.0 * h2d_hidden / h2d_seconds, 1)
                                if h2d_seconds > 0 else None),
         }
+        if shards:
+            out["shards"] = shards
         gated = roi["idle"] + roi["roi"] + roi["full"]
         if gated or roi["canvases"]:
             out["roi"] = {

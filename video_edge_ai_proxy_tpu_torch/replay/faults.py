@@ -23,14 +23,19 @@ failing soak replays exactly. The kinds and what injects them
   / the same frame for ``duration_s`` (a quality verdict must fire).
 - ``score_drift``: every detect step's scores are scaled down for
   ``duration_s`` (the canary must mismatch).
-- ``shard_fault``: one mesh shard fails; a name only here, its injector
-  belongs to the multi-card fault domain.
+- ``shard_fault``: one mesh slot's step fails hard from ``at_s`` on (or,
+  with ``duration_s`` > 0, its drains stall), ``device_id`` naming the
+  slot index; ``ShardFaultInjector`` injects it into a live engine (the
+  device-fault domain must detect, fail over to the survivor mesh and
+  conserve every frame).
 """
 
 from __future__ import annotations
 
 import json
+import time
 from dataclasses import asdict, dataclass, field
+from typing import List, Optional
 
 KINDS = (
     "camera_kill", "camera_restore", "frame_gap", "bus_stall",
@@ -193,3 +198,60 @@ class FaultPlan:
                 duration_s=max(1.0, duration_s * dur),
             ))
         return cls(ev)
+
+
+class ShardFaultInjector:
+    """The ``shard_fault`` kind on a live engine, as the JAX package's chaos
+    smoke injects it. ``fire(event)``:
+
+    - hard (``duration_s`` 0): the engine's next step lookup raises an
+      error that carries ``fault_shard`` (what a device error attributed
+      to a slot looks like), once; ``tick`` and ``ts`` record when;
+    - stall (``duration_s`` > 0): the fault plane's dispatch deadline
+      drops to 0.01 ms, so the drain's hysteresis opens a stall suspicion
+      on real batches, and its probe is scripted to name the slot (a slot
+      on a healthy device cannot be made to wedge); ``restore()`` puts
+      the configured deadline back once the failover is done.
+
+    Installed by construction (it wraps ``engine._step``); ``remove()``
+    unwraps it."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self._orig_step = engine._step
+        self._armed: Optional[int] = None
+        self._votes: List[int] = []
+        self.shard: Optional[int] = None
+        self.tick: Optional[int] = None
+        self.ts: Optional[float] = None
+        engine._step = self._step
+
+    def _step(self, src_hw, bucket, model=None):
+        if self._armed is not None:
+            shard, self._armed = self._armed, None
+            self.tick = self.engine.ticks
+            self.ts = time.monotonic()
+            exc = RuntimeError(f"injected shard_fault: device of shard {shard} halted")
+            exc.fault_shard = shard
+            raise exc
+        return self._orig_step(src_hw, bucket, model)
+
+    def _probe(self) -> List[int]:
+        return [self._votes.pop()] if self._votes else []
+
+    def fire(self, event: "FaultEvent") -> None:
+        shard = int(event.device_id)
+        if event.duration_s > 0:
+            self._votes.append(shard)
+            self.engine.faults.probe_fn = self._probe
+            self.engine.faults.deadline_ms = 0.01
+        else:
+            self.shard = shard
+            self._armed = shard
+
+    def restore(self) -> None:
+        """The configured dispatch deadline back (after a stall's failover)."""
+        self.engine.faults.deadline_ms = self.engine._cfg.fault_dispatch_deadline_ms
+
+    def remove(self) -> None:
+        self.engine._step = self._orig_step

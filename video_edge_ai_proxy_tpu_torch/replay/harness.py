@@ -82,7 +82,7 @@ def lockstep_checksum(
     dtype: torch.dtype = torch.bfloat16, preprocess_dtype: torch.dtype = torch.bfloat16,
     device_id: Optional[str] = None, limit: int = 0,
     perturb: Optional[Callable[[dict], dict]] = None, zero_prior: bool = True,
-    on_batch: Optional[Callable] = None, bus: Optional[FrameBus] = None,
+    on_batch: Optional[Callable] = None, bus: Optional[FrameBus] = None, mesh=None,
 ) -> dict:
     """Replay a trace deterministically through bus -> collector -> serving
     step and fold the content checksum over every batch's outputs.
@@ -99,6 +99,13 @@ def lockstep_checksum(
     frames; a bus passed in (a ``ShmFrameBus`` on an empty ring directory)
     stays open, its owner's to close. The collector is built without
     interest, so every published stream is inferred.
+
+    ``mesh`` (a dp mesh of device slots, ``parallel/mesh.py``) places every
+    batch through the mesh's H2D path (``parallel.shard_put``: one copy a
+    slot) and steps each slot's rows on its slot, the model copied to each
+    distinct device of the mesh; ``on_batch`` then sees one output dict a
+    slot. At dp=1 the checksum is bit-identical to the plain path's: the
+    mesh changes the placement, never the numerics.
 
     Returns {"checksum", "frames", "batches", "batch_streams" (streams per
     batch), "model"}."""
@@ -119,6 +126,7 @@ def lockstep_checksum(
     col = Collector(bus, buckets=(1, 2, 4, 8, 16), default_model=spec.name,
                     clip_len=spec.clip_len)
     created: set = set()
+    mesh_steps: dict = {dev: step}     # device -> the step on the model's copy there
     carry = torch.zeros((), dtype=torch.int64, device=dev)
     frames = 0
     batch_streams = []
@@ -133,6 +141,15 @@ def lockstep_checksum(
             frames += 1
             for group in col.collect():
                 batch_streams.append(len(group.device_ids))
+                if mesh is not None:
+                    outputs = _mesh_outputs(mesh, group.frames, net, spec, step,
+                                            preprocess_dtype, mesh_steps)
+                    for part in outputs:
+                        carry = fold_checksum(carry.to(next(iter(part.values())).device),
+                                              part)
+                    if on_batch is not None:
+                        on_batch(group, outputs)
+                    continue
                 # A synchronous copy: the pooled buffer is reused next tick.
                 outputs = step(torch.from_numpy(group.frames).to(dev))
                 carry = fold_checksum(carry, outputs)
@@ -144,6 +161,31 @@ def lockstep_checksum(
     return {"checksum": finalize_checksum(carry), "frames": frames,
             "batches": len(batch_streams), "batch_streams": batch_streams,
             "model": spec.name}
+
+
+def _mesh_outputs(mesh, frames: np.ndarray, net, spec, step, preprocess_dtype,
+                  steps: dict) -> list:
+    """One batch through the mesh: ``shard_put`` copies each slot's rows to
+    its device, and each slot's step (on the model's copy on that device,
+    made once) runs them on the slot. Returns one output dict a slot."""
+    import copy
+
+    from ..parallel import batch_sharding, shard_put
+
+    pieces = shard_put(np.ascontiguousarray(frames), batch_sharding(mesh, frames.ndim))
+    outs = []
+    for slot, piece in zip(mesh.slots, pieces):
+        fn = steps.get(slot.device)
+        if fn is None:
+            fn = steps[slot.device] = build_serving_step(
+                copy.deepcopy(net).to(slot.device), spec, preprocess_dtype=preprocess_dtype)
+        with slot.context():
+            outs.append(fn(piece))
+            if slot.stream is not None:
+                # The next batch's copy reuses the host buffer and the
+                # fold reads the outputs on another stream.
+                slot.stream.synchronize()
+    return outs
 
 
 # ---------------------------------------------------------------------------

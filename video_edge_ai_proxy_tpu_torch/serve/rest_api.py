@@ -28,6 +28,9 @@ Routes of the planes the port has, with the JAX server's payloads:
     GET    /api/v1/supervisor         autoscaling supervisor state
     GET    /api/v1/hbm                device-memory plane (program
                                       footprints, pools, forecast)
+    GET    /api/v1/faults             device-fault domain (watchdog state,
+                                      detections, failovers, the
+                                      frame-conservation ledger)
     GET    /api/v1/cascade            temporal cascade (cadence, tracks,
                                       events, the state pool)
     GET    /api/v1/journal            decision journal (?actor= ?action=
@@ -241,6 +244,9 @@ def build_app(pm: ProcessManager, settings: SettingsManager, engine=None,
             # The same snapshot /api/v1/capacity serves.
             "capacity": engine.capacity.snapshot()
             if engine is not None and engine.capacity is not None else None,
+            # The same snapshot /api/v1/faults serves.
+            "faults": engine.faults.snapshot()
+            if engine is not None and engine.faults is not None else None,
         }
         return web.json_response(out)
 
@@ -273,6 +279,18 @@ def build_app(pm: ProcessManager, settings: SettingsManager, engine=None,
         if engine.hbm is None:
             return _error(400, "hbm plane disabled (engine.hbm config)")
         out = await asyncio.to_thread(engine.hbm.snapshot)
+        return web.json_response(out)
+
+    async def faults(_request: web.Request) -> web.Response:
+        """The device-fault domain (engine/fault.py): the watchdog's
+        config and state, the detection and failover events and the
+        frame-conservation ledger; 400 when it is off (engine.fault
+        config)."""
+        if engine is None:
+            return _error(400, "engine not running")
+        if engine.faults is None:
+            return _error(400, "fault domain disabled (engine.fault config)")
+        out = await asyncio.to_thread(engine.faults.snapshot)
         return web.json_response(out)
 
     async def slo(_request: web.Request) -> web.Response:
@@ -589,6 +607,7 @@ def build_app(pm: ProcessManager, settings: SettingsManager, engine=None,
     app.router.add_get("/api/v1/fleet/journal", fleet_journal)
     app.router.add_get("/api/v1/supervisor", supervisor_state)
     app.router.add_get("/api/v1/hbm", hbm)
+    app.router.add_get("/api/v1/faults", faults)
     app.router.add_get("/api/v1/cascade", cascade)
     app.router.add_get("/api/v1/journal", journal)
     app.router.add_get("/api/v1/why", why)

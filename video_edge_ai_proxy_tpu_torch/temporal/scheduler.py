@@ -1,6 +1,5 @@
 """Cascade scheduler: detect every tick, the temporal head every N
-(counterpart of ``video_edge_ai_proxy_tpu/temporal/scheduler.py``, on one
-device).
+(counterpart of ``video_edge_ai_proxy_tpu/temporal/scheduler.py``).
 
 The detect step runs every tick unchanged; the scheduler taps its emitted
 detections (``harvest``, on the drain thread), letterboxes each tracked
@@ -21,6 +20,12 @@ the device accounting): the engine sets ``self.head`` to a callable
 ``(pool, slot_idx, time_idx, n_real) -> (outputs, device_ms)``, outputs
 host arrays ``event_score [bucket]``, ``features [bucket, 3]`` and
 ``logits [bucket, num_classes]``. The pool tensor never goes to the host.
+
+Under the engine's mesh of device slots (``configure_mesh``) the clip
+rings are per slot (``ShardedTrackStatePool``): a track's clips live on
+the slot that serves its stream, the head batch is shard-segmented
+(``plan``) and each slot's rows run on its own device. A survivor-mesh
+failover resets the sharded state, counted (``repin_mesh``).
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from typing import Callable, Dict, List, Optional, Set, Tuple
 import numpy as np
 
 from .events import TrackEventTracker
-from .state_pool import TrackStatePool
+from .state_pool import ShardedTrackStatePool, TrackStatePool
 
 log = logging.getLogger("vep.torch.temporal.scheduler")
 
@@ -112,6 +117,42 @@ class CascadeScheduler:
         # Set by the engine: (pool, slot_idx, time_idx, n_real) ->
         # (host outputs, device_ms).
         self.head: Optional[Callable] = None
+        # The engine's mesh (configure_mesh): None = one device.
+        self._mesh = None
+        self._mesh_shards = 1
+        self._mesh_shard_of: Optional[Callable[[str], int]] = None
+
+    def configure_mesh(self, *, mesh, shards: int, shard_of) -> None:
+        """The engine's wiring at warmup (before the first harvest builds
+        the pool): the clip rings become one a slot, so a slot's cascade
+        state lives where its streams are served. ``shard_of`` maps a
+        stream to its slot; track keys are ``stream#track_id``."""
+        self._mesh = mesh
+        self._mesh_shards = max(1, int(shards))
+        self._mesh_shard_of = shard_of
+
+    def repin_mesh(self, *, mesh, shards: int, shard_of) -> Dict[str, int]:
+        """A survivor-mesh failover's counted reset of the sharded state:
+        the dead slot's rings are gone and the survivors' rows were laid
+        out for the old routing, so the whole pool goes. Tracks and their
+        event machines clear without firing (an exit event now would be
+        invented: the objects did not leave, the device did), and the pool
+        is rebuilt at the next harvest under the new routing. Returns the
+        counts the engine folds into the failover event."""
+        with self._lock:
+            n_tracks = len(self._tracks)
+            n_streams = len(self._by_stream)
+            n_slots = self._pool.slots_in_use() if self._pool is not None else 0
+            for key in list(self._tracks):
+                self._events.pop(key, None)
+            self._tracks.clear()
+            self._by_stream.clear()
+            self._pool = None
+            self._mesh = mesh
+            self._mesh_shards = max(1, int(shards))
+            self._mesh_shard_of = shard_of
+        return {"cascade_tracks": n_tracks, "cascade_streams": n_streams,
+                "cascade_slots": n_slots}
 
     def _resolve(self) -> None:
         """The tile geometry and the pool, at the first harvest."""
@@ -128,7 +169,19 @@ class CascadeScheduler:
         # background carry over.
         self._packer = CanvasPacker(side=self.side, gap=0, max_canvases=1,
                                     min_crop=min(16, self.side))
-        self._pool = TrackStatePool(self.side, self.clip_len, device=self._device)
+        if self._mesh is not None:
+            # Any mesh (dp=1 too) takes the sharded pool: the head steps
+            # a slot's rows on that slot.
+            stream_shard_of = self._mesh_shard_of
+
+            def key_shard(key: str) -> int:
+                return stream_shard_of(key.split("#", 1)[0])
+
+            self._pool = ShardedTrackStatePool(self.side, self.clip_len, mesh=self._mesh,
+                                               shards=self._mesh_shards, shard_of=key_shard,
+                                               buckets=BUCKETS)
+        else:
+            self._pool = TrackStatePool(self.side, self.clip_len, device=self._device)
 
     # -- the stream-keyed dict protocol (the engine's GC) -----------------------
 
@@ -241,7 +294,13 @@ class CascadeScheduler:
                     and tick % (self.every_n * max(1, self.stretch)) == 0):
                 due = [k for k in self._tracks if self._pool.full(k)][:BUCKETS[-1]]
                 if due:
-                    slot_idx, time_idx = self._pool.gather_indices(due, bucket_for(len(due)))
+                    if isinstance(self._pool, ShardedTrackStatePool):
+                        # due_rows[i]: the batch row of due[i]; -1: its
+                        # slot's segment overflowed, the track stays due.
+                        slot_idx, time_idx, due_rows, _ = self._pool.plan(due)
+                    else:
+                        due_rows = None
+                        slot_idx, time_idx = self._pool.gather_indices(due, bucket_for(len(due)))
                     pool = self._pool
         if due:
             # Outside the lock: a first head pass captures its program and
@@ -260,10 +319,13 @@ class CascadeScheduler:
                     if self.perf is not None:
                         self.perf.note_cascade_head(len(due))
                     for i, key in enumerate(due):
+                        row = due_rows[i] if due_rows is not None else i
+                        if row < 0:               # left out by the slot plan
+                            continue
                         rec = self._tracks.get(key)
                         if rec is None:           # its stream went mid-dispatch
                             continue
-                        score = float(outputs["event_score"][i])
+                        score = float(outputs["event_score"][row])
                         rec.last_score = score
                         rec.observed += 1
                         head_tracks.append((rec.stream, rec.meta))
@@ -276,8 +338,8 @@ class CascadeScheduler:
                             "track_id": rec.track_id,
                             "score": score,
                             "tick": tick,
-                            "features": [float(v) for v in outputs["features"][i]],
-                            "logits": [float(v) for v in outputs["logits"][i]],
+                            "features": [float(v) for v in outputs["features"][row]],
+                            "logits": [float(v) for v in outputs["logits"][row]],
                             "meta": rec.meta,
                             "history": list(rec.history) if kind == "enter" else [],
                         }
@@ -303,9 +365,10 @@ class CascadeScheduler:
 
     # -- introspection -------------------------------------------------------------
 
-    def pool_nbytes(self) -> int:
+    def pool_nbytes(self):
         """Device bytes of the clip ring, 0 before it exists: the engine's
-        ``track_state`` pool in ``obs/hbm.py``."""
+        ``track_state`` pool in ``obs/hbm.py`` (``{shard: bytes}`` under a
+        mesh)."""
         return self._pool.nbytes() if self._pool is not None else 0
 
     def snapshot(self) -> dict:

@@ -1,5 +1,7 @@
 """Device-resident per-track clip ring of the temporal cascade (counterpart
-of ``video_edge_ai_proxy_tpu/temporal/state_pool.py``, its one-device pool).
+of ``video_edge_ai_proxy_tpu/temporal/state_pool.py``): the one-device pool
+``TrackStatePool`` and, under a mesh of device slots, its sharded twin
+``ShardedTrackStatePool`` (one sub-ring a slot, on the slot's device).
 
 One uint8 tensor ``[slots, clip_len, side, side, 3]`` on the device holds
 every live track's last ``clip_len`` crop tiles as a ring; the slot map
@@ -195,3 +197,137 @@ class TrackStatePool:
         slots = self._to_device(np.asarray(slot_idx, np.int32))
         times = self._to_device(np.asarray(time_idx, np.int32))
         return self._pool[slots[:, None], times]
+
+
+def shard_devices(mesh, shards: int) -> list:
+    """The device of each dp slot, in slot order: where slot s's pools
+    live (the JAX package's primary device a dp index)."""
+    return [slot.device for slot in mesh.slots[:int(shards)]]
+
+
+class ShardedTrackStatePool:
+    """The dp-sharded twin of TrackStatePool (the cascade under a mesh): one
+    sub-ring a slot, on that slot's device, so a track's clips live where
+    its stream is served (streams pin to slots by the engine's routing).
+    The same dict protocol and scatter surface as TrackStatePool, plus
+    ``plan``, the shard-segmented head-batch layout (the scheduler maps
+    the head's outputs back through the rows it returns). ``gather``
+    returns one time-ordered clip batch a slot, each on its slot's device:
+    the head steps each slot's rows there, and clips never cross devices
+    or the host."""
+
+    def __init__(self, side: int, clip_len: int, *, mesh, shards: int, shard_of,
+                 buckets: Sequence[int] = (4, 8, 16, 32, 64)):
+        self.side = int(side)
+        self.clip_len = int(clip_len)
+        self.mesh = mesh
+        self.shards = max(1, int(shards))
+        self._shard_of = shard_of            # track key -> slot index
+        self._buckets = tuple(sorted(b for b in buckets if b % self.shards == 0)) or (
+            self.shards,)
+        self.pools = [TrackStatePool(side, clip_len, device=d)
+                      for d in shard_devices(mesh, self.shards)]
+
+    # -- the dict protocol -----------------------------------------------------
+
+    def _pool_for(self, key: str) -> TrackStatePool:
+        return self.pools[self._shard_of(key)]
+
+    def __bool__(self) -> bool:
+        return any(len(p) for p in self.pools)
+
+    def __len__(self) -> int:
+        return sum(len(p) for p in self.pools)
+
+    def __iter__(self):
+        for p in self.pools:
+            yield from p
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._pool_for(key)
+
+    def pop(self, key: str, default=None):
+        return self._pool_for(key).pop(key, default)
+
+    @property
+    def high_water(self) -> int:
+        return max(p.high_water for p in self.pools)
+
+    def slots_in_use(self) -> int:
+        return sum(p.slots_in_use() for p in self.pools)
+
+    def full(self, key: str) -> bool:
+        return self._pool_for(key).full(key)
+
+    def nbytes(self) -> Dict[str, int]:
+        """Each slot's ring bytes, ``{shard: bytes}``: the sharded pool
+        shape of ``obs/hbm.py`` ``register_pool``."""
+        return {str(s): p.nbytes() for s, p in enumerate(self.pools)}
+
+    # -- sharded scatter and gather ---------------------------------------------
+
+    def scatter(self, keys: Sequence[str], tiles: np.ndarray,
+                bucket: Optional[int] = None) -> int:
+        """Route each track's tile to its slot's sub-ring, each slot's
+        scatter padded to its own bucket of the ladder (``bucket``, the
+        caller's aggregate pad target, is recomputed a slot)."""
+        per: List[list] = [[] for _ in range(self.shards)]
+        for i, key in enumerate(keys):
+            per[self._shard_of(key)].append((i, key))
+        cap = self._buckets[-1] // self.shards
+        aux = 0
+        for s, entries in enumerate(per):
+            if not entries:
+                continue
+            entries = entries[:cap]
+            sub_bucket = next((b for b in self._buckets if b // self.shards >= len(entries)),
+                              None)
+            # On the slot's stream, where its gathers run.
+            with self.mesh.slots[s].context():
+                aux += self.pools[s].scatter(
+                    [k for _, k in entries], tiles[[i for i, _ in entries]],
+                    bucket=(sub_bucket // self.shards) if sub_bucket else None)
+        return aux
+
+    def plan(self, keys: Sequence[str]):
+        """The shard-segmented head batch of ``keys`` (due tracks):
+        ``(slot_idx [B], time_idx [B, T], rows, B)``. ``rows[i]`` is the
+        batch row of ``keys[i]`` (-1: its slot's segment overflowed the
+        largest bucket; the track stays due for the next cadence). Padded
+        rows gather each sub-ring's zero row 0."""
+        S = self.shards
+        per: List[list] = [[] for _ in range(S)]
+        rows = [-1] * len(keys)
+        cap = self._buckets[-1] // S
+        for i, key in enumerate(keys):
+            s = self._shard_of(key)
+            if len(per[s]) < cap:
+                per[s].append((i, key))
+        need = max((len(p) for p in per), default=0) or 1
+        bucket = next(b for b in self._buckets if b // S >= need)
+        seg = bucket // S
+        slot_idx = np.zeros((bucket,), np.int32)
+        time_idx = np.zeros((bucket, self.clip_len), np.int32)
+        for s, entries in enumerate(per):
+            if not entries:
+                continue
+            sub_slot, sub_time = self.pools[s].gather_indices([k for _, k in entries], seg)
+            slot_idx[s * seg:(s + 1) * seg] = sub_slot
+            time_idx[s * seg:(s + 1) * seg] = sub_time
+            for j, (i, _key) in enumerate(entries):
+                rows[i] = s * seg + j
+        return slot_idx, time_idx, rows, bucket
+
+    def gather(self, slot_idx: np.ndarray, time_idx: np.ndarray) -> List[torch.Tensor]:
+        """One clip batch ``[B / dp, T, side, side, 3]`` uint8 a slot, each
+        gathered on its slot's device and stream (an idle slot's ring is
+        made with its zero row)."""
+        seg = int(slot_idx.shape[0]) // self.shards
+        pieces = []
+        for s, pool in enumerate(self.pools):
+            with self.mesh.slots[s].context():
+                if pool.array is None:
+                    pool._ensure(0)
+                pieces.append(pool.gather(slot_idx[s * seg:(s + 1) * seg],
+                                          time_idx[s * seg:(s + 1) * seg]))
+        return pieces

@@ -84,6 +84,12 @@ class EngineConfig:
     # workers' 10 s decode gate.
     active_window_s: float = 10.0
     dtype: str = "bfloat16"
+    # Data-parallel serving over a mesh of device slots (parallel/mesh.py):
+    # empty = one device, no mesh. A dict like {"dp": 2} needs that many
+    # slots in the engine's slot list (by default the visible cards: one
+    # slot a card); "auto" serves dp over every slot. Only dp above 1 is
+    # served; the model-parallel axes are a later slice and raise.
+    mesh: "dict | str" = field(default_factory=dict)
     # msgpack params checkpoint (tools/torch_import_weights.py writes one,
     # engine.save_checkpoint too); empty = random init. Loaded at warmup,
     # its metadata's conf_threshold is the default model's serving floor.
@@ -167,6 +173,24 @@ class EngineConfig:
     hbm_util_objective: float = 0.9          # burn = window-peak use over this
     hbm_eval_interval_s: float = 1.0         # forecast refresh throttle
     hbm_pressure_horizon_s: float = 120.0    # OOM forecast inside this: pressure
+    # Device-fault domain (engine/fault.py): the dispatch error and drain
+    # deadline watchdog over the mesh. A slot whose step raises an error
+    # that names it (or its device), or whose drain overruns
+    # fault_dispatch_deadline_ms on fault_hysteresis consecutive batches
+    # and then fails its probe, is declared faulted, and the tick thread
+    # fails over to the survivor slots within fault_failover_budget_ms:
+    # mesh rebuild, re-pin of the dead slot's streams, counted reset of
+    # the sharded carry state, recapture; the FaultLedger proves every
+    # frame out as emitted or as a reasoned drop (/api/v1/faults).
+    # fault=False (default) is the kill switch: no plane, no tap,
+    # /api/v1/faults answers 400, serving bit-identical.
+    fault: bool = False
+    fault_dispatch_deadline_ms: float = 5000.0
+    fault_hysteresis: int = 2
+    # A failover's wall-time budget; an overrun is reported, not aborted.
+    fault_failover_budget_ms: float = 30000.0
+    # The stall probe: one tiny H2D + D2H round trip a slot's device.
+    fault_probe_timeout_ms: float = 2000.0
     # Live SLOs: p50 detect latency, aggregate frames/s, stream
     # availability, as multi-window burn rates. No SLO fires before
     # slo_warmup_s of wall time; slo_ladder feeds a sustained burn into the
